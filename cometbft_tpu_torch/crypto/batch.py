@@ -1,4 +1,5 @@
-"""Batch-verifier dispatch: by key type and backend.
+"""Batch-verifier dispatch: by key type and backend, and the mixed-scheme
+verifier.
 
 Backends: "gpu" (the default) runs the CUDA kernels and raises when no
 card is present; "cpu" runs the plain PyTorch versions and is chosen only
@@ -10,7 +11,7 @@ from __future__ import annotations
 from typing import Callable
 
 from cometbft_tpu_torch import crypto
-from cometbft_tpu_torch.crypto import ed25519
+from cometbft_tpu_torch.crypto import ed25519, sr25519
 
 BACKENDS = ("gpu", "cpu")
 _BACKEND = "gpu"
@@ -41,20 +42,64 @@ def create_batch_verifier(pub_key: crypto.PubKey) -> crypto.BatchVerifier:
     """A verifier for this key type on the configured backend. Raises
     ErrInvalidKey for key types with no batch verifier, and RuntimeError
     for the "gpu" backend when no card is present."""
-    backends = _REGISTRY.get(pub_key.type_())
+    return _new_verifier(pub_key.type_())
+
+
+def _new_verifier(key_type: str) -> crypto.BatchVerifier:
+    backends = _REGISTRY.get(key_type)
     if not backends:
-        raise crypto.ErrInvalidKey(
-            f"key type {pub_key.type_()!r} has no batch verifier")
+        raise crypto.ErrInvalidKey(f"key type {key_type!r} has no batch verifier")
     return backends[_BACKEND]()
 
 
-def _ed25519_factory(device: str) -> Callable[[], crypto.BatchVerifier]:
-    def make() -> crypto.BatchVerifier:
-        from cometbft_tpu_torch.ops.batch_verifier import CUDABatchVerifier
+class MixedBatchVerifier(crypto.BatchVerifier):
+    """A batch of mixed key types (BASELINE config 5: an ed25519 + sr25519
+    mega-commit): add() routes each row to a per-type sub-verifier on the
+    configured backend; verify() runs each sub-batch once — one kernel
+    launch per scheme — and stitches the per-lane masks back into input
+    order. recheck_flips sums the sub-verifiers'."""
 
-        return CUDABatchVerifier(device=device)
+    def __init__(self):
+        self._subs: dict[str, crypto.BatchVerifier] = {}
+        self._route: list[tuple[str, int]] = []  # (key type, index in sub)
+
+    def add(self, pub_key: crypto.PubKey, msg: bytes, sig: bytes) -> None:
+        kt = pub_key.type_()
+        sub = self._subs.get(kt)
+        if sub is None:
+            sub = self._subs[kt] = _new_verifier(kt)
+        sub.add(pub_key, msg, sig)
+        self._route.append((kt, sub.count() - 1))
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        masks = {kt: sub.verify()[1] for kt, sub in self._subs.items()}
+        out = [masks[kt][i] for kt, i in self._route]
+        return all(out), out
+
+    @property
+    def recheck_flips(self) -> int:
+        return sum(sub.recheck_flips for sub in self._subs.values())
+
+    def count(self) -> int:
+        return len(self._route)
+
+
+def create_mixed_batch_verifier() -> MixedBatchVerifier:
+    """A verifier for a batch of mixed key types on the configured backend.
+    The JAX package returns its scheduler's client here; the port has no
+    scheduler yet, so this is always a MixedBatchVerifier."""
+    return MixedBatchVerifier()
+
+
+def _factory(verifier: str, device: str) -> Callable[[], crypto.BatchVerifier]:
+    def make() -> crypto.BatchVerifier:
+        from cometbft_tpu_torch.ops import batch_verifier
+
+        return getattr(batch_verifier, verifier)(device=device)
     return make
 
 
-register(ed25519.KEY_TYPE, "gpu", _ed25519_factory("cuda"))
-register(ed25519.KEY_TYPE, "cpu", _ed25519_factory("cpu"))
+for _kt, _verifier in ((ed25519.KEY_TYPE, "CUDABatchVerifier"),
+                       (sr25519.KEY_TYPE, "SrCUDABatchVerifier")):
+    register(_kt, "gpu", _factory(_verifier, "cuda"))
+    register(_kt, "cpu", _factory(_verifier, "cpu"))

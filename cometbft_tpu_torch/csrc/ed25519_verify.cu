@@ -1,13 +1,22 @@
-// Ed25519 ZIP-215 batch verification for Hopper (sm_90a), one thread per
-// signature.
+// Ed25519 ZIP-215 and sr25519 batch verification for Hopper (sm_90a), one
+// thread per signature.
 //
 // Replaces the Pallas TPU kernel cometbft_tpu/ops/pallas_verify.py
-// _verify_block_kernel (scheme "ed25519") and the XLA pubkey decompressor
-// cometbft_tpu/ops/ed25519_kernel.py _decompress_kernel.
+// _verify_block_kernel — scheme "ed25519" (K1) and scheme "sr25519" (K2) —
+// and the XLA pubkey decoders cometbft_tpu/ops/ed25519_kernel.py
+// _decompress_kernel (ZIP-215) and cometbft_tpu/ops/sr25519_kernel.py
+// _decompress_kernel (ristretto255).
+//
+// The two schemes share everything but the decoding of R and the cofactor:
+// ed25519 decompresses R under ZIP-215 and checks [8]([s]B - [k]A - R) == O;
+// sr25519 (schnorrkel over ristretto255) decodes R as a ristretto255
+// element and checks [4](...) == O, which is ristretto equality. One
+// template body per kernel takes the scheme as a compile-time parameter;
+// the ladder and every point operation are one shared copy.
 //
 // What bounds it: 32-bit integer multiply-adds. A signature costs about
-// 2,800 field multiplications (R decompression ~270, the -A table ~110,
-// the 51-window ladder ~2,400, the cofactor check ~30); each is a 20x20
+// 2,800 field multiplications (R decoding ~280, the -A table ~110, the
+// 51-window ladder ~2,400, the cofactor check ~20-30); each is a 20x20
 // limb product (400 IMADs, 210 for a square) plus ~150 shift/mask/add
 // carry operations. Memory traffic is ~1 KB per signature and never
 // matters. The design therefore keeps every field element in registers,
@@ -27,8 +36,8 @@
 //     prologue, from the packed wire words;
 //   - the batch-wide all-ok is a warp vote plus one atomicAnd per warp
 //     with a failing lane (blocks run in any order on the GPU).
-// Point operations are __noinline__ so ptxas compiles each once; field
-// operations are inlined into them.
+// Point operations are __noinline__ so ptxas compiles each once for both
+// schemes; field operations are inlined into them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -211,6 +220,13 @@ __device__ __noinline__ void fe_canonicalize(fe& o, const fe& a) {
     x[NL - 1] &= 255;
     carry20(x);
   }
+  // one serial carry pass: a borrow may have to cross a run of full limbs
+  // (a multiple of p from fe_sub), which parallel rounds move one limb each
+#pragma unroll
+  for (int i = 0; i < NL - 1; i++) {
+    x[i + 1] += x[i] >> RADIX;
+    x[i] &= LMASK;
+  }
   int s[NL];
   int borrow = 0;
 #pragma unroll
@@ -358,6 +374,75 @@ __device__ __noinline__ bool pt_decompress(pt& o, const fe& y, int sign) {
   return ok;
 }
 
+// LSB of the canonical value (field.parity): the sign of an encoding.
+__device__ __forceinline__ int fe_parity(const fe& a) {
+  fe c;
+  fe_canonicalize(c, a);
+  return c.v[0] & 1;
+}
+
+// SQRT_RATIO_M1 (curve.sqrt_ratio_m1): r = the even root of u/v or of
+// i*u/v; returns was_square.
+__device__ __noinline__ bool fe_sqrt_ratio_m1(fe& r, const fe& u, const fe& v) {
+  fe v3, v7, t, check, sm1;
+  fe_sq(t, v);
+  fe_mul(v3, t, v);
+  fe_sq(t, v3);
+  fe_mul(v7, t, v);
+  fe_mul(t, u, v7);
+  fe_pow22523(t, t);
+  fe_mul(r, u, v3);
+  fe_mul(r, r, t);
+  fe_sq(t, r);
+  fe_mul(check, v, t);
+  fe_sub(t, check, u);
+  bool correct = fe_is_zero(t);
+  fe_add(t, check, u);
+  bool flipped = fe_is_zero(t);
+  fe_const(sm1, C_SQRT_M1);
+  fe_mul(t, u, sm1);
+  fe_add(t, check, t);
+  bool flipped_i = fe_is_zero(t);
+  if (flipped || flipped_i) fe_mul(r, r, sm1);
+  if (fe_parity(r)) fe_neg(r, r);  // CT_ABS: the even root
+  return correct || flipped;
+}
+
+// ristretto255 DECODE (curve.ristretto_decode_device) of the encoding
+// whose low 255 bits are s and bit 255 is hi. Returns ok; where ok is
+// false the coordinates are garbage, as in the plain version.
+__device__ __noinline__ bool pt_ristretto_decode(pt& o, const fe& s, int hi) {
+  fe sc, one, ss, u1, u2, u2sq, v, t, invsqrt, den_x, den_y;
+  // s < p (s is canonical), s even, bit 255 clear
+  fe_canonicalize(sc, s);
+  int diff = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) diff |= sc.v[i] ^ s.v[i];
+  bool pre_ok = diff == 0 && (s.v[0] & 1) == 0 && hi == 0;
+  fe_one(one);
+  fe_sq(ss, s);
+  fe_sub(u1, one, ss);
+  fe_add(u2, one, ss);
+  fe_sq(u2sq, u2);
+  fe_const(t, C_D);
+  fe_mul(t, t, u1);
+  fe_mul(t, t, u1);
+  fe_neg(t, t);
+  fe_sub(v, t, u2sq);  // v = -d*u1^2 - u2^2
+  fe_mul(t, v, u2sq);
+  bool was_square = fe_sqrt_ratio_m1(invsqrt, one, t);
+  fe_mul(den_x, invsqrt, u2);
+  fe_mul(den_y, invsqrt, den_x);
+  fe_mul(den_y, den_y, v);
+  fe_add(t, s, s);
+  fe_mul(o.x, t, den_x);
+  if (fe_parity(o.x)) fe_neg(o.x, o.x);
+  fe_mul(o.y, u1, den_y);
+  fe_mul(o.t, o.x, o.y);
+  fe_copy(o.z, one);
+  return pre_ok && was_square && fe_parity(o.t) == 0 && !fe_is_zero(o.y);
+}
+
 // ------------------------------------------------------------- unpacking
 
 // Bits [bit, bit + width) of the 256-bit little-endian value in w[8].
@@ -448,12 +533,29 @@ __device__ __noinline__ void window_step(pt& acc, int ds, int dk, const int* tab
   acc = r;
 }
 
-extern "C" __global__ void __launch_bounds__(THREADS)
-ed25519_verify_kernel(const int* __restrict__ ax, const int* __restrict__ ay,
-                      const int* __restrict__ az, const int* __restrict__ at,
-                      const int* __restrict__ rw, const int* __restrict__ sw,
-                      const int* __restrict__ kw, const int* __restrict__ base_table,
-                      int* __restrict__ mask, int* __restrict__ allok, int B) {
+enum Scheme { ED25519, SR25519 };
+
+// R's decoding: ZIP-215 decompression (ed25519) or ristretto255 DECODE
+// (sr25519); y holds the encoding's low 255 bits, sign its bit 255.
+template <int SCHEME>
+__device__ __forceinline__ bool decode_point(pt& o, const fe& y, int sign) {
+  if constexpr (SCHEME == SR25519) {
+    return pt_ristretto_decode(o, y, sign);
+  } else {
+    return pt_decompress(o, y, sign);
+  }
+}
+
+// One signature per thread: R decoded, [s]B + [k](-A) by the signed 5-bit
+// ladder, then [cofactor](acc - R) == O; mask[b] is the verdict and the
+// block's warps clear *allok where any lane failed.
+template <int SCHEME>
+__global__ void __launch_bounds__(THREADS)
+verify_kernel(const int* __restrict__ ax, const int* __restrict__ ay,
+              const int* __restrict__ az, const int* __restrict__ at,
+              const int* __restrict__ rw, const int* __restrict__ sw,
+              const int* __restrict__ kw, const int* __restrict__ base_table,
+              int* __restrict__ mask, int* __restrict__ allok, int B) {
   __shared__ int tab_b[4 * TABLE17 * NL];
   for (int k = threadIdx.x; k < 4 * TABLE17 * NL; k += blockDim.x) tab_b[k] = base_table[k];
   __syncthreads();
@@ -461,12 +563,12 @@ ed25519_verify_kernel(const int* __restrict__ ax, const int* __restrict__ ay,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   int valid = 1;
   if (b < B) {
-    // R: unpack and decompress
+    // R: unpack and decode
     fe y;
     int sign;
     load_y(y, sign, rw, b, B);
     pt r;
-    bool ok_r = pt_decompress(r, y, sign);
+    bool ok_r = decode_point<SCHEME>(r, y, sign);
 
     // signed digits of s and k
     signed char sd[NDIG], kd[NDIG];
@@ -502,33 +604,36 @@ ed25519_verify_kernel(const int* __restrict__ ax, const int* __restrict__ ay,
     for (int i = NDIG - 1; i >= 1; i--) window_step(acc, sd[i], kd[i], tab_b, tab_a, false);
     window_step(acc, sd[0], kd[0], tab_b, tab_a, true);
 
-    // [8](acc - R) == identity
+    // [8](acc - R) == identity for ZIP-215; [4] for sr25519, which is
+    // ristretto equality. pt_double reads all of p before writing o.
+    constexpr int doublings = SCHEME == SR25519 ? 2 : 3;
     pt nr, diff;
     pt_neg(nr, r);
     pt_add(diff, acc, nr);
-    pt_double(nr, diff, true);
-    pt_double(diff, nr, true);
-    pt_double(nr, diff, true);
+#pragma unroll 1
+    for (int i = 0; i < doublings; i++) pt_double(diff, diff, true);
     fe t;
-    fe_sub(t, nr.y, nr.z);
-    bool ok = ok_r && fe_is_zero(nr.x) && fe_is_zero(t);
+    fe_sub(t, diff.y, diff.z);
+    bool ok = ok_r && fe_is_zero(diff.x) && fe_is_zero(t);
     valid = ok ? 1 : 0;
     mask[b] = valid;
   }
   if (!__all_sync(0xffffffffu, valid) && (threadIdx.x & 31) == 0) atomicAnd(allok, 0);
 }
 
-extern "C" __global__ void __launch_bounds__(THREADS)
-ed25519_decompress_kernel(const int* __restrict__ words, int* __restrict__ ok,
-                          int* __restrict__ ox, int* __restrict__ oy,
-                          int* __restrict__ oz, int* __restrict__ ot, int B) {
+// Pubkey decoding: ok and the extended coordinates, one key per thread.
+template <int SCHEME>
+__global__ void __launch_bounds__(THREADS)
+decompress_kernel(const int* __restrict__ words, int* __restrict__ ok,
+                  int* __restrict__ ox, int* __restrict__ oy,
+                  int* __restrict__ oz, int* __restrict__ ot, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   fe y;
   int sign;
   load_y(y, sign, words, b, B);
   pt p;
-  bool good = pt_decompress(p, y, sign);
+  bool good = decode_point<SCHEME>(p, y, sign);
   ok[b] = good ? 1 : 0;
   store_fe(ox, p.x, b, B);
   store_fe(oy, p.y, b, B);
@@ -540,23 +645,51 @@ ed25519_decompress_kernel(const int* __restrict__ words, int* __restrict__ ok,
 // Pointers are device pointers from torch tensors; stream is the caller's
 // cudaStream_t. Each returns the launch's cudaError_t (0 on success).
 
-extern "C" int ed25519_verify(const void* ax, const void* ay, const void* az,
-                              const void* at, const void* rw, const void* sw,
-                              const void* kw, const void* base_table, void* mask,
-                              void* allok, int B, void* stream) {
+template <int SCHEME>
+static int launch_verify(const void* ax, const void* ay, const void* az, const void* at,
+                         const void* rw, const void* sw, const void* kw,
+                         const void* base_table, void* mask, void* allok, int B,
+                         void* stream) {
   if (B <= 0) return 0;
   dim3 grid((B + THREADS - 1) / THREADS);
-  ed25519_verify_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  verify_kernel<SCHEME><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)ax, (const int*)ay, (const int*)az, (const int*)at, (const int*)rw,
       (const int*)sw, (const int*)kw, (const int*)base_table, (int*)mask, (int*)allok, B);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ed25519_decompress(const void* words, void* ok, void* ox, void* oy,
-                                  void* oz, void* ot, int B, void* stream) {
+template <int SCHEME>
+static int launch_decompress(const void* words, void* ok, void* ox, void* oy, void* oz,
+                             void* ot, int B, void* stream) {
   if (B <= 0) return 0;
   dim3 grid((B + THREADS - 1) / THREADS);
-  ed25519_decompress_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  decompress_kernel<SCHEME><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)words, (int*)ok, (int*)ox, (int*)oy, (int*)oz, (int*)ot, B);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ed25519_verify(const void* ax, const void* ay, const void* az,
+                              const void* at, const void* rw, const void* sw,
+                              const void* kw, const void* base_table, void* mask,
+                              void* allok, int B, void* stream) {
+  return launch_verify<ED25519>(ax, ay, az, at, rw, sw, kw, base_table, mask, allok, B,
+                                stream);
+}
+
+extern "C" int sr25519_verify(const void* ax, const void* ay, const void* az,
+                              const void* at, const void* rw, const void* sw,
+                              const void* kw, const void* base_table, void* mask,
+                              void* allok, int B, void* stream) {
+  return launch_verify<SR25519>(ax, ay, az, at, rw, sw, kw, base_table, mask, allok, B,
+                                stream);
+}
+
+extern "C" int ed25519_decompress(const void* words, void* ok, void* ox, void* oy,
+                                  void* oz, void* ot, int B, void* stream) {
+  return launch_decompress<ED25519>(words, ok, ox, oy, oz, ot, B, stream);
+}
+
+extern "C" int sr25519_decompress(const void* words, void* ok, void* ox, void* oy,
+                                  void* oz, void* ot, int B, void* stream) {
+  return launch_decompress<SR25519>(words, ok, ox, oy, oz, ot, B, stream);
 }

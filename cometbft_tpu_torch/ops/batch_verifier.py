@@ -1,10 +1,10 @@
-"""crypto.BatchVerifier backed by the port's verify kernel — the
-counterpart of cometbft_tpu's TPUBatchVerifier."""
+"""crypto.BatchVerifiers backed by the port's verify kernels — the
+counterparts of cometbft_tpu's TPUBatchVerifier and SrTPUBatchVerifier."""
 
 from __future__ import annotations
 
 from cometbft_tpu_torch import crypto, resolve_device
-from cometbft_tpu_torch.ops import ed25519_kernel
+from cometbft_tpu_torch.ops import ed25519_kernel, sr25519_kernel
 
 SIGNATURE_SIZE = 64
 
@@ -15,6 +15,8 @@ class CUDABatchVerifier(crypto.BatchVerifier):
     the lanes the host oracle flipped to valid over this verifier's life —
     any flip means the device gave a wrong verdict."""
 
+    scheme = ed25519_kernel.ED25519
+
     def __init__(self, device=None, cache: ed25519_kernel.PubKeyCache | None = None):
         self.device = resolve_device(device)
         self._cache = cache
@@ -24,8 +26,9 @@ class CUDABatchVerifier(crypto.BatchVerifier):
         self.recheck_flips = 0
 
     def add(self, pub_key: crypto.PubKey, msg: bytes, sig: bytes) -> None:
-        if pub_key.type_() != "ed25519":
-            raise crypto.ErrInvalidKey("the cuda batch verifier requires ed25519 keys")
+        if pub_key.type_() != self.scheme.name:
+            raise crypto.ErrInvalidKey(
+                f"the cuda {self.scheme.name} batch verifier got a {pub_key.type_()} key")
         if len(sig) != SIGNATURE_SIZE:
             raise crypto.ErrInvalidSignature("bad signature length")
         self._pubs.append(pub_key.bytes_())
@@ -33,11 +36,19 @@ class CUDABatchVerifier(crypto.BatchVerifier):
         self._sigs.append(bytes(sig))
 
     def verify(self) -> tuple[bool, list[bool]]:
-        mask, flips = ed25519_kernel.verify_mask(
-            self._pubs, self._msgs, self._sigs, cache=self._cache,
+        mask, flips = ed25519_kernel.verify_rows(
+            self.scheme, self._pubs, self._msgs, self._sigs, cache=self._cache,
             device=self.device)
         self.recheck_flips += flips
         return bool(mask.all()), mask.tolist()
 
     def count(self) -> int:
         return len(self._sigs)
+
+
+class SrCUDABatchVerifier(CUDABatchVerifier):
+    """sr25519 on the device: the same ladder with ristretto255 decoding
+    and the cofactor-4 coset check (ops/sr25519_kernel.py; reference seam
+    crypto/sr25519/batch.go). A cache, when given, must be an sr25519 one."""
+
+    scheme = sr25519_kernel.SR25519

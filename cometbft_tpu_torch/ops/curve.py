@@ -4,8 +4,9 @@ A point is (X, Y, Z, T) extended homogeneous coordinates, each a (20, B)
 carried limb tensor (field.py); one lane = one point. All formulas are
 complete (add-2008-hwcd-3 for a=-1, dbl-2008-hwcd), so identity, equal and
 small-order inputs take the same path as honest ones. Semantics mirror the
-host oracle (crypto/ed25519_math.py). The CUDA kernel runs the same
-sequence of field operations per thread.
+host oracles (crypto/ed25519_math.py; crypto/sr25519_math.py for the
+ristretto255 decode). The CUDA kernels run the same sequence of field
+operations per thread.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
 from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import limbs as L
+from cometbft_tpu_torch.ops import unpack as U
 
 
 class Point(NamedTuple):
@@ -143,6 +145,63 @@ def decompress_zip215(y: torch.Tensor, sign: torch.Tensor) -> tuple[torch.Tensor
     flip = (xc[0] & 1) != sign
     x = torch.where(flip[None], F.neg(x), x)
     return ok, Point(x, y, one, F.mul(x, y))
+
+
+# ---------------------------------------------------------------------------
+# ristretto255 DECODE (the sr25519 pubkey and R decoding), lane-parallel:
+# the counterpart of cometbft_tpu/ops/sr25519_kernel.py sqrt_ratio_m1 and
+# ristretto_decode_device. Oracle: sr25519_math.ristretto_decode.
+# ---------------------------------------------------------------------------
+
+
+def _is_canonical_even(s: torch.Tensor, hi_bit: torch.Tensor) -> torch.Tensor:
+    """ristretto255 DECODE preconditions: s < p, s even (nonnegative), bit
+    255 clear."""
+    is_canon = (F.canonicalize(s) == s).all(dim=0)
+    even = (s[0] & 1) == 0
+    return is_canon & even & (hi_bit == 0)
+
+
+def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """SQRT_RATIO_M1 over lanes: (was_square (B,) bool, the nonnegative
+    root (20, B))."""
+    sqrt_m1 = F.const("SQRT_M1", u.device).expand_as(u)
+    v3 = F.mul(F.sq(v), v)
+    v7 = F.mul(F.sq(v3), v)
+    r = F.mul(F.mul(u, v3), F.pow22523(F.mul(u, v7)))
+    check = F.mul(v, F.sq(r))
+    correct = F.is_zero(F.sub(check, u))
+    flipped = F.is_zero(F.add(check, u))
+    flipped_i = F.is_zero(F.add(check, F.mul(u, sqrt_m1)))
+    r = torch.where((flipped | flipped_i)[None], F.mul(r, sqrt_m1), r)
+    was_square = correct | flipped
+    # CT_ABS: take the even root
+    r = torch.where((F.parity(r) == 1)[None], F.neg(r), r)
+    return was_square, r
+
+
+def ristretto_decode_device(w: torch.Tensor) -> tuple[torch.Tensor, Point]:
+    """(8, B) int32 packed encodings -> (ok (B,) bool, extended point with
+    (20, B) coordinates). Lane-parallel sr25519_math.ristretto_decode;
+    where ok is False the coordinates are garbage and the caller masks."""
+    s, hi = U.words_to_y_limbs(w), U.words_sign(w)
+    pre_ok = _is_canonical_even(s, hi)
+    one = torch.zeros_like(s) + F.const("ONE", s.device)
+    ss = F.sq(s)
+    u1 = F.sub(one, ss)
+    u2 = F.add(one, ss)
+    u2_sqr = F.sq(u2)
+    d = F.const("D", s.device).expand_as(s)
+    v = F.sub(F.neg(F.mul(F.mul(d, u1), u1)), u2_sqr)
+    was_square, invsqrt = sqrt_ratio_m1(one, F.mul(v, u2_sqr))
+    den_x = F.mul(invsqrt, u2)
+    den_y = F.mul(F.mul(invsqrt, den_x), v)
+    x = F.mul(F.add(s, s), den_x)
+    x = torch.where((F.parity(x) == 1)[None], F.neg(x), x)
+    y = F.mul(u1, den_y)
+    t = F.mul(x, y)
+    ok = pre_ok & was_square & (F.parity(t) == 0) & ~F.is_zero(y)
+    return ok, Point(x, y, one, t)
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,17 @@ means the device was wrong, and is counted.
 Batch sizes are bucketed (powers of two from 8 up to 2048, then multiples
 of 2048); padding lanes carry the identity encoding (y = 1) with zero
 scalars, which verify valid, and are sliced off.
+
+The cache, the device glue and the recheck serve sr25519 too
+(ops/sr25519_kernel.py): a Scheme record names what differs — identity
+encoding, staging, the kernels, the host oracle.
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -157,16 +162,35 @@ def staged_from_numpy(ax, ay, az, at, r_words, s_words, k_words,
 # ------------------------------------------------------- pubkey decompression
 
 
-def decompress_points(enc: np.ndarray, device=None) -> tuple[np.ndarray, np.ndarray]:
+class Scheme(NamedTuple):
+    """What differs between the signature schemes the verify path runs;
+    everything else (buckets, the key cache, the device glue, the recheck)
+    is shared."""
+
+    name: str
+    id_enc: bytes  # identity encoding: padding lanes and placeholder pubkeys
+    decompress: Callable  # kernel wrapper: (8, B) words -> ok, X, Y, Z, T
+    stage: Callable  # (pubs, msgs, sigs, bucket) -> pre_ok, safe_pubs, r, s, k words
+    verify_ok: Callable  # kernel wrapper: A coords + r/s/k words -> mask, all-ok
+    verify_one: Callable  # (pub, msg, sig) -> bool: the exact host oracle
+
+
+ED25519 = Scheme("ed25519", _ID_ENC32, VK.decompress, stage_batch, VK.verify_ok,
+                 oracle.verify_zip215)
+
+
+def decompress_points(enc: np.ndarray, device=None, scheme: Scheme = ED25519
+                      ) -> tuple[np.ndarray, np.ndarray]:
     """(N, 32) uint8 encodings -> (ok (N,) bool, coords (N, 4, 20) int32),
-    padded internally to a bucket and decompressed on `device`."""
+    padded internally to a bucket with the scheme's identity encoding
+    (always decodable) and decoded on `device`."""
     dev = resolve_device(device)
     n = enc.shape[0]
     b = bucket_size(n)
-    words = np.zeros((b, 8), dtype=np.uint32)
-    words[:n] = L.bytes_to_words(enc)
-    words[n:, 0] = 1  # y = 1: the identity point, always decompressible
-    ok, x, y, z, t = VK.decompress(_words_to_device(words.T, dev))
+    rows = np.empty((b, 32), dtype=np.uint8)
+    rows[:n] = enc
+    rows[n:] = np.frombuffer(scheme.id_enc, dtype=np.uint8)
+    ok, x, y, z, t = scheme.decompress(_words_to_device(L.bytes_to_words(rows).T, dev))
     coords = torch.stack([x, y, z, t], dim=0).permute(2, 0, 1).cpu().numpy()
     return ok.cpu().numpy()[:n], np.ascontiguousarray(coords[:n])
 
@@ -184,18 +208,21 @@ def pad_coords_batch_minor(coords: np.ndarray, bucket: int) -> tuple:
 
 
 class PubKeyCache:
-    """Two-level decompressed-pubkey cache for one device.
+    """Two-level decompressed-pubkey cache for one device and one scheme.
 
     Host level: pubkey bytes -> (ok, (4, 20) int32 coords), bounded FIFO.
     Device level: digest of the padded pubkey batch -> (ok_a, the four
     (20, B) coordinate tensors already on the device) — the steady-state
     hit for commit verification, where the same validator set re-verifies
     every height and neither decompression nor the coordinate upload
-    recurs.
+    recurs. The same 32 bytes decode to different points under each
+    scheme, so a cache holds one scheme's keys only.
     """
 
-    def __init__(self, device=None, capacity: int = 65536, device_slots: int = 8):
+    def __init__(self, device=None, scheme: Scheme = ED25519,
+                 capacity: int = 65536, device_slots: int = 8):
         self.device = resolve_device(device)
+        self.scheme = scheme
         self.capacity = capacity
         self.device_slots = device_slots
         self._lock = threading.RLock()
@@ -222,7 +249,7 @@ class PubKeyCache:
     def load(self, pubs: list[bytes], ok: np.ndarray, coords: np.ndarray) -> None:
         """Seed the host level with decompressed keys: ok (N,) bool and
         coords (N, 4, 20) int32, e.g. from the JAX package's
-        decompress_points."""
+        decompress_points of the same scheme."""
         if coords.shape != (len(pubs), 4, L.NLIMBS):
             raise ValueError(f"coords must be ({len(pubs)}, 4, {L.NLIMBS})")
         with self._lock:
@@ -239,7 +266,7 @@ class PubKeyCache:
             self.counters["host_hits"] += len(uniq) - len(missing)
             if missing:
                 enc = np.frombuffer(b"".join(missing), dtype=np.uint8).reshape(-1, 32)
-                ok, coords = decompress_points(enc, self.device)
+                ok, coords = decompress_points(enc, self.device, self.scheme)
                 self._insert(missing, ok, coords)
             oks = np.empty(len(pubs), dtype=bool)
             coords = np.empty((len(pubs), 4, L.NLIMBS), dtype=np.int32)
@@ -266,17 +293,17 @@ class PubKeyCache:
             return ok_a, dev
 
 
-_default_caches: dict[torch.device, PubKeyCache] = {}
+_default_caches: dict[tuple[str, torch.device], PubKeyCache] = {}
 _default_lock = threading.Lock()
 
 
-def default_cache(device=None) -> PubKeyCache:
-    """The process's pubkey cache for `device`."""
+def default_cache(device=None, scheme: Scheme = ED25519) -> PubKeyCache:
+    """The process's pubkey cache for `device` and `scheme`."""
     dev = resolve_device(device)
     with _default_lock:
-        cache = _default_caches.get(dev)
+        cache = _default_caches.get((scheme.name, dev))
         if cache is None:
-            cache = _default_caches[dev] = PubKeyCache(dev)
+            cache = _default_caches[(scheme.name, dev)] = PubKeyCache(dev, scheme)
         return cache
 
 
@@ -290,33 +317,36 @@ RECHECK_MAX = 32
 
 
 def recheck_failed_lanes(mask: np.ndarray, eligible: np.ndarray, pubs, msgs,
-                         sigs) -> tuple[np.ndarray, int]:
+                         sigs, verify_one: Callable = oracle.verify_zip215
+                         ) -> tuple[np.ndarray, int]:
     """eligible: lanes that passed the host structural checks and pubkey
     decompression (a placeholder lane is the identity, which validly signs
-    anything under ZIP-215, and must never be flipped). Returns (mask,
-    number of lanes flipped to valid)."""
+    anything, and must never be flipped). verify_one is the scheme's host
+    oracle. Returns (mask, number of lanes flipped to valid)."""
     bad = np.flatnonzero(~mask & eligible)
     if len(bad) == 0 or len(bad) > RECHECK_MAX:
         return mask, 0
     flips = 0
     for i in bad:
-        if oracle.verify_zip215(pubs[i], msgs[i], sigs[i]):
+        if verify_one(pubs[i], msgs[i], sigs[i]):
             mask[i] = True
             flips += 1
     return mask, flips
 
 
-def verify_mask(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
-                cache: PubKeyCache | None = None, device=None
-                ) -> tuple[np.ndarray, int]:
-    """(N,) bool ZIP-215 mask and the number of recheck flips. Runs on the
-    cache's device when a cache is given, else on `device` (default
+def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list[bytes],
+                sigs: list[bytes], cache: PubKeyCache | None = None,
+                device=None) -> tuple[np.ndarray, int]:
+    """(N,) bool mask under `scheme` and the number of recheck flips. Runs
+    on the cache's device when a cache is given, else on `device` (default
     cuda)."""
     n = len(sigs)
     if len(pubs) != n or len(msgs) != n:
         raise ValueError("pubs, msgs and sigs differ in length")
     if cache is None:
-        cache = default_cache(device)
+        cache = default_cache(device, scheme)
+    elif cache.scheme is not scheme:
+        raise ValueError(f"cache holds {cache.scheme.name} keys, not {scheme.name}")
     elif device is not None and resolve_device(device) != cache.device:
         raise ValueError(f"cache lives on {cache.device}, not {device}")
     dev = cache.device
@@ -324,21 +354,22 @@ def verify_mask(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
         return np.zeros(0, dtype=bool), 0
     b = bucket_size(n)
     msgs = [bytes(m) for m in msgs]
-    pre_ok, safe_pubs, r_words, s_words, k_words = stage_batch(pubs, msgs, sigs, b)
+    pre_ok, safe_pubs, r_words, s_words, k_words = scheme.stage(pubs, msgs, sigs, b)
     ok_a, a_dev = cache.stage(safe_pubs, b)
     words = tuple(_words_to_device(w, dev) for w in (r_words, s_words, k_words))
-    mask_dev, allok_dev = VK.verify_ok(*a_dev, *words)
+    mask_dev, allok_dev = scheme.verify_ok(*a_dev, *words)
     full = mask_dev.cpu().numpy()
     if bool(allok_dev) != bool(full.all()):
         raise RuntimeError("device all-ok disagrees with its own mask")
     eligible = pre_ok & ok_a
     mask = full[:n] & eligible
-    return recheck_failed_lanes(mask, eligible, safe_pubs, msgs, sigs)
+    return recheck_failed_lanes(mask, eligible, safe_pubs, msgs, sigs,
+                                scheme.verify_one)
 
 
 def verify_batch(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
                  cache: PubKeyCache | None = None, device=None
                  ) -> tuple[bool, list[bool]]:
     """ZIP-215 batch verification with a per-signature mask."""
-    mask, _ = verify_mask(pubs, msgs, sigs, cache=cache, device=device)
+    mask, _ = verify_rows(ED25519, pubs, msgs, sigs, cache, device)
     return bool(mask.all()), mask.tolist()

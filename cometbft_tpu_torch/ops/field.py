@@ -205,6 +205,16 @@ def canonicalize(x: torch.Tensor) -> torch.Tensor:
             (x[NLIMBS - 1] & top_mask)[None],
         ], dim=0)
         x = _carry_round20(x)
+    # A parallel round moves a carry one limb, and a carried multiple of p
+    # (what sub() gives for equal inputs) can need a borrow to cross a run
+    # of full limbs end to end: one serial pass makes every limb canonical.
+    # (The JAX package's canonicalize has no such pass, and returns
+    # non-canonical limbs of 0 for some multiples of p.)
+    limbs = list(x.unbind(0))
+    for i in range(NLIMBS - 1):
+        limbs[i + 1] = limbs[i + 1] + (limbs[i] >> RADIX)
+        limbs[i] = limbs[i] & MASK
+    x = torch.stack(limbs, dim=0)
     # value now < 2^255 + eps < 2p: one conditional subtract of p, with a
     # serial borrow chain across the limbs.
     pl = CONST_LIMBS["P"]
@@ -221,3 +231,10 @@ def canonicalize(x: torch.Tensor) -> torch.Tensor:
 def is_zero(x: torch.Tensor) -> torch.Tensor:
     """(20, B) -> (B,) bool: x == 0 mod p."""
     return (canonicalize(x) == 0).all(dim=0)
+
+
+def parity(x: torch.Tensor) -> torch.Tensor:
+    """(20, B) -> (B,) int32: the LSB of the canonical representative (the
+    sign bit of a compressed encoding). Limb 0 of a carried value is not
+    it: canonicalize first."""
+    return canonicalize(x)[0] & 1

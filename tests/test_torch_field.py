@@ -72,6 +72,24 @@ def test_unary_ops_match_jax(op):
         _eq(getattr(TF, op)(_torch(a)), getattr(JF, op)(_jax(a)))
 
 
+# Y - Z of an identity point, as sub() leaves it: a multiple of p whose
+# borrow at limb 13 must cross limbs 14..19 before the limbs are canonical.
+_ZERO_RUN = [7603] + [8191] * 12 + [-1, 8192] + [8191] * 4 + [7935]
+
+
+def test_canonicalize_carries_across_a_run_of_full_limbs():
+    x = np.array(_ZERO_RUN, dtype=np.int32)[:, None]
+    assert TL.limbs_to_int(x[:, 0]) % oracle.P == 0
+    _eq(TF.canonicalize(_torch(x)), np.zeros((TL.NLIMBS, 1), dtype=np.int32))
+    assert bool(TF.is_zero(_torch(x))[0])
+    # every carried input: canonical limbs holding the value mod p
+    for x in _carried_inputs(9) + [np.repeat(x, B, axis=1)]:
+        c = TF.canonicalize(_torch(x)).numpy()
+        assert ((c >= 0) & (c <= TL.MASK)).all()
+        assert [TL.limbs_to_int(c[:, i]) for i in range(B)] == [
+            TL.limbs_to_int(x[:, i]) % oracle.P for i in range(B)]
+
+
 def test_pow22523_matches_jax_and_oracle():
     a = _carried_inputs(3)[0]
     got = TF.pow22523(_torch(a))

@@ -15,7 +15,10 @@ import torch
 
 from cometbft_tpu_torch.crypto import ed25519 as ted
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
+from cometbft_tpu_torch.crypto import sr25519 as tsr
+from cometbft_tpu_torch.crypto import sr25519_math as srm
 from cometbft_tpu_torch.ops import ed25519_kernel as TK
+from cometbft_tpu_torch.ops import sr25519_kernel as TS
 from cometbft_tpu_torch.ops import verify_kernel as VK
 
 
@@ -53,7 +56,7 @@ def test_kernels_match_plain_and_oracle(cuda, n):
     assert torch.equal(mask, pmask) and bool(allok) == bool(pall) is False
     for got, want in zip(VK.decompress(t[4]), VK.decompress_math(t[4])):
         assert torch.equal(got, want)
-    final, flips = TK.verify_mask(pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
+    final, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
     assert flips == 0
     assert final.tolist() == [oracle.verify_zip215(p, m, s)
                               for p, m, s in zip(pubs, msgs, sigs)]
@@ -87,5 +90,49 @@ def test_valid_batch_sets_all_ok(cuda, n):
     pmask, pall = VK.verify_math_ok(*t)
     assert torch.equal(mask, pmask) and bool(mask.all())
     assert bool(allok) == bool(pall) is True
-    final, flips = TK.verify_mask(pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
+    final, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
     assert flips == 0 and bool(final.all())
+
+
+def _sr_batch(n: int, tampered: bool):
+    """n schnorrkel signatures; with `tampered` the first four are bad:
+    another lane's signature, R >= p, R odd, the marker bit cleared."""
+    privs = [tsr.gen_priv_key_from_secret(b"sr-card-%d" % i) for i in range(n)]
+    pubs = [p.pub_key().bytes_() for p in privs]
+    msgs = [b"msg-%d" % i for i in range(n)]
+    sigs = [p.sign(m) for p, m in zip(privs, msgs)]
+    if tampered:
+        sigs[0] = sigs[1]
+        sigs[1] = (oracle.P + 1).to_bytes(32, "little") + sigs[1][32:]
+        sigs[2] = (3).to_bytes(32, "little") + sigs[2][32:]
+        sigs[3] = sigs[3][:63] + bytes([sigs[3][63] & 0x7F])
+    return pubs, msgs, sigs
+
+
+def _sr_staged(pubs, msgs, sigs, device):
+    n = len(sigs)
+    b = TK.bucket_size(n)
+    _, safe, r, s, k = TS.stage_rows_sr(pubs, msgs, sigs, b)
+    enc = np.frombuffer(b"".join(safe), dtype=np.uint8).reshape(n, 32)
+    _, coords = TS.decompress_points(enc, device)
+    return TK.staged_from_numpy(*TK.pad_coords_batch_minor(coords, b), r, s, k,
+                                device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,valid", [(5, False), (130, False), (5, True), (130, True)])
+def test_sr25519_kernels_match_plain_and_oracle(cuda, n, valid):
+    """K2 and the ristretto decoder against their plain versions on
+    tampered and all-valid batches; 5 and 130 signatures pad to 8 and 256
+    lanes (zero encodings with zero scalars, which must verify valid)."""
+    pubs, msgs, sigs = _sr_batch(n, tampered=not valid)
+    t = _sr_staged(pubs, msgs, sigs, cuda)
+    mask, allok = VK.verify_sr_ok(*t)
+    pmask, pall = VK.verify_math_sr_ok(*t)
+    assert torch.equal(mask, pmask) and bool(allok) == bool(pall) is valid
+    for got, want in zip(VK.decompress_sr(t[4]), VK.decompress_sr_math(t[4])):
+        assert torch.equal(got, want)
+    final, flips = TK.verify_rows(TS.SR25519, pubs, msgs, sigs,
+                                  cache=TK.PubKeyCache(cuda, TS.SR25519))
+    assert flips == 0
+    assert final.tolist() == [srm.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]

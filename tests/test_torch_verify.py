@@ -121,11 +121,11 @@ def test_pubkey_cache_seeded_from_jax_coords():
     _, safe, ok_a, coords, _ = _jax_staged(pubs, msgs, sigs, 8)
     cache = TK.PubKeyCache(CPU)
     cache.load(safe, ok_a, coords)
-    mask, flips = TK.verify_mask(pubs, msgs, sigs, cache=cache)
+    mask, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=cache)
     assert mask.tolist() == _oracle_mask(pubs, msgs, sigs) and flips == 0
     st = cache.stats()
     assert st["host_misses"] == 0 and st["device_misses"] == 1
-    mask2, _ = TK.verify_mask(pubs, msgs, sigs, cache=cache)
+    mask2, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=cache)
     assert cache.stats()["device_hits"] == 1
     np.testing.assert_array_equal(mask2, mask)
 
