@@ -16,13 +16,18 @@ and drives the main paths through the entry points a node calls:
 
 with tampered lanes at known indices. It checks the masks, the launch and
 lane counters and the host-oracle recheck, times the kernels, their plain
-versions and verify() end to end, and prints one JSON line of kernel
-records and, last, the device record. Any mismatch raises; without a card
-it exits non-zero before printing a result.
+versions and verify() end to end. Then the device microbench
+(ops/microbench.py): its loop kernel (K3) for every registered probe body
+and its stacked-conv kernel (K4) against their plain versions, the verify
+kernel's bench instantiation against verify_math_bench, and the probes at
+1/MB_SCALE of the JAX module's iteration counts. It prints one JSON line of
+kernel records and, last, the device record. Any mismatch raises; without
+a card it exits non-zero before printing a result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import re
@@ -70,6 +75,21 @@ SQ_VERIFY = SQ_DECOMP + SQ_LADDER + 12
 MUL_VERIFY = MUL_DECOMP + MUL_LADDER + (9 + 12)
 SQ_VERIFY_SR = SQ_DECODE_SR + SQ_LADDER + 8
 MUL_VERIFY_SR = MUL_DECODE_SR + MUL_LADDER + (9 + 8)
+# The microbench phase: K3/K4 are held against their plain versions at
+# these lane counts (128 is the JAX probe's block, 10,240 K1's width) and
+# iteration counts; the probes run 1/MB_SCALE of the JAX module's
+# iterations. The K3 record times the field multiplication body, the K4
+# record the stacked conv, at MB_RECORD_LANES lanes and MB_RECORD_ITERS
+# iterations per launch.
+MB_LANES = (128, 10_240)
+MB_CHECK_ITERS = (1, 7)
+MB_SCALE = 100
+MB_RECORD_LANES, MB_RECORD_ITERS = 10_240, 1_000
+# K4's multiply-adds per lane and iteration: 4 coordinates x the 210 limb
+# products of the 20 low columns, which is all that the [:, :20] slice
+# keeps of the 400-product convolution.
+K4_IMADS = 4 * 210
+
 # bytes per lane, each input read once and each output written once: A
 # coords 4 x 80 + r/s/k words 3 x 32 in, the mask out; for decoding, the
 # encoding in, ok and X/Y/Z/T out
@@ -105,17 +125,36 @@ def _smi() -> str:
     return out.stdout.strip()
 
 
+def _kernel_label(mangled: str) -> str | None:
+    """A readable name for a mangled kernel of the port: verify_kernel<0>
+    is ed25519_verify, <1> sr25519, <0, int, int> (knobs in its parameter
+    pack) the bench entry; loop_kernel<N> is K3 with body N."""
+    m = re.match(r"_Z\d+(verify|decompress)_kernelILi(\d)E(?:J(i*)E)?", mangled)
+    if m:
+        label = f"{('ed25519', 'sr25519')[int(m.group(2))]}_{m.group(1)}"
+        return label + ("_bench" if m.group(3) else "")
+    m = re.match(r"_Z\d+loop_kernelILi(\d+)E", mangled)
+    if m:
+        from cometbft_tpu_torch.ops import microbench as MB
+
+        names = [n for n, b in MB.BODIES.items() if b.body_id == int(m.group(1))]
+        return f"loop_kernel<{names[0]}>"
+    if "stacked_conv_kernel" in mangled:
+        return "stacked_conv_kernel"
+    return None
+
+
 def ptxas_summary(report: str) -> dict[str, list[str]]:
     """Kernel name -> its stack/spill and register lines of `nvcc -Xptxas
-    -v` (the template kernels' names are mangled: verify_kernel<0> is
-    ed25519, <1> sr25519)."""
+    -v` (template kernels' mangled names read by _kernel_label)."""
     out: dict[str, list[str]] = {}
     cur = None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(verify|decompress)_kernelILi(\d)E", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = f"{('ed25519', 'sr25519')[int(m.group(2))]}_{m.group(1)}"
-            out[cur] = []
+            cur = _kernel_label(m.group(1))
+            if cur:
+                out[cur] = []
         elif cur and ("spill" in line or "registers" in line):
             out[cur].append(line.split(":", 1)[-1].strip() if "registers" in line
                             else line.strip())
@@ -589,6 +628,136 @@ def time_host_stages(name: str, path: Path, device, card: str) -> None:
           f"{recheck_ms:.3f} ms (medians of 3)", flush=True)
 
 
+# ------------------------------------------------------------ microbench
+
+
+def check_microbench(device) -> dict[str, int]:
+    """K3 for every registered body and K4 against their plain versions on
+    the card, at MB_LANES lanes and MB_CHECK_ITERS iterations, on the probes'
+    seeded state; then the verify kernel's bench instantiation against
+    verify_math_bench at 128 lanes on a staged commit, and at N_BIG lanes on
+    the verify probes' inputs with each of their knob settings. Returns
+    each kernel's largest |kernel - plain| (0 when equal)."""
+    from cometbft_tpu_torch.ops import microbench as MB
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    err = {"microbench_loop": 0, "microbench_stacked": 0}
+    for name, body in MB.BODIES.items():
+        for lanes in MB_LANES:
+            state = torch.from_numpy(MB.probe_state(body.n_state, lanes)).to(device)
+            for iters in MB_CHECK_ITERS:
+                e = _max_err([MB.loop(name, state, iters)], [MB.loop_plain(name, state, iters)])
+                err["microbench_loop"] = max(err["microbench_loop"], e)
+                if e:
+                    raise AssertionError(f"K3 {name!r} at {lanes} lanes, {iters} iterations: "
+                                         f"kernel and plain differ by {e}")
+    rng = np.random.default_rng(0)
+    for lanes in MB_LANES:
+        a, b = (torch.from_numpy(rng.integers(0, 8000, size=(4, 20, lanes)).astype(np.int32))
+                .to(device) for _ in range(2))
+        for iters in MB_CHECK_ITERS:
+            e = _max_err([MB.stacked(a, b, iters)], [MB.stacked_plain(a, b, iters)])
+            err["microbench_stacked"] = max(err["microbench_stacked"], e)
+            if e:
+                raise AssertionError(f"K4 at {lanes} lanes, {iters} iterations: differ by {e}")
+    print(f"check microbench: K3 == plain bit for bit for all {len(MB.BODIES)} registered "
+          f"probe bodies ({MB.N_BODIES} kernel bodies) and K4 == plain, at "
+          f"{' and '.join(map(str, MB_LANES))} lanes and {MB_CHECK_ITERS} iterations",
+          flush=True)
+
+    def held(args, knobs, label):
+        got = VK.verify_bench(*args, n_windows=knobs[0], stages=knobs[1])
+        e = _max_err(got, VK.verify_math_bench(*args, n_windows=knobs[0], stages=knobs[1]))
+        if e:
+            raise AssertionError(f"bench verify {knobs} {label}: kernel and plain differ by {e}")
+        return got
+
+    ed = _paths()["ed25519"]
+    pubs, msgs, sigs = ed.make_commit(128, SEED_CHECK)
+    tampered = [5, 64, 127]
+    tamper(pubs, msgs, sigs, tampered)
+    t = staged(ed, pubs, msgs, sigs, device)
+    prod = VK.verify_ok(*t)[0]
+    for knobs in ((26, "full"), (0, "nodecomp"), (51, "full")):
+        got = held(t, knobs, "at 128 lanes")
+    if not torch.equal(got[0], prod) or torch.nonzero(~prod).flatten().tolist() != tampered:
+        raise AssertionError("bench verify (51, full) differs from the production mask")
+    probe_args = MB.bench_verify_inputs(N_BIG, device)
+    for knobs in ((0, "full"), (26, "full"), (0, "nodecomp")):
+        held(probe_args, knobs, f"at {N_BIG} lanes")
+    print(f"check bench verify: == verify_math_bench at 128 lanes for (26, full), "
+          f"(0, nodecomp), (51, full), where (51, full) == the production K1 mask, invalid "
+          f"lanes {tampered}; and at {N_BIG} lanes on the verify probes' inputs for "
+          f"(0, full), (26, full), (0, nodecomp)", flush=True)
+    return err
+
+
+def drive_microbench(device, card: str) -> dict:
+    """The microbench's main path: its probes, as `python -m
+    cometbft_tpu_torch.ops.microbench` runs them, at 1/MB_SCALE of the JAX
+    module's iteration counts (the loop probes at both MB_LANES), with
+    every count set to 0 just before and read just after. Each of K3, K4 and
+    the bench verify kernel must have launched."""
+    from cometbft_tpu_torch.ops import microbench as MB
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    MB.reset_launches()
+    VK.reset_launches()
+    print("host staging (serial vs vectorized hashers), 2,048 rows:", flush=True)
+    MB.probe_staging(n=2048)
+    print("full verify:", flush=True)
+    verify_s = MB.probe_full_verify(N_BIG)
+    print("stage bisection:", flush=True)
+    bisect = MB.probe_bisect(N_BIG)
+    per = {}
+    for lanes in MB_LANES:
+        print(f"probe bodies at {lanes} lanes (iterations 1/{MB_SCALE} of the JAX probe's):",
+              flush=True)
+        for name, body in MB.BODIES.items():
+            per[(name, lanes)] = MB.probe_loop(name, max(1, body.base_iters // MB_SCALE), lanes)
+        per[("stacked", lanes)] = MB.probe_stacked(100_000 // MB_SCALE, lanes)
+    MB.probe_select16(torch_iters=100)
+    launches = {**MB.LAUNCHES, "ed25519_verify_bench": VK.LAUNCHES["ed25519_verify_bench"]}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"microbench: a kernel never launched {launches}")
+    print(f"main path microbench: launches {launches}", flush=True)
+    for name in list(MB.BODIES) + ["stacked"]:
+        print(f"[{card}] {name:<28} " + ", ".join(
+            f"{lanes} lanes {per[(name, lanes)]:.4f} us/iter" for lanes in MB_LANES), flush=True)
+    print(f"[{card}] bench verify at {N_BIG} lanes: full {verify_s * 1e3:.4f} ms (verify "
+          f"probe), {bisect['full'] * 1e3:.4f} ms (bisect probe), 26 windows "
+          f"{bisect['half'] * 1e3:.4f} ms, no R decompression "
+          f"{bisect['nodecomp'] * 1e3:.4f} ms", flush=True)
+    return {"launches": launches, "per": per}
+
+
+def time_microbench(device, card: str) -> dict:
+    """K3 (the mul body) and K4 at MB_RECORD_LANES lanes and
+    MB_RECORD_ITERS iterations: kernel and plain times, and bounds."""
+    from cometbft_tpu_torch.ops import microbench as MB
+
+    lanes, iters = MB_RECORD_LANES, MB_RECORD_ITERS
+    state = torch.from_numpy(MB.probe_state(2, lanes)).to(device)
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.integers(0, 8000, size=(4, 20, lanes)).astype(np.int32))
+            .to(device) for _ in range(2))
+    out = {
+        "microbench_loop": {
+            "ms": time_kernel(lambda: MB.loop("mul", state, iters)),
+            "plain_ms": time_wall(lambda: MB.loop_plain("mul", state, iters), 3, device),
+            "bound": bound(_imads32(0, 1) * iters, 2 * 2 * 80, lanes)},
+        "microbench_stacked": {
+            "ms": time_kernel(lambda: MB.stacked(a, b, iters)),
+            "plain_ms": time_wall(lambda: MB.stacked_plain(a, b, iters), 3, device),
+            "bound": bound(K4_IMADS * iters, 3 * 4 * 80, lanes)},
+    }
+    for name, r in out.items():
+        print(f"[{card}] {name} at {lanes} lanes, {iters} iterations: kernel {r['ms']:.4f} ms "
+              f"(median of 20), plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})", flush=True)
+    return out
+
+
 def _record(name: str, replaces: str, launches: int, err: int, times: dict,
             bounds: dict, key: str) -> dict:
     b_ms, b_by = bounds[N_BIG][key]
@@ -609,12 +778,16 @@ def main() -> int:
     device = torch.device("cuda")
     card = _smi()
     print(card, flush=True)
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    _, report, nvcc_s = _build.build("ed25519_verify")
-    print(f"kernel build: {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {nvcc_s:.3f} s)", flush=True)
-    for kernel, lines in ptxas_summary(report).items():
-        print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
+    stems = ("ed25519_verify", "microbench")
+    with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
+        builds = dict(zip(stems, pool.map(_build.build, stems)))
+    print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
+    for stem, (_, report, nvcc_s) in builds.items():
+        print(f"  {stem}.cu: nvcc {nvcc_s:.3f} s", flush=True)
+        for kernel, lines in ptxas_summary(report).items():
+            print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
     paths = _paths()
     ed, sr = paths["ed25519"], paths["sr25519"]
 
@@ -659,6 +832,13 @@ def main() -> int:
     time_host_stages("ed25519", ed, device, card)
     time_host_stages("sr25519", sr, device, card)
 
+    t_mb = time.perf_counter()
+    err.update(check_microbench(device))
+    mb = drive_microbench(device, card)
+    mb_times = time_microbench(device, card)
+    print(f"microbench phase: {time.perf_counter() - t_mb:.1f} s (checks, probes, timing)",
+          flush=True)
+
     kernels = {"kernels": [
         _record("ed25519_verify", "cometbft_tpu/ops/pallas_verify.py:198",
                 big["launches"]["ed25519_verify"], err["ed25519_verify"],
@@ -673,6 +853,19 @@ def main() -> int:
                 big_sr["launches"]["sr25519_decompress"], err["sr25519_decompress"],
                 times_sr, bounds_sr, "decompress"),
     ]}
+    for name, replaces, body in (
+            ("microbench_loop", "cometbft_tpu/ops/microbench.py:88", "mul"),
+            ("microbench_stacked", "cometbft_tpu/ops/microbench.py:280", "stacked")):
+        r = mb_times[name]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": "cometbft_tpu_torch/csrc/microbench.cu",
+            "replaces": replaces, "launches": mb["launches"][name], "max_abs_err": err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "body": body,
+            "lanes": MB_RECORD_LANES, "iters": MB_RECORD_ITERS,
+            "us_per_iter": mb["per"][(body, MB_RECORD_LANES)]})
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s since the kernel build began",
+          flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

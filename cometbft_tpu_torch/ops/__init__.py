@@ -11,6 +11,8 @@
   ed25519_kernel.py   ed25519 host staging; the verify path both schemes
                       share (pubkey cache, device glue, host recheck)
   sr25519_kernel.py   sr25519 host staging (Merlin challenges), its scheme
-  hashvec.py          batch-axis Keccak and mod-L reduction for staging
+  hashvec.py          batch-axis Keccak (sr25519 staging) and SHA-512 rungs
   batch_verifier.py   crypto.BatchVerifiers backed by the kernels
+  microbench.py       the device microbench: probe kernels K3/K4 and their
+                      plain versions, the verify kernel's bench knobs
 """

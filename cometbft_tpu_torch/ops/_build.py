@@ -2,8 +2,10 @@
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Libraries
-go to ``build/`` at the repository root, named by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads as is.
+go to ``build/`` at the repository root, named by a hash of the source, of
+every header it includes with ``#include "..."`` (``csrc/*.cuh``, followed
+recursively) and of the flags, so an edited source or header rebuilds every
+library that includes it and an unchanged one loads as is.
 A source is built the first time its kernels are asked for. Nothing is
 built from outside the repository; a failed build or load raises.
 """
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -40,8 +43,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: pathlib.Path) -> list[pathlib.Path]:
+    """`src` and every file it includes with quotes, depth first, each once
+    (paths relative to the including file, as nvcc resolves them)."""
+    seen: list[pathlib.Path] = []
+    stack = [src.resolve()]
+    while stack:
+        path = stack.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in reversed(_INCLUDE.findall(path.read_bytes())):
+            stack.append((path.parent / name.decode()).resolve())
+    return seen
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -258,11 +258,17 @@ def build_point_table17(a: Point) -> tuple[torch.Tensor, ...]:
 def _select17_signed(table: tuple[torch.Tensor, ...], digit: torch.Tensor) -> Point:
     """Signed lookup: entry |d| per lane, negated (x, t sign flip — valid
     for premultiplied t too) where d < 0. Tables are (17, 20, B) or
-    (17, 20, 1) broadcast."""
+    (17, 20, 1) broadcast.
+
+    Any int32 digit is defined as in the JAX package, whose lookup is a
+    where-tree over bits 3..0 of |d| plus a fixup for 16: entry 16 where
+    |d| == 16, else entry |d| & 15. The ladder's digits lie in [-16, 15],
+    where that is |d|; the microbench feeds raw limbs."""
     neg_mask = (digit < 0)[None, :]
-    mag = digit.abs().to(torch.int64)
+    mag = digit.abs()
+    idx = torch.where(mag == 16, 16, mag & 15).to(torch.int64)
     b = digit.shape[0]
-    idx = mag[None, None, :].expand(1, L.NLIMBS, b)
+    idx = idx[None, None, :].expand(1, L.NLIMBS, b)
     x, y, z, t = (
         torch.gather(c.expand(TABLE17, L.NLIMBS, b), 0, idx)[0] for c in table)
     x = torch.where(neg_mask, F.neg(x), x)

@@ -14,6 +14,11 @@ shared [d]B table in shared memory and the per-lane -A table in local
 memory, and does the digit recoding and R unpack in a per-thread prologue
 (see the source's header for the rest).
 
+``verify_bench`` is the microbench's entry (ops/microbench.py): a separate
+instantiation of the ed25519 kernel with the Pallas kernel's bisection knobs
+(n_windows, stages), whose masks are wrong by design; the production
+entries cannot reach it.
+
 Each wrapper takes its plain version for tensors on the CPU (the tests) and
 launches its kernel for tensors on a CUDA device; there is no other route.
 ``LAUNCHES`` counts kernel launches per entry, ``LANES`` the lanes they
@@ -31,7 +36,8 @@ from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import unpack as U
 
 LAUNCHES = {"ed25519_verify": 0, "ed25519_decompress": 0,
-            "sr25519_verify": 0, "sr25519_decompress": 0}
+            "sr25519_verify": 0, "sr25519_decompress": 0,
+            "ed25519_verify_bench": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -61,6 +67,43 @@ def verify_math(ax, ay, az, at, r_words, s_words, k_words) -> torch.Tensor:
         neg_a)
     diff = curve.add(sb_ka, curve.neg(r))
     return curve.is_identity(curve.mul_by_cofactor(diff)) & ok_r
+
+
+def verify_math_bench(ax, ay, az, at, r_words, s_words, k_words,
+                      n_windows: int = 0, stages: str = "full"):
+    """verify_math_ok with the microbench's bisection knobs, the plain
+    version of the bench kernel (the Pallas kernel's _verify_pallas_bench
+    knobs): n_windows > 0 runs windows n_windows - 1 .. 1 and then window
+    0; stages="nodecomp" takes R = A with ok instead of decompressing R.
+    Either gives wrong masks; n_windows 0 or 51 with "full" is
+    verify_math_ok."""
+    nodecomp = _bench_nodecomp(n_windows, stages)
+    a = curve.Point(ax, ay, az, at)
+    if nodecomp:
+        ok_r, r = torch.ones(ax.shape[1:], dtype=torch.bool, device=ax.device), a
+    else:
+        ok_r, r = curve.decompress_zip215(U.words_to_y_limbs(r_words),
+                                          U.words_sign(r_words))
+    # curve.windowed_double_scalar_signed, cut to n_windows windows
+    sd, kd = U.words_to_digits5_signed(s_words), U.words_to_digits5_signed(k_words)
+    table_a = curve.build_point_table17(curve.neg(a))
+    table_b = curve.base_table17(ax.device)
+    acc = curve.identity_like(ax)
+    for i in range((n_windows or U.NDIGITS5) - 1, 0, -1):
+        acc = curve.window_step(acc, sd[i], kd[i], table_b, table_a, out_t=False)
+    acc = curve.window_step(acc, sd[0], kd[0], table_b, table_a, out_t=True)
+    diff = curve.add(acc, curve.neg(r))
+    mask = curve.is_identity(curve.mul_by_cofactor(diff)) & ok_r
+    return mask, mask.all()
+
+
+def _bench_nodecomp(n_windows: int, stages: str) -> bool:
+    """The bench knobs checked; True for stages="nodecomp"."""
+    if not 0 <= n_windows <= U.NDIGITS5:
+        raise ValueError(f"n_windows must lie in [0, {U.NDIGITS5}], got {n_windows}")
+    if stages not in ("full", "nodecomp"):
+        raise ValueError(f"stages must be 'full' or 'nodecomp', got {stages!r}")
+    return stages == "nodecomp"
 
 
 def verify_math_ok(ax, ay, az, at, r_words, s_words, k_words):
@@ -127,6 +170,8 @@ def _lib():
             decompress = getattr(lib, f"{scheme}_decompress")
             decompress.argtypes = [vp] * 6 + [ctypes.c_int, vp]
             decompress.restype = ctypes.c_int
+        lib.ed25519_verify_bench.argtypes = [vp] * 10 + [ctypes.c_int] * 3 + [vp]
+        lib.ed25519_verify_bench.restype = ctypes.c_int
         _loaded = lib
     return _loaded
 
@@ -160,9 +205,11 @@ def _base_table(dev: torch.device) -> torch.Tensor:
     return t
 
 
-def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words):
+def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words,
+                   knobs: tuple[int, ...] = ()):
     """The plain version for CPU tensors; for CUDA tensors, kernel `entry`
-    of the library (its launch counted) -> (mask, all-ok)."""
+    of the library (its launch counted) -> (mask, all-ok). `knobs` are the
+    bench entry's extra int arguments."""
     dev = ax.device
     if dev.type == "cpu":
         return plain(ax, ay, az, at, r_words, s_words, k_words)
@@ -182,7 +229,7 @@ def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words)
         err = launch(
             ax.data_ptr(), ay.data_ptr(), az.data_ptr(), at.data_ptr(),
             r_words.data_ptr(), s_words.data_ptr(), k_words.data_ptr(),
-            table.data_ptr(), mask.data_ptr(), allok.data_ptr(), b, stream)
+            table.data_ptr(), mask.data_ptr(), allok.data_ptr(), b, *knobs, stream)
     _raise_on(err, entry)
     _count(entry, b)
     return mask != 0, allok[0] != 0
@@ -217,6 +264,20 @@ def verify_ok(ax, ay, az, at, r_words, s_words, k_words):
     -> ((B,) bool mask, () bool all-ok). Any B >= 1."""
     return _launch_verify("ed25519_verify", verify_math_ok,
                           ax, ay, az, at, r_words, s_words, k_words)
+
+
+def verify_bench(ax, ay, az, at, r_words, s_words, k_words, n_windows: int = 0,
+                 stages: str = "full"):
+    """The counterpart of pallas_verify._verify_pallas_bench for ed25519:
+    verify_ok with the microbench's knobs (see verify_math_bench), a
+    separate kernel instantiation counted under "ed25519_verify_bench".
+    Non-default knobs give wrong masks; the production entries cannot
+    express them."""
+    nodecomp = _bench_nodecomp(n_windows, stages)
+    return _launch_verify(
+        "ed25519_verify_bench",
+        lambda *t: verify_math_bench(*t, n_windows=n_windows, stages=stages),
+        ax, ay, az, at, r_words, s_words, k_words, knobs=(n_windows, int(nodecomp)))
 
 
 def decompress(words: torch.Tensor):

@@ -124,9 +124,10 @@ def test_constants_and_round_counts_match_jax():
 
 
 def test_kernel_source_constants_match_field():
-    """The CUDA kernel's __constant__ tables hold the plain version's limbs."""
+    """The CUDA kernels' __constant__ tables (csrc/curve25519.cuh, shared by
+    every kernel source) hold the plain version's limbs."""
     src = (pathlib.Path(TF.__file__).parent.parent / "csrc"
-           / "ed25519_verify.cu").read_text()
+           / "curve25519.cuh").read_text()
     for name in ("P", "D", "D2", "SQRT_M1", "M_SUB"):
         m = re.search(r"__constant__ int C_%s\[NL\] = \{([^}]*)\};" % name, src)
         assert m, name

@@ -18,6 +18,7 @@ from cometbft_tpu_torch.crypto import ed25519_math as oracle
 from cometbft_tpu_torch.crypto import sr25519 as tsr
 from cometbft_tpu_torch.crypto import sr25519_math as srm
 from cometbft_tpu_torch.ops import ed25519_kernel as TK
+from cometbft_tpu_torch.ops import microbench as MB
 from cometbft_tpu_torch.ops import sr25519_kernel as TS
 from cometbft_tpu_torch.ops import verify_kernel as VK
 
@@ -136,3 +137,47 @@ def test_sr25519_kernels_match_plain_and_oracle(cuda, n, valid):
                                   cache=TK.PubKeyCache(cuda, TS.SR25519))
     assert flips == 0
     assert final.tolist() == [srm.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MB.BODIES))
+def test_microbench_loop_matches_plain(cuda, name):
+    """K3 against its plain version for every registered body, on the
+    probes' seeded state (130 lanes: a ragged second block) and on int32
+    limbs anywhere in range, where sums and products wrap."""
+    n = MB.BODIES[name].n_state
+    rng = np.random.default_rng(7)
+    for state in (MB.probe_state(n, 130),
+                  rng.integers(-2**31, 2**31, size=(n, 20, 130)).astype(np.int32)):
+        s = torch.from_numpy(state).to(cuda)
+        for iters in (0, 1, 7):
+            got = MB.loop(name, s, iters)
+            assert torch.equal(got.cpu(), MB.loop_plain(name, s.cpu(), iters))
+
+
+@pytest.mark.cuda
+def test_microbench_stacked_matches_plain(cuda):
+    rng = np.random.default_rng(8)
+    a, b = (torch.from_numpy(rng.integers(0, 8000, size=(4, 20, 130)).astype(np.int32))
+            for _ in range(2))
+    for iters in (1, 7):
+        got = MB.stacked(a.to(cuda), b.to(cuda), iters)
+        assert torch.equal(got.cpu(), MB.stacked_plain(a, b, iters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_windows,stages", [(0, "full"), (26, "full"), (2, "nodecomp")])
+def test_verify_bench_matches_plain(cuda, n_windows, stages):
+    """The bench instantiation against verify_math_bench on a signed batch;
+    with the default knobs it is the production kernel's mask."""
+    pubs, msgs, sigs = _batch(130)
+    b = TK.bucket_size(130)
+    _, safe, r, s, k = TK.stage_batch(pubs, msgs, sigs, b)
+    enc = np.frombuffer(b"".join(safe), dtype=np.uint8).reshape(130, 32)
+    _, coords = TK.decompress_points(enc, cuda)
+    t = TK.staged_from_numpy(*TK.pad_coords_batch_minor(coords, b), r, s, k, device=cuda)
+    mask, allok = VK.verify_bench(*t, n_windows=n_windows, stages=stages)
+    pmask, pall = VK.verify_math_bench(*t, n_windows=n_windows, stages=stages)
+    assert torch.equal(mask, pmask) and bool(allok) == bool(pall)
+    if n_windows == 0 and stages == "full":
+        assert torch.equal(mask, VK.verify_ok(*t)[0])
