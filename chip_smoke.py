@@ -4,9 +4,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from csrc/, holds each kernel against its
-plain PyTorch version on the card (bit for bit: all arithmetic is integer),
-and drives the main paths through the entry points a node calls:
+It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
+once), checks that ptxas gave the verify kernels no stack frame and no
+spills and that their launches at the main paths' lane counts are one wave
+(the CUDA occupancy calculator), holds each kernel against its plain
+PyTorch version on the card (bit for bit: all arithmetic is integer) on
+batches whose first lanes are edge cases (ZIP-215 encodings, torsion
+components, y = p and y = p + 1, a sr25519 lane whose check lands on a
+multiple of p), and drives the main paths through the entry points a node
+calls:
 
   - ed25519: crypto.batch.create_batch_verifier -> add -> verify on a
     10,240-validator commit and on 150-validator commits;
@@ -19,8 +25,9 @@ lane counters and the host-oracle recheck, times the kernels, their plain
 versions and verify() end to end. Then the device microbench
 (ops/microbench.py): its loop kernel (K3) for every registered probe body
 and its stacked-conv kernel (K4) against their plain versions, the verify
-kernel's bench instantiation against verify_math_bench, and the probes at
-1/MB_SCALE of the JAX module's iteration counts. It prints one JSON line of
+kernel's bench instantiation against verify_math_bench, the probes at
+1/MB_SCALE of the JAX module's iteration counts and the verify kernel's
+bisection at 10,240 and 256 lanes. It prints one JSON line of
 kernel records and, last, the device record. Any mismatch raises; without
 a card it exits non-zero before printing a result.
 """
@@ -43,6 +50,20 @@ import torch
 # Seeds of the synthetic validator sets (keys and nonces are random
 # scalars derived from them).
 SEED_BIG, SEED_SMALL, SEED_CHECK, SEED_SR, SEED_MIXED = 20240, 150, 7, 25519, 5
+SEED_EDGE = 8  # the torsion edge lanes' key and nonce
+# A valid sr25519 lane (pub, msg, sig; validator 6131 of
+# make_commit_sr(10240, 7)) whose [4](sB - kA - R) comes out as a multiple
+# of p that compares as zero only after a full carry ripple
+# (test_torch_field._ZERO_RUN): a reduction that stops short rejects it.
+RIPPLE_LANE = (
+    "62c461cdc2a9675e3ca1c2e4a92ae2129a1dcf5f1bd22d72f56fad2d0d8a912f",
+    "7908021147420f000000000019000000000000000022480a20bf60053ae6caed9fc3eb"
+    "b46abd5f29ff37265b7b080592ea930ed46072e8f4b31224080112205c9ed1b55f9adf"
+    "8a254ccffefca160f214f9191acdf4f58e589fe2ffcf35a29b2a0c0880e2cfaa0610b8"
+    "9af68201320b636f736d6f736875622d34",
+    "46006c5f60de779241d7cd210567667e8f58831a636776bdb298f2fb3c6cdc375544b1"
+    "c8c3d600512f015f60f26a9e0a2e05c0397eb7fb5c14e62767aeb05a85",
+)
 N_BIG, N_SMALL = 10_240, 150
 N_MIXED_BUCKET = 6_144  # the mixed commit's per-scheme bucket (5,120 signatures)
 CHAIN_ID = "cosmoshub-4"
@@ -54,7 +75,9 @@ CHAIN_ID = "cosmoshub-4"
 IMAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
-# Field multiplications per lane, counted from csrc/ed25519_verify.cu:
+# Field multiplications per signature, the least the verification needs
+# (the bound's count, the yardstick; as the plain version sequences
+# them):
 #   ZIP-215 R decompression: 255 squarings + 19 multiplies (+1 where
 #     v*x^2 != u, left out: the bound counts the least work);
 #   ristretto255 R decoding: 256 squarings (s^2, u2^2, v^2, v3^2, the 251 of
@@ -66,8 +89,6 @@ HBM_BYTES_PER_S = 3.35e12
 #     mul; the last add 8);
 #   tail: one add (9 mul), then 3 doublings (12 sq + 12 mul) for ed25519's
 #     cofactor 8, 2 (8 sq + 8 mul) for sr25519's cofactor 4.
-# A multiply is 400 limb products, a square 210; each also folds 20 high
-# limbs by a multiply (FOLD * hi).
 SQ_DECOMP, MUL_DECOMP = 255, 19
 SQ_DECODE_SR, MUL_DECODE_SR = 256, 26
 SQ_LADDER, MUL_LADDER = 8 * 4 + 51 * 20, (8 * 4 + 7 * 9 + 17) + (51 * 30 + 1)
@@ -75,6 +96,18 @@ SQ_VERIFY = SQ_DECOMP + SQ_LADDER + 12
 MUL_VERIFY = MUL_DECOMP + MUL_LADDER + (9 + 12)
 SQ_VERIFY_SR = SQ_DECODE_SR + SQ_LADDER + 8
 MUL_VERIFY_SR = MUL_DECODE_SR + MUL_LADDER + (9 + 8)
+# The verify kernels' own field work per signature (csrc/quad25519.cuh),
+# summed over the quad's four threads, which all run every instruction:
+#   -A table: 8 quad doublings (4 sq + 4 mul), 7 quad adds (8 mul), 18
+#     cached conversions (4 mul: every thread forms T * 2d);
+#   ladder: 51 windows x (5 quad doublings, T always: 20 sq + 20 mul; 2 quad
+#     adds: 16 mul);
+#   R decoded by all four threads: 4 x the decoding's squares and multiplies;
+#   tail: -R in cached form on all four (4 mul), one quad add (8 mul), the
+#     cofactor's 3 (ed25519) or 2 (sr25519) quad doublings.
+SQ_QUAD, MUL_QUAD = 8 * 4 + 51 * 20, (8 * 4 + 7 * 8 + 18 * 4) + 51 * 36 + (4 + 8)
+SQ_OWN, MUL_OWN = SQ_QUAD + 4 * SQ_DECOMP + 12, MUL_QUAD + 4 * MUL_DECOMP + 12
+SQ_OWN_SR, MUL_OWN_SR = SQ_QUAD + 4 * SQ_DECODE_SR + 8, MUL_QUAD + 4 * MUL_DECODE_SR + 8
 # The microbench phase: K3/K4 are held against their plain versions at
 # these lane counts (128 is the JAX probe's block, 10,240 K1's width) and
 # iteration counts; the probes run 1/MB_SCALE of the JAX module's
@@ -84,6 +117,7 @@ MUL_VERIFY_SR = MUL_DECODE_SR + MUL_LADDER + (9 + 8)
 MB_LANES = (128, 10_240)
 MB_CHECK_ITERS = (1, 7)
 MB_SCALE = 100
+BISECT_LANES = (256, N_BIG)  # K1's stage bisection, by the bench kernel
 MB_RECORD_LANES, MB_RECORD_ITERS = 10_240, 1_000
 # K4's multiply-adds per lane and iteration: 4 coordinates x the 210 limb
 # products of the 20 low columns, which is all that the [:, :20] slice
@@ -97,7 +131,7 @@ VERIFY_BYTES, DECOMP_BYTES = 4 * 80 + 3 * 32 + 4, 32 + 4 + 4 * 80
 
 
 def _imads(sq: int, mul: int) -> int:
-    """IMADs of the kernel's own radix-2^13 representation."""
+    """IMADs of the radix-2^13 representation (the decoders' own)."""
     return sq * 210 + mul * 400 + (sq + mul) * 20
 
 
@@ -112,7 +146,8 @@ def bound(imad_per_lane: int, bytes_per_lane: int, lanes: int) -> tuple[float, s
     """Least ms for `lanes` lanes: IMADs over the IMAD peak or bytes (each
     input read once, each output written once) over HBM, the larger. The
     kernel records take the IMADs of 32-bit limbs (_imads32), the least the
-    field work needs; the kernel's own radix-2^13 count is printed beside."""
+    field work needs; the kernels' own counts are printed beside (the verify
+    kernels' in 32-bit limbs, the decoders' in radix 2^13)."""
     ops = imad_per_lane * lanes / IMAD_PER_S * 1e3
     mem = bytes_per_lane * lanes / HBM_BYTES_PER_S * 1e3
     return (ops, "operations") if ops >= mem else (mem, "bytes")
@@ -128,7 +163,8 @@ def _smi() -> str:
 def _kernel_label(mangled: str) -> str | None:
     """A readable name for a mangled kernel of the port: verify_kernel<0>
     is ed25519_verify, <1> sr25519, <0, int, int> (knobs in its parameter
-    pack) the bench entry; loop_kernel<N> is K3 with body N."""
+    pack) the bench entry; decompress_kernel<0/1> the decoders;
+    loop_kernel<N> is K3 with body N."""
     m = re.match(r"_Z\d+(verify|decompress)_kernelILi(\d)E(?:J(i*)E)?", mangled)
     if m:
         label = f"{('ed25519', 'sr25519')[int(m.group(2))]}_{m.group(1)}"
@@ -161,6 +197,43 @@ def ptxas_summary(report: str) -> dict[str, list[str]]:
             if "registers" in line:
                 cur = None
     return out
+
+
+def check_verify_ptxas(report: str, device) -> None:
+    """K1, K2 and the bench kernel must compile with no stack frame and no
+    spills: nothing of theirs in local memory. Read from the loaded library
+    (cudaFuncGetAttributes) on every run, and from ptxas's report too when
+    this run built the library."""
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    entries = ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench")
+    summary = ptxas_summary(report)
+    for name in entries if report else ():
+        lines = " ".join(summary.get(name, []))
+        if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                         lines):
+            raise AssertionError(f"ptxas {name}: local memory in use: {lines!r}")
+    for name in entries:
+        shape = VK.launch_shape(name, N_BIG, device)
+        if shape["local_bytes"]:
+            raise AssertionError(f"{name}: {shape['local_bytes']} B of local memory per thread")
+        print(f"  loaded {name}: {shape['registers']} registers, 0 B local memory", flush=True)
+    print("  K1, K2 and the bench kernel use 0 B stack and 0 spills "
+          f"({'ptxas report and ' if report else ''}loaded library)", flush=True)
+
+
+def print_launch_shapes(device) -> None:
+    """Signatures per block, threads, resident blocks per SM (the CUDA
+    occupancy calculator) and waves of K1 and K2 at the main paths' lane
+    counts; every launch there must be one wave."""
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    for entry in ("ed25519_verify", "sr25519_verify"):
+        for n in (256, N_MIXED_BUCKET, N_BIG):
+            shape = VK.launch_shape(entry, n, device)
+            print(f"  occupancy {entry} {n} lanes: {shape}", flush=True)
+            if shape["waves"] != 1:
+                raise AssertionError(f"{entry} at {n} lanes runs in {shape['waves']} waves")
 
 
 # ------------------------------------------------------------------ data
@@ -277,9 +350,81 @@ def tamper(pubs, msgs, sigs, idx: list[int]) -> None:
             sigs[i] = bytes(s)
 
 
+def order8_point():
+    """A point of order 8, from the oracle: [L]Q for the first curve point Q
+    (by y = 3, 4, ...) whose torsion component has order 8."""
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+
+    y = 2
+    while True:
+        y += 1
+        q = O.point_decompress_zip215(y.to_bytes(32, "little"))
+        if q is None:
+            continue
+        t = O.scalar_mult(O.L, q)
+        if not O.is_identity(O.scalar_mult(4, t)):
+            return t
+
+
+def torsion_cases(msgs: list[bytes], seed: int = SEED_EDGE):
+    """Eight (pub, msg, sig) lanes that a new field representation can get
+    wrong, with the oracle's verdict each: a torsion component in R or A
+    (valid only under the cofactored check), the non-canonical encodings
+    y = p (a point of order 4) and y = p + 1 (the identity) as R and as A,
+    R = (x = 0, sign bit set), and an R moved off its signature. msgs
+    supplies the eight messages."""
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+
+    rng = np.random.default_rng(seed)
+    t8 = order8_point()
+    a, r = (int.from_bytes(rng.bytes(32), "little") % O.L for _ in range(2))
+    A, R = O.scalar_mult(a, O.B_POINT), O.scalar_mult(r, O.B_POINT)
+    a_enc, r_enc = O.point_compress(A), O.point_compress(R)
+    y_p = O.P.to_bytes(32, "little")                      # order 4, x = sqrt(-1)
+    y_p_odd = (O.P | 1 << 255).to_bytes(32, "little")     # its negation
+    y_p1 = (O.P + 1).to_bytes(32, "little")               # the identity
+    x0_signed = (1 | 1 << 255).to_bytes(32, "little")     # x = 0, sign 1
+
+    def sig(r_bytes: bytes, a_bytes: bytes, m: bytes, s: int | None = None) -> bytes:
+        """s = r + k a (or the given s), k over the encodings as sent."""
+        if s is None:
+            s = r + O.sha512_mod_l(r_bytes, a_bytes, m) * a
+        return r_bytes + (s % O.L).to_bytes(32, "little")
+
+    def k_times_a(r_bytes: bytes, m: bytes) -> int:
+        return O.sha512_mod_l(r_bytes, a_enc, m) * a
+
+    rt8 = O.point_compress(O.point_add(R, t8))
+    at8 = O.point_compress(O.point_add(A, t8))
+    m = msgs
+    cases = [
+        # R + T, T of order 8, signed over R + T: [s]B - [k]A - R' = -T
+        (a_enc, m[0], sig(rt8, a_enc, m[0])),
+        # A + T: [s]B - [k]A' - R = -kT
+        (at8, m[1], sig(r_enc, at8, m[1])),
+        # A of order 4 (y = p) under s = r: [s]B - [k]A - R = -kA
+        (y_p, m[2], sig(r_enc, y_p, m[2], s=r)),
+        # R of order 4 (y = p, sign 1) under s = k a
+        (a_enc, m[3], sig(y_p_odd, a_enc, m[3], s=k_times_a(y_p_odd, m[3]))),
+        # R = the identity as y = p + 1 under s = k a
+        (a_enc, m[4], sig(y_p1, a_enc, m[4], s=k_times_a(y_p1, m[4]))),
+        # A = the identity as y = p + 1 under s = r
+        (y_p1, m[5], sig(r_enc, y_p1, m[5], s=r)),
+        # R with x = 0 and the sign bit set: no such encoding
+        (a_enc, m[6], sig(x0_signed, a_enc, m[6], s=k_times_a(x0_signed, m[6]))),
+        # R + T sent with the signature made for R: k differs
+        (a_enc, m[7], rt8 + sig(r_enc, a_enc, m[7])[32:]),
+    ]
+    return cases, [O.verify_zip215(pk, mm, sg) for pk, mm, sg in cases]
+
+
+TORSION_VERDICTS = [True, True, True, True, True, True, False, False]
+
+
 def edge_lanes(pubs, msgs, sigs):
-    """Overwrite lanes 0..7 with the edge cases of ZIP-215; returns the
-    oracle's verdict for each."""
+    """Overwrite lanes 0..15 with the edge cases of ZIP-215 (8..15 the
+    torsion and encoding cases of torsion_cases); returns the oracle's
+    verdict for each."""
     from cometbft_tpu_torch.crypto import ed25519_math as O
 
     ident = (1).to_bytes(32, "little")
@@ -305,13 +450,16 @@ def edge_lanes(pubs, msgs, sigs):
         # pubkey fails decompression
         (no_sqrt, msgs[7], sigs[7]),
     ]
-    for i, (p, m, s) in enumerate(cases):
+    torsion, want = torsion_cases(msgs[8:16])
+    if want != TORSION_VERDICTS:
+        raise AssertionError(f"torsion edge lanes: oracle gives {want}")
+    for i, (p, m, s) in enumerate(cases + torsion):
         pubs[i], msgs[i], sigs[i] = p, m, s
-    return [O.verify_zip215(p, m, s) for p, m, s in cases]
+    return [O.verify_zip215(p, m, s) for p, m, s in cases] + want
 
 
 def edge_lanes_sr(pubs, msgs, sigs):
-    """Overwrite lanes 0..7 with the edge cases of schnorrkel over
+    """Overwrite lanes 0..8 with the edge cases of schnorrkel over
     ristretto255; returns the serial oracle's verdict for each."""
     from cometbft_tpu_torch.crypto import sr25519_math as srm
 
@@ -341,6 +489,9 @@ def edge_lanes_sr(pubs, msgs, sigs):
         (pubs[6], msgs[6], with_byte(sigs[6], 31, sigs[6][31] | 0x80)),
         # pubkey does not decode (no square root)
         (no_sqrt.to_bytes(32, "little"), msgs[7], sigs[7]),
+        # a valid lane whose [4](sB - kA - R) is a multiple of p that is zero
+        # only after a full carry (ROADMAP Queue 3 item 1)
+        tuple(bytes.fromhex(h) for h in RIPPLE_LANE),
     ]
     for i, (p, m, s) in enumerate(cases):
         pubs[i], msgs[i], sigs[i] = p, m, s
@@ -439,7 +590,7 @@ def _max_err(got, want) -> int:
 
 def check_kernels(name: str, path: Path, n: int, device) -> dict[str, int]:
     """A scheme's verify and decode kernels against their plain versions on
-    one batch of n lanes with the edge cases in lanes 0..7 and tampered
+    one batch of n lanes with the edge cases in its first lanes and tampered
     lanes beyond; then the verify path's final mask against the oracle on
     a sample. Returns each kernel's largest |kernel - plain| (0 when
     equal)."""
@@ -462,12 +613,13 @@ def check_kernels(name: str, path: Path, n: int, device) -> dict[str, int]:
                                cache=K.PubKeyCache(device, path.scheme))
     if flips:
         raise AssertionError(f"{name} {n} lanes: host recheck flipped {flips} lanes")
-    sample = list(range(8)) + tampered + [8, 9, n // 4, n - 2]
+    n_edge = len(want_edge)
+    sample = list(range(n_edge)) + tampered + [n_edge, n_edge + 1, n // 4, n - 2]
     for i in sample:
         want = path.scheme.verify_one(pubs[i], msgs[i], sigs[i])
         if bool(got[i]) != want:
             raise AssertionError(f"{name} {n} lanes: lane {i} is {bool(got[i])}, oracle {want}")
-    if [bool(got[i]) for i in range(8)] != want_edge:
+    if [bool(got[i]) for i in range(n_edge)] != want_edge:
         raise AssertionError(f"{name}: edge lanes disagree with the oracle")
     print(f"check {name} {n} signatures at {b} lanes: kernel == plain bit for bit "
           f"(mask, all-ok, decode ok/X/Y/Z/T); mask == oracle on {len(sample)} sampled "
@@ -569,8 +721,8 @@ def drive_mixed(paths: dict[str, Path], n: int, seed: int, device) -> dict:
 
 
 def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str,
-                sq_mul_verify: tuple[int, int], sq_mul_decode: tuple[int, int]
-                ) -> tuple[dict, dict]:
+                sq_mul_verify: tuple[int, int], sq_mul_decode: tuple[int, int],
+                sq_mul_own: tuple[int, int]) -> tuple[dict, dict]:
     """Kernel and plain times and bounds of a scheme at each lane count, on
     an untampered batch, where all-ok must be set by kernel and plain
     alike. Returns (times, bounds) keyed by lane count."""
@@ -579,7 +731,7 @@ def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str
         bounds[n] = {
             "verify": bound(_imads32(*sq_mul_verify), VERIFY_BYTES, n),
             "decompress": bound(_imads32(*sq_mul_decode), DECOMP_BYTES, n),
-            "verify_13bit": bound(_imads(*sq_mul_verify), VERIFY_BYTES, n),
+            "verify_own": bound(_imads32(*sq_mul_own), VERIFY_BYTES, n),
             "decompress_13bit": bound(_imads(*sq_mul_decode), DECOMP_BYTES, n),
         }
         pubs, msgs, sigs = path.make_commit(n, SEED_CHECK)
@@ -602,9 +754,12 @@ def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str
               f"{times[n]['decompress_plain']:.3f} ms; bounds (32-bit limbs) verify "
               f"{bounds[n]['verify'][0]:.4f} ms ({bounds[n]['verify'][1]}), "
               f"decompress {bounds[n]['decompress'][0]:.4f} ms "
-              f"({bounds[n]['decompress'][1]}); in the kernel's radix-2^13 limbs "
-              f"{bounds[n]['verify_13bit'][0]:.4f} and "
-              f"{bounds[n]['decompress_13bit'][0]:.4f} ms; all-ok set by kernel and plain",
+              f"({bounds[n]['decompress'][1]}); at the kernels' own counts (verify: the "
+              f"quad's 32-bit work; decode: radix-2^13 limbs) "
+              f"{bounds[n]['verify_own'][0]:.4f} and "
+              f"{bounds[n]['decompress_13bit'][0]:.4f} ms; verify at "
+              f"{bounds[n]['verify'][0] / times[n]['verify']:.1%} of its bound; all-ok set "
+              f"by kernel and plain",
               flush=True)
     return times, bounds
 
@@ -682,13 +837,15 @@ def check_microbench(device) -> dict[str, int]:
         got = held(t, knobs, "at 128 lanes")
     if not torch.equal(got[0], prod) or torch.nonzero(~prod).flatten().tolist() != tampered:
         raise AssertionError("bench verify (51, full) differs from the production mask")
-    probe_args = MB.bench_verify_inputs(N_BIG, device)
-    for knobs in ((0, "full"), (26, "full"), (0, "nodecomp")):
-        held(probe_args, knobs, f"at {N_BIG} lanes")
+    # the bisection's own shapes, inputs and knobs (drive_microbench)
+    for lanes in BISECT_LANES:
+        probe_args = MB.bench_verify_inputs(lanes, device)
+        for knobs in ((0, "full"), (26, "full"), (0, "nodecomp")):
+            held(probe_args, knobs, f"at {lanes} lanes")
     print(f"check bench verify: == verify_math_bench at 128 lanes for (26, full), "
           f"(0, nodecomp), (51, full), where (51, full) == the production K1 mask, invalid "
-          f"lanes {tampered}; and at {N_BIG} lanes on the verify probes' inputs for "
-          f"(0, full), (26, full), (0, nodecomp)", flush=True)
+          f"lanes {tampered}; and at {' and '.join(map(str, BISECT_LANES))} lanes on the "
+          f"verify probes' inputs for (0, full), (26, full), (0, nodecomp)", flush=True)
     return err
 
 
@@ -707,8 +864,11 @@ def drive_microbench(device, card: str) -> dict:
     MB.probe_staging(n=2048)
     print("full verify:", flush=True)
     verify_s = MB.probe_full_verify(N_BIG)
-    print("stage bisection:", flush=True)
-    bisect = MB.probe_bisect(N_BIG)
+    bisects = {}
+    for lanes in BISECT_LANES:
+        print(f"stage bisection at {lanes} lanes:", flush=True)
+        bisects[lanes] = MB.probe_bisect(lanes)
+    bisect_small, bisect = bisects[256], bisects[N_BIG]
     per = {}
     for lanes in MB_LANES:
         print(f"probe bodies at {lanes} lanes (iterations 1/{MB_SCALE} of the JAX probe's):",
@@ -728,6 +888,9 @@ def drive_microbench(device, card: str) -> dict:
           f"probe), {bisect['full'] * 1e3:.4f} ms (bisect probe), 26 windows "
           f"{bisect['half'] * 1e3:.4f} ms, no R decompression "
           f"{bisect['nodecomp'] * 1e3:.4f} ms", flush=True)
+    print(f"[{card}] bench verify at 256 lanes: full {bisect_small['full'] * 1e3:.4f} ms, 26 "
+          f"windows {bisect_small['half'] * 1e3:.4f} ms, no R decompression "
+          f"{bisect_small['nodecomp'] * 1e3:.4f} ms", flush=True)
     return {"launches": launches, "per": per}
 
 
@@ -761,8 +924,9 @@ def time_microbench(device, card: str) -> dict:
 def _record(name: str, replaces: str, launches: int, err: int, times: dict,
             bounds: dict, key: str) -> dict:
     b_ms, b_by = bounds[N_BIG][key]
+    stem = "verify25519" if key == "verify" else "decompress25519"
     return {"name": name, "route": "cuda",
-            "source": "cometbft_tpu_torch/csrc/ed25519_verify.cu",
+            "source": f"cometbft_tpu_torch/csrc/{stem}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": times[N_BIG][key], "plain_ms": times[N_BIG][f"{key}_plain"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -780,7 +944,7 @@ def main() -> int:
     print(card, flush=True)
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    stems = ("ed25519_verify", "microbench")
+    stems = ("verify25519", "decompress25519", "microbench")
     with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
         builds = dict(zip(stems, pool.map(_build.build, stems)))
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -788,6 +952,8 @@ def main() -> int:
         print(f"  {stem}.cu: nvcc {nvcc_s:.3f} s", flush=True)
         for kernel, lines in ptxas_summary(report).items():
             print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
+    check_verify_ptxas(builds["verify25519"][1], device)
+    print_launch_shapes(device)
     paths = _paths()
     ed, sr = paths["ed25519"], paths["sr25519"]
 
@@ -810,19 +976,22 @@ def main() -> int:
         raise AssertionError(f"mixed 10k: lanes per warm verify() {lanes}")
 
     # kernel, plain and end-to-end times, beside each kernel's bound
-    print(f"IMADs per lane, radix-2^13 limbs (the kernel's): ed25519 verify "
-          f"{_imads(SQ_VERIFY, MUL_VERIFY)}, decompress {_imads(SQ_DECOMP, MUL_DECOMP)}; "
-          f"sr25519 verify {_imads(SQ_VERIFY_SR, MUL_VERIFY_SR)}, decode "
-          f"{_imads(SQ_DECODE_SR, MUL_DECODE_SR)}; 32-bit limbs: ed25519 verify "
-          f"{_imads32(SQ_VERIFY, MUL_VERIFY)}, decompress "
+    print(f"IMADs per lane in 32-bit limbs, the least the work needs (the bounds): "
+          f"ed25519 verify {_imads32(SQ_VERIFY, MUL_VERIFY)}, decompress "
           f"{_imads32(SQ_DECOMP, MUL_DECOMP)}; sr25519 verify "
           f"{_imads32(SQ_VERIFY_SR, MUL_VERIFY_SR)}, decode "
-          f"{_imads32(SQ_DECODE_SR, MUL_DECODE_SR)}", flush=True)
+          f"{_imads32(SQ_DECODE_SR, MUL_DECODE_SR)}; the verify kernels' own (four threads "
+          f"a signature): ed25519 {_imads32(SQ_OWN, MUL_OWN)}, sr25519 "
+          f"{_imads32(SQ_OWN_SR, MUL_OWN_SR)}; the decoders' own (radix-2^13 limbs): "
+          f"ed25519 {_imads(SQ_DECOMP, MUL_DECOMP)}, sr25519 "
+          f"{_imads(SQ_DECODE_SR, MUL_DECODE_SR)}", flush=True)
     times, bounds = time_scheme("ed25519", ed, (N_BIG, 256), device, card,
-                                (SQ_VERIFY, MUL_VERIFY), (SQ_DECOMP, MUL_DECOMP))
+                                (SQ_VERIFY, MUL_VERIFY), (SQ_DECOMP, MUL_DECOMP),
+                                (SQ_OWN, MUL_OWN))
     times_sr, bounds_sr = time_scheme("sr25519", sr, (N_BIG, N_MIXED_BUCKET), device, card,
                                       (SQ_VERIFY_SR, MUL_VERIFY_SR),
-                                      (SQ_DECODE_SR, MUL_DECODE_SR))
+                                      (SQ_DECODE_SR, MUL_DECODE_SR),
+                                      (SQ_OWN_SR, MUL_OWN_SR))
     for label, r in (("ed25519", big), ("ed25519", small), ("sr25519", big_sr),
                      ("mixed ed25519 + sr25519", mixed)):
         print(f"[{card}] verify() {label} {r['n']} validators: cold {r['cold_ms']:.3f} ms "

@@ -4,9 +4,10 @@
 // (cometbft_tpu_torch/ops/field.py, curve.py), with the same carry-round
 // counts, so every intermediate equals the plain version's bit for bit.
 //
-// Included by ed25519_verify.cu (the verify and decode kernels) and
-// microbench.cu (the probe kernels). Field operations are inlined; point
-// operations are __noinline__, so ptxas compiles each once per file.
+// Included by decompress25519.cu (the pubkey decoders) and microbench.cu
+// (the probe kernels, which time this representation). Field operations are
+// inlined; point operations are __noinline__, so ptxas compiles each once
+// per file. The verify kernels use fe32.cuh (8 x 32-bit limbs).
 //
 // Additions, subtractions and the fold of the product's high half run in
 // unsigned arithmetic: within the carried-limb intervals nothing wraps, and
@@ -25,7 +26,6 @@
 #define LMASK 8191
 #define FOLD 608
 #define TABLE17 17
-#define NDIG 51
 #define THREADS 128
 
 struct fe {
@@ -284,32 +284,6 @@ __device__ __noinline__ void pt_add_pre(pt& o, const pt& p, const pt& q,
   fe_mul(o.z, f, g);
 }
 
-// Unified add with true T on both sides (curve.add): c = (p.t * 2d) * q.t.
-__device__ __noinline__ void pt_add(pt& o, const pt& p, const pt& q) {
-  pt p2;
-  fe d2;
-  fe_const(d2, C_D2);
-  fe_copy(p2.x, p.x);
-  fe_copy(p2.y, p.y);
-  fe_copy(p2.z, p.z);
-  fe_mul(p2.t, p.t, d2);
-  pt_add_pre(o, p2, q, false, true);
-}
-
-__device__ __forceinline__ void pt_neg(pt& o, const pt& p) {
-  fe_neg(o.x, p.x);
-  fe_copy(o.y, p.y);
-  fe_copy(o.z, p.z);
-  fe_neg(o.t, p.t);
-}
-
-__device__ __forceinline__ void pt_identity(pt& o) {
-  fe_zero(o.x);
-  fe_one(o.y);
-  fe_one(o.z);
-  fe_zero(o.t);
-}
-
 // ZIP-215 decompression (curve.decompress_zip215). Returns ok; where ok is
 // false the coordinates are garbage, as in the plain version.
 __device__ __noinline__ bool pt_decompress(pt& o, const fe& y, int sign) {
@@ -440,20 +414,6 @@ __device__ __forceinline__ void load_y(fe& y, int& sign, const int* words, int b
 #pragma unroll
   for (int i = 0; i < NL; i++) y.v[i] = (int)word_bits(w, RADIX * i, i == NL - 1 ? 8 : RADIX);
   sign = (int)(w[7] >> 31);
-}
-
-// unpack.words_to_digits5_signed: 51 signed digits in [-16, 15]
-__device__ __forceinline__ void load_digits(signed char* d, const int* words, int b, int B) {
-  unsigned w[8];
-#pragma unroll
-  for (int i = 0; i < 8; i++) w[i] = (unsigned)words[i * B + b];
-  int carry = 0;
-#pragma unroll
-  for (int j = 0; j < NDIG; j++) {
-    int v = (int)word_bits(w, 5 * j, 5) + carry;
-    carry = v >= 16 ? 1 : 0;
-    d[j] = (signed char)(v - 32 * carry);
-  }
 }
 
 __device__ __forceinline__ void load_fe(fe& o, const int* src, int b, int B) {

@@ -12,7 +12,7 @@ canonicalize() gives the unique representative in [0, p).
 
 Integer arithmetic is exact, so any summation order gives the same limbs:
 the plain product below sums the 400 limb products with one index_add_
-where the kernel (csrc/ed25519_verify.cu) runs the same columns as a chain
+where the kernels of csrc/curve25519.cuh run the same columns as a chain
 of multiply-adds, and both produce identical carried limbs.
 
 int32 ``>>`` is arithmetic in torch, as in JAX; the carry rounds rely on it

@@ -44,6 +44,7 @@ import torch
 
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
+from cometbft_tpu_torch.ops import unpack as U
 
 LANES = 128
 LAUNCHES = {"microbench_loop": 0, "microbench_stacked": 0}
@@ -309,9 +310,7 @@ def loop(name: str, state: torch.Tensor, iters: int) -> torch.Tensor:
     dev = state.device
     if dev.type == "cpu":
         return loop_plain(name, state, iters)
-    from cometbft_tpu_torch.ops import verify_kernel as VK
-
-    table = VK._base_table(dev)
+    table = _limb_table(dev)
     out = torch.empty_like(state)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -320,6 +319,18 @@ def loop(name: str, state: torch.Tensor, iters: int) -> torch.Tensor:
     _raise_on(err, "microbench_loop")
     LAUNCHES["microbench_loop"] += 1
     return out
+
+
+_limb_tables: dict[torch.device, torch.Tensor] = {}
+
+
+def _limb_table(dev: torch.device) -> torch.Tensor:
+    """K3's [d]B table: curve.base_table17_limbs, (4, 17, 20) int32 limbs of
+    (x, y, 1, t * 2d), on `dev`."""
+    t = _limb_tables.get(dev)
+    if t is None:
+        t = _limb_tables[dev] = torch.from_numpy(C.base_table17_limbs()).to(dev).contiguous()
+    return t
 
 
 def stacked_plain(a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -443,19 +454,24 @@ def probe_full_verify(batch: int = 10240) -> float:
 
 def probe_bisect(batch: int = 10240) -> dict[str, float]:
     """In-context stage costs: truncate the ladder / skip R's decompression
-    and difference the slopes. Returns the three slopes in seconds."""
+    and difference the slopes. Costs are per launch of `batch` lanes and per
+    signature (the kernel's block size follows the batch, so a block is no
+    unit). Returns the three slopes in seconds."""
     full = _verify_reps_timer(batch)
     half = _verify_reps_timer(batch, n_windows=26)
     nodec = _verify_reps_timer(batch, stages="nodecomp")
     per_win = (full - half) / 25
-    blocks = batch // LANES
-    print(f"  full                  {full*1e3:8.2f} ms")
-    print(f"  26-window ladder      {half*1e3:8.2f} ms")
-    print(f"  no R-decompress       {nodec*1e3:8.2f} ms")
-    print(f"  => per-window         {per_win*1e6/blocks:8.3f} us/block")
-    print(f"  => decompress         {(full-nodec)*1e6/blocks:8.3f} us/block")
-    print(f"  => fixed (non-ladder) {(half - 26/51*(full-half+half))*1e3:8.2f} ms-ish",
-          flush=True)
+    decomp = full - nodec
+    rest = full - U.NDIGITS5 * per_win - decomp
+    print(f"  full                  {full*1e3:8.3f} ms")
+    print(f"  26-window ladder      {half*1e3:8.3f} ms")
+    print(f"  no R-decompress       {nodec*1e3:8.3f} ms")
+    print(f"  => per-window         {per_win*1e6:8.3f} us/launch  "
+          f"{per_win*1e9/batch:8.3f} ns/signature")
+    print(f"  => decompress         {decomp*1e6:8.3f} us/launch  "
+          f"{decomp*1e9/batch:8.3f} ns/signature")
+    print(f"  => rest (non-ladder)  {rest*1e6:8.3f} us/launch  "
+          f"{rest*1e9/batch:8.3f} ns/signature", flush=True)
     return {"full": full, "half": half, "nodecomp": nodec}
 
 

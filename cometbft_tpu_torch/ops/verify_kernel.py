@@ -1,18 +1,22 @@
 """Ed25519 ZIP-215 and sr25519 verify and pubkey decoding: kernel wrappers
 and their plain PyTorch versions.
 
-Source note. The kernels (csrc/ed25519_verify.cu) replace the Pallas TPU
-kernel ``cometbft_tpu/ops/pallas_verify.py::_verify_block_kernel`` (entries
+Source note. The verify kernels (csrc/verify25519.cu over
+csrc/quad25519.cuh and csrc/fe32.cuh) replace the Pallas TPU kernel
+``cometbft_tpu/ops/pallas_verify.py::_verify_block_kernel`` (entries
 ``verify_pallas_ok``, scheme "ed25519" — K1 — and ``verify_pallas_sr_ok``,
-scheme "sr25519" — K2) and the XLA programs
+scheme "sr25519" — K2); the decoders (csrc/decompress25519.cu over
+csrc/curve25519.cuh) replace the XLA programs
 ``cometbft_tpu/ops/ed25519_kernel.py::_decompress_kernel`` and
-``cometbft_tpu/ops/sr25519_kernel.py::_decompress_kernel``. They are bound
-by 32-bit integer multiply-adds — about 2,800 field multiplications of 20x20
-13-bit limbs per signature, against ~1 KB of memory traffic — so the design
-runs one signature per thread with every field element in registers, the
-shared [d]B table in shared memory and the per-lane -A table in local
-memory, and does the digit recoding and R unpack in a per-thread prologue
-(see the source's header for the rest).
+``cometbft_tpu/ops/sr25519_kernel.py::_decompress_kernel``. All are bound by
+32-bit integer multiply-adds — about 2,800 field multiplications per
+signature against ~1 KB of memory traffic. The verify kernels run each
+signature on four threads, one coordinate each, in 8 x 32-bit limbs with
+nothing in local memory: the per-signature table of [d](-A), the [d]B
+table (``base_table_words``, in the cached form (y - x, y + x, 2z, 2d t))
+and the signed digits in shared memory, in a grid of one wave
+(``launch_shape``). The decoders keep the JAX package's 20 x 13-bit limbs,
+which the key cache holds and the verify kernels take as A.
 
 ``verify_bench`` is the microbench's entry (ops/microbench.py): a separate
 instantiation of the ed25519 kernel with the Pallas kernel's bisection knobs
@@ -29,10 +33,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cometbft_tpu_torch.ops import curve
 from cometbft_tpu_torch.ops import field as F
+from cometbft_tpu_torch.ops import limbs as L
 from cometbft_tpu_torch.ops import unpack as U
 
 LAUNCHES = {"ed25519_verify": 0, "ed25519_decompress": 0,
@@ -152,28 +158,33 @@ def decompress_sr_math(words: torch.Tensor):
 # ------------------------------------------------------------------ kernels
 
 
-_loaded = None
+_loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _lib():
-    """The built kernel library, with its C signatures declared."""
-    global _loaded
-    if _loaded is None:
+def _lib(stem: str) -> ctypes.CDLL:
+    """The built kernel library csrc/<stem>.cu ("verify25519" or
+    "decompress25519"), with its C signatures declared."""
+    lib = _loaded.get(stem)
+    if lib is None:
         from cometbft_tpu_torch.ops import _build
 
-        lib = _build.library("ed25519_verify")
+        lib = _build.library(stem)
         vp = ctypes.c_void_p
-        for scheme in ("ed25519", "sr25519"):
-            verify = getattr(lib, f"{scheme}_verify")
-            verify.argtypes = [vp] * 10 + [ctypes.c_int, vp]
-            verify.restype = ctypes.c_int
-            decompress = getattr(lib, f"{scheme}_decompress")
-            decompress.argtypes = [vp] * 6 + [ctypes.c_int, vp]
-            decompress.restype = ctypes.c_int
-        lib.ed25519_verify_bench.argtypes = [vp] * 10 + [ctypes.c_int] * 3 + [vp]
-        lib.ed25519_verify_bench.restype = ctypes.c_int
-        _loaded = lib
-    return _loaded
+        if stem == "verify25519":
+            for entry in ("ed25519_verify", "sr25519_verify"):
+                getattr(lib, entry).argtypes = [vp] * 10 + [ctypes.c_int, vp]
+                getattr(lib, entry).restype = ctypes.c_int
+            lib.ed25519_verify_bench.argtypes = [vp] * 10 + [ctypes.c_int] * 3 + [vp]
+            lib.ed25519_verify_bench.restype = ctypes.c_int
+            lib.verify_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                ctypes.POINTER(ctypes.c_int)]
+            lib.verify_launch_shape.restype = ctypes.c_int
+        else:
+            for entry in ("ed25519_decompress", "sr25519_decompress"):
+                getattr(lib, entry).argtypes = [vp] * 6 + [ctypes.c_int, vp]
+                getattr(lib, entry).restype = ctypes.c_int
+        _loaded[stem] = lib
+    return lib
 
 
 def _check(name: str, t: torch.Tensor, rows: int, b: int, dev: torch.device):
@@ -194,15 +205,51 @@ def _raise_on(err: int, entry: str) -> None:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
 
 
+def base_table_words() -> np.ndarray:
+    """The verify kernels' [d]B table, d = 0..16, from the port's constants
+    (curve.base_table17_limbs: affine x, y and t * 2d) in the cached form
+    of an addend: (4, 8, 17) int32 words (the uint32 bits) of (y - x,
+    y + x, 2z = 2, 2d t) mod p, [coord][limb][entry]."""
+    coords = curve.base_table17_limbs()
+    out = np.zeros((4, 8, curve.TABLE17), dtype=np.uint32)
+    for d in range(curve.TABLE17):
+        x, y, _, t2d = (L.limbs_to_int(coords[ci, d]) % F.P for ci in range(4))
+        for ci, v in enumerate(((y - x) % F.P, (y + x) % F.P, 2, t2d)):
+            out[ci, :, d] = [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    return out.view(np.int32)
+
+
 _table_cache: dict[torch.device, torch.Tensor] = {}
 
 
 def _base_table(dev: torch.device) -> torch.Tensor:
     t = _table_cache.get(dev)
     if t is None:
-        t = torch.from_numpy(curve.base_table17_limbs()).to(dev).contiguous()
+        t = torch.from_numpy(base_table_words()).to(dev).contiguous()
         _table_cache[dev] = t
     return t
+
+
+_SHAPE_ENTRIES = ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench")
+
+
+def launch_shape(entry: str, b: int, dev: torch.device) -> dict[str, int]:
+    """How the verify kernel `entry` launches a batch of b lanes on CUDA
+    device `dev`: signatures per block, blocks, threads per block (four a
+    signature), resident blocks per SM (the CUDA occupancy calculator at
+    that block size and shared memory), SMs, the waves that makes, and the
+    loaded kernel's local memory per thread (stack and spills) and
+    registers. Launches nothing."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(dev):
+        err = _lib("verify25519").verify_launch_shape(_SHAPE_ENTRIES.index(entry), b, out)
+    _raise_on(err, f"{entry} launch shape")
+    lanes, blocks, threads, per_sm, sms, local_bytes, registers = out
+    if per_sm < 1:
+        raise RuntimeError(f"{entry}: no block of {threads} threads fits an SM")
+    return {"sigs_per_block": lanes, "blocks": blocks, "threads_per_block": threads,
+            "blocks_per_sm": per_sm, "sms": sms, "waves": -(-blocks // (per_sm * sms)),
+            "local_bytes": local_bytes, "registers": registers}
 
 
 def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words,
@@ -220,7 +267,7 @@ def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words,
         _check(name, t, F.NLIMBS, b, dev)
     for name, t in (("r_words", r_words), ("s_words", s_words), ("k_words", k_words)):
         _check(name, t, U.WORDS, b, dev)
-    launch = getattr(_lib(), entry)
+    launch = getattr(_lib("verify25519"), entry)
     table = _base_table(dev)
     mask = torch.empty(b, dtype=torch.int32, device=dev)
     allok = torch.ones(1, dtype=torch.int32, device=dev)
@@ -245,7 +292,7 @@ def _launch_decompress(entry: str, plain, words: torch.Tensor):
         raise ValueError(f"unsupported device {dev}")
     b = words.shape[1] if words.dim() == 2 else -1
     _check("words", words, U.WORDS, b, dev)
-    launch = getattr(_lib(), entry)
+    launch = getattr(_lib("decompress25519"), entry)
     ok = torch.empty(b, dtype=torch.int32, device=dev)
     coords = [torch.empty((F.NLIMBS, b), dtype=torch.int32, device=dev)
               for _ in range(4)]

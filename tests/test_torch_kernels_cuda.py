@@ -181,3 +181,67 @@ def test_verify_bench_matches_plain(cuda, n_windows, stages):
     assert torch.equal(mask, pmask) and bool(allok) == bool(pall)
     if n_windows == 0 and stages == "full":
         assert torch.equal(mask, VK.verify_ok(*t)[0])
+
+
+def _edge_batch(name: str, n: int):
+    """chip_smoke.py's batch of n signatures whose first lanes are the edge
+    cases (ed25519: ZIP-215 encodings, torsion components, y = p and
+    y = p + 1 as R and A; sr25519: with the lane whose check lands on a
+    multiple of p), with the scheme's path and the oracle's verdicts."""
+    import chip_smoke as CS
+
+    path = CS._paths()[name]
+    pubs, msgs, sigs = path.make_commit(n, CS.SEED_CHECK + n)
+    want = path.edge_lanes(pubs, msgs, sigs)
+    return path, (pubs, msgs, sigs), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ed25519", "sr25519"])
+@pytest.mark.parametrize("n", [128, 256, 10_240])
+def test_edge_lanes_match_plain(cuda, name, n):
+    """K1 / K2 against their plain versions on the edge lanes, at 128 lanes,
+    the 150 commit's bucket (256) and a full commit (10,240); then the
+    verify path's mask, with 0 host-recheck flips, against the oracle's."""
+    import chip_smoke as CS
+
+    path, rows, want = _edge_batch(name, n)
+    t = CS.staged(path, *rows, cuda)
+    mask, allok = path.verify(*t)
+    pmask, pall = path.verify_plain(*t)
+    assert torch.equal(mask, pmask) and bool(allok) == bool(pall) is False
+    final, flips = TK.verify_rows(path.scheme, *rows, cache=TK.PubKeyCache(cuda, path.scheme))
+    assert flips == 0 and final[: len(want)].tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_windows,stages", [(26, "full"), (0, "nodecomp"), (51, "full")])
+def test_verify_bench_matches_plain_on_edge_lanes(cuda, n_windows, stages):
+    import chip_smoke as CS
+
+    path, rows, _ = _edge_batch("ed25519", 128)
+    t = CS.staged(path, *rows, cuda)
+    mask, allok = VK.verify_bench(*t, n_windows=n_windows, stages=stages)
+    pmask, pall = VK.verify_math_bench(*t, n_windows=n_windows, stages=stages)
+    assert torch.equal(mask, pmask) and bool(allok) == bool(pall)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_windows,stages", [(0, "full"), (26, "full"), (0, "nodecomp")])
+def test_verify_bench_matches_plain_on_probe_inputs(cuda, n_windows, stages):
+    """The stage bisection's shape, inputs and knobs at 256 lanes."""
+    from cometbft_tpu_torch.ops import microbench as MB
+
+    t = MB.bench_verify_inputs(256, cuda)
+    mask, allok = VK.verify_bench(*t, n_windows=n_windows, stages=stages)
+    pmask, pall = VK.verify_math_bench(*t, n_windows=n_windows, stages=stages)
+    assert torch.equal(mask, pmask) and bool(allok) == bool(pall)
+
+
+@pytest.mark.cuda
+def test_launch_shape_is_one_wave(cuda):
+    for entry in ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench"):
+        for n in (128, 256, 6_144, 10_240):
+            shape = VK.launch_shape(entry, n, cuda)
+            assert shape["waves"] == 1 and shape["threads_per_block"] == 4 * shape["sigs_per_block"]
+            assert shape["local_bytes"] == 0

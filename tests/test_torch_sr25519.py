@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 from cometbft_tpu.crypto import batch as jbatch
 from cometbft_tpu.crypto import ed25519 as jed
 from cometbft_tpu.crypto import sr25519 as jsr
@@ -231,23 +232,9 @@ def test_verify_batch_and_seam_match_jax_and_oracle():
         v.add(ted.PubKey(bytes(32)), b"m", bytes(64))
 
 
-# A valid signature (validator 6131 of chip_smoke.make_commit_sr(10240, 7))
-# whose [4](sB - kA - R) comes out as a multiple of p that compares as zero
-# only after a full carry ripple (test_torch_field._ZERO_RUN); the JAX
-# package's device path rejects it.
-_RIPPLE_LANE = (
-    "62c461cdc2a9675e3ca1c2e4a92ae2129a1dcf5f1bd22d72f56fad2d0d8a912f",
-    "7908021147420f000000000019000000000000000022480a20bf60053ae6caed9fc3eb"
-    "b46abd5f29ff37265b7b080592ea930ed46072e8f4b31224080112205c9ed1b55f9adf"
-    "8a254ccffefca160f214f9191acdf4f58e589fe2ffcf35a29b2a0c0880e2cfaa0610b8"
-    "9af68201320b636f736d6f736875622d34",
-    "46006c5f60de779241d7cd210567667e8f58831a636776bdb298f2fb3c6cdc375544b1"
-    "c8c3d600512f015f60f26a9e0a2e05c0397eb7fb5c14e62767aeb05a85",
-)
-
-
 def test_valid_lane_needing_a_full_carry_ripple_verifies():
-    pub, msg, sig = (bytes.fromhex(h) for h in _RIPPLE_LANE)
+    """chip_smoke.RIPPLE_LANE: the JAX package's device path rejects it."""
+    pub, msg, sig = (bytes.fromhex(h) for h in CS.RIPPLE_LANE)
     assert srm.verify(pub, msg, sig) and jsrm.verify(pub, msg, sig)
     mask, flips = TK.verify_rows(TS.SR25519, [pub], [msg], [sig],
                                  cache=TK.PubKeyCache(CPU, TS.SR25519))
