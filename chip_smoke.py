@@ -5,13 +5,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
-once), checks that ptxas gave the verify kernels no stack frame and no
-spills and that their launches at the main paths' lane counts are one wave
-(the CUDA occupancy calculator), holds each kernel against its plain
-PyTorch version on the card (bit for bit: all arithmetic is integer) on
-batches whose first lanes are edge cases (ZIP-215 encodings, torsion
-components, y = p and y = p + 1, a sr25519 lane whose check lands on a
-multiple of p), and drives the main paths through the entry points a node
+once), checks that ptxas gave the verify kernels and the pubkey decoders
+no stack frame and no spills and that their launches at the main paths'
+lane counts are one wave (the CUDA occupancy calculator), holds each
+kernel against its plain PyTorch version on the card on batches whose
+first lanes are edge cases (ZIP-215 encodings, torsion components, y = p
+and y = p + 1, a sr25519 lane whose check lands on a multiple of p) — the
+verify kernels bit for bit, the decoders by ok bit for bit and X, Y, Z, T
+by canonical value (their limbs are canonical, the plain version's
+carried) — and drives the main paths through the entry points a node
 calls:
 
   - ed25519: crypto.batch.create_batch_verifier -> add -> verify on a
@@ -21,15 +23,18 @@ calls:
     mega-commit, ed25519 and sr25519 validators interleaved;
 
 with tampered lanes at known indices. It checks the masks, the launch and
-lane counters and the host-oracle recheck, times the kernels, their plain
-versions and verify() end to end. Then the device microbench
-(ops/microbench.py): its loop kernel (K3) for every registered probe body
-and its stacked-conv kernel (K4) against their plain versions, the verify
-kernel's bench instantiation against verify_math_bench, the probes at
-1/MB_SCALE of the JAX module's iteration counts and the verify kernel's
-bisection at 10,240 and 256 lanes. It prints one JSON line of
-kernel records and, last, the device record. Any mismatch raises; without
-a card it exits non-zero before printing a result.
+lane counters and the host-oracle recheck, times the kernels (the
+decoders at 10,240, 6,144 and 256 keys), their plain versions,
+verify() end to end and one cold verify() by part (decoder kernel, the
+copy back, the key cache's host loops, the coordinates' upload). Then the
+device microbench (ops/microbench.py): its loop kernel (K3) for every
+registered probe body and its stacked-conv kernel (K4) against their plain
+versions, the verify kernel's bench instantiation against
+verify_math_bench, the probes at 1/MB_SCALE of the JAX module's iteration
+counts and the verify kernel's bisection at 10,240 and 256 lanes. It
+prints one JSON line of kernel records and, last, the device record. Any
+mismatch raises; without a card it exits non-zero before printing a
+result.
 """
 
 from __future__ import annotations
@@ -108,6 +113,8 @@ MUL_VERIFY_SR = MUL_DECODE_SR + MUL_LADDER + (9 + 8)
 SQ_QUAD, MUL_QUAD = 8 * 4 + 51 * 20, (8 * 4 + 7 * 8 + 18 * 4) + 51 * 36 + (4 + 8)
 SQ_OWN, MUL_OWN = SQ_QUAD + 4 * SQ_DECOMP + 12, MUL_QUAD + 4 * MUL_DECOMP + 12
 SQ_OWN_SR, MUL_OWN_SR = SQ_QUAD + 4 * SQ_DECODE_SR + 8, MUL_QUAD + 4 * MUL_DECODE_SR + 8
+DECODE_LANES = (N_BIG, N_MIXED_BUCKET, 256)  # the decoders' launches on the main paths
+SEED_COLD = 31  # the keys of the cold-path breakdown (seen nowhere else)
 # The microbench phase: K3/K4 are held against their plain versions at
 # these lane counts (128 is the JAX probe's block, 10,240 K1's width) and
 # iteration counts; the probes run 1/MB_SCALE of the JAX module's
@@ -130,11 +137,6 @@ K4_IMADS = 4 * 210
 VERIFY_BYTES, DECOMP_BYTES = 4 * 80 + 3 * 32 + 4, 32 + 4 + 4 * 80
 
 
-def _imads(sq: int, mul: int) -> int:
-    """IMADs of the radix-2^13 representation (the decoders' own)."""
-    return sq * 210 + mul * 400 + (sq + mul) * 20
-
-
 def _imads32(sq: int, mul: int) -> int:
     """IMADs of the same field work in 8 x 32-bit limbs: a multiply is 64
     32x32->64 products, a square 36, each plus 8 products folding the high
@@ -146,8 +148,7 @@ def bound(imad_per_lane: int, bytes_per_lane: int, lanes: int) -> tuple[float, s
     """Least ms for `lanes` lanes: IMADs over the IMAD peak or bytes (each
     input read once, each output written once) over HBM, the larger. The
     kernel records take the IMADs of 32-bit limbs (_imads32), the least the
-    field work needs; the kernels' own counts are printed beside (the verify
-    kernels' in 32-bit limbs, the decoders' in radix 2^13)."""
+    field work needs; the kernels' own counts are printed beside."""
     ops = imad_per_lane * lanes / IMAD_PER_S * 1e3
     mem = bytes_per_lane * lanes / HBM_BYTES_PER_S * 1e3
     return (ops, "operations") if ops >= mem else (mem, "bytes")
@@ -199,36 +200,42 @@ def ptxas_summary(report: str) -> dict[str, list[str]]:
     return out
 
 
-def check_verify_ptxas(report: str, device) -> None:
-    """K1, K2 and the bench kernel must compile with no stack frame and no
-    spills: nothing of theirs in local memory. Read from the loaded library
-    (cudaFuncGetAttributes) on every run, and from ptxas's report too when
-    this run built the library."""
+DECODERS = ("ed25519_decompress", "sr25519_decompress")
+# every kernel held to 0 B of local memory: K1, K2, the bench kernel and the
+# decoders
+LOCAL_FREE = ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench") + DECODERS
+
+
+def check_local_memory(reports: dict[str, str], device) -> None:
+    """K1, K2, the bench kernel and the decoders must compile with no stack
+    frame and no spills: nothing of theirs in local memory. Read from the
+    loaded libraries (cudaFuncGetAttributes) on every run, and from ptxas's
+    report too when this run built the library."""
     from cometbft_tpu_torch.ops import verify_kernel as VK
 
-    entries = ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench")
-    summary = ptxas_summary(report)
-    for name in entries if report else ():
-        lines = " ".join(summary.get(name, []))
-        if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-                         lines):
-            raise AssertionError(f"ptxas {name}: local memory in use: {lines!r}")
-    for name in entries:
+    for name in LOCAL_FREE:
+        report = reports["decompress25519" if name in DECODERS else "verify25519"]
+        if report:
+            lines = " ".join(ptxas_summary(report).get(name, []))
+            if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, "
+                             r"0 bytes spill loads", lines):
+                raise AssertionError(f"ptxas {name}: local memory in use: {lines!r}")
         shape = VK.launch_shape(name, N_BIG, device)
         if shape["local_bytes"]:
             raise AssertionError(f"{name}: {shape['local_bytes']} B of local memory per thread")
         print(f"  loaded {name}: {shape['registers']} registers, 0 B local memory", flush=True)
-    print("  K1, K2 and the bench kernel use 0 B stack and 0 spills "
-          f"({'ptxas report and ' if report else ''}loaded library)", flush=True)
+    built = [s for s in ("verify25519", "decompress25519") if reports[s]]
+    print("  K1, K2, the bench kernel and the decoders use 0 B stack and 0 spills "
+          f"(ptxas report of {built or 'no fresh build'} and loaded library)", flush=True)
 
 
 def print_launch_shapes(device) -> None:
-    """Signatures per block, threads, resident blocks per SM (the CUDA
-    occupancy calculator) and waves of K1 and K2 at the main paths' lane
+    """Lanes per block, threads, resident blocks per SM (the CUDA occupancy
+    calculator) and waves of K1, K2 and the decoders at the main paths' lane
     counts; every launch there must be one wave."""
     from cometbft_tpu_torch.ops import verify_kernel as VK
 
-    for entry in ("ed25519_verify", "sr25519_verify"):
+    for entry in ("ed25519_verify", "sr25519_verify") + DECODERS:
         for n in (256, N_MIXED_BUCKET, N_BIG):
             shape = VK.launch_shape(entry, n, device)
             print(f"  occupancy {entry} {n} lanes: {shape}", flush=True)
@@ -530,6 +537,14 @@ def _paths() -> dict[str, Path]:
     }
 
 
+def encoding_words(pubs: list[bytes], b: int, pad: bytes) -> np.ndarray:
+    """The (b, 8) uint32 words of the encodings, padded to b with `pad`."""
+    from cometbft_tpu_torch.ops import limbs as L
+
+    rows = np.frombuffer(b"".join(pubs) + pad * (b - len(pubs)), dtype=np.uint8)
+    return L.bytes_to_words(rows.reshape(b, 32))
+
+
 def staged(path: Path, pubs, msgs, sigs, device):
     """The kernel inputs of one batch, as the verify path stages them."""
     from cometbft_tpu_torch.ops import ed25519_kernel as K
@@ -563,6 +578,22 @@ def time_kernel(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def time_back_to_back(fn, n: int = 50) -> float:
+    """Mean ms of n launches in a row between two CUDA events (the card kept
+    busy: no host round trip between launches)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -591,10 +622,14 @@ def _max_err(got, want) -> int:
 def check_kernels(name: str, path: Path, n: int, device) -> dict[str, int]:
     """A scheme's verify and decode kernels against their plain versions on
     one batch of n lanes with the edge cases in its first lanes and tampered
-    lanes beyond; then the verify path's final mask against the oracle on
-    a sample. Returns each kernel's largest |kernel - plain| (0 when
-    equal)."""
+    lanes beyond: the verify kernel bit for bit; the decoder, on the R
+    encodings and on the pubkeys, by ok bit for bit and X, Y, Z, T by
+    canonical value on every lane (its limbs are canonical, the plain
+    version's carried). Then the verify path's final mask against the
+    oracle on a sample. Returns each kernel's largest
+    difference (0 when equal)."""
     from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.ops import verify_kernel as VK
 
     b = K.bucket_size(n)
     pubs, msgs, sigs = path.make_commit(n, SEED_CHECK + n)
@@ -602,11 +637,13 @@ def check_kernels(name: str, path: Path, n: int, device) -> dict[str, int]:
     tampered = [n // 2, n - 1, n // 3]
     tamper(pubs, msgs, sigs, tampered)
     t = staged(path, pubs, msgs, sigs, device)
-    kernel = path.verify(*t), path.decompress(t[4])
-    plain = path.verify_plain(*t), path.decompress_plain(t[4])
+    pub_words = K._words_to_device(encoding_words(pubs, b, path.scheme.id_enc).T, device)
+    err = {f"{name}_verify": _max_err(path.verify(*t), path.verify_plain(*t)),
+           f"{name}_decompress": 0}
+    for words in (t[4], pub_words):
+        e = VK.decode_err(path.decompress(words), path.decompress_plain(words))
+        err[f"{name}_decompress"] = max(err[f"{name}_decompress"], e)
     _sync(device)
-    err = {f"{name}_verify": _max_err(kernel[0], plain[0]),
-           f"{name}_decompress": _max_err(kernel[1], plain[1])}
     if any(err.values()):
         raise AssertionError(f"{name} {n} lanes: kernel and plain version differ {err}")
     got, flips = K.verify_rows(path.scheme, pubs, msgs, sigs,
@@ -621,8 +658,9 @@ def check_kernels(name: str, path: Path, n: int, device) -> dict[str, int]:
             raise AssertionError(f"{name} {n} lanes: lane {i} is {bool(got[i])}, oracle {want}")
     if [bool(got[i]) for i in range(n_edge)] != want_edge:
         raise AssertionError(f"{name}: edge lanes disagree with the oracle")
-    print(f"check {name} {n} signatures at {b} lanes: kernel == plain bit for bit "
-          f"(mask, all-ok, decode ok/X/Y/Z/T); mask == oracle on {len(sample)} sampled "
+    print(f"check {name} {n} signatures at {b} lanes: verify kernel == plain bit for bit "
+          f"(mask, all-ok); decoder == plain on R and on the pubkeys (ok bit for bit, "
+          f"X/Y/Z/T canonical on every lane); mask == oracle on {len(sample)} sampled "
           f"lanes; edge lanes {want_edge}; invalid lanes {np.flatnonzero(~got).tolist()}",
           flush=True)
     return err
@@ -721,18 +759,16 @@ def drive_mixed(paths: dict[str, Path], n: int, seed: int, device) -> dict:
 
 
 def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str,
-                sq_mul_verify: tuple[int, int], sq_mul_decode: tuple[int, int],
-                sq_mul_own: tuple[int, int]) -> tuple[dict, dict]:
-    """Kernel and plain times and bounds of a scheme at each lane count, on
-    an untampered batch, where all-ok must be set by kernel and plain
-    alike. Returns (times, bounds) keyed by lane count."""
+                sq_mul_verify: tuple[int, int], sq_mul_own: tuple[int, int]
+                ) -> tuple[dict, dict]:
+    """Verify kernel and plain times and bounds of a scheme at each lane
+    count, on an untampered batch, where all-ok must be set by kernel and
+    plain alike. Returns (times, bounds) keyed by lane count."""
     times, bounds = {}, {}
     for n in lanes:
         bounds[n] = {
             "verify": bound(_imads32(*sq_mul_verify), VERIFY_BYTES, n),
-            "decompress": bound(_imads32(*sq_mul_decode), DECOMP_BYTES, n),
             "verify_own": bound(_imads32(*sq_mul_own), VERIFY_BYTES, n),
-            "decompress_13bit": bound(_imads(*sq_mul_decode), DECOMP_BYTES, n),
         }
         pubs, msgs, sigs = path.make_commit(n, SEED_CHECK)
         t = staged(path, pubs, msgs, sigs, device)
@@ -745,23 +781,131 @@ def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str
         times[n] = {
             "verify": time_kernel(lambda: path.verify(*t)),
             "verify_plain": time_wall(lambda: path.verify_plain(*t), 3, device),
-            "decompress": time_kernel(lambda: path.decompress(t[4])),
-            "decompress_plain": time_wall(lambda: path.decompress_plain(t[4]), 3, device),
         }
         print(f"[{card}] {name} {n} lanes: verify kernel {times[n]['verify']:.4f} ms "
-              f"(median of 20), plain {times[n]['verify_plain']:.3f} ms; "
-              f"decompress kernel {times[n]['decompress']:.4f} ms, plain "
-              f"{times[n]['decompress_plain']:.3f} ms; bounds (32-bit limbs) verify "
-              f"{bounds[n]['verify'][0]:.4f} ms ({bounds[n]['verify'][1]}), "
-              f"decompress {bounds[n]['decompress'][0]:.4f} ms "
-              f"({bounds[n]['decompress'][1]}); at the kernels' own counts (verify: the "
-              f"quad's 32-bit work; decode: radix-2^13 limbs) "
-              f"{bounds[n]['verify_own'][0]:.4f} and "
-              f"{bounds[n]['decompress_13bit'][0]:.4f} ms; verify at "
+              f"(median of 20), plain {times[n]['verify_plain']:.3f} ms; bound (32-bit "
+              f"limbs) {bounds[n]['verify'][0]:.4f} ms ({bounds[n]['verify'][1]}), at the "
+              f"quad's own count {bounds[n]['verify_own'][0]:.4f} ms; at "
               f"{bounds[n]['verify'][0] / times[n]['verify']:.1%} of its bound; all-ok set "
-              f"by kernel and plain",
-              flush=True)
+              f"by kernel and plain", flush=True)
     return times, bounds
+
+
+def time_decoders(name: str, path: Path, device, card: str, sq_mul: tuple[int, int]
+                  ) -> dict:
+    """A scheme's decoder at DECODE_LANES keys (a commit's pubkeys): held
+    against the plain version, then timed per launch (median of 20 CUDA
+    event times, "ms") and back to back (mean of 50, "ms_back_to_back"),
+    the plain version on the host clock (median of 3, "plain_ms"), and the
+    bound. Returns these per lane count."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    out = {}
+    for n in DECODE_LANES:
+        pubs = path.make_commit(n, SEED_CHECK)[0]
+        words = K._words_to_device(encoding_words(pubs, n, path.scheme.id_enc).T, device)
+        if VK.decode_err(path.decompress(words), path.decompress_plain(words)):
+            raise AssertionError(f"{name} decoder at {n} keys differs from plain")
+        row = {"bound": bound(_imads32(*sq_mul), DECOMP_BYTES, n),
+               "plain_ms": time_wall(lambda: path.decompress_plain(words), 3, device),
+               "ms": time_kernel(lambda: path.decompress(words)),
+               "ms_back_to_back": time_back_to_back(lambda: path.decompress(words))}
+        out[n] = row
+        print(f"[{card}] {name} decoder at {n} keys: {row['ms']:.4f} ms per launch (median "
+              f"of 20), {row['ms_back_to_back']:.4f} back to back (mean of 50); plain "
+              f"{row['plain_ms']:.3f} ms; bound (32-bit limbs) {row['bound'][0]:.4f} ms "
+              f"({row['bound'][1]}), the kernel at {row['bound'][0] / row['ms']:.1%} / "
+              f"{row['bound'][0] / row['ms_back_to_back']:.1%} of it", flush=True)
+    return out
+
+
+def time_cold_path(name: str, path: Path, device, card: str, seed: int) -> dict:
+    """One cold verify() of a 10,240-validator commit of new keys through
+    create_batch_verifier, by part (host clock, synchronised, but the
+    kernel): the decoder kernel (CUDA events around its launch), what
+    decompress_points does before it (padding, packing and uploading the
+    encodings, allocating the outputs), the device->host copy of its output
+    after it (stack, copy, slicing), PubKeyCache._insert plus the per-key
+    lookup loop (lookup_or_decompress less decompress_points),
+    pad_coords_batch_minor, and the rest of PubKeyCache.stage (the batch
+    digest and the coordinates' upload). Returns the parts and the whole in
+    ms."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    pubs, msgs, sigs = path.make_commit(N_BIG, seed)
+    keys = [path.pub_key(p) for p in pubs]
+    lib, entry = VK._lib("decompress25519"), f"{name}_decompress"
+    ms = dict.fromkeys(("decompress_points", "lookup", "pad", "stage", "kernel"), 0.0)
+    marks = {}
+
+    def walled(label, fn):
+        def wrapper(*a, **kw):
+            _sync(device)
+            t0 = marks[label] = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(device)
+            ms[label] += (time.perf_counter() - t0) * 1e3
+            marks[label + "_end"] = time.perf_counter()
+            return out
+        return wrapper
+
+    launch = getattr(lib, entry)
+
+    def timed_launch(*args):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        marks["launch"] = time.perf_counter()
+        e0.record()
+        err = launch(*args)
+        e1.record()
+        e1.synchronize()
+        marks["kernel_end"] = time.perf_counter()
+        ms["kernel"] += e0.elapsed_time(e1)
+        return err
+
+    saved = (K.decompress_points, K.pad_coords_batch_minor, K.PubKeyCache.lookup_or_decompress,
+             K.PubKeyCache.stage)
+    K.decompress_points = walled("decompress_points", saved[0])
+    K.pad_coords_batch_minor = walled("pad", saved[1])
+    K.PubKeyCache.lookup_or_decompress = walled("lookup", saved[2])
+    K.PubKeyCache.stage = walled("stage", saved[3])
+    setattr(lib, entry, timed_launch)
+    try:
+        v = crypto_batch.create_batch_verifier(keys[0])
+        for key, m, sg in zip(keys, msgs, sigs):
+            v.add(key, m, sg)
+        _sync(device)
+        t0 = time.perf_counter()
+        ok, _ = v.verify()
+        _sync(device)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        (K.decompress_points, K.pad_coords_batch_minor, K.PubKeyCache.lookup_or_decompress,
+         K.PubKeyCache.stage) = saved
+        setattr(lib, entry, launch)
+    if not ok or "launch" not in marks:
+        raise AssertionError(f"{name} cold verify(): ok {ok}, decoder launched: "
+                             f"{'launch' in marks}")
+    parts = {
+        "verify": total,
+        "decoder_kernel": ms["kernel"],
+        "before_kernel": (marks["launch"] - marks["decompress_points"]) * 1e3,
+        "copy_to_host": (marks["decompress_points_end"] - marks["kernel_end"]) * 1e3,
+        "insert_and_lookup": ms["lookup"] - ms["decompress_points"],
+        "pad_coords": ms["pad"],
+        "digest_and_upload": ms["stage"] - ms["lookup"] - ms["pad"],
+    }
+    parts["rest"] = total - ms["stage"]
+    print(f"[{card}] cold verify() {name} {N_BIG} validators: {total:.3f} ms; decoder kernel "
+          f"{parts['decoder_kernel']:.4f} ms ({parts['decoder_kernel'] / total:.3%}), before "
+          f"it in decompress_points {parts['before_kernel']:.3f}, device->host copy "
+          f"{parts['copy_to_host']:.3f}, _insert + lookup loop "
+          f"{parts['insert_and_lookup']:.3f}, pad_coords_batch_minor {parts['pad_coords']:.3f}, "
+          f"digest + upload {parts['digest_and_upload']:.3f}, the rest of verify() (staging, "
+          f"K1/K2, recheck) {parts['rest']:.3f}", flush=True)
+    return parts
 
 
 def time_host_stages(name: str, path: Path, device, card: str) -> None:
@@ -921,15 +1065,14 @@ def time_microbench(device, card: str) -> dict:
     return out
 
 
-def _record(name: str, replaces: str, launches: int, err: int, times: dict,
-            bounds: dict, key: str) -> dict:
-    b_ms, b_by = bounds[N_BIG][key]
-    stem = "verify25519" if key == "verify" else "decompress25519"
+def _record(name: str, replaces: str, launches: int, err: int, ms: float,
+            plain_ms: float, b: tuple[float, str], **extra) -> dict:
+    stem = "decompress25519" if name.endswith("decompress") else "verify25519"
     return {"name": name, "route": "cuda",
             "source": f"cometbft_tpu_torch/csrc/{stem}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": times[N_BIG][key], "plain_ms": times[N_BIG][f"{key}_plain"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -952,17 +1095,16 @@ def main() -> int:
         print(f"  {stem}.cu: nvcc {nvcc_s:.3f} s", flush=True)
         for kernel, lines in ptxas_summary(report).items():
             print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
-    check_verify_ptxas(builds["verify25519"][1], device)
+    check_local_memory({stem: report for stem, (_, report, _) in builds.items()}, device)
     print_launch_shapes(device)
     paths = _paths()
     ed, sr = paths["ed25519"], paths["sr25519"]
 
     # every lane count the main paths launch at, for both schemes: 128, 256
-    # (the 150 commit's bucket, padding lanes included; ed25519), 6,144 (the
-    # mixed commit's per-scheme bucket of 5,120 signatures) and 10,240
-    checks = [check_kernels("ed25519", ed, n, device)
-              for n in (128, N_SMALL, 5_120, N_BIG)]
-    checks += [check_kernels("sr25519", sr, n, device) for n in (128, 5_120, N_BIG)]
+    # (the 150 commit's bucket, padding lanes included), 6,144 (the mixed
+    # commit's per-scheme bucket of 5,120 signatures) and 10,240
+    checks = [check_kernels(name, path, n, device) for name, path in (("ed25519", ed),
+              ("sr25519", sr)) for n in (128, N_SMALL, 5_120, N_BIG)]
     err = {k: max(c.get(k, 0) for c in checks) for c in checks for k in c}
 
     crypto_batch.set_backend("gpu")
@@ -982,16 +1124,19 @@ def main() -> int:
           f"{_imads32(SQ_VERIFY_SR, MUL_VERIFY_SR)}, decode "
           f"{_imads32(SQ_DECODE_SR, MUL_DECODE_SR)}; the verify kernels' own (four threads "
           f"a signature): ed25519 {_imads32(SQ_OWN, MUL_OWN)}, sr25519 "
-          f"{_imads32(SQ_OWN_SR, MUL_OWN_SR)}; the decoders' own (radix-2^13 limbs): "
-          f"ed25519 {_imads(SQ_DECOMP, MUL_DECOMP)}, sr25519 "
-          f"{_imads(SQ_DECODE_SR, MUL_DECODE_SR)}", flush=True)
+          f"{_imads32(SQ_OWN_SR, MUL_OWN_SR)}; the decoders' own (one thread a key, 32-bit "
+          f"limbs): ed25519 {_imads32(SQ_DECOMP, MUL_DECOMP)}, sr25519 "
+          f"{_imads32(SQ_DECODE_SR, MUL_DECODE_SR)}, each +{_imads32(0, 1)} where the data take "
+          f"the multiply by sqrt(-1)", flush=True)
     times, bounds = time_scheme("ed25519", ed, (N_BIG, 256), device, card,
-                                (SQ_VERIFY, MUL_VERIFY), (SQ_DECOMP, MUL_DECOMP),
-                                (SQ_OWN, MUL_OWN))
+                                (SQ_VERIFY, MUL_VERIFY), (SQ_OWN, MUL_OWN))
     times_sr, bounds_sr = time_scheme("sr25519", sr, (N_BIG, N_MIXED_BUCKET), device, card,
-                                      (SQ_VERIFY_SR, MUL_VERIFY_SR),
-                                      (SQ_DECODE_SR, MUL_DECODE_SR),
-                                      (SQ_OWN_SR, MUL_OWN_SR))
+                                      (SQ_VERIFY_SR, MUL_VERIFY_SR), (SQ_OWN_SR, MUL_OWN_SR))
+    dec = {"ed25519": time_decoders("ed25519", ed, device, card, (SQ_DECOMP, MUL_DECOMP)),
+           "sr25519": time_decoders("sr25519", sr, device, card,
+                                    (SQ_DECODE_SR, MUL_DECODE_SR))}
+    for name, path in (("ed25519", ed), ("sr25519", sr)):
+        time_cold_path(name, path, device, card, SEED_COLD)
     for label, r in (("ed25519", big), ("ed25519", small), ("sr25519", big_sr),
                      ("mixed ed25519 + sr25519", mixed)):
         print(f"[{card}] verify() {label} {r['n']} validators: cold {r['cold_ms']:.3f} ms "
@@ -1008,20 +1153,18 @@ def main() -> int:
     print(f"microbench phase: {time.perf_counter() - t_mb:.1f} s (checks, probes, timing)",
           flush=True)
 
-    kernels = {"kernels": [
-        _record("ed25519_verify", "cometbft_tpu/ops/pallas_verify.py:198",
-                big["launches"]["ed25519_verify"], err["ed25519_verify"],
-                times, bounds, "verify"),
-        _record("ed25519_decompress", "cometbft_tpu/ops/ed25519_kernel.py:97",
-                big["launches"]["ed25519_decompress"], err["ed25519_decompress"],
-                times, bounds, "decompress"),
-        _record("sr25519_verify", "cometbft_tpu/ops/pallas_verify.py:198",
-                big_sr["launches"]["sr25519_verify"], err["sr25519_verify"],
-                times_sr, bounds_sr, "verify"),
-        _record("sr25519_decompress", "cometbft_tpu/ops/sr25519_kernel.py:102",
-                big_sr["launches"]["sr25519_decompress"], err["sr25519_decompress"],
-                times_sr, bounds_sr, "decompress"),
-    ]}
+    kernels = {"kernels": []}
+    for name, run, t, b, d, replaces in (
+            ("ed25519", big, times, bounds, dec["ed25519"], "ed25519_kernel.py:97"),
+            ("sr25519", big_sr, times_sr, bounds_sr, dec["sr25519"], "sr25519_kernel.py:102")):
+        kernels["kernels"] += [
+            _record(f"{name}_verify", "cometbft_tpu/ops/pallas_verify.py:198",
+                    run["launches"][f"{name}_verify"], err[f"{name}_verify"],
+                    t[N_BIG]["verify"], t[N_BIG]["verify_plain"], b[N_BIG]["verify"]),
+            _record(f"{name}_decompress", f"cometbft_tpu/ops/{replaces}",
+                    run["launches"][f"{name}_decompress"], err[f"{name}_decompress"],
+                    d[N_BIG]["ms"], d[N_BIG]["plain_ms"], d[N_BIG]["bound"],
+                    ms_back_to_back=d[N_BIG]["ms_back_to_back"])]
     for name, replaces, body in (
             ("microbench_loop", "cometbft_tpu/ops/microbench.py:88", "mul"),
             ("microbench_stacked", "cometbft_tpu/ops/microbench.py:280", "stacked")):

@@ -303,6 +303,21 @@ __device__ __forceinline__ void from_limbs13(fe& o, const int32_t* l) {
   }
 }
 
+// The canonical value of a as twenty radix-2^13 limbs (the decoders'
+// output, which the key cache holds): limbs 0..18 in [0, 8191] and the top,
+// bits 247..254, below 2^8.
+__device__ __forceinline__ void to_limbs13(int32_t* l, const fe& a) {
+  fe c;
+  canonicalize(c, a);
+#pragma unroll
+  for (int i = 0; i < 20; i++) {
+    const int bit = 13 * i, w = bit >> 5, off = bit & 31;
+    uint32_t v = c.v[w] >> off;
+    if (off > 19 && w < 7) v |= c.v[w + 1] << (32 - off);
+    l[i] = (int32_t)(v & 8191u);
+  }
+}
+
 // Any value below 2^256 in eight little-endian words (already a loose
 // element), and the canonical value's words.
 __device__ __forceinline__ void from_words256(fe& o, const uint32_t* w) {

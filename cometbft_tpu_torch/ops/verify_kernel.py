@@ -6,7 +6,7 @@ csrc/quad25519.cuh and csrc/fe32.cuh) replace the Pallas TPU kernel
 ``cometbft_tpu/ops/pallas_verify.py::_verify_block_kernel`` (entries
 ``verify_pallas_ok``, scheme "ed25519" — K1 — and ``verify_pallas_sr_ok``,
 scheme "sr25519" — K2); the decoders (csrc/decompress25519.cu over
-csrc/curve25519.cuh) replace the XLA programs
+csrc/decode25519.cuh and csrc/fe32.cuh) replace the XLA programs
 ``cometbft_tpu/ops/ed25519_kernel.py::_decompress_kernel`` and
 ``cometbft_tpu/ops/sr25519_kernel.py::_decompress_kernel``. All are bound by
 32-bit integer multiply-adds — about 2,800 field multiplications per
@@ -15,8 +15,11 @@ signature on four threads, one coordinate each, in 8 x 32-bit limbs with
 nothing in local memory: the per-signature table of [d](-A), the [d]B
 table (``base_table_words``, in the cached form (y - x, y + x, 2z, 2d t))
 and the signed digits in shared memory, in a grid of one wave
-(``launch_shape``). The decoders keep the JAX package's 20 x 13-bit limbs,
-which the key cache holds and the verify kernels take as A.
+(``launch_shape``). The decoders run in the same field, one key a
+thread, in a grid of one wave; they write the JAX package's format, 20 x
+13-bit limbs, which the key cache holds and the verify kernels take as A.
+Their limbs are canonical and the plain version's carried, so the two agree
+as field values (``decode_err``).
 
 ``verify_bench`` is the microbench's entry (ops/microbench.py): a separate
 instantiation of the ed25519 kernel with the Pallas kernel's bisection knobs
@@ -183,6 +186,9 @@ def _lib(stem: str) -> ctypes.CDLL:
             for entry in ("ed25519_decompress", "sr25519_decompress"):
                 getattr(lib, entry).argtypes = [vp] * 6 + [ctypes.c_int, vp]
                 getattr(lib, entry).restype = ctypes.c_int
+            lib.decompress_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                    ctypes.POINTER(ctypes.c_int)]
+            lib.decompress_launch_shape.restype = ctypes.c_int
         _loaded[stem] = lib
     return lib
 
@@ -231,23 +237,29 @@ def _base_table(dev: torch.device) -> torch.Tensor:
 
 
 _SHAPE_ENTRIES = ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench")
+_DECODERS = ("ed25519_decompress", "sr25519_decompress")
 
 
 def launch_shape(entry: str, b: int, dev: torch.device) -> dict[str, int]:
-    """How the verify kernel `entry` launches a batch of b lanes on CUDA
-    device `dev`: signatures per block, blocks, threads per block (four a
-    signature), resident blocks per SM (the CUDA occupancy calculator at
-    that block size and shared memory), SMs, the waves that makes, and the
-    loaded kernel's local memory per thread (stack and spills) and
-    registers. Launches nothing."""
+    """How kernel `entry` launches a batch of b lanes on CUDA device `dev`:
+    signatures (or keys, for a decoder) per block, blocks, threads per
+    block (four a signature, one a key), resident blocks per SM (the CUDA
+    occupancy calculator at that block size and shared memory), SMs, the
+    waves that makes, and the loaded kernel's local memory per thread
+    (stack and spills) and registers. Launches nothing."""
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(dev):
-        err = _lib("verify25519").verify_launch_shape(_SHAPE_ENTRIES.index(entry), b, out)
+        if entry in _DECODERS:
+            err = _lib("decompress25519").decompress_launch_shape(
+                _DECODERS.index(entry), b, out)
+        else:
+            err = _lib("verify25519").verify_launch_shape(_SHAPE_ENTRIES.index(entry), b, out)
     _raise_on(err, f"{entry} launch shape")
     lanes, blocks, threads, per_sm, sms, local_bytes, registers = out
     if per_sm < 1:
         raise RuntimeError(f"{entry}: no block of {threads} threads fits an SM")
-    return {"sigs_per_block": lanes, "blocks": blocks, "threads_per_block": threads,
+    per_block = "keys_per_block" if entry in _DECODERS else "sigs_per_block"
+    return {per_block: lanes, "blocks": blocks, "threads_per_block": threads,
             "blocks_per_sm": per_sm, "sms": sms, "waves": -(-blocks // (per_sm * sms)),
             "local_bytes": local_bytes, "registers": registers}
 
@@ -303,6 +315,17 @@ def _launch_decompress(entry: str, plain, words: torch.Tensor):
     _raise_on(err, entry)
     _count(entry, b)
     return (ok != 0, *coords)
+
+
+def decode_err(got, want) -> int:
+    """The largest difference between two decoders' outputs (ok, X, Y, Z,
+    T): ok bit for bit, the coordinates by their canonical limbs
+    (field.canonicalize) on every lane; 0 when they are the same points."""
+    err = int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max())
+    for a, b in zip(got[1:], want[1:]):
+        d = F.canonicalize(a).to(torch.int64) - F.canonicalize(b).to(torch.int64)
+        err = max(err, int(d.abs().max()))
+    return err
 
 
 def verify_ok(ax, ay, az, at, r_words, s_words, k_words):

@@ -1,9 +1,9 @@
-"""Static import guard of the port: no file of cometbft_tpu_torch/ and not
-chip_smoke.py imports JAX or anything of the JAX package cometbft_tpu —
-at module level or inside a function, by an import statement or by
-importlib/__import__ with a literal name. The subprocess check in
-tests/test_torch_verify.py sees only what importing the modules imports;
-this one reads every import in the source.
+"""Static import guard of the port: no file of cometbft_tpu_torch/, not
+chip_smoke.py and not compare_decoders.py imports JAX or anything of the
+JAX package cometbft_tpu — at module level or inside a function, by an
+import statement or by importlib/__import__ with a literal name. The
+subprocess check in tests/test_torch_verify.py sees only what importing
+the modules imports; this one reads every import in the source.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import pathlib
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "cometbft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "cometbft_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "compare_decoders.py"]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "cometbft_tpu")
 
 

@@ -4,7 +4,9 @@ GPU every test here skips. Run on the card with
 
     pytest -m cuda tests/test_torch_kernels_cuda.py
 
-All arithmetic is integer: equality is exact.
+All arithmetic is integer: equality is exact. The decoders' X, Y, Z, T are
+canonical limbs and the plain version's carried ones, so they are compared
+by canonical value (verify_kernel.decode_err), ok bit for bit.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def test_kernels_match_plain_and_oracle(cuda, n):
     mask, allok = VK.verify_ok(*t)
     pmask, pall = VK.verify_math_ok(*t)
     assert torch.equal(mask, pmask) and bool(allok) == bool(pall) is False
-    for got, want in zip(VK.decompress(t[4]), VK.decompress_math(t[4])):
-        assert torch.equal(got, want)
+    # the decoder's limbs are canonical, the plain version's carried
+    assert VK.decode_err(VK.decompress(t[4]), VK.decompress_math(t[4])) == 0
     final, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
     assert flips == 0
     assert final.tolist() == [oracle.verify_zip215(p, m, s)
@@ -131,8 +133,7 @@ def test_sr25519_kernels_match_plain_and_oracle(cuda, n, valid):
     mask, allok = VK.verify_sr_ok(*t)
     pmask, pall = VK.verify_math_sr_ok(*t)
     assert torch.equal(mask, pmask) and bool(allok) == bool(pall) is valid
-    for got, want in zip(VK.decompress_sr(t[4]), VK.decompress_sr_math(t[4])):
-        assert torch.equal(got, want)
+    assert VK.decode_err(VK.decompress_sr(t[4]), VK.decompress_sr_math(t[4])) == 0
     final, flips = TK.verify_rows(TS.SR25519, pubs, msgs, sigs,
                                   cache=TK.PubKeyCache(cuda, TS.SR25519))
     assert flips == 0
@@ -245,3 +246,33 @@ def test_launch_shape_is_one_wave(cuda):
             shape = VK.launch_shape(entry, n, cuda)
             assert shape["waves"] == 1 and shape["threads_per_block"] == 4 * shape["sigs_per_block"]
             assert shape["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["ed25519_decompress", "sr25519_decompress"])
+def test_decoder_launch_shape_is_one_wave(cuda, entry):
+    for n in (128, 256, 6_144, 10_240):
+        shape = VK.launch_shape(entry, n, cuda)
+        assert shape["waves"] == 1 and shape["threads_per_block"] == shape["keys_per_block"]
+        assert shape["threads_per_block"] % 32 == 0 and shape["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ed25519", "sr25519"])
+@pytest.mark.parametrize("n", [128, 256, 5_120, 10_240])
+def test_decoders_match_plain_on_edge_lanes(cuda, name, n):
+    """The decoder on chip_smoke.py's edge batch, its pubkeys and its R
+    encodings at the bucket of n signatures: ok bit for bit, X, Y, Z, T by
+    canonical value on every lane, the limbs canonical."""
+    import chip_smoke as CS
+
+    path, (pubs, _, sigs), _ = _edge_batch(name, n)
+    b = TK.bucket_size(n)
+    for encs in (pubs, [s[:32] for s in sigs]):
+        words = TK._words_to_device(CS.encoding_words(encs, b, path.scheme.id_enc).T, cuda)
+        got = path.decompress(words)
+        assert VK.decode_err(got, path.decompress_plain(words)) == 0
+        assert not bool(got[0][: len(encs)].all())
+        for c in got[1:]:
+            assert int(c[:19].min()) >= 0 and int(c[:19].max()) <= 8191
+            assert int(c[19].min()) >= 0 and int(c[19].max()) < 256
