@@ -5,9 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
-once), checks that ptxas gave the verify kernels and the pubkey decoders
-no stack frame and no spills and that their launches at the main paths'
-lane counts are one wave (the CUDA occupancy calculator), holds each
+once), checks that ptxas gave the verify kernels, the pubkey decoders and
+every body of the microbench's loop kernel no stack frame and no spills
+and that their launches at the main paths' lane counts are one wave (the
+CUDA occupancy calculator), holds each
 kernel against its plain PyTorch version on the card on batches whose
 first lanes are edge cases (ZIP-215 encodings, torsion components, y = p
 and y = p + 1, a sr25519 lane whose check lands on a multiple of p) — the
@@ -28,8 +29,11 @@ decoders at 10,240, 6,144 and 256 keys), their plain versions,
 verify() end to end and one cold verify() by part (decoder kernel, the
 copy back, the key cache's host loops, the coordinates' upload). Then the
 device microbench (ops/microbench.py): its loop kernel (K3) for every
-registered probe body and its stacked-conv kernel (K4) against their plain
-versions, the verify kernel's bench instantiation against
+registered probe body (the value bodies on the verify kernels' 32-bit field
+and quad by canonical value, the radix-2^13 limb bodies bit for bit) and its
+stacked-conv kernel (K4) against their plain versions, K3's records for
+mul, sq, double, 5 doublings and the ladder window, the verify kernel's
+bench instantiation against
 verify_math_bench, the probes at 1/MB_SCALE of the JAX module's iteration
 counts and the verify kernel's bisection at 10,240 and 256 lanes. It
 prints one JSON line of kernel records and, last, the device record. Any
@@ -40,6 +44,7 @@ result.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import hashlib
 import json
 import re
@@ -118,14 +123,30 @@ SEED_COLD = 31  # the keys of the cold-path breakdown (seen nowhere else)
 # The microbench phase: K3/K4 are held against their plain versions at
 # these lane counts (128 is the JAX probe's block, 10,240 K1's width) and
 # iteration counts; the probes run 1/MB_SCALE of the JAX module's
-# iterations. The K3 record times the field multiplication body, the K4
-# record the stacked conv, at MB_RECORD_LANES lanes and MB_RECORD_ITERS
-# iterations per launch.
+# iterations. The K3 records time the bodies of K3_RECORDS, the K4 record
+# the stacked conv, at MB_RECORD_LANES lanes; the field multiplication at
+# MB_RECORD_ITERS iterations per launch is the kernel table's K3 row, and
+# the checks hold it at that count too.
 MB_LANES = (128, 10_240)
 MB_CHECK_ITERS = (1, 7)
 MB_SCALE = 100
 BISECT_LANES = (256, N_BIG)  # K1's stage bisection, by the bench kernel
 MB_RECORD_LANES, MB_RECORD_ITERS = 10_240, 1_000
+# K3's records: probe name, iterations per launch, and the (squares,
+# multiplies) of one iteration as the plain version does them (the bound
+# counts these in 32-bit limbs, _imads32), with the kernel's own count,
+# from the same formulas, printed beside where it differs (not in the
+# kernels line: it is not measured): the quad forms T in every doubling,
+# and window_step runs radix-2^13 limbs. A window is 4 doublings without T
+# (4 sq + 3 mul), one with (4 sq + 4 mul), the mixed add (7 mul) and the
+# -A add without T (7 mul).
+K3_RECORDS = (
+    ("mul", MB_RECORD_ITERS, (0, 1), None),
+    ("sq", MB_RECORD_ITERS, (1, 0), None),
+    ("double", 200, (4, 4), (4, 4)),
+    ("5 doublings only", 40, (20, 16), (20, 20)),
+    ("window_step(out_t=False)", 40, (20, 30), "radix-2^13"),
+)
 # K4's multiply-adds per lane and iteration: 4 coordinates x the 210 limb
 # products of the 20 low columns, which is all that the [:, :20] slice
 # keeps of the 400-product convolution.
@@ -201,46 +222,57 @@ def ptxas_summary(report: str) -> dict[str, list[str]]:
 
 
 DECODERS = ("ed25519_decompress", "sr25519_decompress")
-# every kernel held to 0 B of local memory: K1, K2, the bench kernel and the
-# decoders
-LOCAL_FREE = ("ed25519_verify", "sr25519_verify", "ed25519_verify_bench") + DECODERS
 
 
-def check_local_memory(reports: dict[str, str], device) -> None:
-    """K1, K2, the bench kernel and the decoders must compile with no stack
-    frame and no spills: nothing of theirs in local memory. Read from the
-    loaded libraries (cudaFuncGetAttributes) on every run, and from ptxas's
-    report too when this run built the library."""
+def shape_entries() -> list[tuple[str, str, Callable[[int, torch.device], dict],
+                                  tuple[int, ...]]]:
+    """Every kernel held to no local memory and one-wave launches: its label
+    (as ptxas_summary names it), the source whose ptxas report holds it, its
+    launch shape at (lanes, device), and the lane counts it launches at. K1,
+    K2 and the decoders at the main paths' lane counts, the bench kernel at
+    the bisection's, each K3 body (under its first registered name, as
+    _kernel_label) at MB_LANES."""
+    from cometbft_tpu_torch.ops import microbench as MB
     from cometbft_tpu_torch.ops import verify_kernel as VK
 
-    for name in LOCAL_FREE:
-        report = reports["decompress25519" if name in DECODERS else "verify25519"]
-        if report:
-            lines = " ".join(ptxas_summary(report).get(name, []))
+    main_lanes = (256, N_MIXED_BUCKET, N_BIG)
+    out = [(e, "verify25519", functools.partial(VK.launch_shape, e), main_lanes)
+           for e in ("ed25519_verify", "sr25519_verify")]
+    out.append(("ed25519_verify_bench", "verify25519",
+                functools.partial(VK.launch_shape, "ed25519_verify_bench"), BISECT_LANES))
+    out += [(e, "decompress25519", functools.partial(VK.launch_shape, e), main_lanes)
+            for e in DECODERS]
+    first: dict[int, str] = {}
+    for name, body in MB.BODIES.items():
+        first.setdefault(body.body_id, name)
+    out += [(f"loop_kernel<{name}>", "microbench", functools.partial(MB.launch_shape, name),
+             MB_LANES) for name in first.values()]
+    return out
+
+
+def check_kernel_shapes(reports: dict[str, str], device) -> None:
+    """Every kernel of shape_entries must compile with no stack frame and no
+    spills (ptxas's report, when this run built its source), load with no
+    local memory (cudaFuncGetAttributes, on every run) and launch in one
+    wave at each of its lane counts. Prints each launch's shape: lanes per
+    block, threads, resident blocks per SM (the CUDA occupancy calculator),
+    waves and registers."""
+    for label, stem, shape_of, lanes in shape_entries():
+        if reports[stem]:
+            lines = " ".join(ptxas_summary(reports[stem]).get(label, []))
             if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, "
                              r"0 bytes spill loads", lines):
-                raise AssertionError(f"ptxas {name}: local memory in use: {lines!r}")
-        shape = VK.launch_shape(name, N_BIG, device)
-        if shape["local_bytes"]:
-            raise AssertionError(f"{name}: {shape['local_bytes']} B of local memory per thread")
-        print(f"  loaded {name}: {shape['registers']} registers, 0 B local memory", flush=True)
-    built = [s for s in ("verify25519", "decompress25519") if reports[s]]
-    print("  K1, K2, the bench kernel and the decoders use 0 B stack and 0 spills "
-          f"(ptxas report of {built or 'no fresh build'} and loaded library)", flush=True)
-
-
-def print_launch_shapes(device) -> None:
-    """Lanes per block, threads, resident blocks per SM (the CUDA occupancy
-    calculator) and waves of K1, K2 and the decoders at the main paths' lane
-    counts; every launch there must be one wave."""
-    from cometbft_tpu_torch.ops import verify_kernel as VK
-
-    for entry in ("ed25519_verify", "sr25519_verify") + DECODERS:
-        for n in (256, N_MIXED_BUCKET, N_BIG):
-            shape = VK.launch_shape(entry, n, device)
-            print(f"  occupancy {entry} {n} lanes: {shape}", flush=True)
-            if shape["waves"] != 1:
-                raise AssertionError(f"{entry} at {n} lanes runs in {shape['waves']} waves")
+                raise AssertionError(f"ptxas {label}: local memory in use: {lines!r}")
+        for n in lanes:
+            shape = shape_of(n, device)
+            print(f"  occupancy {label} {n} lanes: {shape}", flush=True)
+            if shape["local_bytes"] or shape["waves"] != 1:
+                raise AssertionError(f"{label} at {n} lanes: local memory or more than one "
+                                     f"wave: {shape}")
+    built = [s for s, report in reports.items() if report]
+    print("  K1, K2, the bench kernel, the decoders and every loop_kernel<...> use 0 B stack "
+          f"and 0 spills (ptxas report of {built or 'no fresh build'} and loaded library), "
+          "one wave a launch", flush=True)
 
 
 # ------------------------------------------------------------------ data
@@ -930,26 +962,40 @@ def time_host_stages(name: str, path: Path, device, card: str) -> None:
 # ------------------------------------------------------------ microbench
 
 
+def k3_record_name(name: str) -> str:
+    """The kernels line's name of K3's record of probe `name`: the field
+    multiplication keeps the kernel table's name."""
+    return "microbench_loop" if name == "mul" else f"microbench_loop[{name}]"
+
+
 def check_microbench(device) -> dict[str, int]:
     """K3 for every registered body and K4 against their plain versions on
-    the card, at MB_LANES lanes and MB_CHECK_ITERS iterations, on the probes'
-    seeded state; then the verify kernel's bench instantiation against
-    verify_math_bench at 128 lanes on a staged commit, and at N_BIG lanes on
-    the verify probes' inputs with each of their knob settings. Returns
-    each kernel's largest |kernel - plain| (0 when equal)."""
+    the card, at MB_LANES lanes and MB_CHECK_ITERS iterations (the field
+    multiplication at MB_RECORD_ITERS too), on the probes' seeded state: K3's
+    limb bodies and K4 bit for bit, K3's value bodies by canonical value
+    (microbench.loop_err: the kernel's canonical limbs against the plain
+    version's, canonicalized; double_no_t's T zeros exactly); then the
+    verify kernel's bench instantiation against verify_math_bench at 128
+    lanes on a staged commit, and at N_BIG lanes on the verify probes'
+    inputs with each of their knob settings. Returns each kernel's largest
+    difference (0 when equal), K3's under each record's name too."""
     from cometbft_tpu_torch.ops import microbench as MB
     from cometbft_tpu_torch.ops import verify_kernel as VK
 
     err = {"microbench_loop": 0, "microbench_stacked": 0}
     for name, body in MB.BODIES.items():
+        e_body = 0
         for lanes in MB_LANES:
             state = torch.from_numpy(MB.probe_state(body.n_state, lanes)).to(device)
-            for iters in MB_CHECK_ITERS:
-                e = _max_err([MB.loop(name, state, iters)], [MB.loop_plain(name, state, iters)])
-                err["microbench_loop"] = max(err["microbench_loop"], e)
+            for iters in MB_CHECK_ITERS + ((MB_RECORD_ITERS,) if name == "mul" else ()):
+                e = MB.loop_err(name, MB.loop(name, state, iters),
+                                MB.loop_plain(name, state, iters))
+                e_body = max(e_body, e)
                 if e:
                     raise AssertionError(f"K3 {name!r} at {lanes} lanes, {iters} iterations: "
                                          f"kernel and plain differ by {e}")
+        err[k3_record_name(name)] = e_body
+        err["microbench_loop"] = max(err["microbench_loop"], e_body)
     rng = np.random.default_rng(0)
     for lanes in MB_LANES:
         a, b = (torch.from_numpy(rng.integers(0, 8000, size=(4, 20, lanes)).astype(np.int32))
@@ -959,10 +1005,12 @@ def check_microbench(device) -> dict[str, int]:
             err["microbench_stacked"] = max(err["microbench_stacked"], e)
             if e:
                 raise AssertionError(f"K4 at {lanes} lanes, {iters} iterations: differ by {e}")
-    print(f"check microbench: K3 == plain bit for bit for all {len(MB.BODIES)} registered "
-          f"probe bodies ({MB.N_BODIES} kernel bodies) and K4 == plain, at "
-          f"{' and '.join(map(str, MB_LANES))} lanes and {MB_CHECK_ITERS} iterations",
-          flush=True)
+    n_value = sum(b.body_id in MB.VALUE_BODIES for b in MB.BODIES.values())
+    print(f"check microbench: K3 == plain for all {len(MB.BODIES)} registered probe bodies "
+          f"({MB.N_BODIES} kernel bodies; {n_value} names on the 32-bit field and quad by "
+          f"canonical value, the rest bit for bit) and K4 == plain bit for bit, at "
+          f"{' and '.join(map(str, MB_LANES))} lanes and {MB_CHECK_ITERS} iterations, mul "
+          f"also at {MB_RECORD_ITERS}", flush=True)
 
     def held(args, knobs, label):
         got = VK.verify_bench(*args, n_windows=knobs[0], stages=knobs[1])
@@ -1022,9 +1070,14 @@ def drive_microbench(device, card: str) -> dict:
         per[("stacked", lanes)] = MB.probe_stacked(100_000 // MB_SCALE, lanes)
     MB.probe_select16(torch_iters=100)
     launches = {**MB.LAUNCHES, "ed25519_verify_bench": VK.LAUNCHES["ed25519_verify_bench"]}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"microbench: a kernel never launched {launches}")
+    if min(launches.values()) < 1 or set(MB.LOOP_LAUNCHES) != set(MB.BODIES):
+        raise AssertionError(f"microbench: a kernel never launched {launches} "
+                             f"{MB.LOOP_LAUNCHES}")
     print(f"main path microbench: launches {launches}", flush=True)
+    # K3's other records count their own body's launches; the mul record,
+    # the kernel table's K3 row, counts every K3 launch
+    launches.update({k3_record_name(name): MB.LOOP_LAUNCHES[name] for name, *_ in K3_RECORDS
+                     if name != "mul"})
     for name in list(MB.BODIES) + ["stacked"]:
         print(f"[{card}] {name:<28} " + ", ".join(
             f"{lanes} lanes {per[(name, lanes)]:.4f} us/iter" for lanes in MB_LANES), flush=True)
@@ -1039,29 +1092,41 @@ def drive_microbench(device, card: str) -> dict:
 
 
 def time_microbench(device, card: str) -> dict:
-    """K3 (the mul body) and K4 at MB_RECORD_LANES lanes and
-    MB_RECORD_ITERS iterations: kernel and plain times, and bounds."""
+    """K3's K3_RECORDS bodies and K4 (MB_RECORD_ITERS iterations) at
+    MB_RECORD_LANES lanes: kernel times per launch (median of 20) and back
+    to back (mean of 50), plain times, and bounds (K3's from the plain
+    version's field work in 32-bit limbs, the kernel's own count beside)."""
     from cometbft_tpu_torch.ops import microbench as MB
 
-    lanes, iters = MB_RECORD_LANES, MB_RECORD_ITERS
-    state = torch.from_numpy(MB.probe_state(2, lanes)).to(device)
+    lanes = MB_RECORD_LANES
+    out = {}
+    for name, iters, sq_mul, own in K3_RECORDS:
+        n = MB.BODIES[name].n_state
+        state = torch.from_numpy(MB.probe_state(n, lanes)).to(device)
+        fn = functools.partial(MB.loop, name, state, iters)
+        out[k3_record_name(name)] = {
+            "body": name, "iters": iters, "ms": time_kernel(fn),
+            "ms_back_to_back": time_back_to_back(fn),
+            "plain_ms": time_wall(lambda: MB.loop_plain(name, state, iters), 3, device),
+            "bound": bound(_imads32(*sq_mul) * iters, 2 * n * 80, lanes),
+            "own": (own if isinstance(own, str) or own is None
+                    else f"{_imads32(*own)} IMADs a lane an iteration")}
     rng = np.random.default_rng(0)
     a, b = (torch.from_numpy(rng.integers(0, 8000, size=(4, 20, lanes)).astype(np.int32))
             .to(device) for _ in range(2))
-    out = {
-        "microbench_loop": {
-            "ms": time_kernel(lambda: MB.loop("mul", state, iters)),
-            "plain_ms": time_wall(lambda: MB.loop_plain("mul", state, iters), 3, device),
-            "bound": bound(_imads32(0, 1) * iters, 2 * 2 * 80, lanes)},
-        "microbench_stacked": {
-            "ms": time_kernel(lambda: MB.stacked(a, b, iters)),
-            "plain_ms": time_wall(lambda: MB.stacked_plain(a, b, iters), 3, device),
-            "bound": bound(K4_IMADS * iters, 3 * 4 * 80, lanes)},
-    }
+    fn = functools.partial(MB.stacked, a, b, MB_RECORD_ITERS)
+    out["microbench_stacked"] = {
+        "body": "stacked", "iters": MB_RECORD_ITERS, "ms": time_kernel(fn),
+        "ms_back_to_back": time_back_to_back(fn),
+        "plain_ms": time_wall(lambda: MB.stacked_plain(a, b, MB_RECORD_ITERS), 3, device),
+        "bound": bound(K4_IMADS * MB_RECORD_ITERS, 3 * 4 * 80, lanes), "own": None}
     for name, r in out.items():
-        print(f"[{card}] {name} at {lanes} lanes, {iters} iterations: kernel {r['ms']:.4f} ms "
-              f"(median of 20), plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]})", flush=True)
+        ms = r["ms"]
+        print(f"[{card}] {name} at {lanes} lanes, {r['iters']} iterations: kernel {ms:.4f} ms "
+              f"(median of 20, {r['bound'][0] / ms:.1%} of the bound), back to back "
+              f"{r['ms_back_to_back']:.4f} ms (mean of 50), plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}"
+              + (f"; own: {r['own']}" if r["own"] else "") + ")", flush=True)
     return out
 
 
@@ -1095,8 +1160,7 @@ def main() -> int:
         print(f"  {stem}.cu: nvcc {nvcc_s:.3f} s", flush=True)
         for kernel, lines in ptxas_summary(report).items():
             print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
-    check_local_memory({stem: report for stem, (_, report, _) in builds.items()}, device)
-    print_launch_shapes(device)
+    check_kernel_shapes({stem: report for stem, (_, report, _) in builds.items()}, device)
     paths = _paths()
     ed, sr = paths["ed25519"], paths["sr25519"]
 
@@ -1165,17 +1229,16 @@ def main() -> int:
                     run["launches"][f"{name}_decompress"], err[f"{name}_decompress"],
                     d[N_BIG]["ms"], d[N_BIG]["plain_ms"], d[N_BIG]["bound"],
                     ms_back_to_back=d[N_BIG]["ms_back_to_back"])]
-    for name, replaces, body in (
-            ("microbench_loop", "cometbft_tpu/ops/microbench.py:88", "mul"),
-            ("microbench_stacked", "cometbft_tpu/ops/microbench.py:280", "stacked")):
-        r = mb_times[name]
+    for name, r in mb_times.items():
+        replaces = "microbench.py:280" if name == "microbench_stacked" else "microbench.py:88"
         kernels["kernels"].append({
             "name": name, "route": "cuda", "source": "cometbft_tpu_torch/csrc/microbench.cu",
-            "replaces": replaces, "launches": mb["launches"][name], "max_abs_err": err[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None, "body": body,
-            "lanes": MB_RECORD_LANES, "iters": MB_RECORD_ITERS,
-            "us_per_iter": mb["per"][(body, MB_RECORD_LANES)]})
+            "replaces": f"cometbft_tpu/ops/{replaces}", "launches": mb["launches"][name],
+            "max_abs_err": err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
+            "body": r["body"], "lanes": MB_RECORD_LANES, "iters": r["iters"],
+            "ms_back_to_back": r["ms_back_to_back"],
+            "us_per_iter": mb["per"][(r["body"], MB_RECORD_LANES)]})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s since the kernel build began",
           flush=True)
     print(json.dumps(kernels), flush=True)

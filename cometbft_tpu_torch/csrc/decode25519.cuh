@@ -14,14 +14,6 @@
 
 namespace f32 {
 
-// A coordinate's canonical radix-2^13 limbs into lane b of a (20, B) array.
-__device__ __forceinline__ void store_limbs13(int* dst, const fe& a, int b, int B) {
-  int32_t l[20];
-  to_limbs13(l, a);
-#pragma unroll
-  for (int i = 0; i < 20; i++) dst[i * B + b] = l[i];
-}
-
 // Key b's decoding, ZIP-215 (ed25519) or ristretto255 (sr25519): ok[b] and
 // the canonical limbs of X, Y, Z, T.
 template <int SCHEME>

@@ -510,6 +510,14 @@ __device__ __forceinline__ void load_limbs13(fe& o, const int* src, int b, int B
   from_limbs13(o, l);
 }
 
+// A coordinate's canonical radix-2^13 limbs into lane b of a (20, B) array.
+__device__ __forceinline__ void store_limbs13(int* dst, const fe& a, int b, int B) {
+  int32_t l[20];
+  to_limbs13(l, a);
+#pragma unroll
+  for (int i = 0; i < 20; i++) dst[i * B + b] = l[i];
+}
+
 __device__ __forceinline__ void load_point13(pt& o, const int* ax, const int* ay, const int* az,
                                              const int* at, int b, int B) {
   load_limbs13(o.x, ax, b, B);

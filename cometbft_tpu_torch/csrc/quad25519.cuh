@@ -1,13 +1,15 @@
 // One signature on four threads (a quad) for the verify kernels
-// (verify25519.cu), over the field and point code of fe32.cuh.
+// (verify25519.cu), over the field and point code of fe32.cuh; the
+// microbench's point probes (probe32.cuh) run the same quad doubling.
 //
 // Thread q of a quad owns coordinate q (X, Y, Z, T) of the accumulator, and
 // each point operation runs its field multiplications four at a time, as
 // curve25519-dalek's AVX2 backend runs the same formulas (Hisil, Wong,
 // Carter, Dawson, "Twisted Edwards Curves Revisited", 2008) across four
 // SIMD lanes. The quad's exchanges are the Quad type's from() (on the card
-// __shfl_sync within the warp; tests/test_torch_fe32_host.py runs the same
-// code on four host threads), so everything here is host C++ as well.
+// the quad type below, __shfl_sync within the warp;
+// tests/test_torch_fe32_host.py runs the same code on four host threads), so
+// everything here but that type is host C++ as well.
 
 #pragma once
 
@@ -16,6 +18,32 @@
 namespace f32 {
 
 constexpr int BASE_WORDS = 4 * NW * ENTRIES;  // (y - x, y + x, 2z, 2dt) of [d]B
+
+#ifdef __CUDACC__
+constexpr unsigned FULL = 0xffffffffu;
+
+// A quad of the warp: its exchanges are shuffles within the warp, so every
+// warp that holds quads must be whole.
+struct quad {
+  int q;     // this thread's coordinate: 0 X, 1 Y, 2 Z, 3 T
+  int base;  // lane of the quad's thread 0 in the warp
+
+  // o = a of the quad's thread j (j may differ per thread)
+  __device__ __forceinline__ void from(fe& o, const fe& a, int j) const {
+#pragma unroll
+    for (int i = 0; i < NW; i++) o.v[i] = __shfl_sync(FULL, a.v[i], base + j);
+  }
+  __device__ __forceinline__ int from_int(int v, int j) const {
+    return __shfl_sync(FULL, v, base + j);
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+// The quad of thread `tid` of a block.
+__device__ __forceinline__ quad quad_of(unsigned tid) {
+  return quad{(int)(tid & 3), (int)(tid & 31 & ~3u)};
+}
+#endif
 
 // Words of the quads' tables of [d](-A) for `sigs` signatures.
 __host__ __device__ constexpr int table_words(int sigs) { return 4 * NW * ENTRIES * sigs; }

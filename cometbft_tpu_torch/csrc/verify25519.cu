@@ -49,8 +49,6 @@
 
 using namespace f32;
 
-constexpr unsigned FULL = 0xffffffffu;
-
 __host__ __device__ constexpr size_t smem_bytes(int sigs) {
   return 4 * (size_t)(BASE_WORDS + table_words(sigs)) + 2 * NDIG * (size_t)sigs;
 }
@@ -58,22 +56,6 @@ __host__ __device__ constexpr size_t smem_bytes(int sigs) {
 // Signatures per block at most: the most whole warps of quads whose shared
 // memory fits the 232,448 bytes a block may have (96 in 8 x 32-bit limbs).
 constexpr int MAX_SIGS = (int)((232448 - smem_bytes(0)) / (smem_bytes(1) - smem_bytes(0))) / 8 * 8;
-
-// A quad of the warp: its exchanges are shuffles within the warp.
-struct quad {
-  int q;     // this thread's coordinate: 0 X, 1 Y, 2 Z, 3 T
-  int base;  // lane of the quad's thread 0 in the warp
-
-  // o = a of the quad's thread j (j may differ per thread)
-  __device__ __forceinline__ void from(fe& o, const fe& a, int j) const {
-#pragma unroll
-    for (int i = 0; i < NW; i++) o.v[i] = __shfl_sync(FULL, a.v[i], base + j);
-  }
-  __device__ __forceinline__ int from_int(int v, int j) const {
-    return __shfl_sync(FULL, v, base + j);
-  }
-  __device__ __forceinline__ void sync() const { __syncwarp(); }
-};
 
 // One signature per quad (quad25519.cuh verify_quad): thread 0 of the quad
 // writes mask[b], and the block's warps clear *allok where any signature
@@ -113,7 +95,7 @@ verify_kernel(const int* __restrict__ ax, const int* __restrict__ ay,
     n_windows = kn[0];
     nodecomp = kn[1];
   }
-  const quad Q{(int)(threadIdx.x & 3), (int)(threadIdx.x & 31 & ~3)};
+  const quad Q = quad_of(threadIdx.x);
   const quad_table tab{ta + sig * 4, sigs * 4};
   const bool ok = verify_quad<SCHEME, BENCH>(Q, ax, ay, az, at, rw, sw, kw, tb, tab, dig + sig,
                                              dig + NDIG * sigs + sig, sigs, b, B, n_windows,

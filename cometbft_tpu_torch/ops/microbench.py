@@ -17,6 +17,18 @@ Kernels (csrc/microbench.cu), with their plain PyTorch versions here:
 A wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors; ``LAUNCHES`` counts the launches.
 
+K3's value bodies (VALUE_BODIES: the field operations and the point
+doublings) compute a function mod p, and the kernel runs them on the verify
+kernels' own arithmetic (8 x 32-bit limbs, the doublings on a quad of four
+threads) with canonical limbs out; the plain versions run the JAX module's
+radix-2^13 field. ``loop_err`` compares the two by canonical value. A
+value body is defined on the states whose plain run does not wrap int32:
+every limb within +-VALUE_LIMB_MAX of the body. On wider limbs the plain
+version (and the JAX probe) wraps int32, while the kernel reads the state's
+value mod p, so the two then differ. Every other body times the radix-2^13
+representation itself and equals its plain version bit for bit on any
+int32 state.
+
 Unlike the JAX module, ``probe_loop`` takes the name of a registered body,
 not a Python callable: a CUDA kernel cannot trace a lambda, so each body is
 a plain torch function here and a compiled body in the kernel, under one
@@ -48,11 +60,14 @@ from cometbft_tpu_torch.ops import unpack as U
 
 LANES = 128
 LAUNCHES = {"microbench_loop": 0, "microbench_stacked": 0}
+# K3's launches by probe name (their sum is LAUNCHES["microbench_loop"])
+LOOP_LAUNCHES: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LOOP_LAUNCHES.clear()
 
 
 # --------------------------------------------------------------------------
@@ -169,6 +184,18 @@ def _select17_int16(table16, digit):
 (MUL, SQ, ADD, SUB, RAW_ADD, CARRY20, CONV, LOOP, MUL_V2, MUL_SPLIT,
  DOUBLE_NO_T, DOUBLE, MADD, SELECT17, WINDOW, DBL5) = range(16)
 N_BODIES = 16
+# The bodies K3 runs on the verify kernels' arithmetic (csrc/probe32.cuh),
+# equal to their plain versions by canonical value.
+VALUE_BODIES = frozenset({MUL, SQ, ADD, SUB, DOUBLE_NO_T, DOUBLE, DBL5})
+# The value bodies' domain: the largest L such that no limb of the plain
+# run wraps int32 on states with every limb in [-L, L], the worst lane being
+# every limb at +-L (a + b for add, a + M_SUB - b for sub; the products
+# found by search). The kernel takes any int32 limbs, mod p.
+_PRODUCT_LIMB_MAX = 10_342
+VALUE_LIMB_MAX = {MUL: _PRODUCT_LIMB_MAX, SQ: _PRODUCT_LIMB_MAX, ADD: (2**31 - 1) // 2,
+                  SUB: (2**31 - 1 - max(F.CONST_LIMBS["M_SUB"])) // 2,
+                  DOUBLE_NO_T: _PRODUCT_LIMB_MAX, DOUBLE: _PRODUCT_LIMB_MAX,
+                  DBL5: _PRODUCT_LIMB_MAX}
 
 
 def _table_b(s) -> tuple[torch.Tensor, ...]:
@@ -265,6 +292,8 @@ def _lib():
         lib.microbench_loop.restype = ci
         lib.microbench_stacked.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.microbench_stacked.restype = ci
+        lib.microbench_launch_shape.argtypes = [ci, ci, vp]
+        lib.microbench_launch_shape.restype = ci
         _loaded = lib
     return _loaded
 
@@ -303,7 +332,11 @@ def loop_plain(name: str, state: torch.Tensor, iters: int) -> torch.Tensor:
 
 def loop(name: str, state: torch.Tensor, iters: int) -> torch.Tensor:
     """K3: the registered body `name` run `iters` times on state
-    (n_state, 20, B) int32 -> the new state, same shape. Any B >= 1."""
+    (n_state, 20, B) int32 -> the new state, same shape. Any B >= 1. On the
+    card a value body's output is canonical limbs of loop_plain's value
+    mod p (see loop_err) on the body's domain, the states with every limb
+    within +-VALUE_LIMB_MAX; on wider limbs loop_plain wraps int32 where the
+    kernel reduces the state's value mod p."""
     body = BODIES[name]
     _check("state", state, body.n_state)
     _check_iters(iters)
@@ -318,7 +351,65 @@ def loop(name: str, state: torch.Tensor, iters: int) -> torch.Tensor:
                                      table.data_ptr(), iters, state.shape[2], stream)
     _raise_on(err, "microbench_loop")
     LAUNCHES["microbench_loop"] += 1
+    LOOP_LAUNCHES[name] = LOOP_LAUNCHES.get(name, 0) + 1
     return out
+
+
+def loop_err(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest difference between K3's output `got` and the plain
+    version's `want` for body `name`, 0 when they agree: a limb body's limbs
+    bit for bit; a value body's limbs (canonical) against the canonical
+    limbs of the plain version's (field.canonicalize), coordinate by
+    coordinate, so double_no_t's T must be zeros as the plain one's is."""
+    if BODIES[name].body_id in VALUE_BODIES:
+        want = torch.stack([F.canonicalize(c) for c in want.unbind(0)])
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def state_mod_p(state: np.ndarray) -> np.ndarray:
+    """Each coordinate of a (n, 20, B) int32 state, its limbs any int32, as
+    the canonical limbs of its value mod p: the state a value body's plain
+    version takes without wrapping int32, for limbs it would wrap on."""
+    weights = np.array([1 << (F.RADIX * i) for i in range(F.NLIMBS)], dtype=object)
+    vals = (state.astype(object) * weights[None, :, None]).sum(axis=1) % F.P
+    out = np.stack([(vals >> (F.RADIX * i)) & F.MASK for i in range(F.NLIMBS)], axis=1)
+    return out.astype(np.int32)
+
+
+def value_edge_state(name: str, lanes: int, seed: int = 0) -> np.ndarray:
+    """A (n_state, 20, lanes) int32 state at the edge of value body
+    `name`'s domain, L = VALUE_LIMB_MAX: lanes with every limb L, every limb
+    -L, the limbs alternating in sign, the first coordinate at L and the
+    rest at -L and the reverse, the coordinates alternating in sign; the
+    other lanes random in [-L, L]. Needs lanes >= 6."""
+    body = BODIES[name]
+    lim = VALUE_LIMB_MAX[body.body_id]
+    s = np.random.default_rng(seed).integers(-lim, lim + 1, size=(body.n_state, F.NLIMBS, lanes))
+    s[:, :, 0] = lim
+    s[:, :, 1] = -lim
+    s[:, ::2, 2], s[:, 1::2, 2] = lim, -lim
+    s[0, :, 3], s[1:, :, 3] = lim, -lim
+    s[0, :, 4], s[1:, :, 4] = -lim, lim
+    s[::2, :, 5], s[1::2, :, 5] = lim, -lim
+    return s.astype(np.int32)
+
+
+def launch_shape(name: str, lanes: int, dev: torch.device) -> dict[str, int]:
+    """How K3 launches body `name` on `lanes` lanes on CUDA device `dev`:
+    lanes per block, blocks, threads per block (four a lane for the quad
+    bodies), resident blocks per SM (the CUDA occupancy calculator), SMs,
+    the waves that makes, and the loaded kernel's local memory per thread
+    (stack and spills) and registers. Launches nothing."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(dev):
+        err = _lib().microbench_launch_shape(BODIES[name].body_id, lanes, out)
+    _raise_on(err, f"loop_kernel<{name}> launch shape")
+    per_block, blocks, threads, per_sm, sms, local_bytes, registers = out
+    if per_sm < 1:
+        raise RuntimeError(f"loop_kernel<{name}>: no block of {threads} threads fits an SM")
+    return {"lanes_per_block": per_block, "blocks": blocks, "threads_per_block": threads,
+            "blocks_per_sm": per_sm, "sms": sms, "waves": -(-blocks // (per_sm * sms)),
+            "local_bytes": local_bytes, "registers": registers}
 
 
 _limb_tables: dict[torch.device, torch.Tensor] = {}

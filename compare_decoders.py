@@ -1,5 +1,5 @@
-"""Time the pubkey decoders of this checkout and of another one on the same
-CUDA card, in turns.
+"""Time the pubkey decoders and the microbench's loop kernel (K3) of this
+checkout and of another one on the same CUDA card, in turns.
 
     python3 compare_decoders.py OTHER_DIR [--out FILE]
 
@@ -13,9 +13,15 @@ Each process first holds each decoder's output against its tree's plain
 version (ok bit for bit, X, Y, Z, T by canonical value), then times each
 decoder per launch (chip_smoke.time_kernel: the median of 20 launches, each
 between two CUDA events) and back to back (chip_smoke.time_back_to_back:
-the mean of 50 launches between two events). It prints one line per
-reading and, last, one JSON object with all of them; --out writes that
-object to FILE as well. Needs one card; exits non-zero without one.
+the mean of 50 launches between two events). Then the same for K3's bodies
+of chip_smoke.K3_RECORDS at 128 and 10,240 lanes, each at its record's
+iterations per launch, on the probes' seeded state, after holding each
+against its tree's plain version at 7 iterations (the value bodies by
+canonical value, whichever limbs a tree's kernel writes, and every body so
+on a tree that predates the value bodies; the limb bodies bit for bit). It
+prints one line per reading and, last, one JSON object with all of them;
+--out writes that object to FILE as well. Needs one card; exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -76,6 +82,32 @@ def _child(tree: pathlib.Path, words_file: pathlib.Path) -> dict:
             out[f"{name}_{n}"] = {"ms": CS.time_kernel(lambda: kernel(words)),
                                   "ms_back_to_back": CS.time_back_to_back(
                                       lambda: kernel(words))}
+    out.update(_time_k3(F, device))
+    return out
+
+
+def _time_k3(F, device) -> dict:
+    """K3's record bodies of the imported tree, held and timed."""
+    from cometbft_tpu_torch.ops import microbench as MB
+
+    # the bodies compared by canonical value: the tree's value bodies, or
+    # every body for a tree that predates them (its kernel writes the plain
+    # version's limbs, so canonical values agree wherever limbs do)
+    by_value = getattr(MB, "VALUE_BODIES", frozenset(range(MB.N_BODIES)))
+    out = {}
+    for name, iters, _, _ in CS.K3_RECORDS:
+        body = MB.BODIES[name]
+        for lanes in CS.MB_LANES:
+            state = torch.from_numpy(MB.probe_state(body.n_state, lanes)).to(device)
+            got, want = MB.loop(name, state, 7).cpu(), MB.loop_plain(name, state.cpu(), 7)
+            if body.body_id in by_value:
+                got, want = (torch.stack([F.canonicalize(c) for c in x.unbind(0)])
+                             for x in (got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 {name!r} at {lanes} lanes differs from plain")
+            out[f"k3 {name}_{lanes}_x{iters}"] = {
+                "ms": CS.time_kernel(lambda: MB.loop(name, state, iters)),
+                "ms_back_to_back": CS.time_back_to_back(lambda: MB.loop(name, state, iters))}
     return out
 
 
@@ -110,8 +142,9 @@ def main(argv: list[str] | None = None) -> int:
         times = json.loads(done.stdout.strip().splitlines()[-1])
         runs.append({"tree": label, "times": times})
         for key, t in times.items():
-            print(f"[{card}] {label} tree, {key} keys: {t['ms']:.4f} ms per launch (median of "
-                  f"20), {t['ms_back_to_back']:.4f} ms back to back (mean of 50)", flush=True)
+            unit = "lanes and iterations" if key.startswith("k3 ") else "keys"
+            print(f"[{card}] {label} tree, {key} {unit}: {t['ms']:.4f} ms per launch (median "
+                  f"of 20), {t['ms_back_to_back']:.4f} ms back to back (mean of 50)", flush=True)
     result = {"card": card, "other": str(trees["other"]), "runs": runs}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -124,14 +124,24 @@ def test_constants_and_round_counts_match_jax():
 
 
 def test_kernel_source_constants_match_field():
-    """The CUDA kernels' __constant__ tables (csrc/curve25519.cuh, shared by
-    every kernel source) hold the plain version's limbs."""
-    src = (pathlib.Path(TF.__file__).parent.parent / "csrc"
-           / "curve25519.cuh").read_text()
-    for name in ("P", "D", "D2", "SQRT_M1", "M_SUB"):
-        m = re.search(r"__constant__ int C_%s\[NL\] = \{([^}]*)\};" % name, src)
-        assert m, name
-        assert [int(v) for v in m.group(1).split(",")] == TF.CONST_LIMBS[name]
+    """The CUDA kernels' field constants hold the plain version's values:
+    the __constant__ tables of csrc/curve25519.cuh (the microbench's
+    radix-2^13 limb bodies) limb for limb, and the words of csrc/fe32.cuh
+    (the verify kernels, the decoders and the value probes) by value."""
+    csrc = pathlib.Path(TF.__file__).parent.parent / "csrc"
+    src = (csrc / "curve25519.cuh").read_text()
+    tables = dict(re.findall(r"__constant__ int C_(\w+)\[NL\] = \{([^}]*)\};", src))
+    assert set(tables) == {"M_SUB"}  # the only constant its functions read
+    for name, limbs in tables.items():
+        assert [int(v) for v in limbs.split(",")] == TF.CONST_LIMBS[name]
+    src = (csrc / "fe32.cuh").read_text()
+    for fn, value in (("const_d", TF.D_INT), ("const_d2", 2 * TF.D_INT % TF.P),
+                      ("const_sqrt_m1", TF.SQRT_M1_INT)):
+        m = re.search(r"void %s\(fe& o\) \{\s*set_words\(o,([^)]*)\);" % fn, src)
+        assert m, fn
+        words = [int(w.strip().rstrip("u"), 16) for w in m.group(1).split(",")]
+        assert len(words) == 8
+        assert sum(w << (32 * i) for i, w in enumerate(words)) == value, fn
 
 
 # ------------------------------------------------------------------ unpack

@@ -145,15 +145,40 @@ def test_sr25519_kernels_match_plain_and_oracle(cuda, n, valid):
 def test_microbench_loop_matches_plain(cuda, name):
     """K3 against its plain version for every registered body, on the
     probes' seeded state (130 lanes: a ragged second block) and on int32
-    limbs anywhere in range, where sums and products wrap."""
-    n = MB.BODIES[name].n_state
+    limbs anywhere in range, where sums and products wrap: limb bodies bit
+    for bit, value bodies by canonical value (microbench.loop_err). A value
+    body also takes the raw state at the edge of its domain, the largest
+    limbs its plain version carries without wrapping; on the wide state the
+    plain version takes its value mod p, which it carries without
+    wrapping, where the kernel reads the raw limbs mod p."""
+    body = MB.BODIES[name]
+    value = body.body_id in MB.VALUE_BODIES
     rng = np.random.default_rng(7)
-    for state in (MB.probe_state(n, 130),
-                  rng.integers(-2**31, 2**31, size=(n, 20, 130)).astype(np.int32)):
+    wide = rng.integers(-2**31, 2**31, size=(body.n_state, 20, 130)).astype(np.int32)
+    cases = [(MB.probe_state(body.n_state, 130), None),
+             (wide, MB.state_mod_p(wide) if value else None)]
+    if value:
+        cases.append((MB.value_edge_state(name, 130), None))
+    for state, plain_state in cases:
         s = torch.from_numpy(state).to(cuda)
+        plain_in = torch.from_numpy(state if plain_state is None else plain_state)
         for iters in (0, 1, 7):
             got = MB.loop(name, s, iters)
-            assert torch.equal(got.cpu(), MB.loop_plain(name, s.cpu(), iters))
+            assert MB.loop_err(name, got.cpu(), MB.loop_plain(name, plain_in, iters)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MB.BODIES))
+def test_microbench_launch_shape_is_one_wave(cuda, name):
+    """Every K3 body launches one wave at the probes' lane counts, whole
+    warps a block (four threads a lane for the quad bodies), with no local
+    memory."""
+    for lanes in (128, 130, 10_240):
+        shape = MB.launch_shape(name, lanes, cuda)
+        per_lane = 4 if MB.BODIES[name].body_id in (MB.DOUBLE, MB.DOUBLE_NO_T, MB.DBL5) else 1
+        assert shape["waves"] == 1 and shape["threads_per_block"] % 32 == 0
+        assert shape["threads_per_block"] == per_lane * shape["lanes_per_block"]
+        assert shape["local_bytes"] == 0
 
 
 @pytest.mark.cuda

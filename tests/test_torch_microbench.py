@@ -407,10 +407,12 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 
 def test_both_kernel_sources_share_the_curve_header():
-    # the probes keep the radix-2^13 header; the verify kernels and the
-    # decoders share the 32-bit field
+    # the probes' value bodies run the verify kernels' 32-bit field and quad
+    # (probe32.cuh), their limb bodies the radix-2^13 header; the verify
+    # kernels and the decoders share the 32-bit field
     names = [p.name for p in _build._sources(CSRC / "microbench.cu")]
-    assert names == ["microbench.cu", "curve25519.cuh"]
+    assert names == ["microbench.cu", "probe32.cuh", "quad25519.cuh", "fe32.cuh",
+                     "curve25519.cuh"]
     names = [p.name for p in _build._sources(CSRC / "verify25519.cu")]
     assert names == ["verify25519.cu", "quad25519.cuh", "fe32.cuh"]
     names = [p.name for p in _build._sources(CSRC / "decompress25519.cu")]
