@@ -5,35 +5,41 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
-once), checks that ptxas gave the verify kernels, the pubkey decoders and
-every body of the microbench's loop kernel no stack frame and no spills
+once), checks that ptxas gave the verify kernels, the pubkey decoders,
+every body of the microbench's loop kernel, the challenge kernel K5 (its
+three entries) and the integrity kernel K6 no stack frame and no spills
 and that their launches at the main paths' lane counts are one wave (the
-CUDA occupancy calculator), holds each
-kernel against its plain PyTorch version on the card on batches whose
-first lanes are edge cases (ZIP-215 encodings, torsion components, y = p
-and y = p + 1, a sr25519 lane whose check lands on a multiple of p) — the
-verify kernels bit for bit, the decoders by ok bit for bit and X, Y, Z, T
-by canonical value (their limbs are canonical, the plain version's
-carried) — and drives the main paths through the entry points a node
-calls:
+CUDA occupancy calculator), and that the native host rungs (native/*.c,
+built with cc) loaded. It holds each kernel against its plain PyTorch
+version on the card: the verify kernels on batches whose first lanes are
+edge cases (ZIP-215 encodings, torsion components, y = p and y = p + 1, a
+sr25519 lane whose check lands on a multiple of p), bit for bit; the
+decoders by ok bit for bit and X, Y, Z, T by canonical value; K5 over the
+vote geometry and the SHA-512 block boundaries, and K6's header and
+payload, bit for bit. Then it drives the main paths through the entry
+points a node calls:
 
   - ed25519: crypto.batch.create_batch_verifier -> add -> verify on a
-    10,240-validator commit and on 150-validator commits;
+    10,240-validator commit and on 150-validator commits, their sign-bytes
+    factored (SharedPrefixRows: the device-challenge path, K5), the 150
+    commit also untampered and as plain bytes (the classic path);
   - sr25519: the same on a 10,240-validator commit;
   - mixed: crypto.batch.create_mixed_batch_verifier on a 10,240-validator
     mega-commit, ed25519 and sr25519 validators interleaved;
 
 with tampered lanes at known indices. It checks the masks, the launch and
-lane counters and the host-oracle recheck, times the kernels (the
-decoders at 10,240, 6,144 and 256 keys), their plain versions,
-verify() end to end and one cold verify() by part (decoder kernel, the
-copy back, the key cache's host loops, the coordinates' upload). Then the
-device microbench (ops/microbench.py): its loop kernel (K3) for every
-registered probe body (the value bodies on the verify kernels' 32-bit field
-and quad by canonical value, the radix-2^13 limb bodies bit for bit) and its
-stacked-conv kernel (K4) against their plain versions, K3's records for
-mul, sq, double, 5 doublings and the ladder window, the verify kernel's
-bench instantiation against
+lane counters, the path counters (device-challenge lanes, indexed key
+sends, happy or full headers, the native hash rung) and the host-oracle
+recheck, and holds K5 and K6 against their plain versions on each path's
+own inputs. It times the kernels (the decoders at 10,240, 6,144 and 256
+keys, K5 and K6 at 10,240 lanes), their plain versions, verify() end to
+end and by part, warm and cold (plan, keys, pack, derive, verify, header,
+fetch, recheck). Then the device microbench (ops/microbench.py): its loop
+kernel (K3) for every registered probe body (the value bodies on the
+verify kernels' 32-bit field and quad by canonical value, the radix-2^13
+limb bodies bit for bit) and its stacked-conv kernel (K4) against their
+plain versions, K3's records for mul, sq, double, 5 doublings and the
+ladder window, the verify kernel's bench instantiation against
 verify_math_bench, the probes at 1/MB_SCALE of the JAX module's iteration
 counts and the verify kernel's bisection at 10,240 and 256 lanes. It
 prints one JSON line of kernel records and, last, the device record. Any
@@ -199,6 +205,12 @@ def _kernel_label(mangled: str) -> str | None:
         return f"loop_kernel<{names[0]}>"
     if "stacked_conv_kernel" in mangled:
         return "stacked_conv_kernel"
+    for kernel, label in (("derive_kernel", "challenge_derive"),
+                          ("sha512_rows_kernel", "challenge_sha512"),
+                          ("reduce512_kernel", "challenge_reduce"),
+                          ("integrity_kernel", "integrity")):
+        if re.match(rf"_Z\d+{kernel}", mangled):
+            return label
     return None
 
 
@@ -232,6 +244,8 @@ def shape_entries() -> list[tuple[str, str, Callable[[int, torch.device], dict],
     K2 and the decoders at the main paths' lane counts, the bench kernel at
     the bisection's, each K3 body (under its first registered name, as
     _kernel_label) at MB_LANES."""
+    from cometbft_tpu_torch.ops import challenge as CH
+    from cometbft_tpu_torch.ops import integrity as IN
     from cometbft_tpu_torch.ops import microbench as MB
     from cometbft_tpu_torch.ops import verify_kernel as VK
 
@@ -247,6 +261,12 @@ def shape_entries() -> list[tuple[str, str, Callable[[int, torch.device], dict],
         first.setdefault(body.body_id, name)
     out += [(f"loop_kernel<{name}>", "microbench", functools.partial(MB.launch_shape, name),
              MB_LANES) for name in first.values()]
+    # K5 at the ed25519 lane counts of the main paths (its standalone entries
+    # at the same counts); K6 over the words of a device-challenge block there
+    out += [(e, "challenge25519", functools.partial(CH.launch_shape, e), main_lanes)
+            for e in ("challenge_derive", "challenge_sha512", "challenge_reduce")]
+    out.append(("integrity", "integrity",
+                lambda n, dev: IN.launch_shape(CH.block_words(n, CH.MAX_VAR), dev), main_lanes))
     return out
 
 
@@ -270,7 +290,8 @@ def check_kernel_shapes(reports: dict[str, str], device) -> None:
                 raise AssertionError(f"{label} at {n} lanes: local memory or more than one "
                                      f"wave: {shape}")
     built = [s for s, report in reports.items() if report]
-    print("  K1, K2, the bench kernel, the decoders and every loop_kernel<...> use 0 B stack "
+    print("  K1, K2, the bench kernel, the decoders, every loop_kernel<...>, K5's three "
+          "entries and K6 use 0 B stack "
           f"and 0 spills (ptxas report of {built or 'no fresh build'} and loaded library), "
           "one wave a launch", flush=True)
 
@@ -294,25 +315,39 @@ def _field(tag: int, payload: bytes) -> bytes:
     return bytes([tag]) + _varint(len(payload)) + payload
 
 
-def vote_sign_bytes(height: int, block_hash: bytes, secs: int, nanos: int) -> bytes:
+def vote_sign_bytes_parts(height: int, block_hash: bytes, secs: int, nanos: int
+                          ) -> tuple[bytes, bytes]:
     """Length-delimited CanonicalVote (PRECOMMIT) protobuf, the sign-bytes
-    of a commit signature: type, height, round, block id, timestamp, chain
-    id."""
+    of a commit signature, as (prefix, suffix): the length varint, type,
+    height, round and block id, shared by a commit's votes; then the
+    timestamp and the chain id."""
     psh = b"\x08" + _varint(1) + _field(0x12, hashlib.sha256(block_hash).digest())
     bid = _field(0x0A, block_hash) + _field(0x12, psh)
     ts = b"\x08" + _varint(secs) + b"\x10" + _varint(nanos)
-    body = (b"\x08\x02" + b"\x11" + height.to_bytes(8, "little")
-            + b"\x19" + (0).to_bytes(8, "little") + _field(0x22, bid)
-            + _field(0x2A, ts) + _field(0x32, CHAIN_ID.encode()))
-    return _varint(len(body)) + body
+    head = (b"\x08\x02" + b"\x11" + height.to_bytes(8, "little")
+            + b"\x19" + (0).to_bytes(8, "little") + _field(0x22, bid))
+    tail = _field(0x2A, ts) + _field(0x32, CHAIN_ID.encode())
+    return _varint(len(head) + len(tail)) + head, tail
+
+
+def commit_rows(n: int, seed: int):
+    """The sign-bytes of n validators' precommits for block `seed` as
+    SharedPrefixRows, one prefix and n suffixes, the way a commit's
+    vote_sign_bytes_all builds them; nanos >= 2^28 keep the timestamp
+    varint, and so the row, one length."""
+    from cometbft_tpu_torch.libs.prefixrows import SharedPrefixRows
+
+    block_hash = hashlib.sha256(b"block-%d" % seed).digest()
+    parts = [vote_sign_bytes_parts(1_000_000 + seed, block_hash, 1_700_000_000,
+                                   (1 << 28) + 1_000 * i) for i in range(n)]
+    if len({p for p, _ in parts}) != 1:
+        raise AssertionError("the votes of one commit must share one prefix")
+    return SharedPrefixRows(parts[0][0], [s for _, s in parts])
 
 
 def commit_msgs(n: int, seed: int) -> list[bytes]:
-    """The sign-bytes of n validators' precommits for block `seed`; nanos
-    >= 2^28 keep the timestamp varint, and so the row, one length."""
-    block_hash = hashlib.sha256(b"block-%d" % seed).digest()
-    return [vote_sign_bytes(1_000_000 + seed, block_hash, 1_700_000_000,
-                            (1 << 28) + 1_000 * i) for i in range(n)]
+    """commit_rows as plain bytes rows."""
+    return list(commit_rows(n, seed))
 
 
 def _stepped_points(n: int, rng):
@@ -372,13 +407,21 @@ def make_commit_sr(n: int, seed: int, msgs: list[bytes] | None = None):
 
 def tamper(pubs, msgs, sigs, idx: list[int]) -> None:
     """Make lanes idx invalid, cycling through a flipped s bit, a changed
-    message byte and a flipped R bit."""
+    message byte and a flipped R bit. A factored row keeps its form: a byte
+    of its timestamp changes (the variable part), so it stays on the device
+    challenges; a bytes row changes its last byte."""
+    from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
+
     for j, i in enumerate(idx):
         kind = j % 3
         if kind == 0:
             s = bytearray(sigs[i])
             s[33] ^= 0x01
             sigs[i] = bytes(s)
+        elif kind == 1 and isinstance(msgs[i], PrefixedMsg):
+            sfx = bytearray(msgs[i].suffix)
+            sfx[3] ^= 0x01
+            msgs[i] = PrefixedMsg(msgs[i].prefix, bytes(sfx))
         elif kind == 1:
             m = bytearray(msgs[i])
             m[-1] ^= 0x01
@@ -610,6 +653,42 @@ def time_kernel(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def time_launch(fn, reps: int = 20) -> float:
+    """Median ms of `reps` launches on the card alone: each call is made
+    while the card sleeps ~0.25 ms (torch.cuda._sleep) before the start
+    event, so the wrapper's host work is hidden and the events bracket the
+    device work it enqueued."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(500_000)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def time_host(fn, reps: int = 20) -> float:
+    """Median ms of the host time of `reps` calls, unsynchronised: the
+    wrapper's own cost (allocations, argument checks, the launch call)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def time_back_to_back(fn, n: int = 50) -> float:
     """Mean ms of n launches in a row between two CUDA events (the card kept
     busy: no host round trip between launches)."""
@@ -698,19 +777,98 @@ def check_kernels(name: str, path: Path, n: int, device) -> dict[str, int]:
     return err
 
 
+def _reset_counts() -> None:
+    """Every launch count and path counter of the port set to 0."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import challenge as CH
+    from cometbft_tpu_torch.ops import integrity as IN
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    VK.reset_launches()
+    CH.reset_launches()
+    IN.reset_launches()
+    crypto_batch.reset_path_stats()
+
+
+def _launches() -> dict[str, int]:
+    from cometbft_tpu_torch.ops import challenge as CH
+    from cometbft_tpu_torch.ops import integrity as IN
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    return {**VK.LAUNCHES, **CH.LAUNCHES, **IN.LAUNCHES}
+
+
+class Held:
+    """While entered, every launch of K5 (challenge.derive) and K6
+    (integrity.integrity_parts) that verify_rows makes is held against its
+    plain version on the same device tensors, bit for bit (k words; header
+    and payload), and the largest difference kept. Its launches are not the
+    main path's: it runs outside the counted windows."""
+
+    def __init__(self):
+        self.err = {"challenge_derive": 0, "integrity_parts": 0}
+        self.held = {"challenge_derive": 0, "integrity_parts": 0}
+
+    def __enter__(self):
+        from cometbft_tpu_torch.ops import challenge as CH
+        from cometbft_tpu_torch.ops import integrity as IN
+
+        self._saved = (CH.derive, IN.integrity_parts)
+        derive, parts = self._saved
+
+        def held_derive(flat, aw, ptab, bucket, var, plen, tlen, fkw=None, fidx=None):
+            got = derive(flat, aw, ptab, bucket, var, plen, tlen, fkw, fidx)
+            want = CH.derive_plain(flat, aw, ptab, bucket, var, plen, tlen)
+            if fkw is not None:
+                want.index_copy_(1, fidx.to(torch.int64), fkw)
+            self._keep("challenge_derive", [got], [want])
+            return got
+
+        def held_parts(mask, allok, expected, *arrs):
+            got = parts(mask, allok, expected, *arrs)
+            self._keep("integrity_parts", got, IN.parts_plain(mask, allok, expected, *arrs))
+            return got
+
+        CH.derive, IN.integrity_parts = held_derive, held_parts
+        return self
+
+    def _keep(self, name, got, want):
+        e = _max_err(got, want)
+        self.err[name] = max(self.err[name], e)
+        self.held[name] += 1
+        if e:
+            raise AssertionError(f"{name}: kernel and plain version differ by {e}")
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.ops import challenge as CH
+        from cometbft_tpu_torch.ops import integrity as IN
+
+        CH.derive, IN.integrity_parts = self._saved
+        return False
+
+
 def drive(label: str, make_verifier, keys, msgs, sigs, bad: list[int], device,
-          verify_entries: list[str], decompress_entries: list[str]) -> dict:
+          verify_entries: list[str], decompress_entries: list[str], device_lanes: int,
+          held: Held) -> dict:
     """One main path: make_verifier() -> add -> verify, cold (empty key
-    cache) then 5 warm runs, every count set to 0 just before and read
-    just after. The mask must equal the expected one (lanes `bad`
-    invalid, which the serial oracle confirms on a sample), with 0
-    recheck flips; each warm verify() launches each verify kernel once and
-    no decode kernel. Returns wall times, the
-    launches of the whole run and the lanes of one warm verify()."""
+    table) then 5 warm runs, every count set to 0 just before and read just
+    after. The mask must equal the expected one (lanes `bad` invalid, which
+    the serial oracle confirms on a sample), with 0 recheck flips; each
+    verify() launches each verify kernel and K6 once per scheme, K5 once
+    when `device_lanes` > 0 (its device-challenge lanes a run), and no
+    decoder warm. The path counters must say: every run's ed25519 lanes
+    planned on the device (or none), every run's keys on the indexed path,
+    the header happy without bad lanes and full with them. Then one more run
+    with the kernels held against their plain versions (`held`). Returns
+    wall times, the launches of the counted runs and the lanes of one warm
+    verify()."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.libs.prefixrows import as_bytes
     from cometbft_tpu_torch.ops import verify_kernel as VK
 
     n = len(sigs)
     expected = [i not in bad for i in range(n)]
+    schemes = len(verify_entries)
 
     def run():
         v = make_verifier()
@@ -725,15 +883,16 @@ def drive(label: str, make_verifier, keys, msgs, sigs, bad: list[int], device,
 
     sample = sorted(set(bad[:3]) | {0, 1, n // 2, n - 3})
     for i in sample:
-        if keys[i].verify_signature(msgs[i], sigs[i]) != expected[i]:
+        if keys[i].verify_signature(as_bytes(msgs[i]), sigs[i]) != expected[i]:
             raise AssertionError(f"{label}: the serial oracle disagrees on lane {i}")
 
-    VK.reset_launches()
+    _reset_counts()
     cold_ms = time_wall(run, 1, device)
-    cold = dict(VK.LAUNCHES)
+    cold = _launches()
     cold_lanes = dict(VK.LANES)
     warm_ms = time_wall(run, 5, device)
-    launches = dict(VK.LAUNCHES)
+    launches = _launches()
+    paths = crypto_batch.path_stats()
     warm_lanes = {e: (VK.LANES[e] - cold_lanes[e]) // 5 for e in verify_entries}
     for e in verify_entries:
         if cold[e] != 1 or launches[e] != 6:
@@ -743,40 +902,66 @@ def drive(label: str, make_verifier, keys, msgs, sigs, bad: list[int], device,
             raise AssertionError(f"{label}: cold verify launched no {e}")
         if launches[e] != cold[e]:
             raise AssertionError(f"{label}: warm verify decompressed again {launches}")
+    if launches["integrity_parts"] != 6 * schemes or launches["integrity_checksum"] < schemes:
+        raise AssertionError(f"{label}: K6 launches {launches}")
+    if launches["challenge_derive"] != (6 if device_lanes else 0):
+        raise AssertionError(f"{label}: K5 launched {launches['challenge_derive']} times")
+    ch = paths["challenge"]
+    if ch.get("plans", 0) != (6 if device_lanes else 0) or \
+            ch.get("lanes_device", 0) != 6 * device_lanes:
+        raise AssertionError(f"{label}: device-challenge counters {ch}")
+    if paths["sends"]["indexed"]["sigs"] != 6 * n or paths["sends"]["full"]["sigs"]:
+        raise AssertionError(f"{label}: keys not on the indexed path {paths['sends']}")
+    unhappy = len({i % 2 for i in bad}) if schemes == 2 else int(bool(bad))  # failing schemes
+    fetch = paths["fetch"]
+    if fetch["full_fetches"] != 6 * unhappy or fetch["happy_fetches"] != 6 * (schemes - unhappy):
+        raise AssertionError(f"{label}: header verdicts {fetch}")
+    if paths["hash_rung"] != "native":
+        raise AssertionError(f"{label}: host hash rung {paths['hash_rung']}")
+    with held:
+        run()
     print(f"main path {label}: {n} validators, invalid lanes {bad} found exactly "
           f"(serial oracle agrees on lanes {sample}), 0 recheck flips; launches "
           f"cold {cold}, after 5 warm {launches}; lanes per warm verify() "
-          f"{warm_lanes}", flush=True)
+          f"{warm_lanes}; paths: {ch}, sends {paths['sends']}, fetches {fetch}, hash rung "
+          f"{paths['hash_rung']}; K5/K6 == plain on one more run", flush=True)
     return {"n": n, "cold_ms": cold_ms, "warm_ms": warm_ms, "launches": launches,
             "warm_lanes": warm_lanes}
 
 
-def drive_commit(path: Path, n: int, seed: int, device, label: str,
-                 tampered: bool = True) -> dict:
+def drive_commit(path: Path, n: int, seed: int, device, label: str, held: Held,
+                 tampered: bool = True, factored: bool = True) -> dict:
     """The main path of one scheme on one commit, through
-    create_batch_verifier. With `tampered` a few lanes at known indices are
-    made invalid, else every lane must verify and ok be True."""
+    create_batch_verifier: its sign-bytes factored (SharedPrefixRows.rows_for,
+    the device-challenge path for ed25519) or as bytes (the classic path).
+    With `tampered` a few lanes at known indices are made invalid, else
+    every lane must verify and ok be True."""
     from cometbft_tpu_torch.crypto import batch as crypto_batch
 
     pubs, msgs, sigs = path.make_commit(n, seed)
+    if factored:
+        msgs = commit_rows(n, seed).rows_for(range(n))
     bad = sorted({3, n // 7, n // 3, n // 2, n - 1, (2 * n) // 3, n - 40, 11}
                  if n > 64 else {3, 11}) if tampered else []
     tamper(pubs, msgs, sigs, bad)
     keys = [path.pub_key(p) for p in pubs]
     name = path.scheme.name
+    device_lanes = n if factored and path.scheme.device_challenge else 0
     return drive(label, lambda: crypto_batch.create_batch_verifier(keys[0]), keys,
-                 msgs, sigs, bad, device, [f"{name}_verify"], [f"{name}_decompress"])
+                 msgs, sigs, bad, device, [f"{name}_verify"], [f"{name}_decompress"],
+                 device_lanes, held)
 
 
-def drive_mixed(paths: dict[str, Path], n: int, seed: int, device) -> dict:
+def mixed_commit(paths: dict[str, Path], n: int, seed: int):
     """BASELINE config 5: a mega-commit of n validators, even indices
-    ed25519 and odd indices sr25519, all signing one block, through
-    create_mixed_batch_verifier; tampered lanes in both schemes."""
-    from cometbft_tpu_torch.crypto import batch as crypto_batch
-
-    msgs = commit_msgs(n, seed)
-    ed = paths["ed25519"].make_commit(n // 2, seed, msgs[0::2])
-    sr = paths["sr25519"].make_commit(n // 2, seed + 1, msgs[1::2])
+    ed25519 and odd indices sr25519, all signing one block (factored
+    sign-bytes); tampered lanes in both schemes. Returns (keys, msgs, sigs,
+    bad)."""
+    rows = commit_rows(n, seed)
+    msgs = rows.rows_for(range(n))
+    plain = list(rows)
+    ed = paths["ed25519"].make_commit(n // 2, seed, plain[0::2])
+    sr = paths["sr25519"].make_commit(n // 2, seed + 1, plain[1::2])
     pubs, sigs, keys = [None] * n, [None] * n, [None] * n
     for j, (half, path) in enumerate(((ed, paths["ed25519"]), (sr, paths["sr25519"]))):
         pubs[j::2], sigs[j::2] = half[0], half[2]
@@ -785,9 +970,17 @@ def drive_mixed(paths: dict[str, Path], n: int, seed: int, device) -> dict:
     tamper(pubs, msgs, sigs, bad)
     if {i % 2 for i in bad} != {0, 1}:
         raise AssertionError("the mixed commit must tamper lanes of both schemes")
+    return keys, msgs, sigs, bad
+
+
+def drive_mixed(paths: dict[str, Path], n: int, seed: int, device, held: Held) -> dict:
+    """The mixed mega-commit through create_mixed_batch_verifier."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    keys, msgs, sigs, bad = mixed_commit(paths, n, seed)
     return drive(f"mixed {n}", crypto_batch.create_mixed_batch_verifier, keys, msgs,
                  sigs, bad, device, ["ed25519_verify", "sr25519_verify"],
-                 ["ed25519_decompress", "sr25519_decompress"])
+                 ["ed25519_decompress", "sr25519_decompress"], n // 2, held)
 
 
 def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str,
@@ -852,92 +1045,55 @@ def time_decoders(name: str, path: Path, device, card: str, sq_mul: tuple[int, i
     return out
 
 
-def time_cold_path(name: str, path: Path, device, card: str, seed: int) -> dict:
-    """One cold verify() of a 10,240-validator commit of new keys through
-    create_batch_verifier, by part (host clock, synchronised, but the
-    kernel): the decoder kernel (CUDA events around its launch), what
-    decompress_points does before it (padding, packing and uploading the
-    encodings, allocating the outputs), the device->host copy of its output
-    after it (stack, copy, slicing), PubKeyCache._insert plus the per-key
-    lookup loop (lookup_or_decompress less decompress_points),
-    pad_coords_batch_minor, and the rest of PubKeyCache.stage (the batch
-    digest and the coordinates' upload). Returns the parts and the whole in
-    ms."""
-    from cometbft_tpu_torch.crypto import batch as crypto_batch
+PARTS = ("plan", "keys", "pack", "derive", "verify", "header", "fetch", "recheck")
+
+
+def parts_cell(path: Path, n: int, seed: int, factored: bool = True):
+    """One scheme's batch of a verify() as ed25519_kernel.verify_rows takes
+    it: (scheme, pubs, msgs, sigs), eight lanes tampered (two for n <= 64)."""
+    pubs, msgs, sigs = path.make_commit(n, seed)
+    if factored:
+        msgs = commit_rows(n, seed).rows_for(range(n))
+    bad = list(range(1, n, n // 8)) if n > 64 else [3, 11]
+    tamper(pubs, msgs, sigs, bad)
+    return path.scheme, pubs, msgs, sigs
+
+
+def time_parts(label: str, cell: list, device, card: str) -> dict:
+    """A verify() of `cell` (one batch per scheme, as parts_cell makes them)
+    by part: cold (a fresh key cache and table: decoding and the delta
+    upload in "keys") once, then warm 5 times, through
+    ed25519_kernel.verify_rows(parts=...), which synchronises the card
+    around each part: plan (structural checks, plan_batch), keys (key
+    staging), pack (host words or block, host k, upload), derive (K5), verify
+    (K1/K2), header (K6), fetch (header, and payload when not happy),
+    recheck. Also the warm total without the per-part synchronisation
+    (median of 5). Returns {"cold": parts, "warm": median parts, "warm_ms"}."""
     from cometbft_tpu_torch.ops import ed25519_kernel as K
-    from cometbft_tpu_torch.ops import verify_kernel as VK
 
-    pubs, msgs, sigs = path.make_commit(N_BIG, seed)
-    keys = [path.pub_key(p) for p in pubs]
-    lib, entry = VK._lib("decompress25519"), f"{name}_decompress"
-    ms = dict.fromkeys(("decompress_points", "lookup", "pad", "stage", "kernel"), 0.0)
-    marks = {}
+    caches = [K.PubKeyCache(device, scheme) for scheme, *_ in cell]
 
-    def walled(label, fn):
-        def wrapper(*a, **kw):
-            _sync(device)
-            t0 = marks[label] = time.perf_counter()
-            out = fn(*a, **kw)
-            _sync(device)
-            ms[label] += (time.perf_counter() - t0) * 1e3
-            marks[label + "_end"] = time.perf_counter()
-            return out
-        return wrapper
+    def run(parts):
+        for cache, (scheme, pubs, msgs, sigs) in zip(caches, cell):
+            K.verify_rows(scheme, pubs, msgs, sigs, cache=cache, parts=parts)
 
-    launch = getattr(lib, entry)
-
-    def timed_launch(*args):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        marks["launch"] = time.perf_counter()
-        e0.record()
-        err = launch(*args)
-        e1.record()
-        e1.synchronize()
-        marks["kernel_end"] = time.perf_counter()
-        ms["kernel"] += e0.elapsed_time(e1)
-        return err
-
-    saved = (K.decompress_points, K.pad_coords_batch_minor, K.PubKeyCache.lookup_or_decompress,
-             K.PubKeyCache.stage)
-    K.decompress_points = walled("decompress_points", saved[0])
-    K.pad_coords_batch_minor = walled("pad", saved[1])
-    K.PubKeyCache.lookup_or_decompress = walled("lookup", saved[2])
-    K.PubKeyCache.stage = walled("stage", saved[3])
-    setattr(lib, entry, timed_launch)
-    try:
-        v = crypto_batch.create_batch_verifier(keys[0])
-        for key, m, sg in zip(keys, msgs, sigs):
-            v.add(key, m, sg)
-        _sync(device)
-        t0 = time.perf_counter()
-        ok, _ = v.verify()
-        _sync(device)
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        (K.decompress_points, K.pad_coords_batch_minor, K.PubKeyCache.lookup_or_decompress,
-         K.PubKeyCache.stage) = saved
-        setattr(lib, entry, launch)
-    if not ok or "launch" not in marks:
-        raise AssertionError(f"{name} cold verify(): ok {ok}, decoder launched: "
-                             f"{'launch' in marks}")
-    parts = {
-        "verify": total,
-        "decoder_kernel": ms["kernel"],
-        "before_kernel": (marks["launch"] - marks["decompress_points"]) * 1e3,
-        "copy_to_host": (marks["decompress_points_end"] - marks["kernel_end"]) * 1e3,
-        "insert_and_lookup": ms["lookup"] - ms["decompress_points"],
-        "pad_coords": ms["pad"],
-        "digest_and_upload": ms["stage"] - ms["lookup"] - ms["pad"],
-    }
-    parts["rest"] = total - ms["stage"]
-    print(f"[{card}] cold verify() {name} {N_BIG} validators: {total:.3f} ms; decoder kernel "
-          f"{parts['decoder_kernel']:.4f} ms ({parts['decoder_kernel'] / total:.3%}), before "
-          f"it in decompress_points {parts['before_kernel']:.3f}, device->host copy "
-          f"{parts['copy_to_host']:.3f}, _insert + lookup loop "
-          f"{parts['insert_and_lookup']:.3f}, pad_coords_batch_minor {parts['pad_coords']:.3f}, "
-          f"digest + upload {parts['digest_and_upload']:.3f}, the rest of verify() (staging, "
-          f"K1/K2, recheck) {parts['rest']:.3f}", flush=True)
-    return parts
+    cold: dict = {}
+    run(cold)
+    warm_runs = []
+    for _ in range(5):
+        warm_runs.append({})
+        run(warm_runs[-1])
+    warm = {k: statistics.median(r.get(k, 0.0) for r in warm_runs) for k in PARTS}
+    warm_ms = time_wall(lambda: run(None), 5, device)
+    for kind, parts in (("cold", cold), ("warm", warm)):
+        total = sum(parts.values())
+        print(f"[{card}] verify() {label} {kind} by part (ms, synchronised around each"
+              f"{', median of 5' if kind == 'warm' else ''}): "
+              + ", ".join(f"{k} {parts.get(k, 0.0):.3f}" for k in PARTS)
+              + f"; sum {total:.3f}", flush=True)
+    print(f"[{card}] verify() {label} warm without the per-part syncs: {warm_ms:.3f} ms "
+          f"(median of 5)", flush=True)
+    return {"cold": {k: cold.get(k, 0.0) for k in PARTS}, "warm": warm, "warm_ms": warm_ms}
 
 
 def time_host_stages(name: str, path: Path, device, card: str) -> None:
@@ -1130,6 +1286,161 @@ def time_microbench(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- K5 and K6
+
+# A vote row of commit_rows: a 95-byte prefix, 13 variable timestamp bytes,
+# a 14-byte common tail (R || A || M = 186 bytes, two SHA-512 blocks).
+VOTE_GEOMETRY = (95, 13, 14)  # plen, var, tlen
+# K5's least work a lane, in 32-bit integer instructions (the integer pipe
+# issues them at the IMAD rate, IMAD_PER_S), a 64-bit word being two 32-bit
+# halves and sm_90's three-input LOP3 and IADD3 fused wherever they fit. A
+# SHA-512 round is 28: Sigma1 and Sigma0 8 each (3 rotations of one funnel
+# shift a half, one LOP3 a half for the 3-way xor), ch and maj 2 each (one
+# LOP3 a half), t1 = h + Sigma1 + ch + K + W 4 (two IADD3 a half, carries
+# in predicates), e = d + t1 2 and a = t1 + Sigma0 + maj 2. A schedule step
+# is 20: sigma0 and sigma1 8 each (2 rotations and a shift, one LOP3 a
+# half), 4 for the 4-operand sum. A block is 80 rounds, 64 steps and the 8
+# feed-forward adds (16). The Barrett reduction is 40 64 x 64 -> 128-bit
+# products of 8 IMADs each. The message assembly is not counted.
+K5_OPS_BLOCK, K5_OPS_REDUCE = 80 * 28 + 64 * 20 + 8 * 2, 40 * 8
+
+
+def _k5_bytes(lanes: int, var: int) -> int:
+    """K5's bytes: R and A words and the descriptor stream in, k out, one
+    prefix-table row read."""
+    return lanes * (32 + 32 + 2 + var + 32) + 160
+
+
+def k5_inputs(b: int, geometry: tuple[int, int, int], device, seed: int = 0):
+    """A random wire block, encoding plane and prefix table of b lanes (every
+    fifth lane left to the host, the rest over a few table rows)."""
+    from cometbft_tpu_torch.ops import challenge as CH
+
+    plen, var, tlen = geometry
+    rng = np.random.default_rng(seed)
+    block = rng.integers(0, 2**32, size=CH.block_words(b, var), dtype=np.uint64).astype(np.uint32)
+    desc = (rng.integers(0, 16, size=b) | 0x8000).astype(np.uint16)
+    desc[::5] &= 0x7FFF
+    block[16 * b:].view(np.uint8)[:2 * b] = desc.view(np.uint8)
+    aw = rng.integers(0, 2**32, size=(8, b), dtype=np.uint64).astype(np.uint32)
+    ptab = rng.integers(0, 256, size=(CH.TABLE_ROWS, CH.PREFIX_CAP), dtype=np.uint8)
+    return tuple(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
+                 for a in (block, aw, ptab))
+
+
+def check_challenge_integrity(device) -> dict[str, int]:
+    """K5's three entries and K6 against their plain versions on the card,
+    bit for bit: derive at 256, 6,144 and 10,240 lanes over the vote
+    geometry and the one/two/three-block boundaries, with fallback k; the
+    digest entry on rows of 0, 111, 112, 186, 239 and 240 bytes; the
+    reduction on edge values; K6's header and payload over one and three
+    arrays, all lanes valid and some failed, and its checksum alone.
+    Returns the largest differences."""
+    from cometbft_tpu_torch.crypto.ed25519_math import L as L_ORDER
+    from cometbft_tpu_torch.ops import challenge as CH
+    from cometbft_tpu_torch.ops import integrity as IN
+
+    err = {"challenge_derive": 0, "challenge_sha512": 0, "challenge_reduce": 0,
+           "integrity_parts": 0}
+
+    def keep(name, e):
+        err[name] = max(err[name], e)
+        if e:
+            raise AssertionError(f"{name}: kernel and plain version differ by {e}")
+
+    for b in (256, N_MIXED_BUCKET, N_BIG):
+        for geom in (VOTE_GEOMETRY, (20, 13, 14), (20, 13, 15), (100, 24, 51), (100, 24, 52)):
+            flat, aw, ptab = k5_inputs(b, geom, device, seed=b + sum(geom))
+            fidx = torch.arange(0, 40, 5, dtype=torch.int32, device=device)
+            fkw = torch.randint(-2**31, 2**31, (8, 8), dtype=torch.int32, device=device)
+            got = CH.derive(flat, aw, ptab, b, geom[1], geom[0], geom[2], fkw, fidx)
+            want = CH.derive_plain(flat, aw, ptab, b, geom[1], geom[0], geom[2])
+            want.index_copy_(1, fidx.to(torch.int64), fkw)
+            keep("challenge_derive", _max_err([got], [want]))
+    rng = np.random.default_rng(1)
+    for ln in (0, 111, 112, 186, 239, 240):
+        rows = rng.integers(0, 256, size=(N_BIG, ln), dtype=np.uint8)
+        got = CH.sha512_rows_device(rows, device)
+        want = CH.sha512_rows_device(rows[:512], "cpu")
+        keep("challenge_sha512", int(np.abs(got[:512].astype(int) - want.astype(int)).max()))
+        if [r.tobytes() for r in got[-3:]] != [hashlib.sha512(r.tobytes()).digest()
+                                               for r in rows[-3:]]:
+            raise AssertionError(f"challenge_sha512 at {ln} bytes differs from hashlib")
+    d = rng.integers(0, 256, size=(N_BIG, 64), dtype=np.uint8)
+    for i, v in enumerate((2**512 - 1, 0, L_ORDER - 1, L_ORDER, 3 * L_ORDER - 1)):
+        d[i] = np.frombuffer(v.to_bytes(64, "little"), dtype=np.uint8)
+    got = CH.reduce512_mod_l_device(d, device)
+    want = CH.reduce512_mod_l_device(d[:512], "cpu")
+    keep("challenge_reduce", int(np.abs(got[:512].astype(np.int64) - want.astype(np.int64)).max()))
+    flat, aw, _ = k5_inputs(N_BIG, VOTE_GEOMETRY, device, seed=3)
+    for arrs in ((flat,), (flat, aw, aw[0].contiguous())):
+        for bad in ([], [5, N_BIG - 1]):
+            mask = torch.ones(N_BIG, dtype=torch.bool, device=device)
+            mask[bad] = False
+            allok = mask.all()
+            expected = int(IN.checksum_plain(*arrs)) ^ (1 if bad else 0)
+            keep("integrity_parts", _max_err(IN.integrity_parts(mask, allok, expected, *arrs),
+                                             IN.parts_plain(mask, allok, expected, *arrs)))
+        if IN.device_checksum(*arrs) != int(IN.checksum_plain(*arrs)):
+            raise AssertionError("integrity checksum: kernel and plain version differ")
+    print(f"check K5/K6: derive == plain bit for bit at 256, {N_MIXED_BUCKET} and {N_BIG} lanes "
+          f"over 5 geometries with fallback k; the digest entry == plain and hashlib at 6 "
+          f"lengths, the reduction == plain on edge values ({N_BIG} rows); K6 header and "
+          f"payload == plain over 1 and 3 arrays, happy, failed and mismatched; its checksum "
+          f"alone == plain", flush=True)
+    return err
+
+
+def time_k5_k6(device, card: str) -> dict:
+    """K5 (derive, vote geometry) and K6 (header and payload over a
+    device-challenge block) at 10,240 lanes: per launch on the card alone
+    (time_launch, median of 20), back to back (mean of 50), the wrapper's
+    host time a call (time_host, median of 20), the plain versions (median
+    of 3, host clock, on the card), the bounds, and for K6 the library
+    yardstick, the torch expression of the checksum alone
+    (integrity.checksum_plain on the card, timed as the kernel)."""
+    from cometbft_tpu_torch.ops import challenge as CH
+    from cometbft_tpu_torch.ops import integrity as IN
+
+    plen, var, tlen = VOTE_GEOMETRY
+    flat, aw, ptab = k5_inputs(N_BIG, VOTE_GEOMETRY, device)
+    nb = (64 + plen + var + tlen + 17 + 127) // 128
+    k5 = functools.partial(CH.derive, flat, aw, ptab, N_BIG, var, plen, tlen)
+    out = {"challenge_derive": {
+        "ms": time_launch(k5), "ms_back_to_back": time_back_to_back(k5),
+        "host_ms": time_host(k5),
+        "plain_ms": time_wall(lambda: CH.derive_plain(flat, aw, ptab, N_BIG, var, plen, tlen),
+                              3, device),
+        "library_ms": None,
+        "bound": bound(nb * K5_OPS_BLOCK + K5_OPS_REDUCE, 0, N_BIG)}}
+    b_bytes = _k5_bytes(N_BIG, var) / HBM_BYTES_PER_S * 1e3
+    if b_bytes > out["challenge_derive"]["bound"][0]:
+        out["challenge_derive"]["bound"] = (b_bytes, "bytes")
+    mask = torch.ones(N_BIG, dtype=torch.bool, device=device)
+    allok = mask.all()
+    expected = int(IN.checksum_plain(flat))
+    k6 = functools.partial(IN.integrity_parts, mask, allok, expected, flat)
+    words = flat.numel()
+    k6_bytes = 4 * words + N_BIG + 1 + 8 + 2 * N_BIG + 1
+    ops = 2 * words / IMAD_PER_S * 1e3  # a multiply-add and an add a word
+    mem = k6_bytes / HBM_BYTES_PER_S * 1e3
+    out["integrity_parts"] = {
+        "ms": time_launch(k6), "ms_back_to_back": time_back_to_back(k6),
+        "host_ms": time_host(k6),
+        "plain_ms": time_wall(lambda: IN.parts_plain(mask, allok, expected, flat), 3, device),
+        "library_ms": time_launch(lambda: IN.checksum_plain(flat)),
+        "bound": (ops, "operations") if ops >= mem else (mem, "bytes")}
+    for name, r in out.items():
+        print(f"[{card}] {name} at {N_BIG} lanes: kernel {r['ms']:.4f} ms (median of 20, "
+              f"{r['bound'][0] / r['ms']:.1%} of the bound), back to back "
+              f"{r['ms_back_to_back']:.4f} ms (mean of 50), wrapper host time "
+              f"{r['host_ms']:.4f} ms a call, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
+              + (f", library (torch checksum expression) {r['library_ms']:.4f} ms"
+                 if r["library_ms"] is not None else ""), flush=True)
+    return out
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -1152,7 +1463,7 @@ def main() -> int:
     print(card, flush=True)
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    stems = ("verify25519", "decompress25519", "microbench")
+    stems = ("verify25519", "decompress25519", "microbench", "challenge25519", "integrity")
     with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
         builds = dict(zip(stems, pool.map(_build.build, stems)))
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1163,6 +1474,17 @@ def main() -> int:
     check_kernel_shapes({stem: report for stem, (_, report, _) in builds.items()}, device)
     paths = _paths()
     ed, sr = paths["ed25519"], paths["sr25519"]
+    # the native host rungs must have built: no quiet numpy or Python rung
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.crypto import sr25519_math as srm
+    from cometbft_tpu_torch.ops import hashvec
+
+    if hashvec.active_rung() != "native" or srm.serial_rung() != "native":
+        raise AssertionError(f"native host rungs: hashvec {hashvec.active_rung()}, sr25519 "
+                             f"serial {srm.serial_rung()}: {native.build_error('hashvec')} "
+                             f"{native.build_error('strobe')}")
+    print(f"native host rungs: hashvec {hashvec.active_rung()}, sr25519 serial "
+          f"{srm.serial_rung()}", flush=True)
 
     # every lane count the main paths launch at, for both schemes: 128, 256
     # (the 150 commit's bucket, padding lanes included), 6,144 (the mixed
@@ -1170,13 +1492,24 @@ def main() -> int:
     checks = [check_kernels(name, path, n, device) for name, path in (("ed25519", ed),
               ("sr25519", sr)) for n in (128, N_SMALL, 5_120, N_BIG)]
     err = {k: max(c.get(k, 0) for c in checks) for c in checks for k in c}
+    err.update(check_challenge_integrity(device))
 
+    # the main paths; each cell also holds K5/K6 against their plain
+    # versions on one more run (Held), outside its counted window
     crypto_batch.set_backend("gpu")
-    big = drive_commit(ed, N_BIG, SEED_BIG, device, "10k")
-    small = drive_commit(ed, N_SMALL, SEED_SMALL, device, "150")
-    drive_commit(ed, N_SMALL, SEED_SMALL + 1, device, "150 all valid", tampered=False)
-    big_sr = drive_commit(sr, N_BIG, SEED_SR, device, "sr25519 10k")
-    mixed = drive_mixed(paths, N_BIG, SEED_MIXED, device)
+    held = Held()
+    big = drive_commit(ed, N_BIG, SEED_BIG, device, "10k", held)
+    small = drive_commit(ed, N_SMALL, SEED_SMALL, device, "150", held)
+    drive_commit(ed, N_SMALL, SEED_SMALL + 1, device, "150 all valid", held, tampered=False)
+    drive_commit(ed, N_SMALL, SEED_SMALL + 2, device, "150 plain bytes", held, factored=False)
+    big_sr = drive_commit(sr, N_BIG, SEED_SR, device, "sr25519 10k", held)
+    mixed = drive_mixed(paths, N_BIG, SEED_MIXED, device, held)
+    if min(held.held.values()) < 1:
+        raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
+    for name, e in held.err.items():
+        err[name] = max(err[name], e)
+    print(f"K5/K6 held against their plain versions on the main paths' own inputs: "
+          f"{held.held} launches, largest differences {held.err}", flush=True)
     lanes = mixed["warm_lanes"]
     if lanes != {"ed25519_verify": N_MIXED_BUCKET, "sr25519_verify": N_MIXED_BUCKET}:
         raise AssertionError(f"mixed 10k: lanes per warm verify() {lanes}")
@@ -1199,8 +1532,20 @@ def main() -> int:
     dec = {"ed25519": time_decoders("ed25519", ed, device, card, (SQ_DECOMP, MUL_DECOMP)),
            "sr25519": time_decoders("sr25519", sr, device, card,
                                     (SQ_DECODE_SR, MUL_DECODE_SR))}
-    for name, path in (("ed25519", ed), ("sr25519", sr)):
-        time_cold_path(name, path, device, card, SEED_COLD)
+    parts = {
+        "ed25519 10k": time_parts("ed25519 10k", [parts_cell(ed, N_BIG, SEED_COLD)], device,
+                                  card),
+        "ed25519 150": time_parts("ed25519 150", [parts_cell(ed, N_SMALL, SEED_COLD + 1)],
+                                  device, card),
+        "ed25519 150 plain bytes": time_parts(
+            "ed25519 150 plain bytes", [parts_cell(ed, N_SMALL, SEED_COLD + 2, factored=False)],
+            device, card),
+        "sr25519 10k": time_parts("sr25519 10k", [parts_cell(sr, N_BIG, SEED_COLD + 3)],
+                                  device, card),
+        "mixed 10k": time_parts("mixed 10k", [parts_cell(ed, N_BIG // 2, SEED_COLD + 4),
+                                              parts_cell(sr, N_BIG // 2, SEED_COLD + 5)],
+                                device, card)}
+    k56 = time_k5_k6(device, card)
     for label, r in (("ed25519", big), ("ed25519", small), ("sr25519", big_sr),
                      ("mixed ed25519 + sr25519", mixed)):
         print(f"[{card}] verify() {label} {r['n']} validators: cold {r['cold_ms']:.3f} ms "
@@ -1229,6 +1574,16 @@ def main() -> int:
                     run["launches"][f"{name}_decompress"], err[f"{name}_decompress"],
                     d[N_BIG]["ms"], d[N_BIG]["plain_ms"], d[N_BIG]["bound"],
                     ms_back_to_back=d[N_BIG]["ms_back_to_back"])]
+    for name, source, replaces in (
+            ("challenge_derive", "challenge25519.cu", "cometbft_tpu/ops/challenge.py:730"),
+            ("integrity_parts", "integrity.cu", "cometbft_tpu/ops/ed25519_kernel.py:271")):
+        r = k56[name]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": f"cometbft_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": big["launches"][name], "max_abs_err": err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"], "lanes": N_BIG,
+            "ms_back_to_back": r["ms_back_to_back"], "host_ms": r["host_ms"]})
     for name, r in mb_times.items():
         replaces = "microbench.py:280" if name == "microbench_stacked" else "microbench.py:88"
         kernels["kernels"].append({

@@ -2,16 +2,21 @@
 
 The hot path of a BFT node is batch verification of Ed25519 vote
 signatures behind the ``crypto.BatchVerifier`` plugin boundary. This
-package runs it on an NVIDIA Hopper GPU: host staging in numpy, the
-per-lane ZIP-215 verify ladder and pubkey decompression as hand-written
-CUDA C++ kernels (``csrc/``), with plain PyTorch versions of the same
-arithmetic beside each kernel for the CPU tests.
+package runs it on an NVIDIA Hopper GPU: host staging in numpy and native C
+rungs, the per-lane ZIP-215 verify ladder, pubkey decompression, the
+challenge derivation and the integrity header as hand-written CUDA C++
+kernels (``csrc/``), with plain PyTorch versions of the same arithmetic
+beside each kernel for the CPU tests.
 
 Package map:
   crypto/     key types, the ZIP-215 host oracle, the batch-verifier registry
   ops/        limb packing, field/curve arithmetic (plain torch), the kernel
-              wrappers and their nvcc build, host staging and the pubkey cache
+              wrappers and their nvcc build, host staging, the key tables,
+              device challenges and the integrity header
   csrc/       CUDA C++ kernel sources, built for sm_90a at first use
+  native/     C host hash rungs (SIMD SHA-512/Keccak/mod L, STROBE), built
+              with cc at first use
+  libs/       shared-prefix message rows (prefixrows.py)
 
 Entry points take an explicit ``device`` and default to ``cuda``; they
 raise when no card is present unless the caller passes ``device="cpu"``.

@@ -63,7 +63,7 @@ class MixedBatchVerifier(crypto.BatchVerifier):
         self._subs: dict[str, crypto.BatchVerifier] = {}
         self._route: list[tuple[str, int]] = []  # (key type, index in sub)
 
-    def add(self, pub_key: crypto.PubKey, msg: bytes, sig: bytes) -> None:
+    def add(self, pub_key: crypto.PubKey, msg, sig: bytes) -> None:
         kt = pub_key.type_()
         sub = self._subs.get(kt)
         if sub is None:
@@ -89,6 +89,27 @@ def create_mixed_batch_verifier() -> MixedBatchVerifier:
     The JAX package returns its scheduler's client here; the port has no
     scheduler yet, so this is always a MixedBatchVerifier."""
     return MixedBatchVerifier()
+
+
+def path_stats() -> dict:
+    """Which paths the device batches took, from the process-wide counters:
+    the device-challenge planner (``challenge``: plans, lanes_device,
+    lanes_host_fallback and the classic path's reasons), the pubkey sends
+    by path (``sends``: indexed, delta, full), the host hash rung
+    (``hash_rung``) and the header-only and full fetches (``fetch``)."""
+    from cometbft_tpu_torch.ops import challenge, ed25519_kernel, hashvec, residency
+
+    return {"challenge": challenge.stats(), "sends": residency.send_stats(),
+            "hash_rung": hashvec.active_rung(), "fetch": ed25519_kernel.fetch_stats()}
+
+
+def reset_path_stats() -> None:
+    """Zero the counters path_stats() reads."""
+    from cometbft_tpu_torch.ops import challenge, ed25519_kernel, residency
+
+    challenge.reset_stats()
+    residency.reset_send_stats()
+    ed25519_kernel.reset_fetch_stats()
 
 
 def _factory(verifier: str, device: str) -> Callable[[], crypto.BatchVerifier]:

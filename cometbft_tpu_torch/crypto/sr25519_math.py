@@ -1,10 +1,15 @@
 """sr25519 (schnorrkel) host oracle: ristretto255 group, Merlin transcripts
 (STROBE-128 over Keccak-f[1600]), signing context, sign/verify.
 
-The port's own copy of cometbft_tpu/crypto/sr25519_math.py without its
-native STROBE library: the serial Strobe128 here is pure Python, and the
-batch rung (BatchStrobe128) advances N sponges with the numpy Keccak of
-ops/hashvec.py. The two agree byte for byte.
+The port's own copy of cometbft_tpu/crypto/sr25519_math.py. The Strobe128
+class here is pure Python (the oracle's transcript). The batch challenges
+ride two rungs: groups of VEC_MIN_ROWS or more rows of one message length
+advance as a batch transcript (BatchStrobe128: N sponges under one
+Keccak-f[1600] call of ops/hashvec.py, the native SIMD core when it loads);
+smaller groups, and every group under CBFT_HASHVEC=serial, take the serial
+rung, the native strobe.c sr25519_batch_challenge over chunks of rows on
+threads (serial_rung() says "native"), else the Python transcript. All
+agree byte for byte.
 
   sign:  t = SigningContext("")          (merlin transcript "SigningContext"
                                           + appended context bytes)
@@ -27,9 +32,13 @@ production path.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
+import ctypes
 import hashlib
+import os
 import secrets as _secrets
+import threading
 
 import numpy as np
 
@@ -508,8 +517,8 @@ def compute_challenge(pub: bytes, r_bytes: bytes, msg: bytes) -> int:
     return t.challenge_scalar(b"sign:c")
 
 
-# Groups of fewer rows than this take the serial transcript.
-VEC_MIN_ROWS = 8
+# Groups of fewer rows than this take the serial rung.
+VEC_MIN_ROWS = hashvec.VEC_MIN_ROWS
 
 # shared transcript prefix per message length: everything up to (and
 # including) the "sign-bytes" length header is row-independent, so it runs
@@ -553,6 +562,79 @@ def _batch_challenge_digests(pub_rows, r_rows, msg_rows) -> np.ndarray:
     return bs.prf(64)
 
 
+# ------------------------------------------------------------ serial rung
+
+_strobe_lock = threading.Lock()
+_strobe_lib: list = []  # [lib or None] once tried
+
+
+def _native_strobe():
+    """native/strobe.c with sr25519_batch_challenge declared, or None when
+    it does not build here. Built on first use, never at import."""
+    if not _strobe_lib:
+        with _strobe_lock:
+            if not _strobe_lib:
+                from cometbft_tpu_torch import native
+
+                lib = native.load("strobe")
+                if lib is not None:
+                    vp = ctypes.c_void_p
+                    lib.sr25519_batch_challenge.argtypes = [vp, vp, vp, vp, ctypes.c_long, vp]
+                    lib.sr25519_batch_challenge.restype = None
+                _strobe_lib.append(lib)
+    return _strobe_lib[0]
+
+
+def serial_rung() -> str:
+    """The serial rung's engine: "native" (strobe.c) or "python"."""
+    return "native" if _native_strobe() is not None else "python"
+
+
+# rows per native call below which one call does the whole group
+_CHUNK_MIN = 512
+_CHUNK_WORKERS = 4
+
+
+def _serial_challenge_digests(pubs: list[bytes], r_rows: np.ndarray,
+                              msgs: list[bytes]) -> np.ndarray:
+    """(N, 64) uint8 challenge bytes through the serial rung: strobe.c's
+    sr25519_batch_challenge (the whole Merlin transcript of a row in C)
+    over chunks of rows on up to _CHUNK_WORKERS threads (ctypes releases
+    the GIL), else the Python transcript row by row."""
+    n = len(pubs)
+    out = np.empty((n, 64), dtype=np.uint8)
+    lib = _native_strobe()
+    if lib is None:
+        for i in range(n):
+            t = make_signing_transcript(msgs[i])
+            t.proto_name(b"Schnorr-sig")
+            t.append_point(b"sign:pk", pubs[i])
+            t.append_point(b"sign:R", r_rows[i].tobytes())
+            out[i] = np.frombuffer(t.challenge_bytes(b"sign:c", 64), dtype=np.uint8)
+        return out
+    pub_buf = np.frombuffer(b"".join(pubs), dtype=np.uint8)
+    r_buf = np.ascontiguousarray(r_rows, dtype=np.uint8)
+    msg_buf = np.frombuffer(b"".join(msgs) or b"\0", dtype=np.uint8)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, msgs), np.int64, n), out=offs[1:])
+
+    def run(start: int) -> None:
+        count = min(step, n - start)
+        lib.sr25519_batch_challenge(
+            pub_buf.ctypes.data + 32 * start, r_buf.ctypes.data + 32 * start,
+            msg_buf.ctypes.data, offs.ctypes.data + 8 * start, count,
+            out.ctypes.data + 64 * start)
+
+    workers = min(_CHUNK_WORKERS, max(1, n // _CHUNK_MIN))
+    step = -(-n // workers)
+    if workers > 1:
+        with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+            list(ex.map(run, range(0, n, step)))
+    else:
+        run(0)
+    return out
+
+
 def batch_challenge_words(pubs: list[bytes], r_list: list[bytes],
                           msgs: list[bytes]) -> np.ndarray:
     """All N verification challenges as packed (N, 8) uint32 device words
@@ -568,33 +650,29 @@ def batch_challenge_words_rows(pubs: list[bytes], r_rows: np.ndarray,
                                msgs: list[bytes]) -> np.ndarray:
     """batch_challenge_words with R as (N, 32) uint8 signature halves.
     Rows group by message length; a group of VEC_MIN_ROWS or more advances
-    under the batch STROBE transcript (one permutation per duplex boundary
-    for the whole group), smaller groups take the serial transcript."""
+    under the batch STROBE transcript, smaller groups (and every group
+    under CBFT_HASHVEC=serial) take the serial rung. Digests reduce mod L
+    through hashvec.reduce512_mod_l."""
     n = len(pubs)
     out = np.zeros((n, 8), dtype=np.uint32)
     by_len: dict[int, list[int]] = {}
     for i, m in enumerate(msgs):
         by_len.setdefault(len(m), []).append(i)
+    serial = os.environ.get("CBFT_HASHVEC") == "serial"
     for mlen, idxs in by_len.items():
         sel = np.asarray(idxs, dtype=np.intp)
-        if len(idxs) < VEC_MIN_ROWS:
-            blob = b"".join(
-                compute_challenge(pubs[i], r_rows[i].tobytes(), msgs[i]).to_bytes(32, "little")
-                for i in idxs)
-            out[sel] = np.frombuffer(blob, dtype="<u4").reshape(len(idxs), 8)
-            continue
-        pub_rows = np.frombuffer(
-            b"".join(pubs[i] for i in idxs), dtype=np.uint8).reshape(-1, 32)
-        # (rows, mlen) explicitly: -1 cannot be inferred when mlen is 0
-        msg_rows = np.frombuffer(
-            b"".join(msgs[i] for i in idxs), dtype=np.uint8).reshape(len(idxs), mlen)
-        digests = _batch_challenge_digests(
-            pub_rows, np.ascontiguousarray(r_rows[sel]), msg_rows)
-        raw = digests.tobytes()
-        blob = b"".join(
-            (int.from_bytes(raw[64 * j:64 * j + 64], "little") % L).to_bytes(32, "little")
-            for j in range(len(idxs)))
-        out[sel] = np.frombuffer(blob, dtype="<u4").reshape(len(idxs), 8)
+        rows_r = np.ascontiguousarray(r_rows[sel])
+        if serial or len(idxs) < VEC_MIN_ROWS:
+            digests = _serial_challenge_digests([pubs[i] for i in idxs], rows_r,
+                                                [msgs[i] for i in idxs])
+        else:
+            pub_rows = np.frombuffer(
+                b"".join(pubs[i] for i in idxs), dtype=np.uint8).reshape(-1, 32)
+            # (rows, mlen) explicitly: -1 cannot be inferred when mlen is 0
+            msg_rows = np.frombuffer(
+                b"".join(msgs[i] for i in idxs), dtype=np.uint8).reshape(len(idxs), mlen)
+            digests = _batch_challenge_digests(pub_rows, rows_r, msg_rows)
+        out[sel] = hashvec.reduce512_mod_l(digests)
     return out
 
 

@@ -9,9 +9,18 @@
                       their plain versions
   _build.py           nvcc build of csrc/*.cu, loaded with ctypes
   ed25519_kernel.py   ed25519 host staging; the verify path both schemes
-                      share (pubkey cache, device glue, host recheck)
+                      share (verify_rows: the device-challenge and classic
+                      paths, pubkey cache, key staging, header, recheck)
   sr25519_kernel.py   sr25519 host staging (Merlin challenges), its scheme
-  hashvec.py          batch-axis Keccak (sr25519 staging) and SHA-512 rungs
+  hashvec.py          host hash rungs (native, numpy, serial): Keccak,
+                      SHA-512, mod L, prefixed-row reassembly
+  residency.py        device-resident key tables (indexed sends)
+  challenge.py        device challenges: prefix table, plan_batch, the
+                      wrapper of K5 (csrc/challenge25519.cu) and its plain
+                      version
+  integrity.py        staging checksum, reduced-fetch header and payload:
+                      the wrapper of K6 (csrc/integrity.cu) and its plain
+                      version
   batch_verifier.py   crypto.BatchVerifiers backed by the kernels
   microbench.py       the device microbench: probe kernels K3/K4 and their
                       plain versions, the verify kernel's bench knobs

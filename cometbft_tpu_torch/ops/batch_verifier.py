@@ -1,9 +1,13 @@
 """crypto.BatchVerifiers backed by the port's verify kernels — the
-counterparts of cometbft_tpu's TPUBatchVerifier and SrTPUBatchVerifier."""
+counterparts of cometbft_tpu's TPUBatchVerifier and SrTPUBatchVerifier.
+Messages pass through as they are given: a factored row
+(libs/prefixrows.PrefixedMsg, e.g. from SharedPrefixRows.rows_for) stays
+factored down to the device challenges."""
 
 from __future__ import annotations
 
 from cometbft_tpu_torch import crypto, resolve_device
+from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
 from cometbft_tpu_torch.ops import ed25519_kernel, sr25519_kernel
 
 SIGNATURE_SIZE = 64
@@ -21,18 +25,18 @@ class CUDABatchVerifier(crypto.BatchVerifier):
         self.device = resolve_device(device)
         self._cache = cache
         self._pubs: list[bytes] = []
-        self._msgs: list[bytes] = []
+        self._msgs: list = []
         self._sigs: list[bytes] = []
         self.recheck_flips = 0
 
-    def add(self, pub_key: crypto.PubKey, msg: bytes, sig: bytes) -> None:
+    def add(self, pub_key: crypto.PubKey, msg, sig: bytes) -> None:
         if pub_key.type_() != self.scheme.name:
             raise crypto.ErrInvalidKey(
                 f"the cuda {self.scheme.name} batch verifier got a {pub_key.type_()} key")
         if len(sig) != SIGNATURE_SIZE:
             raise crypto.ErrInvalidSignature("bad signature length")
         self._pubs.append(pub_key.bytes_())
-        self._msgs.append(bytes(msg))
+        self._msgs.append(msg if isinstance(msg, PrefixedMsg) else bytes(msg))
         self._sigs.append(bytes(sig))
 
     def verify(self) -> tuple[bool, list[bool]]:

@@ -1,27 +1,49 @@
-"""Batched Ed25519 ZIP-215 verification: host staging, the pubkey cache and
-the device glue around the kernels of ops/verify_kernel.py.
+"""Batched Ed25519 ZIP-215 verification: host staging, the key tables and
+cache, the device glue around the kernels, and the integrity header.
 
 Per lane the device computes [8]([s]B - [k]A - R) == O (cofactored,
-ZIP-215). R, s and k cross to the device as packed (8, B) 32-bit words;
-validator pubkeys are decompressed once (on the device) and kept in a
-two-level cache, since a validator set re-verifies every height. The few
-lanes the device rejects are re-verified by the exact host oracle before
-they are reported (recheck_failed_lanes); a lane it flips back to valid
-means the device was wrong, and is counted.
+ZIP-215). verify_rows runs the reference's two paths
+(cometbft_tpu/ops/ed25519_kernel.py verify_batch_async):
+
+  device challenge  when ops/challenge.plan_batch gives a Plan (a commit's
+                    factored sign-bytes, libs/prefixrows.PrefixedMsg): R, s
+                    and a 2-byte descriptor plus ~13 variable bytes a lane
+                    cross to the device in one flat block, and the challenge
+                    kernel K5 derives k = SHA-512(R || A || M) mod L there,
+                    A from the key table's encoding plane; the Plan's few
+                    other lanes get host k, written after the derive;
+  classic           when plan_batch gives None (plain bytes, ragged
+                    messages, sr25519): k on the host through the native
+                    rungs of ops/hashvec.py, r/s/k words in one transfer.
+
+Pubkeys come from the device-resident key tables (ops/residency.py: a
+2-byte row index a lane), or, when a batch overflows them, from the
+unique-key full path over PubKeyCache. After the verify kernel, the
+integrity kernel K6 (ops/integrity.py) folds the all-ok verdict into the
+staging checksum: an 8-byte header crosses back, and the per-lane mask only
+when the header is not "happy". The few lanes the device rejects are
+re-verified by the exact host oracle (recheck_failed_lanes); a lane it
+flips back to valid means the device was wrong, and is counted.
+
+There is no fallback: a kernel that fails raises, and a header or payload
+whose checksum or echo fails raises. The counters say which path ran:
+challenge.stats(), residency.send_stats(), hashvec.active_rung(),
+fetch_stats().
 
 Batch sizes are bucketed (powers of two from 8 up to 2048, then multiples
 of 2048); padding lanes carry the identity encoding (y = 1) with zero
 scalars, which verify valid, and are sliced off.
 
-The cache, the device glue and the recheck serve sr25519 too
-(ops/sr25519_kernel.py): a Scheme record names what differs — identity
-encoding, staging, the kernels, the host oracle.
+The tables, the device glue and the recheck serve sr25519 too
+(ops/sr25519_kernel.py): a Scheme record names what differs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import threading
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -29,7 +51,12 @@ import torch
 
 from cometbft_tpu_torch import resolve_device
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
+from cometbft_tpu_torch.libs.prefixrows import as_bytes
+from cometbft_tpu_torch.ops import challenge
+from cometbft_tpu_torch.ops import hashvec
+from cometbft_tpu_torch.ops import integrity
 from cometbft_tpu_torch.ops import limbs as L
+from cometbft_tpu_torch.ops import residency
 from cometbft_tpu_torch.ops import verify_kernel as VK
 
 MIN_BUCKET = 8
@@ -79,7 +106,7 @@ def _structural_stage(pubs: list[bytes], sigs: list[bytes]):
     ok_len = np.fromiter(map(len, sigs), np.int64, n) == 64
     ok_len &= np.fromiter(map(len, pubs), np.int64, n) == 32
     if ok_len.all():
-        sig_rows = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64).copy()
+        sig_rows = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
         pub_rows = np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(n, 32)
         safe_pubs = list(pubs)
     else:
@@ -95,6 +122,8 @@ def _structural_stage(pubs: list[bytes], sigs: list[bytes]):
     pre_ok = ok_len & scalars_lt_l(sig_rows[:, 32:])
     bad = np.flatnonzero(ok_len & ~pre_ok)  # s >= L rows need placeholders
     if bad.size:
+        if not sig_rows.flags.writeable:
+            sig_rows = sig_rows.copy()
         sig_rows[bad, :32] = _ID_ROW32
         sig_rows[bad, 32:] = 0
         safe_pubs = [p if pre_ok[i] else _ID_ENC32
@@ -103,38 +132,62 @@ def _structural_stage(pubs: list[bytes], sigs: list[bytes]):
 
 
 def _challenge_words(r_rows, pub_rows, msgs, pre_ok) -> np.ndarray:
-    """(N, 8) uint32 packed challenges k = SHA-512(R || A || M) mod L;
-    rows with pre_ok False get k = 0."""
+    """(N, 8) uint32 packed challenges k = SHA-512(R || A || M) mod L
+    through the rungs of ops/hashvec.py; rows with pre_ok False get k = 0.
+    Same-length messages (a commit's) hash as one (N, 64 + mlen) batch,
+    factored rows reassembled with one broadcast of their prefix; ragged
+    ones group inside sha512_many."""
     n = r_rows.shape[0]
-    out = bytearray(32 * n)
-    r_blob, p_blob = r_rows.tobytes(), pub_rows.tobytes()
-    for i in range(n):
-        if not pre_ok[i]:
-            continue
-        h = hashlib.sha512(r_blob[32 * i:32 * i + 32])
-        h.update(p_blob[32 * i:32 * i + 32])
-        h.update(msgs[i])
-        k = int.from_bytes(h.digest(), "little") % oracle.L
-        out[32 * i:32 * i + 32] = k.to_bytes(32, "little")
-    return np.frombuffer(bytes(out), dtype="<u4").reshape(n, 8)
+    mlens = np.fromiter(map(len, msgs), np.int64, n)
+    if n and (mlens == mlens[0]).all():
+        msg_rows = hashvec.assemble_prefixed_rows(msgs, int(mlens[0]))
+        digests = hashvec.sha512_rows(np.concatenate([r_rows, pub_rows, msg_rows], axis=1))
+    else:
+        r_blob, p_blob = r_rows.tobytes(), pub_rows.tobytes()
+        digests = hashvec.sha512_many([r_blob[32 * i:32 * i + 32] + p_blob[32 * i:32 * i + 32]
+                                       + as_bytes(m) for i, m in enumerate(msgs)])
+    k_words = hashvec.reduce512_mod_l(digests)
+    k_words[~pre_ok] = 0
+    return k_words
 
 
-def stage_batch(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
-                bucket: int):
-    """Structural checks, SHA-512 challenges, and the packed r/s/k words,
-    batch-minor (8, bucket) uint32, identity-padded to `bucket`. Returns
-    (pre_ok, safe_pubs, r_words, s_words, k_words)."""
-    pre_ok, safe_pubs, sig_rows, pub_rows = _structural_stage(pubs, sigs)
+def _pack_host_words(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, bucket: int) -> np.ndarray:
+    """The classic path's staged words: host challenges and the r/s/k
+    planes, (3, 8, bucket) uint32, identity-padded (R = y 1, s = k = 0)."""
     n = sig_rows.shape[0]
-    k_rows = _challenge_words(sig_rows[:, :32], pub_rows, msgs, pre_ok)
-    sig_u4 = sig_rows.view("<u4")  # (n, 16): words 0-7 = R, 8-15 = s
+    k_rows = _challenge_words(np.ascontiguousarray(sig_rows[:, :32]), pub_rows, msgs, pre_ok)
+    sig_u4 = np.ascontiguousarray(sig_rows).view("<u4")  # (n, 16): R words 0-7, s 8-15
     out = np.zeros((3, 8, bucket), dtype=np.uint32)
-    r_words, s_words, k_words = out[0], out[1], out[2]
-    r_words[:, :n] = sig_u4[:, :8].T
-    s_words[:, :n] = sig_u4[:, 8:].T
-    k_words[:, :n] = k_rows.T
-    r_words[0, n:] = 1  # padding: identity encoding + zero scalars
-    return pre_ok, safe_pubs, r_words, s_words, k_words
+    out[0, :, :n] = sig_u4[:, :8].T
+    out[1, :, :n] = sig_u4[:, 8:].T
+    out[2, :, :n] = k_rows.T
+    out[0, 0, n:] = 1  # padding: identity encoding + zero scalars
+    return out
+
+
+def _pack_device_block(sig_rows: np.ndarray, bucket: int, plan, block: np.ndarray) -> None:
+    """Pack a flat block of the device-challenge wire in place: R words and
+    s words ((8, bucket) planes, identity-padded), then the descriptor
+    stream (challenge.fill_stream). No k words: the device derives them."""
+    n = sig_rows.shape[0]
+    sig_u4 = np.ascontiguousarray(sig_rows).view("<u4")
+    rw = block[:8 * bucket].reshape(8, bucket)
+    sw = block[8 * bucket:16 * bucket].reshape(8, bucket)
+    rw[:, :n] = sig_u4[:, :8].T
+    sw[:, :n] = sig_u4[:, 8:].T
+    rw[:, n:] = 0
+    rw[0, n:] = 1
+    sw[:, n:] = 0
+    challenge.fill_stream(block, bucket, plan)
+
+
+def stage_batch(pubs: list[bytes], msgs: list, sigs: list[bytes], bucket: int):
+    """The classic path's host staging: structural checks, challenges, and
+    the packed r/s/k words, batch-minor (8, bucket) uint32, identity-padded
+    to `bucket`. Returns (pre_ok, safe_pubs, r_words, s_words, k_words)."""
+    pre_ok, safe_pubs, sig_rows, pub_rows = _structural_stage(pubs, sigs)
+    r, s, k = _pack_host_words(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, bucket)
+    return pre_ok, safe_pubs, r, s, k
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -164,19 +217,28 @@ def staged_from_numpy(ax, ay, az, at, r_words, s_words, k_words,
 
 class Scheme(NamedTuple):
     """What differs between the signature schemes the verify path runs;
-    everything else (buckets, the key cache, the device glue, the recheck)
-    is shared."""
+    everything else (buckets, the key tables and cache, the device glue,
+    the header, the recheck) is shared."""
 
     name: str
     id_enc: bytes  # identity encoding: padding lanes and placeholder pubkeys
     decompress: Callable  # kernel wrapper: (8, B) words -> ok, X, Y, Z, T
-    stage: Callable  # (pubs, msgs, sigs, bucket) -> pre_ok, safe_pubs, r, s, k words
+    structural: Callable  # (pubs, sigs) -> pre_ok, safe_pubs, sig_rows, pub_rows
+    pack: Callable  # (pre_ok, safe_pubs, sig_rows, pub_rows, msgs, bucket) -> (3, 8, B) r/s/k
     verify_ok: Callable  # kernel wrapper: A coords + r/s/k words -> mask, all-ok
     verify_one: Callable  # (pub, msg, sig) -> bool: the exact host oracle
+    device_challenge: bool  # may k be derived on the device (ed25519 only)
+
+    def stage(self, pubs: list[bytes], msgs: list, sigs: list[bytes], bucket: int):
+        """The classic path's host staging: (pre_ok, safe_pubs, r_words,
+        s_words, k_words), each word plane (8, bucket) uint32."""
+        pre_ok, safe_pubs, sig_rows, pub_rows = self.structural(pubs, sigs)
+        r, s, k = self.pack(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, bucket)
+        return pre_ok, safe_pubs, r, s, k
 
 
-ED25519 = Scheme("ed25519", _ID_ENC32, VK.decompress, stage_batch, VK.verify_ok,
-                 oracle.verify_zip215)
+ED25519 = Scheme("ed25519", _ID_ENC32, VK.decompress, _structural_stage, _pack_host_words,
+                 VK.verify_ok, oracle.verify_zip215, True)
 
 
 def decompress_points(enc: np.ndarray, device=None, scheme: Scheme = ED25519
@@ -207,16 +269,20 @@ def pad_coords_batch_minor(coords: np.ndarray, bucket: int) -> tuple:
     return tuple(np.ascontiguousarray(coords[:, i].T) for i in range(4))
 
 
+
+
 class PubKeyCache:
-    """Two-level decompressed-pubkey cache for one device and one scheme.
+    """Two-level decompressed-pubkey cache for one device and one scheme:
+    the host decoder of the key tables (ops/residency.py) and the full
+    path's unique-key store.
 
     Host level: pubkey bytes -> (ok, (4, 20) int32 coords), bounded FIFO.
-    Device level: digest of the padded pubkey batch -> (ok_a, the four
-    (20, B) coordinate tensors already on the device) — the steady-state
-    hit for commit verification, where the same validator set re-verifies
-    every height and neither decompression nor the coordinate upload
-    recurs. The same 32 bytes decode to different points under each
-    scheme, so a cache holds one scheme's keys only.
+    Device level: digest of a padded unique-key set -> (ok, the four
+    (20, B) coordinate tensors and the (8, B) encoding words on the
+    device), used by the full path (_stage_gather) when a batch does not
+    fit the key table. The same 32
+    bytes decode to different points under each scheme, so a cache holds
+    one scheme's keys only.
     """
 
     def __init__(self, device=None, scheme: Scheme = ED25519,
@@ -274,8 +340,12 @@ class PubKeyCache:
                 oks[i], coords[i] = self._map[p]
             return oks, coords
 
-    def stage(self, pubs: list[bytes], bucket: int) -> tuple[np.ndarray, tuple]:
-        """(ok_a (N,) host bool, (ax, ay, az, at) device tensors (20, bucket))."""
+    def stage(self, pubs: list[bytes], bucket: int
+              ) -> tuple[np.ndarray, tuple, torch.Tensor]:
+        """(ok_a (N,) host bool, (ax, ay, az, at) device tensors (20, bucket),
+        the keys' encoding words (8, bucket) int32 on the device, for the
+        device challenges), identity-padded past the N keys; an upload is
+        accounted on the full path."""
         with self._lock:
             digest = hashlib.sha256(b"".join(pubs)).digest() + bucket.to_bytes(4, "little")
             hit = self._dev.get(digest)
@@ -284,13 +354,17 @@ class PubKeyCache:
                 return hit
             self.counters["device_misses"] += 1
             ok_a, coords = self.lookup_or_decompress(pubs)
-            dev = tuple(_to_device(a, self.device)
-                        for a in pad_coords_batch_minor(coords, bucket))
+            host = pad_coords_batch_minor(coords, bucket)
+            enc = np.frombuffer(b"".join(pubs) + self.scheme.id_enc * (bucket - len(pubs)),
+                                dtype="<u4").reshape(bucket, 8).T
+            got = (ok_a, tuple(_to_device(a, self.device) for a in host),
+                   _words_to_device(enc, self.device))
+            residency.record_send("full", sum(a.nbytes for a in host) + enc.nbytes)
             if len(self._dev) >= self.device_slots:
                 self._dev.pop(next(iter(self._dev)))
                 self.counters["device_evictions"] += 1
-            self._dev[digest] = (ok_a, dev)
-            return ok_a, dev
+            self._dev[digest] = got
+            return got
 
 
 _default_caches: dict[tuple[str, torch.device], PubKeyCache] = {}
@@ -305,6 +379,116 @@ def default_cache(device=None, scheme: Scheme = ED25519) -> PubKeyCache:
         if cache is None:
             cache = _default_caches[(scheme.name, dev)] = PubKeyCache(dev, scheme)
         return cache
+
+
+def _gather_coords(dev_u: tuple, idx: torch.Tensor) -> tuple:
+    """Unique-key coordinate tables (20, U) x 4 -> per-lane A coordinates
+    (20, B) by index, on the device (index_select, no host round trip)."""
+    return tuple(c.index_select(1, idx) for c in dev_u)
+
+
+def _stage_gather(cache: PubKeyCache, pubs: list[bytes], bucket: int, put_key: str = "",
+                  want_enc: bool = False) -> tuple:
+    """A batch's pubkeys on the device: (ok_a (N,), (ax, ay, az, at) (20,
+    bucket) tensors, send path, pubkey-staging bytes); with want_enc the
+    (8, bucket) int32 encoding words (or None) between the coordinates and
+    the path.
+
+    Indexed path first (ops/residency.py): a uint16 row index a lane into
+    the cache's key table, unseen keys delta-inserted; path "indexed".
+    Full path otherwise: the batch's unique keys as one coordinate table
+    and encoding plane (digest-cached in PubKeyCache), gathered on the
+    device by an int32 index a lane; path "full"."""
+    got = residency.stage(cache, pubs, bucket, put_key=put_key, want_enc=want_enc)
+    if got is not None:
+        if want_enc:
+            ok_a, a_dev, enc_dev, tx = got
+            return ok_a, a_dev, enc_dev, "indexed", tx
+        ok_a, a_dev, tx = got
+        return ok_a, a_dev, "indexed", tx
+    uniq = list(dict.fromkeys(pubs))
+    # an identity slot only when padding lanes exist: a batch that fills its
+    # bucket exactly may have as many unique keys as lanes
+    need_pad = bucket > len(pubs)
+    bu = bucket_size(len(uniq) + 1 if need_pad else len(uniq))
+    ok_u, dev_u, enc_u = cache.stage(uniq, bu)
+    pos = {p: i for i, p in enumerate(uniq)}
+    idx = np.full(bucket, len(uniq), dtype=np.int32)  # padding -> identity
+    idx[:len(pubs)] = [pos[p] for p in pubs]
+    ok_a = np.asarray(ok_u)[idx[:len(pubs)]]
+    idx_d = torch.from_numpy(idx).to(cache.device).to(torch.int64)
+    a_dev = _gather_coords(dev_u, idx_d)
+    if want_enc:
+        return ok_a, a_dev, enc_u.index_select(1, idx_d), "full", idx.nbytes
+    return ok_a, a_dev, "full", idx.nbytes
+
+
+# ------------------------------------------------------- reduced fetch
+#
+# After the verify kernel, K6 (ops/integrity.py) folds the all-ok verdict
+# into the staging checksum: token = checksum ^ (OK_MAGIC if every lane
+# verified and the staged bytes checksummed, else BAD_MAGIC), header =
+# [token, ~token]. The host knows the expected checksum, so 8 fetched bytes
+# prove "staged bytes arrived intact and every lane verified"; the per-lane
+# payload [mask, ~mask, checksum ok] crosses only when the header says
+# otherwise.
+
+OK_MAGIC = integrity.OK_MAGIC
+_BAD_MAGIC = integrity.BAD_MAGIC
+_host_checksum = integrity.host_checksum
+
+
+def decode_header(header: np.ndarray, expected) -> str:
+    """Header verdicts: "happy" (staging intact, every lane valid: the mask
+    need not cross), "full" (staging intact, some lane failed: fetch the
+    payload), "chk_mismatch" (the device saw other staged bytes than the
+    host sent), "echo_corrupt" (the header's complement disagrees)."""
+    h0, h1 = int(header[0]), int(header[1])
+    if h1 != (~h0 & 0xFFFFFFFF):
+        return "echo_corrupt"
+    exp = int(expected)
+    if h0 == exp ^ int(OK_MAGIC):
+        return "happy"
+    if h0 == exp ^ int(_BAD_MAGIC):
+        return "full"
+    return "chk_mismatch"
+
+
+def decode_payload(payload: np.ndarray, n: int, pre_ok: np.ndarray, ok_a: np.ndarray,
+                   rows: tuple, verify_one: Callable) -> tuple[np.ndarray, int]:
+    """A fetched (2B + 1,) payload -> the final (N,) mask and the recheck's
+    flips. A failed staging checksum or mask echo raises: the port retries
+    nothing and has no host-oracle rung."""
+    mask, chk_ok, echo_ok = integrity.decode_mask(payload)
+    if not (chk_ok and echo_ok):
+        raise RuntimeError(f"device transfer integrity check failed: staging checksum "
+                           f"ok {chk_ok}, mask echo ok {echo_ok}")
+    eligible = pre_ok & ok_a
+    return recheck_failed_lanes(mask[:n] & eligible, eligible, *rows, verify_one)
+
+
+_fetch_lock = threading.Lock()
+_fetch_stats = {"happy_fetches": 0, "full_fetches": 0, "happy_bytes": 0, "full_bytes": 0}
+
+
+def _count_fetch(happy: bool, nbytes: int) -> None:
+    key = "happy" if happy else "full"
+    with _fetch_lock:
+        _fetch_stats[key + "_fetches"] += 1
+        _fetch_stats[key + "_bytes"] += nbytes
+
+
+def fetch_stats() -> dict:
+    """Header-only ("happy") and header + payload ("full") fetches and
+    their bytes."""
+    with _fetch_lock:
+        return dict(_fetch_stats)
+
+
+def reset_fetch_stats() -> None:
+    with _fetch_lock:
+        for k in _fetch_stats:
+            _fetch_stats[k] = 0
 
 
 # ------------------------------------------------------------------ verify
@@ -322,24 +506,69 @@ def recheck_failed_lanes(mask: np.ndarray, eligible: np.ndarray, pubs, msgs,
     """eligible: lanes that passed the host structural checks and pubkey
     decompression (a placeholder lane is the identity, which validly signs
     anything, and must never be flipped). verify_one is the scheme's host
-    oracle. Returns (mask, number of lanes flipped to valid)."""
+    oracle; factored messages are materialized for it. Returns (mask,
+    number of lanes flipped to valid)."""
     bad = np.flatnonzero(~mask & eligible)
     if len(bad) == 0 or len(bad) > RECHECK_MAX:
         return mask, 0
     flips = 0
     for i in bad:
-        if verify_one(pubs[i], msgs[i], sigs[i]):
+        if verify_one(pubs[i], as_bytes(msgs[i]), sigs[i]):
             mask[i] = True
             flips += 1
     return mask, flips
 
 
-def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list[bytes],
-                sigs: list[bytes], cache: PubKeyCache | None = None,
-                device=None) -> tuple[np.ndarray, int]:
+class _Parts:
+    """Wall time of verify_rows's parts into `out` (ms, summed by name),
+    each part synchronised on the device before and after; nothing when
+    `out` is None."""
+
+    def __init__(self, device: torch.device, out: dict | None):
+        self.device, self.out = device, out
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.out is None:
+            yield
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.out[name] = self.out.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev):
+    """The host k of the Plan's live lanes that the device does not derive,
+    as (fkw (8, fb) int32, fidx (fb,) int32) device tensors and their host
+    arrays, fb a bucket, padded by repeating the last lane (the write is
+    idempotent); all None when every live lane is planned."""
+    lanes = np.flatnonzero(pre_ok & ~plan.eligible)
+    if not lanes.size:
+        return None, None, ()
+    k = _challenge_words(np.ascontiguousarray(sig_rows[lanes, :32]),
+                         np.ascontiguousarray(pub_rows[lanes]), [msgs[i] for i in lanes],
+                         np.ones(lanes.size, dtype=bool))
+    fb = bucket_size(int(lanes.size))
+    fidx = np.full(fb, int(lanes[-1]), dtype=np.int32)
+    fidx[:lanes.size] = lanes
+    fkw = np.tile(k[-1:].T, (1, fb)).astype(np.uint32)
+    fkw[:, :lanes.size] = k.T
+    return _words_to_device(fkw, dev), _to_device(fidx, dev), (fkw, fidx)
+
+
+def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes],
+                cache: PubKeyCache | None = None, device=None,
+                parts: dict | None = None) -> tuple[np.ndarray, int]:
     """(N,) bool mask under `scheme` and the number of recheck flips. Runs
     on the cache's device when a cache is given, else on `device` (default
-    cuda)."""
+    cuda). msgs may hold factored rows (libs/prefixrows.PrefixedMsg): they
+    stay factored, and the host oracle alone materializes them. `parts`, a
+    dict, receives each part's wall time in ms (plan, keys, pack, derive,
+    verify, header, fetch, recheck), synchronised around each."""
     n = len(sigs)
     if len(pubs) != n or len(msgs) != n:
         raise ValueError("pubs, msgs and sigs differ in length")
@@ -353,21 +582,63 @@ def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list[bytes],
     if n == 0:
         return np.zeros(0, dtype=bool), 0
     b = bucket_size(n)
-    msgs = [bytes(m) for m in msgs]
-    pre_ok, safe_pubs, r_words, s_words, k_words = scheme.stage(pubs, msgs, sigs, b)
-    ok_a, a_dev = cache.stage(safe_pubs, b)
-    words = tuple(_words_to_device(w, dev) for w in (r_words, s_words, k_words))
-    mask_dev, allok_dev = scheme.verify_ok(*a_dev, *words)
-    full = mask_dev.cpu().numpy()
-    if bool(allok_dev) != bool(full.all()):
-        raise RuntimeError("device all-ok disagrees with its own mask")
-    eligible = pre_ok & ok_a
-    mask = full[:n] & eligible
-    return recheck_failed_lanes(mask, eligible, safe_pubs, msgs, sigs,
-                                scheme.verify_one)
+    part = _Parts(dev, parts)
+    with part("plan"):
+        pre_ok, safe_pubs, sig_rows, pub_rows = scheme.structural(pubs, sigs)
+    with part("keys"):
+        staged = _stage_gather(cache, safe_pubs, b, want_enc=scheme.device_challenge)
+        if scheme.device_challenge:
+            ok_a, a_dev, enc_dev, path, key_bytes = staged
+        else:
+            (ok_a, a_dev, path, key_bytes), enc_dev = staged, None
+    with part("plan"):
+        plan = challenge.plan_batch(msgs, pre_ok, device=dev) if scheme.device_challenge else None
+    if plan is None:  # classic: k on the host
+        with part("pack"):
+            words = scheme.pack(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, b)
+            expected = _host_checksum(words)
+            block = _words_to_device(words.reshape(3 * 8, b), dev).reshape(3, 8, b)
+            residency.record_send(path, key_bytes + words.nbytes, sigs=n)
+        rw, sw, kw = block[0], block[1], block[2]
+        chk_arrs = (rw, sw, kw)
+    else:  # device challenge: k derived by K5
+        with part("pack"):
+            host_block = np.empty(challenge.block_words(b, plan.var), dtype=np.uint32)
+            _pack_device_block(sig_rows, b, plan, host_block)
+            fkw, fidx, fb_host = _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev)
+            expected = _host_checksum(host_block, *fb_host)
+            block = _to_device(host_block.view(np.int32), dev)
+            residency.record_send(path, key_bytes + host_block.nbytes
+                                  + sum(a.nbytes for a in fb_host), sigs=n)
+        with part("derive"):
+            kw = challenge.derive(block, enc_dev, plan.dev_tab, b, plan.var, plan.plen,
+                                  plan.tlen, fkw, fidx)
+        rw = block[:8 * b].view(8, b)
+        sw = block[8 * b:16 * b].view(8, b)
+        chk_arrs = (block,) if fkw is None else (block, fkw, fidx)
+    with part("verify"):
+        mask_dev, allok_dev = scheme.verify_ok(*a_dev, rw, sw, kw)
+    with part("header"):
+        header_dev, payload_dev = integrity.integrity_parts(mask_dev, allok_dev, expected,
+                                                            *chk_arrs)
+    with part("fetch"):
+        header = header_dev.cpu().numpy().view(np.uint32)
+        verdict = decode_header(header, expected)
+        if verdict == "happy":
+            _count_fetch(True, header.nbytes)
+        elif verdict == "full":
+            payload = payload_dev.cpu().numpy()
+            _count_fetch(False, header.nbytes + payload.nbytes)
+        else:
+            raise RuntimeError(f"reduced-fetch header of a {scheme.name} batch: {verdict}")
+    if verdict == "happy":
+        return pre_ok & ok_a, 0
+    with part("recheck"):
+        return decode_payload(payload, n, pre_ok, ok_a, (safe_pubs, msgs, sigs),
+                              scheme.verify_one)
 
 
-def verify_batch(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
+def verify_batch(pubs: list[bytes], msgs: list, sigs: list[bytes],
                  cache: PubKeyCache | None = None, device=None
                  ) -> tuple[bool, list[bool]]:
     """ZIP-215 batch verification with a per-signature mask."""

@@ -1,32 +1,127 @@
 """Batch-axis host hashing: N Keccak-f[1600] states under one permutation
-call (sr25519 staging), and N SHA-512 digests per call with their
-reduction mod L (the microbench's staging probe).
+call (the sr25519 staging transcript), N SHA-512 digests per call with their
+reduction mod L (the ed25519 classic-path challenges), and the reassembly of
+factored shared-prefix rows (libs/prefixrows.py) on the batch axis.
 
-The port's copy of the numpy rungs of cometbft_tpu/ops/hashvec.py, without
-its native SIMD rung (the port builds no host library, so
-``native_available()`` is False). Keccak has the numpy batch rung only,
-bit-for-bit equal to the serial Keccak of crypto/sr25519_math.py.
+The port's copy of cometbft_tpu/ops/hashvec.py. Rungs, chosen per call by
+``CBFT_HASHVEC``:
 
-SHA-512 rungs, chosen per call by ``CBFT_HASHVEC``:
-  numpy    the batch-axis compression below (all N messages through each
-           round together);
-  serial   per-row hashlib; also ragged groups under VEC_MIN_ROWS;
-  auto     (the default, and any other value) serial: without the native
-           rung, serial OpenSSL is the fastest correct rung, as in the
-           JAX package;
-  native   not available here, so serial as well.
-Every rung is bit-for-bit hashlib.sha512. The ed25519 staging of
-ops/ed25519_kernel.py hashes with hashlib directly.
+  native   8-lane SIMD C (native/hashvec.c, built at first use with cc into
+           build/, ISA from /proc/cpuinfo): Keccak, SHA-512 of pre-padded
+           same-block-count groups, and the Barrett reduction mod L;
+  numpy    the batch-axis numpy cores below (all N rows through each round
+           together), bit for bit equal;
+  serial   per-row hashlib for SHA-512, also for groups under
+           VEC_MIN_ROWS (ragged stragglers), and the numpy reduction;
+  auto     (the default, and any unknown value) native when the library
+           loads, else numpy for Keccak and the reduction and serial for
+           SHA-512 (without the SIMD core, serial OpenSSL is the fastest
+           correct SHA-512).
+
+``CBFT_HASHVEC=native`` raises when the library does not load;
+``active_rung()`` names the rung the next batch rides and ``stats()``
+counts rows per core and rung. Every rung is bit for bit hashlib.sha512,
+the serial Keccak of crypto/sr25519_math.py and int % L
+(tests/test_torch_native.py, tests/test_torch_microbench.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
+import threading
 
 import numpy as np
 
 from cometbft_tpu_torch.crypto.ed25519_math import L as L_ED25519
+
+# below this many rows a group takes the serial rung: per-row hash calls
+# beat the batch call's overhead for a handful of stragglers
+VEC_MIN_ROWS = 8
+
+# ------------------------------------------------------------ native rung
+
+_native_lock = threading.Lock()
+_native_lib: list = []  # [lib or None] once tried
+
+
+def _native():
+    """The loaded native/hashvec.c library with its C signatures declared,
+    or None when it does not build here (native.build_error says why).
+    Built on first use, never at import."""
+    if not _native_lib:
+        with _native_lock:
+            if not _native_lib:
+                from cometbft_tpu_torch import native
+
+                lib = native.load("hashvec", native.isa_cflags())
+                if lib is not None:
+                    lib.keccak_many.argtypes = [ctypes.c_void_p, ctypes.c_long]
+                    lib.sha512_many.argtypes = [ctypes.c_void_p, ctypes.c_long,
+                                                ctypes.c_long, ctypes.c_void_p]
+                    lib.reduce512_mod_l_many.argtypes = [ctypes.c_void_p, ctypes.c_long,
+                                                         ctypes.c_void_p]
+                _native_lib.append(lib)
+    return _native_lib[0]
+
+
+def native_available() -> bool:
+    """Does native/hashvec.c build and load on this host?"""
+    return _native() is not None
+
+
+_VALID_MODES = ("auto", "native", "numpy", "serial")
+
+
+def _mode() -> str:
+    m = os.environ.get("CBFT_HASHVEC", "auto")
+    return m if m in _VALID_MODES else "auto"
+
+
+def _use_native() -> bool:
+    """Does this call take the native rung? Forced native without the
+    library raises."""
+    mode = _mode()
+    if mode == "native":
+        if _native() is None:
+            from cometbft_tpu_torch import native
+
+            raise RuntimeError("CBFT_HASHVEC=native but native/hashvec.c did not load: "
+                               f"{native.build_error('hashvec')}")
+        return True
+    return mode == "auto" and _native() is not None
+
+
+def active_rung() -> str:
+    """The rung the next batch hash rides given CBFT_HASHVEC and what
+    loaded: "native", "numpy" or "serial"."""
+    mode = _mode()
+    if mode in ("auto", "native"):
+        return "native" if _use_native() else "numpy"
+    return mode
+
+
+_stats_lock = threading.Lock()
+_stats: dict[str, int] = {}
+
+
+def _count(core: str, rung: str, rows: int) -> None:
+    with _stats_lock:
+        key = f"{core}_{rung}_rows"
+        _stats[key] = _stats.get(key, 0) + rows
+
+
+def stats() -> dict[str, int]:
+    """Rows hashed per core and rung since the last reset_stats()."""
+    with _stats_lock:
+        return dict(_stats)
+
+
+def reset_stats() -> None:
+    with _stats_lock:
+        _stats.clear()
+
 
 # ---------------------------------------------------------------- keccak
 #
@@ -86,18 +181,25 @@ def _keccak_batch_numpy(states: np.ndarray) -> None:
 
 def keccak_f1600_many(states: np.ndarray) -> None:
     """Advance N independent Keccak-f[1600] states (one (N, 25) uint64
-    array, modified in place) under one permutation call."""
+    array, modified in place) under one permutation call: native SIMD when
+    the rung is native, else the numpy batch rung."""
     if states.dtype != np.uint64 or states.ndim != 2 or states.shape[1] != 25:
         raise ValueError("states must be an (N, 25) uint64 array")
-    if states.shape[0]:
-        _keccak_batch_numpy(states)
-
+    n = states.shape[0]
+    if n == 0:
+        return
+    if _use_native():
+        buf = np.ascontiguousarray(states)
+        _native().keccak_many(buf.ctypes.data, n)
+        if buf is not states:
+            states[:] = buf
+        _count("keccak", "native", n)
+        return
+    _keccak_batch_numpy(states)
+    _count("keccak", "numpy", n)
 
 
 # --------------------------------------------------------------- SHA-512 rung
-
-# below this many rows a group takes the serial rung
-VEC_MIN_ROWS = 8
 
 _SHA_K = np.array([
     0x428a2f98d728ae22, 0x7137449123ef65cd, 0xb5c0fbcfec4d3b2f,
@@ -134,15 +236,16 @@ _SHA_H0 = np.array([
     0x1f83d9abfb41bd6b, 0x5be0cd19137e2179], dtype=np.uint64)
 
 
-def native_available() -> bool:
-    """The JAX package's native SIMD rung: never built by the port."""
-    return False
-
-
 def _batch_sha512_active() -> bool:
-    """Is the numpy batch compression in play? Only when CBFT_HASHVEC
-    forces it; every other mode is serial hashlib."""
-    return os.environ.get("CBFT_HASHVEC", "auto") == "numpy"
+    """Is a batch compression (native SIMD, or numpy when forced) in play?
+    In auto mode without the native library, serial OpenSSL is the fastest
+    correct SHA-512, so batch grouping is skipped."""
+    mode = _mode()
+    if mode == "numpy":
+        return True
+    if mode == "serial":
+        return False
+    return _use_native()
 
 
 def _rotr(x: np.ndarray, n: int) -> np.ndarray:
@@ -192,22 +295,34 @@ def _sha512_pad(rows: np.ndarray) -> tuple[np.ndarray, int]:
 
 
 def _sha512_compress(buf: np.ndarray, nb: int) -> np.ndarray:
-    """Padded (N, nb*128) buffer -> (N, 64) uint8 digests."""
+    """Padded (N, nb*128) buffer -> (N, 64) uint8 digests through a batch
+    rung: native unless numpy is forced."""
     n = buf.shape[0]
+    if _mode() != "numpy" and _use_native():
+        buf = np.ascontiguousarray(buf)
+        out = np.empty((n, 64), dtype=np.uint8)
+        _native().sha512_many(buf.ctypes.data, n, nb, out.ctypes.data)
+        _count("sha512", "native", n)
+        return out
     w = buf.reshape(n, nb, 16, 8).view(">u8")[..., 0].astype(np.uint64)
     h = _sha512_blocks_numpy(w)
+    _count("sha512", "numpy", n)
     return np.ascontiguousarray(h).astype(">u8").view(np.uint8).reshape(n, 64)
 
 
 def _sha512_serial(datas, out: np.ndarray, idxs) -> None:
     for i in idxs:
         out[i] = np.frombuffer(hashlib.sha512(datas[i]).digest(), dtype=np.uint8)
+    _count("sha512", "serial", len(idxs))
 
 
 def sha512_rows(rows: np.ndarray) -> np.ndarray:
     """(N, L) uint8 same-length messages -> (N, 64) uint8 digests,
-    bit-for-bit hashlib.sha512."""
+    bit-for-bit hashlib.sha512: the uniform-length entry of the staging
+    paths (a commit's sign-bytes share one length)."""
     n = rows.shape[0]
+    if n == 0:
+        return np.zeros((0, 64), dtype=np.uint8)
     if not _batch_sha512_active() or n < VEC_MIN_ROWS:
         out = np.empty((n, 64), dtype=np.uint8)
         _sha512_serial([r.tobytes() for r in rows], out, range(n))
@@ -221,9 +336,15 @@ def sha512_many(datas: list[bytes]) -> np.ndarray:
     below VEC_MIN_ROWS take the serial rung."""
     n = len(datas)
     out = np.empty((n, 64), dtype=np.uint8)
+    if n == 0:
+        return out
     if not _batch_sha512_active():
         _sha512_serial(datas, out, range(n))
         return out
+    lens = set(map(len, datas))
+    if len(lens) == 1:  # the dominant commit shape: no per-row grouping
+        ln = lens.pop()
+        return sha512_rows(np.frombuffer(b"".join(datas), dtype=np.uint8).reshape(n, ln))
     by_nb: dict[int, dict[int, list[int]]] = {}
     for i, d in enumerate(datas):
         by_nb.setdefault((len(d) + 17 + 127) // 128, {}).setdefault(len(d), []).append(i)
@@ -241,17 +362,122 @@ def sha512_many(datas: list[bytes]) -> np.ndarray:
     return out
 
 
+# --------------------------------------------------- Barrett reduction mod L
+#
+# k = digest mod L for N 512-bit little-endian digests at once, as the
+# packed (N, 8) uint32 little-endian words the kernels take. The numpy rung
+# works in base-2^16 limbs in uint64 (products < 2^32, 17-term sums
+# < 2^37): HAC Algorithm 14.42 with k = 16 limbs, q3 = floor(floor(x /
+# b^15) * mu / b^17), r = x - q3*L mod b^17, then at most two conditional
+# subtractions of L. The native rung is the same algorithm in 64-bit limbs.
+
+_BARRETT_MU = (1 << 512) // L_ED25519  # 261 bits -> 17 base-2^16 limbs
+
+
+def _to_limbs16(x: int, n: int) -> np.ndarray:
+    return np.array([(x >> (16 * i)) & 0xFFFF for i in range(n)], dtype=np.uint64)
+
+
+_MU17 = _to_limbs16(_BARRETT_MU, 17)
+_L17 = _to_limbs16(L_ED25519, 17)
+_U16MASK = np.uint64(0xFFFF)
+_U16 = np.uint64(16)
+_U63SIGN = np.uint64(63)
+
+
+def _carry16(acc: np.ndarray) -> np.ndarray:
+    """Propagate base-2^16 carries along the limb axis of a limb-major
+    (limbs, N) accumulator; overflow off the top limb is dropped."""
+    c = np.zeros(acc.shape[1], dtype=np.uint64)
+    for j in range(acc.shape[0]):
+        t = acc[j] + c
+        acc[j] = t & _U16MASK
+        c = t >> _U16
+    return acc
+
+
+def _reduce512_mod_l_numpy(digests: np.ndarray) -> np.ndarray:
+    """The batch-axis numpy Barrett rung (limb-major (17, N) layout)."""
+    n = digests.shape[0]
+    x = np.ascontiguousarray(digests).view("<u2").astype(np.uint64).T  # (32, N)
+    q1 = x[15:]  # floor(x / b^15): 17 limbs
+    q2 = np.zeros((34, n), dtype=np.uint64)
+    for i in range(17):
+        q2[i:i + 17] += q1 * _MU17[i]
+    _carry16(q2)
+    q3 = q2[17:]  # floor(q2 / b^17): 17 limbs
+    r2 = np.zeros((17, n), dtype=np.uint64)  # q3*L mod b^17
+    for i in range(17):
+        if _L17[i]:
+            r2[i:] += q3[:17 - i] * _L17[i]
+    _carry16(r2)
+    # r = x - r2 mod b^17; the uint64 sign bit flags a wrapped limb
+    r = np.zeros((17, n), dtype=np.uint64)
+    borrow = np.zeros(n, dtype=np.uint64)
+    for j in range(17):
+        t = x[j] - r2[j] - borrow
+        r[j] = t & _U16MASK
+        borrow = t >> _U63SIGN
+    for _ in range(2):  # r < 3L: at most two conditional subtractions
+        t = np.zeros_like(r)
+        borrow = np.zeros(n, dtype=np.uint64)
+        for j in range(17):
+            d = r[j] - _L17[j] - borrow
+            t[j] = d & _U16MASK
+            borrow = d >> _U63SIGN
+        ge = borrow == 0
+        r[:, ge] = t[:, ge]
+    return np.ascontiguousarray(r[:16].T.astype(np.uint16)).view("<u4").reshape(n, 8)
+
+
 def reduce512_mod_l(digests: np.ndarray) -> np.ndarray:
     """(N, 64) uint8 little-endian 512-bit values -> (N, 8) uint32
-    little-endian words of (value mod L), the ed25519 group order, reduced
-    with Python ints."""
-    raw = np.ascontiguousarray(digests, dtype=np.uint8).tobytes()
-    blob = b"".join((int.from_bytes(raw[i:i + 64], "little") % L_ED25519).to_bytes(32, "little")
-                    for i in range(0, len(raw), 64))
-    return np.frombuffer(blob, dtype="<u4").reshape(-1, 8).astype(np.uint32)
+    little-endian words of (value mod L), the ed25519 group order: native
+    Barrett unless numpy or serial is forced, else the numpy Barrett, bit
+    for bit equal."""
+    n = digests.shape[0]
+    if n == 0:
+        return np.zeros((0, 8), dtype=np.uint32)
+    if _mode() in ("auto", "native") and _use_native():
+        buf = np.ascontiguousarray(digests, dtype=np.uint8)
+        out = np.empty((n, 8), dtype=np.uint32)
+        _native().reduce512_mod_l_many(buf.ctypes.data, n, out.ctypes.data)
+        return out
+    return _reduce512_mod_l_numpy(digests)
 
 
 def sha512_mod_l_words(datas: list[bytes]) -> np.ndarray:
     """SHA-512 digests reduced mod L as packed device words: the ed25519
     challenge pipeline (hash, wide reduction, wire words) in two calls."""
     return reduce512_mod_l(sha512_many(datas))
+
+
+# ---------------------------------------------------- shared-prefix rows
+
+
+def assemble_prefixed_rows(msgs, mlen: int) -> np.ndarray:
+    """Uniform-length messages -> an (N, mlen) uint8 matrix on the batch
+    axis. Runs of PrefixedMsg rows sharing the same prefix object write the
+    prefix once as a broadcast column block and join only their suffixes;
+    plain bytes rows join as they are (libs/prefixrows.py)."""
+    from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
+
+    n = len(msgs)
+    out = np.empty((n, mlen), dtype=np.uint8)
+    i = 0
+    while i < n:
+        m = msgs[i]
+        j = i
+        if isinstance(m, PrefixedMsg):
+            p = m.prefix
+            while j < n and isinstance(msgs[j], PrefixedMsg) and msgs[j].prefix is p:
+                j += 1
+            out[i:j, :len(p)] = np.frombuffer(p, dtype=np.uint8)
+            sfx = b"".join(msgs[k].suffix for k in range(i, j))
+            out[i:j, len(p):] = np.frombuffer(sfx, dtype=np.uint8).reshape(j - i, mlen - len(p))
+        else:
+            while j < n and not isinstance(msgs[j], PrefixedMsg):
+                j += 1
+            out[i:j] = np.frombuffer(b"".join(msgs[i:j]), dtype=np.uint8).reshape(j - i, mlen)
+        i = j
+    return out

@@ -17,8 +17,12 @@ curve.ristretto_decode_device; the kernels are in ops/verify_kernel.py.
 
 The host keeps what is host-shaped: the Merlin transcript challenges
 (STROBE over Keccak, batched per message length by
-crypto/sr25519_math.batch_challenge_words_rows) and the structural checks
+crypto/sr25519_math.batch_challenge_words_rows through the native rungs:
+hashvec's SIMD Keccak, strobe.c for small groups) and the structural checks
 (lengths, the schnorrkel marker bit, s < L), which never reach the device.
+So sr25519 always takes the classic path of verify_rows: pubkeys from the
+key tables (ops/residency.py, the scheme's own cache), r/s/k words in one
+transfer, and the r/s/k-form integrity header.
 Padding and placeholder lanes carry the ristretto identity, whose encoding
 is 32 zero bytes, with zero scalars: they verify valid.
 """
@@ -28,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 from cometbft_tpu_torch.crypto import sr25519_math as srm
+from cometbft_tpu_torch.libs.prefixrows import as_bytes
 from cometbft_tpu_torch.ops import ed25519_kernel as EK
 from cometbft_tpu_torch.ops import verify_kernel as VK
 
@@ -36,14 +41,11 @@ _ID_ENC32 = bytes(32)  # the ristretto identity encoding
 # ------------------------------------------------------------ host staging
 
 
-def stage_rows_sr(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
-                  bucket: int):
-    """Structural checks (lengths, marker bit 255 set, s < L with the
-    marker cleared), the Merlin challenges of the whole batch, and the
-    packed r/s/k words batch-minor (8, bucket) uint32, zero-padded (the
-    identity encoding with zero scalars). Lanes that fail the checks get
-    R = 0, s = 0, k = 0 and a zero pubkey. Returns (pre_ok, safe_pubs,
-    r_words, s_words, k_words)."""
+def structural_sr(pubs: list[bytes], sigs: list[bytes]):
+    """Structural checks (lengths, marker bit 255 set, s < L with the marker
+    cleared). Lanes that fail get R = 0, s = 0 and a zero pubkey (the
+    identity). Returns (pre_ok, safe_pubs, sig_rows (N, 64) with s's marker
+    cleared, None: no pubkey rows are needed)."""
     n = len(sigs)
     ok_len = np.fromiter(map(len, sigs), np.int64, n) == 64
     ok_len &= np.fromiter(map(len, pubs), np.int64, n) == 32
@@ -59,29 +61,41 @@ def stage_rows_sr(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
     # schnorrkel signature parse (srm.parse_signature): the marker must be
     # set, and s with the marker cleared must be < L
     marker = (sig_rows[:, 63] & 128) != 0
-    s_rows = np.ascontiguousarray(sig_rows[:, 32:])
-    s_rows[:, 31] &= 127
-    pre_ok = ok_len & marker & EK.scalars_lt_l(s_rows)
+    sig_rows[:, 63] &= 127
+    pre_ok = ok_len & marker & EK.scalars_lt_l(sig_rows[:, 32:])
     bad = np.flatnonzero(~pre_ok)
     if bad.size:
-        sig_rows[bad, :32] = 0
-        s_rows[bad] = 0
+        sig_rows[bad] = 0
         safe_pubs = [p if pre_ok[i] else _ID_ENC32 for i, p in enumerate(safe_pubs)]
+    return pre_ok, safe_pubs, sig_rows, None
+
+
+def pack_sr(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, bucket: int) -> np.ndarray:
+    """The Merlin challenges of the whole batch and the packed r/s/k words,
+    (3, 8, bucket) uint32, zero-padded (the identity encoding with zero
+    scalars). Merlin absorbs exact bytes: factored rows are materialized
+    here."""
+    n = sig_rows.shape[0]
     r_rows = np.ascontiguousarray(sig_rows[:, :32])
-    k_rows = srm.batch_challenge_words_rows(safe_pubs, r_rows, msgs)
+    k_rows = srm.batch_challenge_words_rows(safe_pubs, r_rows, [as_bytes(m) for m in msgs])
     k_rows[~pre_ok] = 0
     out = np.zeros((3, 8, bucket), dtype=np.uint32)
-    r_words, s_words, k_words = out[0], out[1], out[2]
-    r_words[:, :n] = r_rows.view("<u4").T
-    s_words[:, :n] = s_rows.view("<u4").T
-    k_words[:, :n] = k_rows.T
-    return pre_ok, safe_pubs, r_words, s_words, k_words
+    out[0, :, :n] = r_rows.view("<u4").T
+    out[1, :, :n] = np.ascontiguousarray(sig_rows[:, 32:]).view("<u4").T
+    out[2, :, :n] = k_rows.T
+    return out
+
+
+def stage_rows_sr(pubs: list[bytes], msgs: list, sigs: list[bytes], bucket: int):
+    """The host staging of a batch: (pre_ok, safe_pubs, r_words, s_words,
+    k_words), the word planes (8, bucket) uint32."""
+    return SR25519.stage(pubs, msgs, sigs, bucket)
 
 
 # ------------------------------------------------------------------ verify
 
-SR25519 = EK.Scheme("sr25519", _ID_ENC32, VK.decompress_sr, stage_rows_sr,
-                    VK.verify_sr_ok, srm.verify)
+SR25519 = EK.Scheme("sr25519", _ID_ENC32, VK.decompress_sr, structural_sr, pack_sr,
+                    VK.verify_sr_ok, srm.verify, False)
 
 
 def decompress_points(enc: np.ndarray, device=None) -> tuple[np.ndarray, np.ndarray]:

@@ -1,7 +1,8 @@
-"""Time the pubkey decoders and the microbench's loop kernel (K3) of this
-checkout and of another one on the same CUDA card, in turns.
+"""Time the pubkey decoders, the microbench's loop kernel (K3), the
+challenge kernel (K5) and the integrity kernel (K6) of this checkout and of
+another one on the same CUDA card, in turns.
 
-    python3 compare_decoders.py OTHER_DIR [--out FILE]
+    python3 compare_kernels.py OTHER_DIR [--out FILE]
 
 OTHER_DIR is another checkout of the repository, for example an earlier
 commit unpacked with ``git archive`` into a directory that .gitignore
@@ -18,8 +19,13 @@ of chip_smoke.K3_RECORDS at 128 and 10,240 lanes, each at its record's
 iterations per launch, on the probes' seeded state, after holding each
 against its tree's plain version at 7 iterations (the value bodies by
 canonical value, whichever limbs a tree's kernel writes, and every body so
-on a tree that predates the value bodies; the limb bodies bit for bit). It
-prints one line per reading and, last, one JSON object with all of them;
+on a tree that predates the value bodies; the limb bodies bit for bit).
+Then K5 (derive over chip_smoke.VOTE_GEOMETRY at 10,240 lanes, on
+chip_smoke.k5_inputs) and K6 (header and payload over that block), each
+held bit for bit against its tree's plain version first, per launch on the
+card alone (chip_smoke.time_launch: the wrapper's host work hidden behind
+a sleep on the card) and back to back; a tree that predates them reports
+none. It prints one line per reading and, last, one JSON object with all of them;
 --out writes that object to FILE as well. Needs one card; exits non-zero
 without one.
 """
@@ -83,7 +89,31 @@ def _child(tree: pathlib.Path, words_file: pathlib.Path) -> dict:
                                   "ms_back_to_back": CS.time_back_to_back(
                                       lambda: kernel(words))}
     out.update(_time_k3(F, device))
+    out.update(_time_k5_k6(device))
     return out
+
+
+def _time_k5_k6(device) -> dict:
+    """K5 and K6 of the imported tree, held and timed; none before the
+    tree had them."""
+    try:
+        from cometbft_tpu_torch.ops import challenge as CH
+        from cometbft_tpu_torch.ops import integrity as IN
+    except ImportError:
+        return {}
+    plen, var, tlen = CS.VOTE_GEOMETRY
+    flat, aw, ptab = CS.k5_inputs(CS.N_BIG, CS.VOTE_GEOMETRY, device)
+    k5 = lambda: CH.derive(flat, aw, ptab, CS.N_BIG, var, plen, tlen)  # noqa: E731
+    if not torch.equal(k5(), CH.derive_plain(flat, aw, ptab, CS.N_BIG, var, plen, tlen)):
+        raise AssertionError("K5 differs from plain")
+    mask = torch.ones(CS.N_BIG, dtype=torch.bool, device=device)
+    expected = int(IN.checksum_plain(flat))
+    k6 = lambda: IN.integrity_parts(mask, mask.all(), expected, flat)  # noqa: E731
+    if CS._max_err(k6(), IN.parts_plain(mask, mask.all(), expected, flat)):
+        raise AssertionError("K6 differs from plain")
+    return {f"{name} {CS.N_BIG}": {"ms": CS.time_launch(fn),
+                                   "ms_back_to_back": CS.time_back_to_back(fn)}
+            for name, fn in (("k5 derive", k5), ("k6 integrity", k6))}
 
 
 def _time_k3(F, device) -> dict:
@@ -120,7 +150,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--words", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("compare_decoders: no CUDA device", file=sys.stderr)
+        print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
     if args.child:
         print(json.dumps(_child(args.child, args.words)), flush=True)
@@ -133,7 +163,7 @@ def main(argv: list[str] | None = None) -> int:
     trees = {"other": args.other.resolve(), "this": HERE}
     runs = []
     for label in ("other", "this", "this", "other"):
-        done = subprocess.run([sys.executable, str(HERE / "compare_decoders.py"),
+        done = subprocess.run([sys.executable, str(HERE / "compare_kernels.py"),
                                "--child", str(trees[label]), "--words", str(words_file)],
                               capture_output=True, text=True, check=False)
         if done.returncode:
@@ -142,7 +172,8 @@ def main(argv: list[str] | None = None) -> int:
         times = json.loads(done.stdout.strip().splitlines()[-1])
         runs.append({"tree": label, "times": times})
         for key, t in times.items():
-            unit = "lanes and iterations" if key.startswith("k3 ") else "keys"
+            unit = ("lanes and iterations" if key.startswith("k3 ") else
+                    "lanes" if key.startswith(("k5 ", "k6 ")) else "keys")
             print(f"[{card}] {label} tree, {key} {unit}: {t['ms']:.4f} ms per launch (median "
                   f"of 20), {t['ms_back_to_back']:.4f} ms back to back (mean of 50)", flush=True)
     result = {"card": card, "other": str(trees["other"]), "runs": runs}

@@ -1,5 +1,5 @@
 """Static import guard of the port: no file of cometbft_tpu_torch/, not
-chip_smoke.py and not compare_decoders.py imports JAX or anything of the
+chip_smoke.py and not compare_kernels.py imports JAX or anything of the
 JAX package cometbft_tpu — at module level or inside a function, by an
 import statement or by importlib/__import__ with a literal name. The
 subprocess check in tests/test_torch_verify.py sees only what importing
@@ -15,7 +15,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cometbft_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "compare_decoders.py"]
+    REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "cometbft_tpu")
 
 

@@ -11,6 +11,8 @@ by canonical value (verify_kernel.decode_err), ok bit for bit.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +21,12 @@ from cometbft_tpu_torch.crypto import ed25519 as ted
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
 from cometbft_tpu_torch.crypto import sr25519 as tsr
 from cometbft_tpu_torch.crypto import sr25519_math as srm
+from cometbft_tpu_torch.libs.prefixrows import SharedPrefixRows
+from cometbft_tpu_torch.ops import challenge as CH
 from cometbft_tpu_torch.ops import ed25519_kernel as TK
+from cometbft_tpu_torch.ops import integrity as IN
 from cometbft_tpu_torch.ops import microbench as MB
+from cometbft_tpu_torch.ops import residency as TR
 from cometbft_tpu_torch.ops import sr25519_kernel as TS
 from cometbft_tpu_torch.ops import verify_kernel as VK
 
@@ -301,3 +307,144 @@ def test_decoders_match_plain_on_edge_lanes(cuda, name, n):
         for c in got[1:]:
             assert int(c[:19].min()) >= 0 and int(c[:19].max()) <= 8191
             assert int(c[19].min()) >= 0 and int(c[19].max()) < 256
+
+
+# ------------------------------------------- K5 (challenge) and K6 (integrity)
+
+def _k5_inputs(b: int, var: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    block = rng.integers(0, 2**32, size=CH.block_words(b, var), dtype=np.uint64).astype(np.uint32)
+    desc = (rng.integers(0, CH.TABLE_ROWS, size=b) | 0x8000).astype(np.uint16)
+    desc[::3] &= 0x7FFF
+    block[16 * b:].view(np.uint8)[:2 * b] = desc.view(np.uint8)
+    aw = rng.integers(0, 2**32, size=(8, b), dtype=np.uint64).astype(np.uint32)
+    ptab = rng.integers(0, 256, size=(CH.TABLE_ROWS, CH.PREFIX_CAP), dtype=np.uint8)
+    return (torch.from_numpy(block.view(np.int32)).to(device),
+            torch.from_numpy(aw.view(np.int32)).to(device), torch.from_numpy(ptab).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 256, 6144, 10240])
+@pytest.mark.parametrize("geom", [(95, 13, 14), (20, 13, 14), (20, 13, 15), (100, 24, 52),
+                                  (0, 0, 0)], ids=lambda g: "plen%d-var%d-tlen%d" % g)
+def test_challenge_derive_matches_plain(cuda, b, geom):
+    plen, var, tlen = geom
+    flat, aw, ptab = _k5_inputs(b, var, b + plen + var, cuda)
+    fidx = torch.tensor([0, b - 1, b - 1], dtype=torch.int32, device=cuda)
+    fkw = torch.randint(-2**31, 2**31, (8, 3), dtype=torch.int32, device=cuda)
+    fkw[:, 2] = fkw[:, 1]  # a padded fallback repeats its last lane
+    got = CH.derive(flat, aw, ptab, b, var, plen, tlen, fkw, fidx)
+    want = CH.derive(flat.cpu(), aw.cpu(), ptab.cpu(), b, var, plen, tlen, fkw.cpu(), fidx.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_challenge_standalone_entries_match_hashlib(cuda):
+    rng = np.random.default_rng(2)
+    for ln in (0, 111, 112, 186, 239, 240):
+        rows = rng.integers(0, 256, size=(300, ln), dtype=np.uint8)
+        got = CH.sha512_rows_device(rows, cuda)
+        assert [r.tobytes() for r in got] == [hashlib.sha512(r.tobytes()).digest() for r in rows]
+        k = CH.reduce512_mod_l_device(got, cuda)
+        np.testing.assert_array_equal(k, CH.reduce512_mod_l_device(got, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("narrs", [1, 3])
+@pytest.mark.parametrize("case", ["happy", "failed", "mismatch"])
+def test_integrity_parts_matches_plain(cuda, narrs, case):
+    b = 10240
+    flat, aw, _ = _k5_inputs(b, 13, 5, cuda)
+    arrs = (flat,) if narrs == 1 else (flat, aw, aw[3].contiguous())
+    mask = torch.ones(b, dtype=torch.bool, device=cuda)
+    if case == "failed":
+        mask[[7, b - 1]] = False
+    expected = IN.host_checksum(*(a.cpu().numpy() for a in arrs)) ^ (case == "mismatch")
+    got = IN.integrity_parts(mask, mask.all(), expected, *arrs)
+    want = IN.parts_plain(mask.cpu(), mask.all().cpu(), expected, *(a.cpu() for a in arrs))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    verdict = TK.decode_header(got[0].cpu().numpy().view(np.uint32), expected)
+    assert verdict == {"happy": "happy", "failed": "full", "mismatch": "chk_mismatch"}[case]
+    assert IN.device_checksum(*arrs) == int(IN.checksum_plain(*(a.cpu() for a in arrs)))
+
+
+@pytest.mark.cuda
+def test_integrity_scratch_is_zero_after_each_launch(cuda):
+    """K6's launches on a stream share two scratch words that each launch's
+    last block zeroes: launches in a row, with and without a mask, give
+    the plain version's results every time."""
+    flat, aw, _ = _k5_inputs(6144, 13, 5, cuda)
+    mask = torch.ones(6144, dtype=torch.bool, device=cuda)
+    mask[9] = False
+    expected = IN.host_checksum(flat.cpu().numpy())
+    want = IN.parts_plain(mask.cpu(), mask.all().cpu(), expected, flat.cpu())
+    chk = int(IN.checksum_plain(flat.cpu(), aw.cpu()))
+    for _ in range(3):
+        got = IN.integrity_parts(mask, mask.all(), expected, flat)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert IN.device_checksum(flat, aw) == chk
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert IN._scratch_of(cuda, stream).tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 6144, 10240])
+def test_k5_k6_launch_shape_one_wave(cuda, b):
+    for entry in ("challenge_derive", "challenge_sha512", "challenge_reduce"):
+        shape = CH.launch_shape(entry, b, cuda)
+        assert shape["waves"] == 1 and shape["local_bytes"] == 0, (entry, shape)
+    shape = IN.launch_shape(CH.block_words(b, CH.MAX_VAR), cuda)
+    assert shape["waves"] == 1 and shape["local_bytes"] == 0, shape
+
+
+@pytest.mark.cuda
+def test_factored_commit_on_the_card_matches_cpu(cuda):
+    """A factored 40-validator commit through verify_rows on the card (K5,
+    K1, K6) and on the CPU (their plain versions): equal masks, k derived
+    on the device for every lane."""
+    n = 40
+    privs = [ted.gen_priv_key_from_secret(b"fc-%d" % i) for i in range(n)]
+    prefix = b"\x79\x08\x02" + bytes(range(92))
+    rows = SharedPrefixRows(prefix, [b"\x2a\x0c" + i.to_bytes(8, "big") + b"\x01\x02"
+                                     + b"\x32\x0bcosmoshub-4" for i in range(n)])
+    msgs = rows.rows_for(range(n))
+    pubs = [p.pub_key().bytes_() for p in privs]
+    sigs = [p.sign(rows[i]) for i, p in enumerate(privs)]
+    sigs[5] = sigs[5][:33] + bytes([sigs[5][33] ^ 1]) + sigs[5][34:]
+    CH.reset_stats()
+    got, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
+    assert CH.stats()["lanes_device"] == n
+    want, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache("cpu"))
+    assert got.tolist() == want.tolist() and flips == 0
+    assert [i for i in range(n) if not got[i]] == [5]
+
+
+@pytest.mark.cuda
+def test_key_table_overflow_on_the_card_keeps_k5(cuda):
+    """A factored commit of 64 unique keys on a table of 63 key rows takes
+    the full key path on the card, and K5 still derives every k: the mask
+    equals the CPU's."""
+    n = 64
+    prefix = b"\x79\x08\x02" + bytes(range(92))
+    rows = SharedPrefixRows(prefix, [b"\x2a\x0c" + i.to_bytes(8, "big") + b"\x01\x02"
+                                     + b"\x32\x0bcosmoshub-4" for i in range(n)])
+    privs = [ted.gen_priv_key_from_secret(b"ov-%d" % i) for i in range(n)]
+    pubs = [p.pub_key().bytes_() for p in privs]
+    sigs = [p.sign(rows[i]) for i, p in enumerate(privs)]
+    sigs[9] = sigs[9][:33] + bytes([sigs[9][33] ^ 1]) + sigs[9][34:]
+    msgs = rows.rows_for(range(n))
+    TR.reset()
+    CH.reset_stats()
+    TR.configure(rows=64)
+    try:
+        derives = CH.LAUNCHES["challenge_derive"]
+        got, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache(cuda))
+        assert CH.LAUNCHES["challenge_derive"] == derives + 1
+        want, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=TK.PubKeyCache("cpu"))
+        sends = TR.send_stats()
+    finally:
+        TR.configure(rows=16384)
+        TR.reset()
+    assert CH.stats()["lanes_device"] == 2 * n
+    assert sends["indexed"]["sigs"] == 0 and sends["full"]["sigs"] == 2 * n
+    assert got.tolist() == want.tolist() and [i for i in range(n) if not got[i]] == [9]

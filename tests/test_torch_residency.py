@@ -1,0 +1,133 @@
+"""The port's device-resident key tables (ops/residency.py KeyTable) against
+the JAX package's KeyTable fed the same keys in the same order: gathered A
+coordinates, encoding words and ok flags equal bit for bit, the same rows
+taken and evicted. Covered: the delta insert, the indexed steady state, LRU
+eviction, rows protected by the batch being staged, overflow to the full
+path, and the identity row of padding lanes. Both tables run on the CPU
+(JAX_PLATFORMS=cpu; the port's plain decoder).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu.ops import ed25519_kernel as JK
+from cometbft_tpu.ops import residency as JR
+from cometbft_tpu_torch.crypto import ed25519 as ted
+from cometbft_tpu_torch.ops import ed25519_kernel as TK
+from cometbft_tpu_torch.ops import residency as TR
+
+ROWS = 16  # 15 usable rows and the identity row
+NO_SQRT = (2).to_bytes(32, "little")  # y = 2: no curve point, ok False
+
+
+@pytest.fixture(scope="module")
+def keys():
+    return [ted.gen_priv_key_from_secret(b"res-%d" % i).pub_key().bytes_() for i in range(24)]
+
+
+@pytest.fixture
+def tables():
+    TR.reset()
+    JR.reset()
+    return TR.KeyTable(TK.PubKeyCache("cpu"), ROWS), JR.KeyTable("ed25519", JK.PubKeyCache(), ROWS)
+
+
+def _stage_both(tables, pubs, bucket):
+    """Stage on both tables; assert equal gathers; return the port's ok."""
+    t, j = tables
+    tok, tcoords, tenc, tbytes = t.stage(pubs, bucket, want_enc=True)
+    jok, jcoords, jenc, jbytes = j.stage(pubs, bucket, want_enc=True)
+    np.testing.assert_array_equal(tok, jok)
+    for a, b in zip(tcoords, jcoords):
+        assert tuple(a.shape) == (20, bucket)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(tenc.numpy().view(np.uint32), np.asarray(jenc))
+    assert tbytes == jbytes == 2 * bucket
+    return tok
+
+
+def _same_rows(tables, pubs):
+    t, j = tables
+    assert t.rows_of(pubs) == [j._rows[p] for p in pubs]
+    assert list(t._rows) == list(j._rows)  # the same LRU order
+
+
+def test_delta_insert_then_indexed(tables, keys):
+    pubs = keys[:5] + [NO_SQRT] + keys[:2]  # repeats and an undecodable key
+    ok = _stage_both(tables, pubs, 8)
+    assert ok.tolist() == [True] * 5 + [False] + [True] * 2
+    _same_rows(tables, pubs)
+    st = tables[0].stats()
+    assert st["delta_rows"] == 6 and st["delta_updates"] == 1 and st["indexed_batches"] == 1
+    _stage_both(tables, pubs[::-1], 8)  # all resident: no delta
+    st = tables[0].stats()
+    assert st["delta_rows"] == 6 and st["indexed_batches"] == 2
+
+
+def test_identity_pad_lanes(tables, keys):
+    t, _ = tables
+    _stage_both(tables, keys[:3], 8)
+    _, coords, enc, _ = t.stage(keys[:3], 8, want_enc=True)
+    for c, want in zip(coords, (0, 1, 1, 0)):  # X=0, Y=1, Z=1, T=0
+        assert (c[1:, 3:] == 0).all() and (c[0, 3:] == want).all()
+    assert (enc[0, 3:] == 1).all() and (enc[1:, 3:] == 0).all()
+    assert t.id_row == ROWS - 1
+
+
+def test_lru_eviction_matches(tables, keys):
+    for lo in range(0, 15, 5):  # fill the 15 usable rows, 5 at a time
+        _stage_both(tables, keys[lo:lo + 5], 8)
+    _stage_both(tables, keys[0:3], 8)  # touch 0-2: 3-7 are now the oldest
+    _stage_both(tables, keys[15:19], 8)  # 4 unseen keys evict 3, 4, 5, 6
+    _same_rows(tables, keys[15:19] + keys[0:3] + keys[7:15])
+    t, j = tables
+    assert t.stats()["evictions"] == j.stats()["evictions"] == 4
+    assert not set(keys[3:7]) & set(t._rows)
+
+
+def test_batch_rows_protected_then_full_path(tables, keys):
+    for lo in range(0, 15, 5):
+        _stage_both(tables, keys[lo:lo + 5], 8)
+    _stage_both(tables, keys[10:15], 8)  # 0-9 are now the oldest rows
+    # 10 resident keys and 5 unseen: room is made from the 5 rows outside
+    # the batch, never from the batch's own (older) rows
+    _stage_both(tables, keys[:10] + keys[15:20], 16)
+    t, j = tables
+    assert set(t._rows) == set(j._rows) == set(keys[:10] + keys[15:20])
+    assert t.stats()["evictions"] == j.stats()["evictions"] == 5
+    # 16 unique keys exceed the 15 rows: both refuse, the rows stay
+    with pytest.raises(TR._NoRoom):
+        t.stage(keys[:16], 16)
+    with pytest.raises(JR._NoRoom):
+        j.stage(keys[:16], 16)
+    _same_rows(tables, keys[:10] + keys[15:20])
+
+
+def test_overflow_takes_full_path(keys):
+    """A table of rows=64 holds 63 keys: 64 unique keys overflow it and the
+    batch takes the unique-key full path, whose gathers equal those of a
+    table that holds them, encoding words and identity padding included."""
+    many = keys + [ted.gen_priv_key_from_secret(b"res-%d" % i).pub_key().bytes_()
+                   for i in range(len(keys), 64)]
+    small, large = TK.PubKeyCache("cpu"), TK.PubKeyCache("cpu")
+    TR.reset()
+    TR.configure(rows=64)
+    try:
+        assert TR.stage(small, many[:63], 64) is not None
+        assert TR.stage(small, many, 64) is None
+    finally:
+        TR.configure(rows=16384)
+    pubs = many + [many[0], NO_SQRT]
+    bucket = TK.bucket_size(len(pubs))
+    ok_i, a_i, enc_i, path_i, _ = TK._stage_gather(large, pubs, bucket, want_enc=True)
+    ok_f, a_f, enc_f, path_f, nbytes = TK._stage_gather(small, pubs, bucket, want_enc=True)
+    assert (path_i, path_f, nbytes) == ("indexed", "full", 4 * bucket)
+    assert ok_f.tolist() == ok_i.tolist() == [True] * 65 + [False]
+    for a, b in zip(a_i + (enc_i,), a_f + (enc_f,)):
+        assert tuple(b.shape) == tuple(a.shape) and b.dtype == a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert TR.send_stats()["full"]["sends"] == 1 and TR.send_stats()["delta"]["sends"] >= 1
+    TR.reset()

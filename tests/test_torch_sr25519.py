@@ -36,6 +36,7 @@ from cometbft_tpu_torch.crypto import sr25519_math as srm
 from cometbft_tpu_torch.ops import batch_verifier as TBV
 from cometbft_tpu_torch.ops import curve as TC
 from cometbft_tpu_torch.ops import ed25519_kernel as TK
+from cometbft_tpu_torch.ops import residency as TR
 from cometbft_tpu_torch.ops import hashvec
 from cometbft_tpu_torch.ops import limbs as TL
 from cometbft_tpu_torch.ops import sr25519_kernel as TS
@@ -250,10 +251,13 @@ def test_sr_cache_seeded_from_jax_coords():
     cache.load(safe, ok_a, coords)
     mask, flips = TK.verify_rows(TS.SR25519, pubs, msgs, sigs, cache=cache)
     assert mask.tolist() == _oracle_mask(pubs, msgs, sigs) and flips == 0
+    # the key table decodes through the cache's host level: every key seeded
     st = cache.stats()
-    assert st["host_misses"] == 0 and st["device_misses"] == 1
+    assert st["host_misses"] == 0 and st["host_hits"] == len(set(safe))
+    assert TR.table_for(cache).stats()["delta_rows"] == len(set(safe))
     TK.verify_rows(TS.SR25519, pubs, msgs, sigs, cache=cache)
-    assert cache.stats()["device_hits"] == 1
+    table = TR.table_for(cache).stats()
+    assert table["delta_rows"] == len(set(safe)) and table["indexed_batches"] == 2
     # an ed25519 cache decodes the same bytes to other points: refused
     with pytest.raises(ValueError, match="ed25519 keys"):
         TK.verify_rows(TS.SR25519, pubs, msgs, sigs, cache=TK.PubKeyCache(CPU))

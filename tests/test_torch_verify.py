@@ -34,6 +34,7 @@ from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import ed25519 as ted
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
 from cometbft_tpu_torch.ops import ed25519_kernel as TK
+from cometbft_tpu_torch.ops import residency as TR
 from cometbft_tpu_torch.ops import verify_kernel as VK
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -123,10 +124,14 @@ def test_pubkey_cache_seeded_from_jax_coords():
     cache.load(safe, ok_a, coords)
     mask, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=cache)
     assert mask.tolist() == _oracle_mask(pubs, msgs, sigs) and flips == 0
+    # the key table decodes through the cache's host level: every key seeded
     st = cache.stats()
-    assert st["host_misses"] == 0 and st["device_misses"] == 1
+    assert st["host_misses"] == 0 and st["host_hits"] == len(set(safe))
+    table = TR.table_for(cache).stats()
+    assert table["delta_rows"] == len(set(safe)) and table["indexed_batches"] == 1
     mask2, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=cache)
-    assert cache.stats()["device_hits"] == 1
+    table = TR.table_for(cache).stats()
+    assert table["delta_rows"] == len(set(safe)) and table["indexed_batches"] == 2
     np.testing.assert_array_equal(mask2, mask)
 
 
