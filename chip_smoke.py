@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), checks that ptxas gave the verify kernels, the pubkey decoders,
 every body of the microbench's loop kernel, the challenge kernel K5 (its
-three entries) and the integrity kernel K6 no stack frame and no spills
+three entries) and the integrity kernel
+K6 no stack frame and no spills
 and that their launches at the main paths' lane counts are one wave (the
 CUDA occupancy calculator), and that the native host rungs (native/*.c,
 built with cc) loaded. It holds each kernel against its plain PyTorch
@@ -16,7 +17,8 @@ edge cases (ZIP-215 encodings, torsion components, y = p and y = p + 1, a
 sr25519 lane whose check lands on a multiple of p), bit for bit; the
 decoders by ok bit for bit and X, Y, Z, T by canonical value; K5 over the
 vote geometry and the SHA-512 block boundaries, and K6's header and
-payload, bit for bit. Then it drives the main paths through the entry
+payload from raw int32 verdicts, in stream order and as a programmatic
+launch, bit for bit. Then it drives the main paths through the entry
 points a node calls:
 
   - ed25519: crypto.batch.create_batch_verifier -> add -> verify on a
@@ -31,8 +33,12 @@ with tampered lanes at known indices. It checks the masks, the launch and
 lane counters, the path counters (device-challenge lanes, indexed key
 sends, happy or full headers, the native hash rung) and the host-oracle
 recheck, and holds K5 and K6 against their plain versions on each path's
-own inputs. It times the kernels (the decoders at 10,240, 6,144 and 256
-keys, K5 and K6 at 10,240 lanes), their plain versions, verify() end to
+own inputs; it records the aten ops of one verify_rows and fails if
+anything but K6 launches between the verify kernel and the header fetch.
+It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
+its hashing alone, and K6 at 10,240 lanes, with the
+wrappers' host time by step, and K6 behind K1 in stream order and as a
+programmatic launch), their plain versions, verify() end to
 end and by part, warm and cold (plan, keys, pack, derive, verify, header,
 fetch, recheck). Then the device microbench (ops/microbench.py): its loop
 kernel (K3) for every registered probe body (the value bodies on the
@@ -261,8 +267,8 @@ def shape_entries() -> list[tuple[str, str, Callable[[int, torch.device], dict],
         first.setdefault(body.body_id, name)
     out += [(f"loop_kernel<{name}>", "microbench", functools.partial(MB.launch_shape, name),
              MB_LANES) for name in first.values()]
-    # K5 at the ed25519 lane counts of the main paths (its standalone entries
-    # at the same counts); K6 over the words of a device-challenge block there
+    # K5's three entries at the ed25519 lane counts of the main paths; K6
+    # over the words of a device-challenge block there
     out += [(e, "challenge25519", functools.partial(CH.launch_shape, e), main_lanes)
             for e in ("challenge_derive", "challenge_sha512", "challenge_reduce")]
     out.append(("integrity", "integrity",
@@ -824,8 +830,8 @@ class Held:
             self._keep("challenge_derive", [got], [want])
             return got
 
-        def held_parts(mask, allok, expected, *arrs):
-            got = parts(mask, allok, expected, *arrs)
+        def held_parts(mask, allok, expected, *arrs, overlap=False):
+            got = parts(mask, allok, expected, *arrs, overlap=overlap)
             self._keep("integrity_parts", got, IN.parts_plain(mask, allok, expected, *arrs))
             return got
 
@@ -929,22 +935,29 @@ def drive(label: str, make_verifier, keys, msgs, sigs, bad: list[int], device,
             "warm_lanes": warm_lanes}
 
 
-def drive_commit(path: Path, n: int, seed: int, device, label: str, held: Held,
-                 tampered: bool = True, factored: bool = True) -> dict:
-    """The main path of one scheme on one commit, through
-    create_batch_verifier: its sign-bytes factored (SharedPrefixRows.rows_for,
-    the device-challenge path for ed25519) or as bytes (the classic path).
-    With `tampered` a few lanes at known indices are made invalid, else
-    every lane must verify and ok be True."""
-    from cometbft_tpu_torch.crypto import batch as crypto_batch
-
+def commit_cell(path: Path, n: int, seed: int, tampered: bool = True,
+                factored: bool = True):
+    """One scheme's commit of n validators: its sign-bytes factored
+    (SharedPrefixRows.rows_for) or as bytes, and with `tampered` a few lanes
+    at known indices made invalid. Returns (keys, msgs, sigs, bad)."""
     pubs, msgs, sigs = path.make_commit(n, seed)
     if factored:
         msgs = commit_rows(n, seed).rows_for(range(n))
     bad = sorted({3, n // 7, n // 3, n // 2, n - 1, (2 * n) // 3, n - 40, 11}
                  if n > 64 else {3, 11}) if tampered else []
     tamper(pubs, msgs, sigs, bad)
-    keys = [path.pub_key(p) for p in pubs]
+    return [path.pub_key(p) for p in pubs], msgs, sigs, bad
+
+
+def drive_commit(path: Path, n: int, seed: int, device, label: str, held: Held,
+                 tampered: bool = True, factored: bool = True) -> dict:
+    """The main path of one scheme on one commit (commit_cell), through
+    create_batch_verifier: factored sign-bytes take the device-challenge
+    path for ed25519, bytes the classic path. Without `tampered` every lane
+    must verify and ok be True."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    keys, msgs, sigs, bad = commit_cell(path, n, seed, tampered, factored)
     name = path.scheme.name
     device_lanes = n if factored and path.scheme.device_challenge else 0
     return drive(label, lambda: crypto_batch.create_batch_verifier(keys[0]), keys,
@@ -1311,15 +1324,15 @@ def _k5_bytes(lanes: int, var: int) -> int:
     return lanes * (32 + 32 + 2 + var + 32) + 160
 
 
-def k5_inputs(b: int, geometry: tuple[int, int, int], device, seed: int = 0):
+def k5_inputs(b: int, geometry: tuple[int, int, int], device, seed: int = 0, rows: int = 16):
     """A random wire block, encoding plane and prefix table of b lanes (every
-    fifth lane left to the host, the rest over a few table rows)."""
+    fifth lane left to the host, the rest over `rows` table rows)."""
     from cometbft_tpu_torch.ops import challenge as CH
 
     plen, var, tlen = geometry
     rng = np.random.default_rng(seed)
     block = rng.integers(0, 2**32, size=CH.block_words(b, var), dtype=np.uint64).astype(np.uint32)
-    desc = (rng.integers(0, 16, size=b) | 0x8000).astype(np.uint16)
+    desc = (rng.integers(0, rows, size=b) | 0x8000).astype(np.uint16)
     desc[::5] &= 0x7FFF
     block[16 * b:].view(np.uint8)[:2 * b] = desc.view(np.uint8)
     aw = rng.integers(0, 2**32, size=(8, b), dtype=np.uint64).astype(np.uint32)
@@ -1330,12 +1343,12 @@ def k5_inputs(b: int, geometry: tuple[int, int, int], device, seed: int = 0):
 
 def check_challenge_integrity(device) -> dict[str, int]:
     """K5's three entries and K6 against their plain versions on the card,
-    bit for bit: derive at 256, 6,144 and 10,240 lanes over the vote
-    geometry and the one/two/three-block boundaries, with fallback k; the
-    digest entry on rows of 0, 111, 112, 186, 239 and 240 bytes; the
-    reduction on edge values; K6's header and payload over one and three
-    arrays, all lanes valid and some failed, and its checksum alone.
-    Returns the largest differences."""
+    bit for bit: derive at 256, 6,144 and 10,240 lanes over 16 prefix rows, the vote geometry and the one/two/three-block
+    boundaries, with fallback k; the digest entry on rows of 0, 111, 112,
+    186, 239 and 240 bytes; the reduction on edge values; K6's header and
+    payload over one and three arrays, from raw int32 verdicts, all lanes
+    valid and some failed, launched in stream order and as a programmatic
+    launch, and its checksum alone. Returns the largest differences."""
     from cometbft_tpu_torch.crypto.ed25519_math import L as L_ORDER
     from cometbft_tpu_torch.ops import challenge as CH
     from cometbft_tpu_torch.ops import integrity as IN
@@ -1349,7 +1362,8 @@ def check_challenge_integrity(device) -> dict[str, int]:
             raise AssertionError(f"{name}: kernel and plain version differ by {e}")
 
     for b in (256, N_MIXED_BUCKET, N_BIG):
-        for geom in (VOTE_GEOMETRY, (20, 13, 14), (20, 13, 15), (100, 24, 51), (100, 24, 52)):
+        for geom in (VOTE_GEOMETRY, (20, 13, 14), (20, 13, 15), (100, 24, 51), (100, 24, 52),
+                     (7, 24, 30), (103, 24, 50), (100, 0, 20)):
             flat, aw, ptab = k5_inputs(b, geom, device, seed=b + sum(geom))
             fidx = torch.arange(0, 40, 5, dtype=torch.int32, device=device)
             fkw = torch.randint(-2**31, 2**31, (8, 8), dtype=torch.int32, device=device)
@@ -1375,30 +1389,129 @@ def check_challenge_integrity(device) -> dict[str, int]:
     flat, aw, _ = k5_inputs(N_BIG, VOTE_GEOMETRY, device, seed=3)
     for arrs in ((flat,), (flat, aw, aw[0].contiguous())):
         for bad in ([], [5, N_BIG - 1]):
-            mask = torch.ones(N_BIG, dtype=torch.bool, device=device)
-            mask[bad] = False
-            allok = mask.all()
+            mask = torch.ones(N_BIG, dtype=torch.int32, device=device)
+            mask[bad] = 0
+            allok = (mask != 0).all().to(torch.int32).reshape(1)
             expected = int(IN.checksum_plain(*arrs)) ^ (1 if bad else 0)
-            keep("integrity_parts", _max_err(IN.integrity_parts(mask, allok, expected, *arrs),
-                                             IN.parts_plain(mask, allok, expected, *arrs)))
+            for overlap in (False, True):
+                keep("integrity_parts", _max_err(
+                    IN.integrity_parts(mask, allok, expected, *arrs, overlap=overlap),
+                    IN.parts_plain(mask, allok, expected, *arrs)))
         if IN.device_checksum(*arrs) != int(IN.checksum_plain(*arrs)):
             raise AssertionError("integrity checksum: kernel and plain version differ")
-    print(f"check K5/K6: derive == plain bit for bit at 256, {N_MIXED_BUCKET} and {N_BIG} lanes "
-          f"over 5 geometries with fallback k; the digest entry == plain and hashlib at 6 "
-          f"lengths, the reduction == plain on edge values ({N_BIG} rows); K6 header and "
-          f"payload == plain over 1 and 3 arrays, happy, failed and mismatched; its checksum "
-          f"alone == plain", flush=True)
+    print(f"check K5/K6: derive == plain bit for bit at 256, "
+          f"{N_MIXED_BUCKET} and {N_BIG} lanes over 16 rows and 8 geometries with fallback k; "
+          f"the digest entry == plain and hashlib at 6 lengths, the reduction == plain on edge "
+          f"values ({N_BIG} rows); K6 header and payload == plain over 1 and 3 arrays from raw "
+          f"int32 verdicts, happy, failed and mismatched, in stream order and programmatic; "
+          f"its checksum alone == plain", flush=True)
     return err
+
+
+# aten ops that launch nothing on the card: allocations and views
+_NO_LAUNCH_OPS = {"empty.memory_format", "empty_strided.default", "view.default",
+                  "select.int", "slice.Tensor", "alias.default", "_reshape_alias.default",
+                  "reshape.default", "as_strided.default", "unsqueeze.default"}
+
+
+def check_verify_to_header(path: Path, n: int, seed: int, device) -> list[str]:
+    """One verify_rows of a tampered factored commit, every aten op it runs
+    on the card recorded in order with the kernel wrappers' launches (the
+    verify kernel's count, K6's launch): between the verify kernel and the
+    header fetch only allocations and views may run, and K6, so nothing but
+    K6 is launched there. Returns what ran between them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.ops import integrity as IN
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    log: list[str] = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            log.append(func.overloadpacket.__name__ + "." + func._overloadname)
+            return func(*args, **(kwargs or {}))
+
+    _, pubs, msgs, sigs = parts_cell(path, n, seed)
+    cache = K.PubKeyCache(device, path.scheme)
+    K.verify_rows(path.scheme, pubs, msgs, sigs, cache=cache)  # the key table's first fill
+    count, launch = VK._count, IN._launch
+
+    def marked_count(entry, b):
+        log.append(f"<{entry}>")
+        count(entry, b)
+
+    def marked_launch(args, dev, entry, overlap):
+        log.append(f"<{entry}>")
+        launch(args, dev, entry, overlap)
+
+    VK._count, IN._launch = marked_count, marked_launch
+    try:
+        with Record():
+            K.verify_rows(path.scheme, pubs, msgs, sigs, cache=cache)
+    finally:
+        VK._count, IN._launch = count, launch
+    start = log.index(f"<{path.scheme.name}_verify>")
+    end = next(i for i in range(start, len(log)) if log[i].startswith("_to_copy"))
+    between = log[start + 1:end]
+    if between.count("<integrity_parts>") != 1 or any(
+            op not in _NO_LAUNCH_OPS for op in between if op != "<integrity_parts>"):
+        raise AssertionError(f"{path.scheme.name}: launches between the verify kernel and the "
+                             f"header fetch: {between}")
+    print(f"verify path {path.scheme.name} {n}: between the verify kernel and the header fetch "
+          f"only {between} (K6 alone launches)", flush=True)
+    return between
+
+
+def _k5_hash_only(device):
+    """K5's hashing and reduction alone on the vote geometry's message: the
+    standalone digest and reduction entries over 10,240 pre-padded rows of
+    186 bytes (two blocks), no assembly. Returns the launch function (the
+    entries' C interface is the same in every tree that has K5)."""
+    from cometbft_tpu_torch.ops import challenge as CH
+
+    plen, var, tlen = VOTE_GEOMETRY
+    ln = 64 + plen + var + tlen
+    nb = (ln + 17 + 127) // 128
+    rows = np.random.default_rng(5).integers(0, 256, size=(N_BIG, nb * 128), dtype=np.uint8)
+    rows[:, ln] = 0x80
+    rows[:, ln + 1:] = 0
+    rows[:, -2:] = np.frombuffer((ln * 8).to_bytes(2, "big"), dtype=np.uint8)
+    buf = torch.from_numpy(rows).to(device)
+    dig = torch.empty((N_BIG, 64), dtype=torch.uint8, device=device)
+    out = torch.empty((N_BIG, 8), dtype=torch.int32, device=device)
+    lib, stream = CH._lib(), torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        lib.challenge_sha512_rows(buf.data_ptr(), N_BIG, nb, dig.data_ptr(), stream)
+        lib.challenge_reduce512(dig.data_ptr(), N_BIG, out.data_ptr(), stream)
+
+    run()
+    got = CH.reduce512_mod_l_device(dig.cpu().numpy(), "cpu")
+    want = [hashlib.sha512(r[:ln].tobytes()).digest() for r in rows[:4]]
+    if [r.tobytes() for r in dig[:4].cpu().numpy()] != want or \
+            not np.array_equal(out.cpu().numpy().view(np.uint32), got):
+        raise AssertionError("K5's standalone entries disagree with hashlib / the plain version")
+    return run
+
+
+def _host_steps(steps: dict) -> str:
+    """Each step's host time a call (time_host, median of 20), printed."""
+    return ", ".join(f"{name} {time_host(fn):.4f}" for name, fn in steps.items())
 
 
 def time_k5_k6(device, card: str) -> dict:
     """K5 (derive, vote geometry) and K6 (header and payload over a
     device-challenge block) at 10,240 lanes: per launch on the card alone
     (time_launch, median of 20), back to back (mean of 50), the wrapper's
-    host time a call (time_host, median of 20), the plain versions (median
-    of 3, host clock, on the card), the bounds, and for K6 the library
-    yardstick, the torch expression of the checksum alone
-    (integrity.checksum_plain on the card, timed as the kernel)."""
+    host time a call (time_host, median of 20) and its split by step, the
+    plain versions (median of 3, host clock, on the card), the bounds, and
+    for K6 the library yardstick, the torch expression of the checksum alone
+    (integrity.checksum_plain on the card, timed as the kernel). K5 also
+    beside its hashing alone (_k5_hash_only); K6 behind K1 in stream order
+    and as a programmatic launch."""
+    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import challenge as CH
     from cometbft_tpu_torch.ops import integrity as IN
 
@@ -1406,30 +1519,86 @@ def time_k5_k6(device, card: str) -> dict:
     flat, aw, ptab = k5_inputs(N_BIG, VOTE_GEOMETRY, device)
     nb = (64 + plen + var + tlen + 17 + 127) // 128
     k5 = functools.partial(CH.derive, flat, aw, ptab, N_BIG, var, plen, tlen)
+    k5_bound = bound(nb * K5_OPS_BLOCK + K5_OPS_REDUCE, 0, N_BIG)
+    b_bytes = _k5_bytes(N_BIG, var) / HBM_BYTES_PER_S * 1e3
+    if b_bytes > k5_bound[0]:
+        k5_bound = (b_bytes, "bytes")
+    hash_only = _k5_hash_only(device)
+    hash_ms = {"ms": time_launch(hash_only), "ms_back_to_back": time_back_to_back(hash_only)}
+    kw = torch.empty((8, N_BIG), dtype=torch.int32, device=device)
+    lib, stream = CH._lib(), _build.raw_stream(device)
+    bw = CH.block_words(N_BIG, var)
+
+    def device_ctx():
+        with torch.cuda.device(device):
+            pass
+
+    def new_ctx():
+        with _build.on_device(device):
+            _build.raw_stream(device)
+
+    dev = flat.device  # the tensors' own device (with its index), as the wrapper checks
+    k5_steps = {
+        "checks": lambda: (CH._check("flat", flat, torch.int32, (bw,), dev),
+                           CH._check("aw", aw, torch.int32, (8, N_BIG), dev),
+                           CH._check("ptab", ptab, torch.uint8, (CH.TABLE_ROWS, CH.PREFIX_CAP),
+                                     dev)),
+        "torch.empty": lambda: torch.empty((8, N_BIG), dtype=torch.int32, device=device),
+        "torch.cuda.device": device_ctx,
+        "current_stream": lambda: torch.cuda.current_stream(device).cuda_stream,
+        "on_device + raw_stream": new_ctx,
+        "ctypes call": lambda: lib.challenge_derive(
+            flat.data_ptr(), aw.data_ptr(), ptab.data_ptr(), kw.data_ptr(), N_BIG, plen, var,
+            tlen, stream),
+        "derive": k5}
     out = {"challenge_derive": {
         "ms": time_launch(k5), "ms_back_to_back": time_back_to_back(k5),
         "host_ms": time_host(k5),
         "plain_ms": time_wall(lambda: CH.derive_plain(flat, aw, ptab, N_BIG, var, plen, tlen),
                               3, device),
-        "library_ms": None,
-        "bound": bound(nb * K5_OPS_BLOCK + K5_OPS_REDUCE, 0, N_BIG)}}
-    b_bytes = _k5_bytes(N_BIG, var) / HBM_BYTES_PER_S * 1e3
-    if b_bytes > out["challenge_derive"]["bound"][0]:
-        out["challenge_derive"]["bound"] = (b_bytes, "bytes")
-    mask = torch.ones(N_BIG, dtype=torch.bool, device=device)
-    allok = mask.all()
+        "library_ms": None, "bound": k5_bound, "hash_only": hash_ms}}
+    print(f"[{card}] challenge_derive host time a call by step (ms, median of 20): "
+          f"{_host_steps(k5_steps)}", flush=True)
+    print(f"[{card}] K5's hashing alone (standalone SHA-512 + reduction entries, {N_BIG} "
+          f"pre-padded 186-byte rows): {hash_ms['ms']:.4f} ms alone, "
+          f"{hash_ms['ms_back_to_back']:.4f} back to back", flush=True)
+
+    mask = torch.ones(N_BIG, dtype=torch.int32, device=device)
+    allok = torch.ones(1, dtype=torch.int32, device=device)
     expected = int(IN.checksum_plain(flat))
     k6 = functools.partial(IN.integrity_parts, mask, allok, expected, flat)
     words = flat.numel()
-    k6_bytes = 4 * words + N_BIG + 1 + 8 + 2 * N_BIG + 1
+    k6_bytes = 4 * words + 4 * N_BIG + 4 + 8 + 2 * N_BIG + 1
     ops = 2 * words / IMAD_PER_S * 1e3  # a multiply-add and an add a word
     mem = k6_bytes / HBM_BYTES_PER_S * 1e3
+    header = torch.empty(2, dtype=torch.int32, device=device)
+    payload = torch.empty(2 * N_BIG + 1, dtype=torch.bool, device=device)
+    args = IN._arrays((flat,), dev) + [mask.data_ptr(), allok.data_ptr(), N_BIG,
+                                          expected, header.data_ptr(), payload.data_ptr()]
+    k6_steps = {
+        "checks": lambda: IN._arrays((flat,), dev),
+        "2 x torch.empty": lambda: (torch.empty(2, dtype=torch.int32, device=device),
+                                    torch.empty(2 * N_BIG + 1, dtype=torch.bool, device=device)),
+        "scratch lookup": lambda: IN._scratch_of(device, stream),
+        "torch.cuda.device": device_ctx,
+        "current_stream": lambda: torch.cuda.current_stream(device).cuda_stream,
+        "on_device + raw_stream": new_ctx,
+        "ctypes call": lambda: IN._lib().integrity_parts(
+            *args[:-2], IN._scratch_of(device, stream).data_ptr(), *args[-2:], 0, stream),
+        "integrity_parts": k6}
     out["integrity_parts"] = {
         "ms": time_launch(k6), "ms_back_to_back": time_back_to_back(k6),
         "host_ms": time_host(k6),
         "plain_ms": time_wall(lambda: IN.parts_plain(mask, allok, expected, flat), 3, device),
         "library_ms": time_launch(lambda: IN.checksum_plain(flat)),
         "bound": (ops, "operations") if ops >= mem else (mem, "bytes")}
+    print(f"[{card}] integrity_parts host time a call by step (ms, median of 20): "
+          f"{_host_steps(k6_steps)}", flush=True)
+    behind = _k6_behind_k1(device, flat, expected)
+    out["integrity_parts"]["behind_k1"] = behind
+    print(f"[{card}] K1 then K6 at {N_BIG} lanes, back to back (mean of 50): K6 in stream "
+          f"order {behind['stream_order']:.4f} ms a pair, programmatic "
+          f"{behind['programmatic']:.4f}; K1 alone {behind['k1_alone']:.4f}", flush=True)
     for name, r in out.items():
         print(f"[{card}] {name} at {N_BIG} lanes: kernel {r['ms']:.4f} ms (median of 20, "
               f"{r['bound'][0] / r['ms']:.1%} of the bound), back to back "
@@ -1439,6 +1608,26 @@ def time_k5_k6(device, card: str) -> dict:
               + (f", library (torch checksum expression) {r['library_ms']:.4f} ms"
                  if r["library_ms"] is not None else ""), flush=True)
     return out
+
+
+def _k6_behind_k1(device, flat, expected) -> dict:
+    """K1's raw verify at 10,240 lanes (untampered) followed by K6 over the
+    wire block, in stream order and as a programmatic launch, each pair
+    back to back (mean of 50), and K1 alone."""
+    from cometbft_tpu_torch.ops import integrity as IN
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    pubs, msgs, sigs = _paths()["ed25519"].make_commit(N_BIG, SEED_CHECK)
+    t = staged(_paths()["ed25519"], pubs, msgs, sigs, device)
+    k1 = functools.partial(VK.verify_ok_raw, *t)
+
+    def pair(overlap):
+        mask, allok = k1()
+        IN.integrity_parts(mask, allok, expected, flat, overlap=overlap)
+
+    return {"stream_order": time_back_to_back(functools.partial(pair, False)),
+            "programmatic": time_back_to_back(functools.partial(pair, True)),
+            "k1_alone": time_back_to_back(k1)}
 
 
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
@@ -1513,6 +1702,9 @@ def main() -> int:
     lanes = mixed["warm_lanes"]
     if lanes != {"ed25519_verify": N_MIXED_BUCKET, "sr25519_verify": N_MIXED_BUCKET}:
         raise AssertionError(f"mixed 10k: lanes per warm verify() {lanes}")
+    # K6 reads the verify kernel's raw verdicts: nothing else launches between
+    check_verify_to_header(ed, N_BIG, SEED_COLD + 6, device)
+    check_verify_to_header(sr, N_SMALL, SEED_COLD + 7, device)
 
     # kernel, plain and end-to-end times, beside each kernel's bound
     print(f"IMADs per lane in 32-bit limbs, the least the work needs (the bounds): "
@@ -1562,6 +1754,8 @@ def main() -> int:
     print(f"microbench phase: {time.perf_counter() - t_mb:.1f} s (checks, probes, timing)",
           flush=True)
 
+    from cometbft_tpu_torch.ops import challenge as CH
+
     kernels = {"kernels": []}
     for name, run, t, b, d, replaces in (
             ("ed25519", big, times, bounds, dec["ed25519"], "ed25519_kernel.py:97"),
@@ -1583,7 +1777,9 @@ def main() -> int:
             "replaces": replaces, "launches": big["launches"][name], "max_abs_err": err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"], "lanes": N_BIG,
-            "ms_back_to_back": r["ms_back_to_back"], "host_ms": r["host_ms"]})
+            "ms_back_to_back": r["ms_back_to_back"], "host_ms": r["host_ms"],
+            **({"hash_only_ms": r["hash_only"]["ms"]} if name == "challenge_derive" else
+               {"behind_k1_ms": r["behind_k1"]})})
     for name, r in mb_times.items():
         replaces = "microbench.py:280" if name == "microbench_stacked" else "microbench.py:88"
         kernels["kernels"].append({

@@ -1,11 +1,12 @@
-// The per-lane body of the challenge kernel K5 (challenge25519.cu): message
-// assembly from the device-challenge wire block, SHA-512 in native 64-bit
-// words, and the Barrett reduction mod L, the ed25519 group order.
+// The per-lane body of the challenge kernel K5 (challenge25519.cu): the
+// message template of a prefix-table row, a lane's variable bytes placed
+// into it, SHA-512 in native 64-bit words, and the Barrett reduction mod L,
+// the ed25519 group order.
 //
 // Host-compilable: with __device__ and __forceinline__ defined away, g++
 // builds it as it stands (tests/test_torch_challenge_host.py); the CUDA-only
-// pieces (the __constant__ round constants, __umul64hi, __byte_perm) sit
-// behind __CUDA_ARCH__ / __CUDACC__.
+// pieces (the __constant__ round constants, __umul64hi, __byte_perm,
+// __funnelshift_l) sit behind __CUDA_ARCH__ / __CUDACC__.
 //
 // Wire layout (ops/challenge.py block_words / fill_stream), one flat
 // uint32 block of a batch of B lanes:
@@ -18,6 +19,12 @@
 // The message of a lane is R || A || prefix || var || tail, A from the
 // residency encoding plane aw (8, B), prefix and tail from row `pid` of the
 // prefix table (TABLE_ROWS x PREFIX_CAP bytes: prefix then tail).
+//
+// Message words 0-7 (R || A) are the lane's own. Every later 64-bit
+// big-endian word is the template word of the lane's row (prefix, tail,
+// the 0x80 marker and the length, zero at the variable bytes), ORed with
+// the lane's variable bytes where their window [64 + plen, 64 + plen + var)
+// touches it: at most the four words from wv0 = (64 + plen) / 8.
 
 #pragma once
 
@@ -29,6 +36,8 @@ namespace chal {
 constexpr int TABLE_ROWS = 256;
 constexpr int PREFIX_CAP = 160;
 constexpr int MAX_BLOCKS = 3;  // 64 + MAX_MLEN (192) bytes pad to <= 3 blocks
+constexpr int MAX_VAR = 24;    // ops/challenge.py MAX_VAR: the window spans <= 4 words
+constexpr int VAR_WORDS = 4;
 
 #ifdef __CUDACC__
 #define CHAL_CONST __constant__
@@ -73,6 +82,15 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t x) {
 #endif
 }
 
+// The upper 32 bits of (hi:lo) << sh, sh in [0, 32).
+__device__ __forceinline__ uint32_t funnel_l(uint32_t lo, uint32_t hi, int sh) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_l(lo, hi, sh);
+#else
+  return (uint32_t)(((((uint64_t)hi << 32) | lo) << sh) >> 32);
+#endif
+}
+
 __device__ __forceinline__ uint64_t rotr64(uint64_t x, int n) {
   return (x >> n) | (x << (64 - n));
 }
@@ -102,46 +120,72 @@ __device__ __forceinline__ void mac(uint64_t a, uint64_t b, uint64_t acc, uint64
   carry = hi;
 }
 
-// One SHA-512 compression of the 16 big-endian message words w into h. The
-// schedule lives in the 16 words (every index a constant after unrolling),
-// the round constants are read from constant memory, the 80 rounds run as 5
-// rolled passes of 16 unrolled ones.
-__device__ __forceinline__ void sha512_block(uint64_t h[8], uint64_t w[16]) {
-  uint64_t a = h[0], b = h[1], c = h[2], d = h[3];
-  uint64_t e = h[4], f = h[5], g = h[6], hh = h[7];
-#pragma unroll 1
-  for (int r = 0; r < 80; r += 16) {
-#pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      if (r) {
-        const uint64_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
-        const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
-        const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
-        w[t] += s0 + w[(t + 9) & 15] + s1;
-      }
-      const uint64_t t1 = hh + (rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41)) +
-                          (g ^ (e & (f ^ g))) + K512[r + t] + w[t];
-      const uint64_t t2 = (rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39)) +
-                          ((a & (b | c)) | (b & c));
-      hh = g;
-      g = f;
-      f = e;
-      e = d + t1;
-      d = c;
-      c = b;
-      b = a;
-      a = t1 + t2;
-    }
-  }
-  h[0] += a; h[1] += b; h[2] += c; h[3] += d;
-  h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
-}
+// ------------------------------------------------------------- SHA-512
+
+struct State {
+  uint64_t a, b, c, d, e, f, g, h;
+};
 
 __device__ __forceinline__ void sha512_init(uint64_t h[8]) {
   h[0] = 0x6a09e667f3bcc908ULL; h[1] = 0xbb67ae8584caa73bULL;
   h[2] = 0x3c6ef372fe94f82bULL; h[3] = 0xa54ff53a5f1d36f1ULL;
   h[4] = 0x510e527fade682d1ULL; h[5] = 0x9b05688c2b3e6c1fULL;
   h[6] = 0x1f83d9abfb41bd6bULL; h[7] = 0x5be0cd19137e2179ULL;
+}
+
+__device__ __forceinline__ State state_of(const uint64_t h[8]) {
+  return State{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7]};
+}
+
+__device__ __forceinline__ void feed_forward(uint64_t h[8], const State& s) {
+  h[0] += s.a; h[1] += s.b; h[2] += s.c; h[3] += s.d;
+  h[4] += s.e; h[5] += s.f; h[6] += s.g; h[7] += s.h;
+}
+
+// One round, kw = K[t] + W[t].
+__device__ __forceinline__ void sha_round(State& s, uint64_t kw) {
+  const uint64_t t1 = s.h + (rotr64(s.e, 14) ^ rotr64(s.e, 18) ^ rotr64(s.e, 41)) +
+                      (s.g ^ (s.e & (s.f ^ s.g))) + kw;
+  const uint64_t t2 = (rotr64(s.a, 28) ^ rotr64(s.a, 34) ^ rotr64(s.a, 39)) +
+                      ((s.a & (s.b | s.c)) | (s.b & s.c));
+  s.h = s.g;
+  s.g = s.f;
+  s.f = s.e;
+  s.e = s.d + t1;
+  s.d = s.c;
+  s.c = s.b;
+  s.b = s.a;
+  s.a = t1 + t2;
+}
+
+// W[t + 16] into w[t], from the 16-word window w (t a constant after
+// unrolling).
+__device__ __forceinline__ void sched_step(uint64_t w[16], int t) {
+  const uint64_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
+  const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
+  const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
+  w[t] += s0 + w[(t + 9) & 15] + s1;
+}
+
+// One SHA-512 compression of the 16 big-endian message words w into h. The
+// schedule lives in the 16 words (every index a constant after unrolling),
+// the round constants are read from constant memory. Rounds 0-15 run
+// unrolled on the message words; 16-79 as 4 rolled passes of 16 unrolled
+// ones, each round with its schedule step and no branch between them, so
+// the compiler interleaves the schedule with the round's dependent chain.
+__device__ __forceinline__ void sha512_block(uint64_t h[8], uint64_t w[16]) {
+  State s = state_of(h);
+#pragma unroll
+  for (int t = 0; t < 16; ++t) sha_round(s, K512[t] + w[t]);
+#pragma unroll 1
+  for (int r = 16; r < 80; r += 16) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      sched_step(w, t);
+      sha_round(s, K512[r + t] + w[t]);
+    }
+  }
+  feed_forward(h, s);
 }
 
 // x (eight 64-bit little-endian limbs, a 512-bit value) mod L as eight
@@ -214,72 +258,150 @@ __device__ __forceinline__ void digest_to_le(const uint64_t h[8], uint64_t x[8])
   }
 }
 
+// ------------------------------------------------------ message assembly
+
 // One batch geometry: B lanes; the message R || A || prefix (plen) || var
 // || tail (tlen) is tot = 64 + plen + var + tlen bytes, padded to nb
-// blocks.
+// blocks; its variable bytes start in 64-bit word wv0 = (64 + plen) / 8.
 struct Geometry {
-  int B, plen, var, tlen, tot, nb;
+  int B, plen, var, tlen, tot, nb, wv0;
 };
 
-// Byte i >= 64 of a lane's padded message: prefix, variable bytes, tail,
-// then the 0x80 marker, zeros and the big-endian bit length in the last 16
-// bytes (tot * 8 < 2^16).
-__device__ __forceinline__ uint32_t tail_byte(int i, const Geometry& g, const uint8_t* prow,
-                                              const uint8_t* vb) {
+__host__ __device__ __forceinline__ Geometry geometry(int B, int plen, int var, int tlen) {
+  Geometry g;
+  g.B = B;
+  g.plen = plen;
+  g.var = var;
+  g.tlen = tlen;
+  g.tot = 64 + plen + var + tlen;
+  g.nb = (g.tot + 17 + 127) / 128;
+  g.wv0 = (64 + plen) >> 3;
+  return g;
+}
+
+// Byte i >= 64 of a row's template: prefix, zeros at the variable bytes,
+// tail, then the 0x80 marker, zeros and the big-endian bit length in the
+// last 16 bytes (tot * 8 < 2^16). `row` is the prefix-table row.
+__device__ __forceinline__ uint32_t template_byte(int i, const Geometry& g, const uint8_t* row) {
   int j = i - 64;
-  if (j < g.plen) return prow[j];
+  if (j < g.plen) return row[j];
   j -= g.plen;
-  if (j < g.var) return vb[j];
+  if (j < g.var) return 0;
   j -= g.var;
-  if (j < g.tlen) return prow[g.plen + j];
+  if (j < g.tlen) return row[g.plen + j];
   if (i == g.tot) return 0x80u;
   const int p = i - (g.nb * 128 - 16);
   if (p >= 14) return ((uint32_t)g.tot * 8u >> (8 * (15 - p))) & 0xFFu;
   return 0;
 }
 
-__device__ __forceinline__ uint64_t tail_word(int wi, const Geometry& g, const uint8_t* prow,
-                                              const uint8_t* vb) {
+// Message word m >= 8 of a row's template, big-endian.
+__device__ __forceinline__ uint64_t template_word(int m, const Geometry& g, const uint8_t* row) {
   uint64_t w = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) w = (w << 8) | tail_byte(8 * wi + k, g, prow, vb);
+  for (int k = 0; k < 8; ++k) w = (w << 8) | template_byte(8 * m + k, g, row);
+  return w;
+}
+
+// The big-endian byte mask of the variable bytes in 32-bit word i (0..7)
+// of the window of the four 64-bit words from wv0. Uniform over a launch.
+__device__ __forceinline__ uint32_t var_mask(int i, const Geometry& g) {
+  const int lo = (64 + g.plen) & 7, hi = lo + g.var;
+  uint32_t m = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = 4 * i + b;
+    if (j >= lo && j < hi) m |= 0xFFu << (24 - 8 * b);
+  }
+  return m;
+}
+
+// A lane's variable bytes as the VAR_WORDS big-endian 64-bit message words
+// from wv0, zero outside its window. The aligned 32-bit words that cover
+// its bytes in the descriptor stream are loaded (at most 7), byte-swapped,
+// and funnel-shifted into message alignment; vmask (var_mask of 0..7)
+// cuts the neighbours' bytes off. Every register index is a constant.
+__device__ __forceinline__ void lane_var_words(const uint32_t* flat, const Geometry& g, int lane,
+                                               const uint32_t vmask[8], uint64_t v[VAR_WORDS]) {
+  const size_t ob = 66 * (size_t)g.B + (size_t)lane * g.var;  // byte offset in flat
+  const int sh = (int)(ob & 3);
+  const int nw = g.var ? (sh + g.var + 3) >> 2 : 0;
+  const uint32_t* src = flat + (ob >> 2);
+  // the stream from the first loaded byte, behind two zero words
+  uint32_t s[11];
+  s[0] = s[1] = s[9] = s[10] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) s[2 + i] = i < nw ? bswap32(src[i]) : 0u;
+  // out byte j (from 8 wv0) is stream byte j + e, e = 8 - ((64 + plen) % 8 - sh) in [1, 11]
+  const int e = 8 - (((64 + g.plen) & 7) - sh);
+  const int q = e >> 2, r = 8 * (e & 3);
+  uint32_t t[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) t[j] = q == 0 ? s[j] : q == 1 ? s[j + 1] : s[j + 2];
+#pragma unroll
+  for (int k = 0; k < VAR_WORDS; ++k) {
+    const uint32_t hi = funnel_l(t[2 * k + 1], t[2 * k], r) & vmask[2 * k];
+    const uint32_t lo = funnel_l(t[2 * k + 2], t[2 * k + 1], r) & vmask[2 * k + 1];
+    v[k] = ((uint64_t)hi << 32) | lo;
+  }
+}
+
+// A lane's descriptor: bit 15 derive on the device, bits 0-14 its row.
+__device__ __forceinline__ uint32_t lane_desc(const uint32_t* flat, int B, int lane) {
+  return ((const uint16_t*)(flat + 16 * (size_t)B))[lane];
+}
+
+// The prefix-table row of a descriptor (a gather clamps its index).
+__device__ __forceinline__ int desc_row(uint32_t desc) {
+  const int pid = (int)(desc & 0x7FFFu);
+  return pid > TABLE_ROWS - 1 ? TABLE_ROWS - 1 : pid;
+}
+
+// R's word t (t < 4: big-endian message word t) and A's (message word
+// 4 + t), read word-major: neighbouring lanes, neighbouring addresses.
+__device__ __forceinline__ uint64_t ra_word(const uint32_t* plane, int B, int lane, int t) {
+  return ((uint64_t)bswap32(plane[(2 * t) * (size_t)B + lane]) << 32) |
+         bswap32(plane[(2 * t + 1) * (size_t)B + lane]);
+}
+
+// Message word m >= 8 of a lane: its row's template word (trow holds words
+// 8.. of the row) ORed with the lane's variable word where m is in its
+// window (vw(k) reads variable word k).
+template <typename VarWord>
+__device__ __forceinline__ uint64_t message_word(int m, const uint64_t* trow, const Geometry& g,
+                                                 VarWord vw) {
+  uint64_t w = trow[m - 8];
+  const unsigned k = (unsigned)(m - g.wv0);
+  if (k < (unsigned)VAR_WORDS) w |= vw(k);
   return w;
 }
 
 // The challenge k of `lane` into k[8] (little-endian words): zero unless
 // its descriptor's bit 15 is set, else SHA-512(R || A || prefix || var ||
-// tail) mod L. R's words are read word-major (neighbouring lanes,
-// neighbouring addresses), A's from the encoding plane the same way; the
-// prefix-table row is the one most lanes of a commit share.
+// tail) mod L, assembled from the template of its row as the kernel does.
+// The host's composition of the kernel's pieces, lane by lane (the kernel
+// builds each row's template once a warp, in shared memory).
 __device__ __forceinline__ void derive_lane(const uint32_t* flat, const uint32_t* aw,
                                             const uint8_t* ptab, const Geometry& g, int lane,
                                             uint32_t k[8]) {
-  const int B = g.B;
-  const uint8_t* stream = (const uint8_t*)(flat + 16 * (size_t)B);
-  const uint32_t desc = stream[2 * lane] | ((uint32_t)stream[2 * lane + 1] << 8);
 #pragma unroll
   for (int i = 0; i < 8; ++i) k[i] = 0;
+  const uint32_t desc = lane_desc(flat, g.B, lane);
   if (!(desc >> 15)) return;
-  int pid = (int)(desc & 0x7FFFu);
-  if (pid > TABLE_ROWS - 1) pid = TABLE_ROWS - 1;  // a gather clamps its index
-  const uint8_t* prow = ptab + (size_t)pid * PREFIX_CAP;
-  const uint8_t* vb = stream + 2 * (size_t)B + (size_t)lane * g.var;
+  const uint8_t* row = ptab + (size_t)desc_row(desc) * PREFIX_CAP;
+  uint64_t trow[16 * MAX_BLOCKS - 8];
+  for (int m = 8; m < 16 * g.nb; ++m) trow[m - 8] = template_word(m, g, row);
+  uint32_t vmask[8];
+  for (int i = 0; i < 8; ++i) vmask[i] = var_mask(i, g);
+  uint64_t v[VAR_WORDS];
+  lane_var_words(flat, g, lane, vmask, v);
+  const auto vw = [&](unsigned i) { return v[i]; };
   uint64_t h[8], w[16];
   sha512_init(h);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {  // R, then A: 4 big-endian words each
-    w[t] = ((uint64_t)bswap32(flat[(2 * t) * (size_t)B + lane]) << 32) |
-           bswap32(flat[(2 * t + 1) * (size_t)B + lane]);
-    w[4 + t] = ((uint64_t)bswap32(aw[(2 * t) * (size_t)B + lane]) << 32) |
-               bswap32(aw[(2 * t + 1) * (size_t)B + lane]);
-  }
-#pragma unroll
-  for (int t = 8; t < 16; ++t) w[t] = tail_word(t, g, prow, vb);
-  sha512_block(h, w);
-#pragma unroll 1
-  for (int bi = 1; bi < g.nb; ++bi) {
-#pragma unroll
-    for (int t = 0; t < 16; ++t) w[t] = tail_word(16 * bi + t, g, prow, vb);
+  for (int bi = 0; bi < g.nb; ++bi) {
+    for (int t = 0; t < 16; ++t)
+      w[t] = bi == 0 && t < 8 ? ra_word(t < 4 ? flat : aw, g.B, lane, t & 3)
+                              : message_word(16 * bi + t, trow, g, vw);
     sha512_block(h, w);
   }
   uint64_t x[8];
@@ -287,18 +409,18 @@ __device__ __forceinline__ void derive_lane(const uint32_t* flat, const uint32_t
   reduce512_mod_l(x, k);
 }
 
-// SHA-512 of one pre-padded row of nb blocks (the standalone digest entry).
+// SHA-512 of one pre-padded row of nb blocks (the standalone digest entry),
+// read as 64-bit words (a row starts 128-byte aligned in its buffer).
 __device__ __forceinline__ void sha512_row(const uint8_t* row, int nb, uint8_t* out) {
+  const uint64_t* words = (const uint64_t*)row;
   uint64_t h[8], w[16];
   sha512_init(h);
 #pragma unroll 1
   for (int bi = 0; bi < nb; ++bi) {
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
-      uint64_t v = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v = (v << 8) | row[128 * bi + 8 * t + q];
-      w[t] = v;
+      const uint64_t v = words[16 * bi + t];
+      w[t] = ((uint64_t)bswap32((uint32_t)v) << 32) | bswap32((uint32_t)(v >> 32));
     }
     sha512_block(h, w);
   }

@@ -8,10 +8,15 @@ recursively) and of the flags, so an edited source or header rebuilds every
 library that includes it and an unchanged one loads as is.
 A source is built the first time its kernels are asked for. Nothing is
 built from outside the repository; a failed build or load raises.
+
+``on_device`` and ``raw_stream`` give a wrapper what a ctypes launch needs
+at the least host cost: the device made current only when it is not, and
+the current stream's handle without a ``torch.cuda.Stream`` object.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +26,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -97,3 +104,21 @@ def library(stem: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[stem] = ctypes.CDLL(str(build(stem)[0]))
     return lib
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(dev: torch.device):
+    """A context in which CUDA device `dev` is the runtime's current device
+    (a ctypes launch goes to it): nothing to do when it already is, or when
+    `dev` names no index (the current device)."""
+    if dev.index is None or torch.cuda.current_device() == dev.index:
+        return _CURRENT
+    return torch.cuda.device(dev)
+
+
+def raw_stream(dev: torch.device) -> int:
+    """The handle of CUDA device `dev`'s current stream, as an int."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if dev.index is None else dev.index)

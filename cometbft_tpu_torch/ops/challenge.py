@@ -19,10 +19,12 @@ to it. The port's counterpart of cometbft_tpu/ops/challenge.py.
                 are K5's two thin standalone entries.
 
 Source note. K5 replaces the XLA program ``challenge.py:730 derive_fn``
-(and ``_digest_fn`` :328, ``_reduce_fn`` :351). It is bound by 64-bit
-integer operations (SHA-512 rounds, the Barrett products); the design is
-one lane a thread in native 64-bit words with everything in registers and
-the round constants in constant memory (see the source).
+(and ``_digest_fn`` :328, ``_reduce_fn`` :351). It is bound by integer
+issue and, at 10,240 lanes, by the latency of one lane's chain (SHA-512
+rounds, the Barrett products): a warp builds each prefix-table row's
+message template once in shared memory and a lane adds only its own bytes,
+in blocks of at most 32 lanes that keep every SM busy, one thread a lane
+(see the source).
 
 Wire layout (ed25519_kernel._pack_device_block stages it), one flat uint32
 block of a bucket of B lanes:
@@ -48,7 +50,7 @@ import threading
 import numpy as np
 import torch
 
-from cometbft_tpu_torch.ops import hashvec
+from cometbft_tpu_torch.ops import _build, hashvec
 from cometbft_tpu_torch.ops.integrity import to_int32
 
 TABLE_ROWS = 256  # prefix/tail rows resident per table
@@ -578,8 +580,6 @@ _lib_cache: list = []
 
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
-        from cometbft_tpu_torch.ops import _build
-
         lib = _build.library("challenge25519")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.challenge_derive.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
@@ -599,7 +599,7 @@ def _raise_on(err: int, entry: str) -> None:
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, dev: torch.device) -> None:
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+    if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {dtype} tensor {shape} on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
@@ -619,13 +619,14 @@ def derive(flat: torch.Tensor, aw: torch.Tensor, ptab: torch.Tensor, bucket: int
         _check("flat", flat, torch.int32, (block_words(bucket, var),), dev)
         _check("aw", aw, torch.int32, (8, bucket), dev)
         _check("ptab", ptab, torch.uint8, (TABLE_ROWS, PREFIX_CAP), dev)
-        if plen + var + tlen > MAX_MLEN:
-            raise ValueError(f"message of {plen + var + tlen} bytes exceeds MAX_MLEN")
+        if plen + var + tlen > MAX_MLEN or var > MAX_VAR:
+            raise ValueError(f"message of {plen} + {var} + {tlen} bytes exceeds MAX_MLEN or "
+                             f"MAX_VAR")
         kw = torch.empty((8, bucket), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
+        with _build.on_device(dev):
             err = _lib().challenge_derive(flat.data_ptr(), aw.data_ptr(), ptab.data_ptr(),
                                           kw.data_ptr(), bucket, plen, var, tlen,
-                                          torch.cuda.current_stream(dev).cuda_stream)
+                                          _build.raw_stream(dev))
         _raise_on(err, "challenge_derive")
         LAUNCHES["challenge_derive"] += 1
     else:
@@ -655,9 +656,9 @@ def sha512_rows_device(rows: np.ndarray, device=None) -> np.ndarray:
     buf[:, -16:] = np.frombuffer((ln * 8).to_bytes(16, "big"), dtype=np.uint8)
     buf_d = torch.from_numpy(buf).to(dev)
     out = torch.empty((n, 64), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _lib().challenge_sha512_rows(buf_d.data_ptr(), n, nb, out.data_ptr(),
-                                           torch.cuda.current_stream(dev).cuda_stream)
+                                           _build.raw_stream(dev))
     _raise_on(err, "challenge_sha512_rows")
     LAUNCHES["challenge_sha512"] += 1
     return out.cpu().numpy()
@@ -678,9 +679,9 @@ def reduce512_mod_l_device(digests: np.ndarray, device=None) -> np.ndarray:
         return reduce512_plain(t).numpy().astype(np.uint32)
     x = torch.from_numpy(np.ascontiguousarray(digests)).to(dev)
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _lib().challenge_reduce512(x.data_ptr(), n, out.data_ptr(),
-                                         torch.cuda.current_stream(dev).cuda_stream)
+                                         _build.raw_stream(dev))
     _raise_on(err, "challenge_reduce512")
     LAUNCHES["challenge_reduce"] += 1
     return out.cpu().numpy().view(np.uint32)
@@ -690,11 +691,12 @@ _SHAPE_ENTRIES = ("challenge_derive", "challenge_sha512", "challenge_reduce")
 
 
 def launch_shape(entry: str, n: int, dev: torch.device) -> dict[str, int]:
-    """How K5's `entry` launches n lanes on CUDA device `dev`: lanes per
-    block, blocks, resident blocks per SM, SMs, waves, local memory per
-    thread and registers. Launches nothing."""
+    """How K5's `entry` launches n lanes on CUDA device `dev` (the derive
+    entry at MAX_BLOCKS message blocks): lanes per block, blocks, threads per
+    block, resident blocks per SM, SMs, waves, local memory per thread and
+    registers. Launches nothing."""
     out = (ctypes.c_int * 7)()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _lib().challenge_launch_shape(_SHAPE_ENTRIES.index(entry), n, out)
     _raise_on(err, f"{entry} launch shape")
     lanes, blocks, threads, per_sm, sms, local_bytes, registers = out

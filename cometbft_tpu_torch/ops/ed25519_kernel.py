@@ -225,7 +225,7 @@ class Scheme(NamedTuple):
     decompress: Callable  # kernel wrapper: (8, B) words -> ok, X, Y, Z, T
     structural: Callable  # (pubs, sigs) -> pre_ok, safe_pubs, sig_rows, pub_rows
     pack: Callable  # (pre_ok, safe_pubs, sig_rows, pub_rows, msgs, bucket) -> (3, 8, B) r/s/k
-    verify_ok: Callable  # kernel wrapper: A coords + r/s/k words -> mask, all-ok
+    verify_raw: Callable  # kernel wrapper: A coords + r/s/k words -> raw int32 mask, all-ok
     verify_one: Callable  # (pub, msg, sig) -> bool: the exact host oracle
     device_challenge: bool  # may k be derived on the device (ed25519 only)
 
@@ -238,7 +238,7 @@ class Scheme(NamedTuple):
 
 
 ED25519 = Scheme("ed25519", _ID_ENC32, VK.decompress, _structural_stage, _pack_host_words,
-                 VK.verify_ok, oracle.verify_zip215, True)
+                 VK.verify_ok_raw, oracle.verify_zip215, True)
 
 
 def decompress_points(enc: np.ndarray, device=None, scheme: Scheme = ED25519
@@ -617,10 +617,13 @@ def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes]
         sw = block[8 * b:16 * b].view(8, b)
         chk_arrs = (block,) if fkw is None else (block, fkw, fidx)
     with part("verify"):
-        mask_dev, allok_dev = scheme.verify_ok(*a_dev, rw, sw, kw)
+        mask_dev, allok_dev = scheme.verify_raw(*a_dev, rw, sw, kw)
     with part("header"):
+        # K6 straight behind the verify kernel, on its raw verdicts; the
+        # checksummed arrays were uploaded before the derive and verify
+        # kernels ran, so K6 may start while the verify kernel's grid exits
         header_dev, payload_dev = integrity.integrity_parts(mask_dev, allok_dev, expected,
-                                                            *chk_arrs)
+                                                            *chk_arrs, overlap=True)
     with part("fetch"):
         header = header_dev.cpu().numpy().view(np.uint32)
         verdict = decode_header(header, expected)

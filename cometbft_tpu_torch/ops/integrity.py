@@ -14,10 +14,17 @@ Source note. K6 replaces the XLA programs
   payload   [mask, ~mask, checksum ok], (2B + 1,) bool, fetched only when
             the header is not happy.
 
-It is bound by bytes (each staged word read once); the kernel is a
-grid-stride sum with a block reduction and one atomicAdd a block, and the
-last block writes the header (see the source). The host side, the expected
-checksum and the header's verdicts, is ``host_checksum`` here and
+The payload's mask and the all-ok word are the verify kernel's raw int32
+verdicts (``verify_kernel.verify_ok_raw``), non-zero valid, as K1 writes
+them: no elementwise launch sits between the verify kernel and K6.
+
+It is bound by bytes (each staged word read once); the kernel is at most
+one block an SM walking the arrays with 16-byte loads and one atomicAdd a
+block, and the last block writes the header. On the verify path it is a
+programmatic dependent launch (``overlap=True``): it checksums while the
+verify kernel's blocks exit and waits for that grid before it reads the
+verdicts (see the source). The host side, the expected checksum and the
+header's verdicts, is ``host_checksum`` here and
 ``ed25519_kernel.decode_header`` / ``decode_payload``.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
@@ -32,6 +39,8 @@ import threading
 
 import numpy as np
 import torch
+
+from cometbft_tpu_torch.ops import _build
 
 CHK_MULT = 2654435761  # Knuth's multiplicative-hash odd constant
 OK_MAGIC = np.uint32(0x600DFA57)
@@ -94,13 +103,15 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
 
 def parts_plain(mask: torch.Tensor, allok: torch.Tensor, expected: int, *arrs: torch.Tensor):
     """-> ((2,) int32 header with the uint32 bits of [tok, ~tok], (2B + 1,)
-    bool payload [mask, ~mask, checksum ok])."""
+    bool payload [mask, ~mask, checksum ok]). mask (B,) and all-ok (one
+    element) are bool or the verify kernel's raw int32 (non-zero valid)."""
     chk = checksum_plain(*arrs)
     ok = chk == (int(expected) & _M32)
-    magic = torch.where(allok.reshape(()) & ok, int(OK_MAGIC), int(BAD_MAGIC))
+    magic = torch.where((allok.reshape(()) != 0) & ok, int(OK_MAGIC), int(BAD_MAGIC))
     tok = chk ^ magic
     header = to_int32(torch.stack([tok, tok ^ _M32]))
-    payload = torch.cat([mask, ~mask, ok.reshape(1)])
+    valid = mask != 0
+    payload = torch.cat([valid, ~valid, ok.reshape(1)])
     return header, payload
 
 
@@ -111,15 +122,13 @@ _lib_cache: list = []
 
 def _lib() -> ctypes.CDLL:
     if not _lib_cache:
-        from cometbft_tpu_torch.ops import _build
-
         lib = _build.library("integrity")
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.integrity_parts.argtypes = [vp, ll, vp, ll, vp, ll, vp, vp, ctypes.c_int,
-                                        ctypes.c_uint, vp, vp, vp, vp]
-        lib.integrity_parts.restype = ctypes.c_int
-        lib.integrity_launch_shape.argtypes = [ll, ctypes.POINTER(ctypes.c_int)]
-        lib.integrity_launch_shape.restype = ctypes.c_int
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.integrity_parts.argtypes = [vp, ll, vp, ll, vp, ll, vp, vp, ci, ctypes.c_uint, vp,
+                                        vp, vp, ci, vp]
+        lib.integrity_parts.restype = ci
+        lib.integrity_launch_shape.argtypes = [ll, ctypes.POINTER(ci)]
+        lib.integrity_launch_shape.restype = ci
         _lib_cache.append(lib)
     return _lib_cache[0]
 
@@ -143,7 +152,7 @@ _scratch_lock = threading.Lock()
 def _scratch_of(dev: torch.device, stream: int) -> torch.Tensor:
     """The two zeroed uint32 words K6's launches on `stream` share: each
     launch's last block zeroes them again, and the stream orders the
-    launches."""
+    launches (a programmatic launch touches them only after its wait)."""
     with _scratch_lock:
         t = _scratch.get((dev, stream))
         if t is None:
@@ -151,42 +160,47 @@ def _scratch_of(dev: torch.device, stream: int) -> torch.Tensor:
         return t
 
 
-def _launch(args: list, dev: torch.device, entry: str) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+def _launch(args: list, dev: torch.device, entry: str, overlap: bool) -> None:
+    with _build.on_device(dev):
+        stream = _build.raw_stream(dev)
         err = _lib().integrity_parts(*args[:-2], _scratch_of(dev, stream).data_ptr(),
-                                     *args[-2:], stream)
+                                     *args[-2:], overlap, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
     LAUNCHES[entry] += 1
 
 
-def integrity_parts(mask: torch.Tensor, allok: torch.Tensor, expected: int, *arrs: torch.Tensor):
-    """The counterpart of _integrity_parts(_arrs): the verify kernel's
-    (B,) bool mask and () bool all-ok, the host's expected checksum, and 1
-    to 3 checksummed int32 arrays -> ((2,) int32 header, (2B + 1,) bool
-    payload)."""
+def integrity_parts(mask: torch.Tensor, allok: torch.Tensor, expected: int, *arrs: torch.Tensor,
+                    overlap: bool = False):
+    """The counterpart of _integrity_parts(_arrs): the verify kernel's raw
+    (B,) int32 mask and (1,) int32 all-ok, the host's expected checksum, and
+    1 to 3 checksummed int32 arrays -> ((2,) int32 header, (2B + 1,) bool
+    payload). With `overlap` (the verify path) K6 is a programmatic
+    dependent launch behind the kernel before it on the stream: that kernel
+    may still be writing the verdicts, but must not write the arrays."""
     dev = mask.device
     if dev.type == "cpu":
         return parts_plain(mask, allok, expected, *arrs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
-        raise ValueError("mask must be a contiguous 1-d bool tensor")
+    if mask.dtype != torch.int32 or mask.dim() != 1 or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous 1-d int32 tensor (the verify kernel's)")
+    if allok.dtype != torch.int32 or allok.numel() != 1 or allok.device != dev:
+        raise ValueError(f"all-ok must be one int32 word on {dev} (the verify kernel's)")
     b = mask.shape[0]
-    allok = allok.reshape(1).to(torch.bool).contiguous()
     header = torch.empty(2, dtype=torch.int32, device=dev)
     payload = torch.empty(2 * b + 1, dtype=torch.bool, device=dev)
     _launch(_arrays(arrs, dev) + [mask.data_ptr(), allok.data_ptr(), b,
                                   int(expected) & _M32, header.data_ptr(), payload.data_ptr()],
-            dev, "integrity_parts")
+            dev, "integrity_parts", overlap)
     return header, payload
 
 
 def device_checksum(*arrs: torch.Tensor) -> int:
     """The counterpart of _device_checksum: the checksum of 1 to 3 int32
     arrays where they lie, as a host int (the key-table uploads compare it
-    with host_checksum)."""
+    with host_checksum). Launched in plain stream order: the arrays may be
+    the output of the kernel before it."""
     dev = arrs[0].device
     if dev.type == "cpu":
         return int(checksum_plain(*arrs))
@@ -194,7 +208,7 @@ def device_checksum(*arrs: torch.Tensor) -> int:
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(1, dtype=torch.int32, device=dev)
     _launch(_arrays(arrs, dev) + [None, None, 0, 0, out.data_ptr(), None],
-            dev, "integrity_checksum")
+            dev, "integrity_checksum", False)
     return int(out[0]) & _M32
 
 
@@ -203,7 +217,7 @@ def launch_shape(work: int, dev: torch.device) -> dict[str, int]:
     block, blocks, resident blocks per SM, SMs, waves, local memory per
     thread and registers. Launches nothing."""
     out = (ctypes.c_int * 7)()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _lib().integrity_launch_shape(work, out)
     if err != 0:
         raise RuntimeError(f"integrity launch shape failed: cudaError_t {err}")

@@ -95,7 +95,7 @@ def stage_rows_sr(pubs: list[bytes], msgs: list, sigs: list[bytes], bucket: int)
 # ------------------------------------------------------------------ verify
 
 SR25519 = EK.Scheme("sr25519", _ID_ENC32, VK.decompress_sr, structural_sr, pack_sr,
-                    VK.verify_sr_ok, srm.verify, False)
+                    VK.verify_sr_ok_raw, srm.verify, False)
 
 
 def decompress_points(enc: np.ndarray, device=None) -> tuple[np.ndarray, np.ndarray]:

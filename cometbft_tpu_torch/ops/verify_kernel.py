@@ -39,7 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
-from cometbft_tpu_torch.ops import curve
+from cometbft_tpu_torch.ops import _build, curve
 from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import limbs as L
 from cometbft_tpu_torch.ops import unpack as U
@@ -169,8 +169,6 @@ def _lib(stem: str) -> ctypes.CDLL:
     "decompress25519"), with its C signatures declared."""
     lib = _loaded.get(stem)
     if lib is None:
-        from cometbft_tpu_torch.ops import _build
-
         lib = _build.library(stem)
         vp = ctypes.c_void_p
         if stem == "verify25519":
@@ -265,13 +263,15 @@ def launch_shape(entry: str, b: int, dev: torch.device) -> dict[str, int]:
 
 
 def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words,
-                   knobs: tuple[int, ...] = ()):
+                   knobs: tuple[int, ...] = (), raw: bool = False):
     """The plain version for CPU tensors; for CUDA tensors, kernel `entry`
-    of the library (its launch counted) -> (mask, all-ok). `knobs` are the
-    bench entry's extra int arguments."""
+    of the library (its launch counted) -> (mask, all-ok): (B,) and () bool,
+    or with `raw` the kernel's own (B,) and (1,) int32 (non-zero valid).
+    `knobs` are the bench entry's extra int arguments."""
     dev = ax.device
     if dev.type == "cpu":
-        return plain(ax, ay, az, at, r_words, s_words, k_words)
+        mask, allok = plain(ax, ay, az, at, r_words, s_words, k_words)
+        return (mask.to(torch.int32), allok.to(torch.int32).reshape(1)) if raw else (mask, allok)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     b = ax.shape[1] if ax.dim() == 2 else -1
@@ -283,15 +283,15 @@ def _launch_verify(entry: str, plain, ax, ay, az, at, r_words, s_words, k_words,
     table = _base_table(dev)
     mask = torch.empty(b, dtype=torch.int32, device=dev)
     allok = torch.ones(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _build.on_device(dev):
         err = launch(
             ax.data_ptr(), ay.data_ptr(), az.data_ptr(), at.data_ptr(),
             r_words.data_ptr(), s_words.data_ptr(), k_words.data_ptr(),
-            table.data_ptr(), mask.data_ptr(), allok.data_ptr(), b, *knobs, stream)
+            table.data_ptr(), mask.data_ptr(), allok.data_ptr(), b, *knobs,
+            _build.raw_stream(dev))
     _raise_on(err, entry)
     _count(entry, b)
-    return mask != 0, allok[0] != 0
+    return (mask, allok) if raw else (mask != 0, allok[0] != 0)
 
 
 def _launch_decompress(entry: str, plain, words: torch.Tensor):
@@ -336,6 +336,15 @@ def verify_ok(ax, ay, az, at, r_words, s_words, k_words):
                           ax, ay, az, at, r_words, s_words, k_words)
 
 
+def verify_ok_raw(ax, ay, az, at, r_words, s_words, k_words):
+    """verify_ok's verdicts as the kernel writes them: ((B,) int32 mask, 1
+    for a valid lane; (1,) int32 all-ok, non-zero when every lane is
+    valid). The verify path hands them to K6 (integrity.integrity_parts)
+    with no launch in between."""
+    return _launch_verify("ed25519_verify", verify_math_ok,
+                          ax, ay, az, at, r_words, s_words, k_words, raw=True)
+
+
 def verify_bench(ax, ay, az, at, r_words, s_words, k_words, n_windows: int = 0,
                  stages: str = "full"):
     """The counterpart of pallas_verify._verify_pallas_bench for ed25519:
@@ -362,6 +371,12 @@ def verify_sr_ok(ax, ay, az, at, r_words, s_words, k_words):
     coords -> ((B,) bool mask, () bool all-ok). Any B >= 1."""
     return _launch_verify("sr25519_verify", verify_math_sr_ok,
                           ax, ay, az, at, r_words, s_words, k_words)
+
+
+def verify_sr_ok_raw(ax, ay, az, at, r_words, s_words, k_words):
+    """verify_sr_ok's verdicts as kernel K2 writes them (see verify_ok_raw)."""
+    return _launch_verify("sr25519_verify", verify_math_sr_ok,
+                          ax, ay, az, at, r_words, s_words, k_words, raw=True)
 
 
 def decompress_sr(words: torch.Tensor):

@@ -2,7 +2,7 @@
 challenge kernel (K5) and the integrity kernel (K6) of this checkout and of
 another one on the same CUDA card, in turns.
 
-    python3 compare_kernels.py OTHER_DIR [--out FILE]
+    python3 compare_kernels.py OTHER_DIR [--out FILE] [--probes | --e2e]
 
 OTHER_DIR is another checkout of the repository, for example an earlier
 commit unpacked with ``git archive`` into a directory that .gitignore
@@ -21,20 +21,39 @@ against its tree's plain version at 7 iterations (the value bodies by
 canonical value, whichever limbs a tree's kernel writes, and every body so
 on a tree that predates the value bodies; the limb bodies bit for bit).
 Then K5 (derive over chip_smoke.VOTE_GEOMETRY at 10,240 lanes, on
-chip_smoke.k5_inputs) and K6 (header and payload over that block), each
-held bit for bit against its tree's plain version first, per launch on the
-card alone (chip_smoke.time_launch: the wrapper's host work hidden behind
-a sleep on the card) and back to back; a tree that predates them reports
-none. It prints one line per reading and, last, one JSON object with all of them;
---out writes that object to FILE as well. Needs one card; exits non-zero
-without one.
+chip_smoke.k5_inputs, lanes over 16 table rows, and over one row as a
+commit's lanes are), K5's hashing
+alone (its standalone SHA-512 and reduction entries on pre-padded rows of
+the same 186 bytes) and K6 (header and payload over that block), each held
+bit for bit against its tree's plain version first, per launch on the card
+alone (chip_smoke.time_launch: the wrapper's host work hidden behind a
+sleep on the card), back to back, and the wrapper's host time a call
+(chip_smoke.time_host); a tree that predates them reports none.
+--probes then reads this tree's K5 further, in this process: back to back
+by lanes (PROBE_LANES), the SM clock and power while K5 runs back to back,
+the launch floor (a one-word torch fill timed as the kernels), and the
+static SASS of K5's kernels by opcode (cuobjdump, where the toolkit has
+it). It prints one line per reading and, last, one JSON object with all
+of them; --out writes that object to FILE as well. Needs one card; exits
+non-zero without one.
+
+--e2e times, instead of the kernels, each tree's warm verify() of
+chip_smoke.py's ed25519 10k, sr25519 10k and mixed 10k commits (the same
+seeds and tampered lanes, make_verifier -> add -> verify as chip_smoke's
+drive runs it): one cold run, then E2E_REPS warm runs, each on the host
+clock between two synchronisations, their median and spread. The trees
+run the same harness in fresh processes, so a gap between them is the
+trees' code, not what ran before in the process.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 
@@ -62,9 +81,10 @@ def _words_file() -> pathlib.Path:
     return out
 
 
-def _child(tree: pathlib.Path, words_file: pathlib.Path) -> dict:
-    """This process times `tree`'s decoders: its package first on sys.path
-    (chip_smoke, already imported from this tree, loads the port lazily)."""
+def _child(tree: pathlib.Path, words_file: pathlib.Path, e2e: bool) -> dict:
+    """This process times `tree`'s kernels, or with `e2e` its verify():
+    its package first on sys.path (chip_smoke, already imported from this
+    tree, loads the port lazily)."""
     sys.path.insert(0, str(tree))
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import verify_kernel as VK
@@ -72,6 +92,8 @@ def _child(tree: pathlib.Path, words_file: pathlib.Path) -> dict:
     if not pathlib.Path(VK.__file__).resolve().is_relative_to(tree.resolve()):
         raise RuntimeError(f"{VK.__file__} is not in {tree}")
     device = torch.device("cuda")
+    if e2e:
+        return _time_e2e(device)
     data = np.load(words_file)
     out = {}
     for name in SCHEMES:
@@ -93,27 +115,134 @@ def _child(tree: pathlib.Path, words_file: pathlib.Path) -> dict:
     return out
 
 
+E2E_REPS = 15
+
+
+def _time_e2e(device) -> dict:
+    """The imported tree's warm verify() of the three 10k cells (see the
+    module's docstring): {cell: {"cold_ms", "warm_ms" (median), "warm_min_ms",
+    "warm_max_ms"}}. Each run's mask must be the expected one."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    paths = CS._paths()
+    cells = {"ed25519 10k": (crypto_batch.create_batch_verifier,
+                             CS.commit_cell(paths["ed25519"], CS.N_BIG, CS.SEED_BIG)),
+             "sr25519 10k": (crypto_batch.create_batch_verifier,
+                             CS.commit_cell(paths["sr25519"], CS.N_BIG, CS.SEED_SR)),
+             "mixed 10k": (lambda _key: crypto_batch.create_mixed_batch_verifier(),
+                           CS.mixed_commit(paths, CS.N_BIG, CS.SEED_MIXED))}
+    out = {}
+    for cell, (make, (keys, msgs, sigs, bad)) in cells.items():
+        expected = [i not in bad for i in range(len(sigs))]
+
+        def run():
+            v = make(keys[0])
+            for key, m, s in zip(keys, msgs, sigs):
+                v.add(key, m, s)
+            if v.verify()[1] != expected:
+                raise AssertionError(f"{cell}: wrong mask")
+
+        cold = CS.time_wall(run, 1, device)
+        warm = [CS.time_wall(run, 1, device) for _ in range(E2E_REPS)]
+        out[cell] = {"cold_ms": cold, "warm_ms": float(np.median(warm)),
+                     "warm_min_ms": min(warm), "warm_max_ms": max(warm)}
+    return out
+
+
 def _time_k5_k6(device) -> dict:
-    """K5 and K6 of the imported tree, held and timed; none before the
-    tree had them."""
+    """K5 and K6 of the imported tree, held and timed, with their wrappers'
+    host time, and K5's hashing alone (chip_smoke._k5_hash_only, on the
+    tree's standalone entries); none before the tree had them. K6 takes the
+    verify kernel's raw int32 verdicts where the tree has them, else
+    bools."""
     try:
         from cometbft_tpu_torch.ops import challenge as CH
         from cometbft_tpu_torch.ops import integrity as IN
     except ImportError:
         return {}
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
     plen, var, tlen = CS.VOTE_GEOMETRY
     flat, aw, ptab = CS.k5_inputs(CS.N_BIG, CS.VOTE_GEOMETRY, device)
-    k5 = lambda: CH.derive(flat, aw, ptab, CS.N_BIG, var, plen, tlen)  # noqa: E731
-    if not torch.equal(k5(), CH.derive_plain(flat, aw, ptab, CS.N_BIG, var, plen, tlen)):
-        raise AssertionError("K5 differs from plain")
-    mask = torch.ones(CS.N_BIG, dtype=torch.bool, device=device)
+    want = CH.derive_plain(flat, aw, ptab, CS.N_BIG, var, plen, tlen)
+    fns = {"k5 derive": lambda: CH.derive(flat, aw, ptab, CS.N_BIG, var, plen, tlen)}
+    f1, a1, p1 = CS.k5_inputs(CS.N_BIG, CS.VOTE_GEOMETRY, device, seed=9, rows=1)
+    fns["k5 derive one row"] = lambda: CH.derive(f1, a1, p1, CS.N_BIG, var, plen, tlen)
+    for name, fn in fns.items():
+        plain = want if name != "k5 derive one row" else CH.derive_plain(
+            f1, a1, p1, CS.N_BIG, var, plen, tlen)
+        if not torch.equal(fn(), plain):
+            raise AssertionError(f"{name} differs from plain")
+    fns["k5 hashing alone"] = CS._k5_hash_only(device)
+    raw = hasattr(VK, "verify_ok_raw")
+    mask = torch.ones(CS.N_BIG, dtype=torch.int32 if raw else torch.bool, device=device)
+    allok = torch.ones(1, dtype=torch.int32, device=device) if raw else mask.all()
     expected = int(IN.checksum_plain(flat))
-    k6 = lambda: IN.integrity_parts(mask, mask.all(), expected, flat)  # noqa: E731
-    if CS._max_err(k6(), IN.parts_plain(mask, mask.all(), expected, flat)):
+    k6 = lambda: IN.integrity_parts(mask, allok, expected, flat)  # noqa: E731
+    if CS._max_err(k6(), IN.parts_plain(mask, allok, expected, flat)):
         raise AssertionError("K6 differs from plain")
+    fns["k6 integrity"] = k6
     return {f"{name} {CS.N_BIG}": {"ms": CS.time_launch(fn),
-                                   "ms_back_to_back": CS.time_back_to_back(fn)}
-            for name, fn in (("k5 derive", k5), ("k6 integrity", k6))}
+                                   "ms_back_to_back": CS.time_back_to_back(fn),
+                                   "host_ms": CS.time_host(fn)}
+            for name, fn in fns.items()}
+
+
+# K5's lane counts for --probes: a lone warp to two warps a scheduler of
+# the 132 SMs (one warp a scheduler at 16,896)
+PROBE_LANES = (32, 256, 4_224, CS.N_MIXED_BUCKET, 8_448, CS.N_BIG, 16_896, 33_792)
+
+
+def _probes(device, card: str) -> dict:
+    """This tree's K5 read further (see the module's docstring)."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import challenge as CH
+
+    plen, var, tlen = CS.VOTE_GEOMETRY
+    sweep = {}
+    for lanes in PROBE_LANES:
+        flat, aw, ptab = CS.k5_inputs(lanes, CS.VOTE_GEOMETRY, device, seed=lanes)
+        sweep[lanes] = CS.time_back_to_back(
+            functools.partial(CH.derive, flat, aw, ptab, lanes, var, plen, tlen))
+    print(f"[{card}] k5 derive back to back by lanes (ms, mean of 50): "
+          + ", ".join(f"{n:,} {t:.4f}" for n, t in sweep.items()), flush=True)
+    flat, aw, ptab = CS.k5_inputs(CS.N_BIG, CS.VOTE_GEOMETRY, device)
+    for _ in range(20_000):  # ~0.5 s of K5 back to back while the SM clock is read
+        CH.derive(flat, aw, ptab, CS.N_BIG, var, plen, tlen)
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    floor = {"ms": CS.time_launch(one.zero_), "ms_back_to_back": CS.time_back_to_back(one.zero_)}
+    print(f"[{card}] SM clock, max SM clock, power during k5 back to back: {clocks}; the launch "
+          f"floor (a one-word torch fill, timed as the kernels): {floor['ms']:.4f} ms alone, "
+          f"{floor['ms_back_to_back']:.4f} back to back", flush=True)
+    sass = {}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if pathlib.Path(tool).exists():
+        lib = _build._target(_build.CSRC_DIR / "challenge25519.cu")
+        done = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120)
+        cur = None
+        for line in done.stdout.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                cur = CS._kernel_label(m.group(1)) or m.group(1)
+                sass[cur] = {}
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m and cur:
+                op = m.group(1).split(".")[0]
+                sass[cur][op] = sass[cur].get(op, 0) + 1
+        for kernel, ops in sass.items():
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+            print(f"[{card}] SASS {kernel}: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{op} {n}" for op, n in top), flush=True)
+    else:
+        print("compare_kernels: no cuobjdump, no SASS histogram", flush=True)
+    return {"k5_back_to_back_by_lanes": sweep, "clocks_under_k5": clocks,
+            "launch_floor": floor, "sass": sass}
 
 
 def _time_k3(F, device) -> dict:
@@ -145,6 +274,10 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=pathlib.Path, nargs="?", help="the other checkout")
     ap.add_argument("--out", type=pathlib.Path, help="also write the JSON object here")
+    ap.add_argument("--probes", action="store_true",
+                    help="then read this tree's K5 further (see the docstring)")
+    ap.add_argument("--e2e", action="store_true",
+                    help="time each tree's warm verify() instead of the kernels")
     # one tree's timing process: the tree and the encodings' file
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--words", type=pathlib.Path, help=argparse.SUPPRESS)
@@ -153,18 +286,19 @@ def main(argv: list[str] | None = None) -> int:
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
     if args.child:
-        print(json.dumps(_child(args.child, args.words)), flush=True)
+        print(json.dumps(_child(args.child, args.words, args.e2e)), flush=True)
         return 0
     if args.other is None:
         ap.error("the other checkout is required")
     card = CS._smi()
     print(card, flush=True)
-    words_file = _words_file()
+    words_file = None if args.e2e else _words_file()
     trees = {"other": args.other.resolve(), "this": HERE}
     runs = []
     for label in ("other", "this", "this", "other"):
         done = subprocess.run([sys.executable, str(HERE / "compare_kernels.py"),
-                               "--child", str(trees[label]), "--words", str(words_file)],
+                               "--child", str(trees[label]), "--words", str(words_file)]
+                              + (["--e2e"] if args.e2e else []),
                               capture_output=True, text=True, check=False)
         if done.returncode:
             sys.stderr.write(done.stdout + done.stderr)
@@ -172,11 +306,20 @@ def main(argv: list[str] | None = None) -> int:
         times = json.loads(done.stdout.strip().splitlines()[-1])
         runs.append({"tree": label, "times": times})
         for key, t in times.items():
+            if "warm_ms" in t:
+                print(f"[{card}] {label} tree, verify() {key}: cold {t['cold_ms']:.3f} ms, warm "
+                      f"{t['warm_ms']:.3f} ms (median of {E2E_REPS}, {t['warm_min_ms']:.3f}-"
+                      f"{t['warm_max_ms']:.3f})", flush=True)
+                continue
             unit = ("lanes and iterations" if key.startswith("k3 ") else
                     "lanes" if key.startswith(("k5 ", "k6 ")) else "keys")
             print(f"[{card}] {label} tree, {key} {unit}: {t['ms']:.4f} ms per launch (median "
-                  f"of 20), {t['ms_back_to_back']:.4f} ms back to back (mean of 50)", flush=True)
+                  f"of 20), {t['ms_back_to_back']:.4f} ms back to back (mean of 50)"
+                  + (f", wrapper host time {t['host_ms']:.4f} ms a call (median of 20)"
+                     if "host_ms" in t else ""), flush=True)
     result = {"card": card, "other": str(trees["other"]), "runs": runs}
+    if args.probes:
+        result["probes"] = _probes(torch.device("cuda"), card)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

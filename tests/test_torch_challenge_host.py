@@ -5,9 +5,10 @@ away) into a shared library loaded with ctypes, and run lane by lane as the
 kernel's threads run it.
 
 Swept over message geometries on both sides of every SHA-512 block
-boundary (one, two and three blocks) and held bit for bit against hashlib
-with Python's % L, the port's plain derive, and the JAX package's
-derive_fn on the CPU. Skips only where no C++ compiler is found.
+boundary (one, two and three blocks), with the variable bytes across zero
+to three 64-bit word boundaries, and held bit for bit against hashlib with
+Python's % L, the port's plain derive, and the JAX package's derive_fn on
+the CPU. Skips only where no C++ compiler is found.
 """
 
 from __future__ import annotations
@@ -33,10 +34,7 @@ _WRAPPER = r"""
 
 extern "C" void derive_all(const uint32_t* flat, const uint32_t* aw, const uint8_t* ptab,
                            int B, int plen, int var, int tlen, uint32_t* kw) {
-  chal::Geometry g;
-  g.B = B; g.plen = plen; g.var = var; g.tlen = tlen;
-  g.tot = 64 + plen + var + tlen;
-  g.nb = (g.tot + 17 + 127) / 128;
+  const chal::Geometry g = chal::geometry(B, plen, var, tlen);
   for (int lane = 0; lane < B; ++lane) {
     uint32_t k[8];
     chal::derive_lane(flat, aw, ptab, g, lane, k);
@@ -116,9 +114,14 @@ def _host_derive(lib, block, aw, ptab, bucket, plen, var, tlen) -> np.ndarray:
 
 # (plen, var, tlen): tot = 64 + plen + var + tlen across the block boundaries
 # 111/112 (one/two blocks) and 239/240 (two/three blocks), a vote's 186
-# bytes, no prefix, no variable bytes, and the largest message
+# bytes, no prefix, no variable bytes, and the largest message; then the
+# variable window [64 + plen, 64 + plen + var) across zero, one, two and
+# three 64-bit word boundaries (and across the first block's end), in one,
+# two and three blocks, at source offsets that differ lane by lane (odd var)
 GEOMETRIES = [(20, 13, 14), (20, 13, 15), (100, 24, 51), (100, 24, 52), (103, 13, 6),
-              (0, 24, 0), (100, 0, 20), (150, 24, 10), (0, 0, 0)]
+              (0, 24, 0), (100, 0, 20), (150, 24, 10), (0, 0, 0),
+              (0, 8, 5), (3, 5, 9), (5, 6, 10), (95, 13, 14), (7, 24, 30), (60, 13, 20),
+              (103, 24, 50)]
 
 
 @pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "plen%d-var%d-tlen%d" % g)
@@ -134,7 +137,7 @@ def test_derive_lane_matches_hashlib_and_plain(lib, geom):
     np.testing.assert_array_equal(got, plain.numpy().view(np.uint32))
 
 
-@pytest.mark.parametrize("geom", [(103, 13, 6), (20, 13, 15)],
+@pytest.mark.parametrize("geom", [(103, 13, 6), (20, 13, 15), (7, 24, 30)],
                          ids=lambda g: "plen%d-var%d-tlen%d" % g)
 def test_derive_lane_matches_jax_derive_fn(lib, geom):
     import jax.numpy as jnp

@@ -2,7 +2,9 @@
 (ops/integrity.py, the plain versions of the integrity kernel K6, and
 ed25519_kernel.decode_header / decode_payload) against the JAX package's
 _host_checksum, _device_checksum and _integrity_parts(_arrs), bit for bit,
-with all four header verdicts.
+with all four header verdicts; the payload's mask and all-ok as bools and
+as the verify kernel's raw int32 verdicts (non-zero valid), which the
+verify path hands to K6.
 """
 
 from __future__ import annotations
@@ -69,6 +71,31 @@ def test_parts_match_jax(form, bad):
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     verdict = TK.decode_header(th.numpy().view(np.uint32), expected)
     assert verdict == JK.decode_header(np.asarray(jh), expected) == ("full" if bad else "happy")
+
+
+@pytest.mark.parametrize("bad", [[], [5, 63]], ids=["all_valid", "two_failed"])
+@pytest.mark.parametrize("form", ["rsk", "arrs1", "arrs3"])
+def test_raw_verdicts_match_jax(form, bad):
+    """The verify kernel's int32 mask (1 valid, 0 not; any non-zero is
+    valid) and (1,) int32 all-ok give the JAX package's header and payload
+    over its bool mask and all-ok."""
+    planes, flat, fidx = _arrays(13)
+    mask = _mask(64, bad)
+    arrs = {"rsk": planes, "arrs1": [flat], "arrs3": [flat, planes[2], fidx]}[form]
+    expected = TI.host_checksum(*arrs)
+    if form == "rsk":
+        jh, jp = JK._integrity_parts(jnp.asarray(mask), jnp.asarray(np.bool_(not bad)),
+                                     *(jnp.asarray(a) for a in arrs), np.uint32(expected))
+    else:
+        jh, jp = JK._integrity_parts_arrs(jnp.asarray(mask), jnp.asarray(np.bool_(not bad)),
+                                          np.uint32(expected), *(jnp.asarray(a) for a in arrs))
+    raw = torch.from_numpy(mask.astype(np.int32))
+    raw[::7] *= 5  # K6 reads any non-zero word as valid
+    allok = torch.tensor([0 if bad else 1], dtype=torch.int32)
+    th, tp = TI.integrity_parts(raw, allok, expected, *(_t(a) for a in arrs))
+    np.testing.assert_array_equal(th.numpy().view(np.uint32), np.asarray(jh))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    assert TK.decode_header(th.numpy().view(np.uint32), expected) == ("full" if bad else "happy")
 
 
 def test_header_verdicts_chk_mismatch_and_echo_corrupt():

@@ -311,10 +311,12 @@ def test_decoders_match_plain_on_edge_lanes(cuda, name, n):
 
 # ------------------------------------------- K5 (challenge) and K6 (integrity)
 
-def _k5_inputs(b: int, var: int, seed: int, device):
+def _k5_inputs(b: int, var: int, seed: int, device, rows: int = CH.TABLE_ROWS):
+    """A random wire block, encoding plane and prefix table of b lanes, every
+    third lane left to the host, the rest over `rows` table rows."""
     rng = np.random.default_rng(seed)
     block = rng.integers(0, 2**32, size=CH.block_words(b, var), dtype=np.uint64).astype(np.uint32)
-    desc = (rng.integers(0, CH.TABLE_ROWS, size=b) | 0x8000).astype(np.uint16)
+    desc = (rng.integers(0, rows, size=b) | 0x8000).astype(np.uint16)
     desc[::3] &= 0x7FFF
     block[16 * b:].view(np.uint8)[:2 * b] = desc.view(np.uint8)
     aw = rng.integers(0, 2**32, size=(8, b), dtype=np.uint64).astype(np.uint32)
@@ -338,6 +340,23 @@ def test_challenge_derive_matches_plain(cuda, b, geom):
     assert torch.equal(got.cpu(), want)
 
 
+# the variable bytes across 0-3 word boundaries (and the first block's end),
+# 1-3 SHA-512 blocks, var = 0, odd var (source offsets that differ by lane)
+K5_GEOMETRIES = [(95, 13, 14), (20, 13, 15), (100, 24, 52), (0, 0, 0), (100, 0, 20),
+                 (0, 8, 5), (3, 5, 9), (5, 6, 10), (7, 24, 30), (60, 13, 20), (103, 24, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 255, 256, 6144, 10240])
+@pytest.mark.parametrize("geom", K5_GEOMETRIES, ids=lambda g: "plen%d-var%d-tlen%d" % g)
+def test_challenge_derive_matches_plain_over_16_rows(cuda, b, geom):
+    """K5 bit for bit against the plain version, lanes over 16 rows."""
+    plen, var, tlen = geom
+    flat, aw, ptab = _k5_inputs(b, var, 7 * b + plen + var, cuda, rows=16)
+    want = CH.derive_plain(flat, aw, ptab, b, var, plen, tlen)
+    assert torch.equal(CH.derive(flat, aw, ptab, b, var, plen, tlen), want)
+
+
 @pytest.mark.cuda
 def test_challenge_standalone_entries_match_hashlib(cuda):
     rng = np.random.default_rng(2)
@@ -349,6 +368,15 @@ def test_challenge_standalone_entries_match_hashlib(cuda):
         np.testing.assert_array_equal(k, CH.reduce512_mod_l_device(got, "cpu"))
 
 
+def _raw_mask(b: int, bad: list[int], device):
+    """A verify kernel's raw verdicts: (b,) int32 mask, 1 valid (some lanes
+    another non-zero word), and its (1,) int32 all-ok."""
+    mask = torch.ones(b, dtype=torch.int32, device=device)
+    mask[::5] = 3
+    mask[bad] = 0
+    return mask, (mask != 0).all().to(torch.int32).reshape(1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("narrs", [1, 3])
 @pytest.mark.parametrize("case", ["happy", "failed", "mismatch"])
@@ -356,35 +384,149 @@ def test_integrity_parts_matches_plain(cuda, narrs, case):
     b = 10240
     flat, aw, _ = _k5_inputs(b, 13, 5, cuda)
     arrs = (flat,) if narrs == 1 else (flat, aw, aw[3].contiguous())
-    mask = torch.ones(b, dtype=torch.bool, device=cuda)
-    if case == "failed":
-        mask[[7, b - 1]] = False
+    mask, allok = _raw_mask(b, [7, b - 1] if case == "failed" else [], cuda)
     expected = IN.host_checksum(*(a.cpu().numpy() for a in arrs)) ^ (case == "mismatch")
-    got = IN.integrity_parts(mask, mask.all(), expected, *arrs)
-    want = IN.parts_plain(mask.cpu(), mask.all().cpu(), expected, *(a.cpu() for a in arrs))
-    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
-    verdict = TK.decode_header(got[0].cpu().numpy().view(np.uint32), expected)
-    assert verdict == {"happy": "happy", "failed": "full", "mismatch": "chk_mismatch"}[case]
+    for overlap in (False, True):
+        got = IN.integrity_parts(mask, allok, expected, *arrs, overlap=overlap)
+        want = IN.parts_plain(mask.cpu(), allok.cpu(), expected, *(a.cpu() for a in arrs))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        verdict = TK.decode_header(got[0].cpu().numpy().view(np.uint32), expected)
+        assert verdict == {"happy": "happy", "failed": "full", "mismatch": "chk_mismatch"}[case]
     assert IN.device_checksum(*arrs) == int(IN.checksum_plain(*(a.cpu() for a in arrs)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 6, 255, 10240])
+def test_integrity_unaligned_arrays_and_odd_masks(cuda, b):
+    """K6's 16-byte loads start at any 4-byte offset and stop at any length
+    (scalar head and tail); a mask whose length is not a multiple of 4 takes
+    the byte path."""
+    flat, _, _ = _k5_inputs(max(b, 8), 13, 11, cuda)
+    arrs = (flat[1:], flat[2:-3], flat[3:3 + b])
+    mask, allok = _raw_mask(b, [b // 2], cuda)
+    expected = IN.host_checksum(*(a.cpu().numpy() for a in arrs))
+    got = IN.integrity_parts(mask, allok, expected, *arrs)
+    want = IN.parts_plain(mask.cpu(), allok.cpu(), expected, *(a.cpu() for a in arrs))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_integrity_pdl_waits_for_the_kernel_before_it(cuda):
+    """K6 launched behind a slow kernel that writes the mask at its end (a
+    2-GB row sum): with the programmatic launch it checksums early but
+    reads the verdicts only after that kernel's grid is complete."""
+    b = 10240
+    flat, _, _ = _k5_inputs(b, 13, 17, cuda)
+    expected = IN.host_checksum(flat.cpu().numpy())
+    ones = torch.ones((b, 32768), dtype=torch.int32, device=cuda)
+    ones[[3, b - 2]] = 0
+    mask = torch.zeros(b, dtype=torch.int32, device=cuda)
+    allok = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        mask.zero_()
+        torch.sum(ones, dim=1, dtype=torch.int32, out=mask)
+        got = IN.integrity_parts(mask, allok, expected, flat, overlap=True)
+        want = IN.parts_plain(mask.cpu(), allok.cpu(), expected, flat.cpu())
+        assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+        assert int(got[1][:b].sum()) == b - 2
 
 
 @pytest.mark.cuda
 def test_integrity_scratch_is_zero_after_each_launch(cuda):
     """K6's launches on a stream share two scratch words that each launch's
-    last block zeroes: launches in a row, with and without a mask, give
-    the plain version's results every time."""
+    last block zeroes: launches in a row, programmatic or not, with and
+    without a mask, give the plain version's results every time."""
     flat, aw, _ = _k5_inputs(6144, 13, 5, cuda)
-    mask = torch.ones(6144, dtype=torch.bool, device=cuda)
-    mask[9] = False
+    mask, allok = _raw_mask(6144, [9], cuda)
     expected = IN.host_checksum(flat.cpu().numpy())
-    want = IN.parts_plain(mask.cpu(), mask.all().cpu(), expected, flat.cpu())
+    want = IN.parts_plain(mask.cpu(), allok.cpu(), expected, flat.cpu())
     chk = int(IN.checksum_plain(flat.cpu(), aw.cpu()))
-    for _ in range(3):
-        got = IN.integrity_parts(mask, mask.all(), expected, flat)
+    for i in range(3):
+        got = IN.integrity_parts(mask, allok, expected, flat, overlap=bool(i % 2))
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
         assert IN.device_checksum(flat, aw) == chk
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert IN._scratch_of(cuda, stream).tolist() == [0, 0]
+
+
+def _staged_batch(n: int, bad: list[int], device, seed: bytes):
+    """An ed25519 batch of n signatures (n a bucket: no padding lanes),
+    lanes `bad` tampered, staged on the classic path: (A coords x4 on
+    `device`, the host's (3, 8, n) r/s/k words, the expected mask)."""
+    privs = [ted.gen_priv_key_from_secret(seed + b"-%d" % i) for i in range(n)]
+    pubs = [p.pub_key().bytes_() for p in privs]
+    msgs = [seed + b"-msg-%d" % i for i in range(n)]
+    sigs = [p.sign(m) for p, m in zip(privs, msgs)]
+    for i in bad:
+        sigs[i] = sigs[i][:40] + bytes([sigs[i][40] ^ 1]) + sigs[i][41:]
+    _, safe, r, s, k = TK.stage_batch(pubs, msgs, sigs, n)
+    enc = np.frombuffer(b"".join(safe), dtype=np.uint8).reshape(n, 32)
+    _, coords = TK.decompress_points(enc, device)
+    staged = TK.staged_from_numpy(*TK.pad_coords_batch_minor(coords, n), r, s, k, device=device)
+    want = np.ones(n, dtype=bool)
+    want[bad] = False
+    return staged[:4], np.stack([r, s, k]), want
+
+
+@pytest.mark.cuda
+def test_verify_to_header_race_back_to_back(cuda):
+    """Many verifies in a row with no host sync: each uploads its r/s/k
+    words, runs K1 (raw verdicts) and K6 (programmatic launch) on them,
+    tampered and untampered batches alternating, with K6's checksum-only
+    launches (the key-table uploads') interleaved. Only then does the host
+    read: every header decodes to its own batch's verdict and every payload
+    holds its own mask."""
+    good = _staged_batch(64, [], cuda, b"race-good")
+    bad = _staged_batch(64, [4, 31], cuda, b"race-bad")
+    table_words = torch.from_numpy(np.arange(4096, dtype=np.int32)).to(cuda)
+    table_chk = IN.host_checksum(table_words.cpu().numpy())
+    runs = []
+    for i in range(24):
+        coords, words, want = (good, bad)[i % 2]
+        block = torch.from_numpy(words.view(np.int32)).to(cuda)
+        mask, allok = VK.verify_ok_raw(*coords, block[0], block[1], block[2])
+        expected = IN.host_checksum(words)
+        header, payload = IN.integrity_parts(mask, allok, expected, block[0], block[1], block[2],
+                                             overlap=True)
+        out = torch.empty(1, dtype=torch.int32, device=cuda)
+        dev = table_words.device
+        IN._launch(IN._arrays((table_words,), dev) + [None, None, 0, 0, out.data_ptr(), None],
+                   dev, "integrity_checksum", False)
+        runs.append((header, payload, out, expected, want))
+    torch.cuda.synchronize(cuda)
+    for i, (header, payload, out, expected, want) in enumerate(runs):
+        verdict = TK.decode_header(header.cpu().numpy().view(np.uint32), expected)
+        assert verdict == ("happy" if i % 2 == 0 else "full"), i
+        got, chk_ok, echo_ok = IN.decode_mask(payload.cpu().numpy())
+        assert chk_ok and echo_ok and got.tolist() == want.tolist(), i
+        assert int(out[0]) & 0xFFFFFFFF == table_chk, i
+
+
+@pytest.mark.cuda
+def test_verify_rows_race_with_key_table_uploads(cuda):
+    """verify_rows on factored commits (K5, K1, K6), tampered and untampered
+    alternating, with a new validator key each time (a key-table delta
+    upload, K6's checksum-only launch, before each verify): every mask is
+    the oracle's and every header verdict its batch's."""
+    n = 40
+    prefix = b"\x79\x08\x02" + bytes(range(92))
+    rows = SharedPrefixRows(prefix, [b"\x2a\x0c" + i.to_bytes(8, "big") + b"\x01\x02"
+                                     + b"\x32\x0bcosmoshub-4" for i in range(n)])
+    msgs = rows.rows_for(range(n))
+    cache = TK.PubKeyCache(cuda)
+    for run in range(8):
+        privs = [ted.gen_priv_key_from_secret(b"rk-%d" % i) for i in range(n - 1)]
+        privs.append(ted.gen_priv_key_from_secret(b"rk-new-%d" % run))
+        pubs = [p.pub_key().bytes_() for p in privs]
+        sigs = [p.sign(rows[i]) for i, p in enumerate(privs)]
+        if run % 2:
+            sigs[run] = sigs[run][:33] + bytes([sigs[run][33] ^ 1]) + sigs[run][34:]
+        TK.reset_fetch_stats()
+        checks = IN.LAUNCHES["integrity_checksum"]
+        got, flips = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, cache=cache)
+        assert IN.LAUNCHES["integrity_checksum"] > checks
+        assert flips == 0 and [i for i in range(n) if not got[i]] == ([run] if run % 2 else [])
+        assert TK.fetch_stats()["full_fetches" if run % 2 else "happy_fetches"] == 1
 
 
 @pytest.mark.cuda
@@ -393,8 +535,11 @@ def test_k5_k6_launch_shape_one_wave(cuda, b):
     for entry in ("challenge_derive", "challenge_sha512", "challenge_reduce"):
         shape = CH.launch_shape(entry, b, cuda)
         assert shape["waves"] == 1 and shape["local_bytes"] == 0, (entry, shape)
+    shape = CH.launch_shape("challenge_derive", b, cuda)  # every SM busy
+    assert shape["blocks"] >= min(b, shape["sms"]), shape
     shape = IN.launch_shape(CH.block_words(b, CH.MAX_VAR), cuda)
     assert shape["waves"] == 1 and shape["local_bytes"] == 0, shape
+    assert shape["blocks"] <= shape["sms"], shape
 
 
 @pytest.mark.cuda
