@@ -35,6 +35,21 @@ sends, happy or full headers, the native hash rung) and the host-oracle
 recheck, and holds K5 and K6 against their plain versions on each path's
 own inputs; it records the aten ops of one verify_rows and fails if
 anything but K6 launches between the verify kernel and the header fetch.
+
+Then the commit phase drives the top of the main path,
+types/validation.verify_commit* on real Commits and ValidatorSets (the
+port's types/, chain cosmoshub-4, equal power, 1% ABSENT, 1% NIL and a few
+off-length timestamps in the 10,240-validator commits) through the
+scheduler: ed25519 10,240 (cold, warm, one tampered signature, by part
+with the host parts rows and sched), verify_commit_light and
+_light_trusting(1/3) on it, mixed 10,240 (5,120 ed25519 + 5,120
+sr25519), ed25519 150, a blocksync window of 16 150-validator commits
+(stage_verify_commit -> resolve_staged under SYNC, and one with a bad
+signature in commit 9), and 64 mempool rows submitted beside a
+150-validator consensus commit, then flushed alone by the deadline
+worker. Every run's launches, lanes and fetches are asserted (one K5, one
+K1 (+ one K2), one K6 a scheme, a header-only fetch when valid) and each
+cell's time is printed beside the seam time of its own rows.
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -57,6 +72,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import functools
+import gc
 import hashlib
 import json
 import re
@@ -918,9 +934,9 @@ def drive(label: str, make_verifier, keys, msgs, sigs, bad: list[int], device,
         raise AssertionError(f"{label}: device-challenge counters {ch}")
     if paths["sends"]["indexed"]["sigs"] != 6 * n or paths["sends"]["full"]["sigs"]:
         raise AssertionError(f"{label}: keys not on the indexed path {paths['sends']}")
-    unhappy = len({i % 2 for i in bad}) if schemes == 2 else int(bool(bad))  # failing schemes
+    # one fetch a verify(), both schemes' headers in it: full when a lane failed
     fetch = paths["fetch"]
-    if fetch["full_fetches"] != 6 * unhappy or fetch["happy_fetches"] != 6 * (schemes - unhappy):
+    if fetch["full_fetches"] != 6 * bool(bad) or fetch["happy_fetches"] != 6 * (not bad):
         raise AssertionError(f"{label}: header verdicts {fetch}")
     if paths["hash_rung"] != "native":
         raise AssertionError(f"{label}: host hash rung {paths['hash_rung']}")
@@ -994,6 +1010,535 @@ def drive_mixed(paths: dict[str, Path], n: int, seed: int, device, held: Held) -
     return drive(f"mixed {n}", crypto_batch.create_mixed_batch_verifier, keys, msgs,
                  sigs, bad, device, ["ed25519_verify", "sr25519_verify"],
                  ["ed25519_decompress", "sr25519_decompress"], n // 2, held)
+
+
+# ------------------------------------------------------------ commit phase
+#
+# The top of the port's main path: types/validation.verify_commit* on real
+# Commits and ValidatorSets (the port's types/), through crypto.batch's
+# scheduler client and the node-wide VerifyScheduler, down to K5, K1/K2 and
+# K6. Equal voting power, chain CHAIN_ID, keys and nonces stepped as above,
+# each validator signing the port's own vote_sign_bytes.
+
+SEED_COMMIT = 9_000  # the commit phase's validator sets (seen nowhere else)
+N_WINDOW = 16  # a blocksync window of 150-validator commits
+BAD_COMMIT, BAD_IN_COMMIT = 9, 77  # the window's tampered commit and signature
+N_RIDERS, RIDERS_BAD = 64, (5, 40)  # mempool rows beside a consensus commit
+DEADLINE_SLACK_MS = 50  # a deadline flush must resolve within its deadline and this
+BAD_SIG = 5_000  # the tampered signature of the 10,240 commit
+COMMIT_PARTS = ("rows", "sched", "plan", "keys", "pack", "derive", "verify", "header", "fetch",
+                "recheck")
+
+
+def make_set(n: int, seed: int, kinds: str):
+    """n validators of equal power (10), keys stepped from `seed`: kinds
+    "ed25519", "sr25519" or "mixed" (alternate keys of each, n / 2 apiece).
+    Returns (ValidatorSet, {address: (kind, a, r, R encoding, pub)})."""
+    from cometbft_tpu_torch.crypto import ed25519, sr25519
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.crypto import sr25519_math as srm
+    from cometbft_tpu_torch.types import Validator, ValidatorSet
+
+    secrets, vals = {}, []
+    for i, (a, r, A, R) in enumerate(_stepped_points(n, np.random.default_rng(seed))):
+        kind = kinds if kinds != "mixed" else ("ed25519", "sr25519")[i % 2]
+        if kind == "ed25519":
+            pub, renc, key = O.point_compress(A), O.point_compress(R), ed25519.PubKey(
+                O.point_compress(A))
+        else:
+            pub, renc = srm.ristretto_encode(A), srm.ristretto_encode(R)
+            key = sr25519.PubKey(pub)
+        vals.append(Validator.new(key, 10))
+        secrets[key.address()] = (kind, a, r, renc, pub)
+    return ValidatorSet(vals), secrets
+
+
+def commit_flags(n: int) -> tuple[set, set, set]:
+    """The absent, NIL and off-length-timestamp indices of an n-validator
+    commit: 1% each of ABSENT and NIL and six short timestamps from 1,000
+    validators on, none below."""
+    if n < 1_000:
+        return set(), set(), set()
+    return ({i for i in range(n) if i % 100 == 7}, {i for i in range(n) if i % 100 == 53},
+            {11, 2_500, 5_003, 7_777, 9_001, n - 5})
+
+
+def sign_commit(vals, secrets, height: int, seed: int, flags=(set(), set(), set())):
+    """A Commit of `vals` at `height` for block `seed`, every non-absent
+    validator signing its vote_sign_bytes (a NIL vote its NIL sign bytes, an
+    off-length timestamp its own row). Returns (commit, block id)."""
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.crypto import sr25519_math as srm
+    from cometbft_tpu_torch.types import BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    absent, nil, off_len = flags
+    block_hash = hashlib.sha256(b"commit-%d-%d" % (seed, height)).digest()
+    bid = BlockID(block_hash, PartSetHeader(1, hashlib.sha256(block_hash).digest()))
+    sigs = []
+    for i, v in enumerate(vals.validators):
+        if i in absent:
+            sigs.append(CommitSig.absent())
+            continue
+        flag = BlockIDFlag.NIL if i in nil else BlockIDFlag.COMMIT
+        nanos = 1_000 + i if i in off_len else (1 << 28) + 1_000 * i
+        sigs.append(CommitSig(flag, v.address, Timestamp(1_700_000_000 + height, nanos)))
+    commit = Commit(height, 0, bid, sigs)
+    rows = commit.vote_sign_bytes_all(CHAIN_ID)
+    sr = []
+    for i, cs in enumerate(sigs):
+        if i in absent:
+            continue
+        kind, a, r, renc, pub = secrets[cs.validator_address]
+        if kind == "ed25519":
+            k = O.sha512_mod_l(renc, pub, rows[i])
+            cs.signature = renc + ((r + k * a) % O.L).to_bytes(32, "little")
+        else:
+            sr.append((i, a, r, renc, pub))
+    if sr:
+        k_words = srm.batch_challenge_words([x[4] for x in sr], [x[3] for x in sr],
+                                            [rows[x[0]] for x in sr])
+        for (i, a, r, renc, _), kw in zip(sr, k_words):
+            s = bytearray(((r + int.from_bytes(kw.tobytes(), "little") * a) % srm.L)
+                          .to_bytes(32, "little"))
+            s[31] |= 0x80
+            sigs[i].signature = renc + bytes(s)
+    return commit, bid
+
+
+def with_bad_signature(commit, i: int):
+    """A copy of `commit` whose signature i has one bit flipped."""
+    import dataclasses
+
+    from cometbft_tpu_torch.types import Commit
+
+    sigs = [dataclasses.replace(cs) for cs in commit.signatures]
+    s = bytearray(sigs[i].signature)
+    s[40] ^= 1
+    sigs[i].signature = bytes(s)
+    return Commit(commit.height, commit.round_, commit.block_id, sigs)
+
+
+def counted(fn, device) -> tuple[float, dict, dict, dict]:
+    """fn() with every launch count and path counter set to 0 just before
+    and read just after: (wall ms, launches, verify lanes, path counters:
+    crypto.batch.path_stats())."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+
+    _reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, _launches(), dict(VK.LANES), crypto_batch.path_stats()
+
+
+def expect_resident(label: str, paths: dict, new_block: bool = False) -> None:
+    """Every key of the run was in the key table: indexed sends only, no
+    delta upload, no full path. A new block's commit uploads its prefix-table
+    row (a "delta" send of the prefix table, not of keys: the key tables'
+    uploads launch K6's checksum, which the caller counts)."""
+    sends = paths["sends"]
+    if (sends["delta"]["sends"] > (1 if new_block else 0) or sends["full"]["sends"]
+            or not sends["indexed"]["sends"]):
+        raise AssertionError(f"{label}: keys not resident: sends {sends}")
+
+
+def expect(label: str, launches: dict, want: dict) -> None:
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} (all: {launches})")
+
+
+def expect_fetch(label: str, paths: dict, happy: bool, nbytes: int | None = None) -> None:
+    fetch = paths["fetch"]
+    ok = fetch["happy_fetches"] == int(happy) and fetch["full_fetches"] == int(not happy)
+    if nbytes is not None:
+        ok = ok and fetch["happy_bytes"] == nbytes
+    if not ok:
+        raise AssertionError(f"{label}: fetches {fetch}, expected one "
+                             f"{'header-only' if happy else 'full'} fetch")
+
+
+def seam_ms(rows, device, mixed: bool = False) -> float:
+    """The seam of drive() on the same rows: create_batch_verifier (or
+    create_mixed_batch_verifier) -> add x N -> verify(), every row valid;
+    median of 5, warm."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    pubs, msgs, sigs = rows
+
+    def run():
+        v = (crypto_batch.create_mixed_batch_verifier() if mixed
+             else crypto_batch.create_batch_verifier(pubs[0]))
+        for p, m, s in zip(pubs, msgs, sigs):
+            v.add(p, m, s)
+        if not v.verify()[0] or v.recheck_flips:
+            raise AssertionError("seam: a valid row failed")
+
+    run()
+    return time_wall(run, 5, device)
+
+
+def commit_rows_of(vals, commit, light: str = ""):
+    """The rows _commit_rows gives verify_commit ("") or the light checks
+    ("light", "trusting")."""
+    from cometbft_tpu_torch.types import validation as V
+
+    if not light:
+        args = (vals.total_voting_power() * 2 // 3, V._ignore_absent, V._count_commit, True, True)
+    elif light == "light":
+        args = (vals.total_voting_power() * 2 // 3, V._ignore_not_commit, V._count_all, False,
+                True)
+    else:
+        args = (vals.total_voting_power() // 3, V._ignore_not_commit, V._count_all, False, False)
+    pubs, msgs, sigs, _ = V._commit_rows(CHAIN_ID, vals, commit, *args)
+    return pubs, msgs, sigs
+
+
+def drive_verify(label: str, call, device, want: dict, lanes: dict, held: Held,
+                 cold_decoders: tuple[str, ...], nbytes: int) -> dict:
+    """One commit-phase cell: call() once cold (its keys never seen: the
+    decoders launch) and 5 times warm, each run counted on its own: the
+    launches `want` (and no decoder warm), the verify lanes `lanes`, one
+    header-only fetch of `nbytes`, every key resident (warm). Then one more
+    run with K5/K6 held against their plain versions. Returns the times and
+    the counts."""
+    cold_ms, cold, _, paths = counted(call, device)
+    expect(f"{label} cold", cold, want)
+    if any(cold[d] < 1 for d in cold_decoders):
+        raise AssertionError(f"{label}: the cold run decoded no key {cold}")
+    expect_fetch(f"{label} cold", paths, True, nbytes)
+    warm = []
+    for _ in range(5):
+        ms, launches, got_lanes, paths = counted(call, device)
+        expect(f"{label} warm", launches, dict(want, ed25519_decompress=0, sr25519_decompress=0,
+                                               integrity_checksum=0))
+        if {k: got_lanes[k] for k in lanes} != lanes:
+            raise AssertionError(f"{label}: verify lanes {got_lanes}, expected {lanes}")
+        expect_fetch(f"{label} warm", paths, True, nbytes)
+        expect_resident(f"{label} warm", paths)
+        warm.append(ms)
+    with held:
+        call()
+    return {"cold_ms": cold_ms, "warm_ms": statistics.median(warm), "cold": cold,
+            "launches": launches}
+
+
+def commit_parts(label: str, kind: str, call, runs: int, card: str) -> dict:
+    """call() (a verify_commit) by part, median of `runs`,
+    ed25519_kernel.timed_parts synchronising the card around each part:
+    rows (_commit_rows), sched (the scheduler's grouping and slicing), then
+    the verify path's parts."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+
+    got = []
+    for _ in range(runs):
+        got.append({})
+        with K.timed_parts(got[-1]):
+            call()
+    parts = {k: statistics.median(r.get(k, 0.0) for r in got) for k in COMMIT_PARTS}
+    print(f"[{card}] verify_commit {label} {kind} by part (ms, synchronised around each"
+          f"{f', median of {runs}' if runs > 1 else ''}): "
+          + ", ".join(f"{k} {parts[k]:.3f}" for k in COMMIT_PARTS)
+          + f"; sum {sum(parts.values()):.3f}", flush=True)
+    return parts
+
+
+def commit_phase(device, card: str, held: Held) -> dict:
+    """The commit phase: verify_commit of 10,240 ed25519
+    validators (valid, a tampered signature, cold and warm, by part), the
+    light checks on the same commit, verify_commit of a mixed 10,240 and of
+    150 validators, a blocksync window of 16 150-validator commits, and the
+    scheduler's mempool riders and deadline worker. Every launch count is
+    asserted per run; each cell's time is printed beside the seam time of
+    its own rows. Returns the records."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.ops import residency
+    from cometbft_tpu_torch.types import validation as V
+
+    t_phase = time.perf_counter()
+    sched.reset()
+    ed = {"ed25519_verify": 1, "challenge_derive": 1, "integrity_parts": 1}
+    out: dict = {}
+
+    # 1. verify_commit, ed25519, 10,240 validators: first by part on a set of
+    # its own (cold), then the cell's set, which the key tables then pin
+    # (the newest announced set)
+    flags = commit_flags(N_BIG)
+    vals_b, secrets_b = make_set(N_BIG, SEED_COMMIT + 1, "ed25519")
+    commit_b, bid_b = sign_commit(vals_b, secrets_b, 1_001, SEED_COMMIT + 1, flags)
+    out["parts"] = {"cold": commit_parts(
+        "ed25519 10k", "cold", lambda: V.verify_commit(CHAIN_ID, vals_b, bid_b, 1_001, commit_b),
+        1, card)}
+    vals, secrets = make_set(N_BIG, SEED_COMMIT, "ed25519")
+    commit, bid = sign_commit(vals, secrets, 1_000, SEED_COMMIT, flags)
+    h = commit.height
+    n_rows = N_BIG - len(flags[0])
+    big = drive_verify("verify_commit ed25519 10k",
+                       lambda: V.verify_commit(CHAIN_ID, vals, bid, h, commit), device, ed,
+                       {"ed25519_verify": K.bucket_size(n_rows)}, held, ("ed25519_decompress",),
+                       8)
+    big["seam_ms"] = seam_ms(commit_rows_of(vals, commit), device)
+    ch = crypto_batch.path_stats()["challenge"]
+    # a node verifies each height's commit once: a new Commit of the known
+    # set a run (its sign rows and its block's prefix row are new), 5 runs
+    fresh = [sign_commit(vals, secrets, 1_010 + j, SEED_COMMIT, flags) for j in range(5)]
+    times = []
+    for c, b in fresh:
+        ms, launches, _, paths = counted(
+            lambda: V.verify_commit(CHAIN_ID, vals, b, c.height, c), device)
+        expect("verify_commit 10k new commit", launches,
+               dict(ed, ed25519_decompress=0, integrity_checksum=0))
+        expect_fetch("verify_commit 10k new commit", paths, True, 8)
+        expect_resident("verify_commit 10k new commit", paths, new_block=True)
+        times.append(ms)
+    big["new_commit_ms"] = statistics.median(times)
+    bad = with_bad_signature(commit, BAD_SIG)
+
+    def tampered():
+        try:
+            V.verify_commit(CHAIN_ID, vals, bid, h, bad)
+        except V.ErrInvalidCommitSignature as e:
+            if not str(e).startswith(f"wrong signature (#{BAD_SIG})"):
+                raise AssertionError(f"tampered 10k commit: {e}") from e
+            return
+        raise AssertionError("tampered 10k commit passed")
+
+    bad_ms, launches, _, paths = counted(tampered, device)
+    expect("verify_commit 10k tampered", launches, ed)
+    expect_fetch("verify_commit 10k tampered", paths, False)
+    print(f"commit phase ed25519 10k: {n_rows} signatures ({len(flags[0])} absent, "
+          f"{len(flags[1])} NIL, {len(flags[2])} off-length timestamps) at "
+          f"{K.bucket_size(n_rows)} lanes; valid: one K5, one K1, one K6 a run, header-only "
+          f"fetch of 8 bytes (launches cold {big['cold']}, warm {big['launches']}); challenge "
+          f"lanes of the last run {ch}; tampered #{BAD_SIG}: ErrInvalidCommitSignature names it, "
+          f"one K1, one full fetch ({bad_ms:.3f} ms)", flush=True)
+    out["parts"]["warm"] = commit_parts(
+        "ed25519 10k", "warm", lambda: V.verify_commit(CHAIN_ID, vals, bid, h, commit), 5, card)
+    out["ed25519 10k"] = big
+
+    # 2. the light checks on the same commit: only the signatures they need
+    light = {}
+    for name, call, need in (
+            ("light", lambda: V.verify_commit_light(CHAIN_ID, vals, bid, h, commit),
+             vals.total_voting_power() * 2 // 3),
+            ("light_trusting 1/3", lambda: V.verify_commit_light_trusting(
+                CHAIN_ID, vals, commit, V.Fraction(1, 3)), vals.total_voting_power() // 3)):
+        rows_before = sched.get().health()["rows_total"]
+        times = []
+        for _ in range(5):
+            ms, launches, lanes, paths = counted(call, device)
+            expect(f"verify_commit_{name}", launches,
+                   dict(ed, ed25519_decompress=0, integrity_checksum=0))
+            expect_fetch(f"verify_commit_{name}", paths, True, 8)
+            expect_resident(f"verify_commit_{name}", paths)
+            times.append(ms)
+        rows = (sched.get().health()["rows_total"] - rows_before) // 5
+        if rows != need // 10 + 1 or lanes["ed25519_verify"] != K.bucket_size(rows):
+            raise AssertionError(f"verify_commit_{name}: {rows} rows at {lanes} lanes, "
+                                 f"expected {need // 10 + 1}")
+        seam = seam_ms(commit_rows_of(vals, commit, name.split()[0].replace("light_", "")),
+                       device)
+        light[name] = {"warm_ms": statistics.median(times), "rows": rows, "seam_ms": seam,
+                       "lanes": lanes["ed25519_verify"]}
+    out["light"] = light
+
+    # 3. verify_commit, mixed 10,240 (5,120 ed25519 + 5,120 sr25519)
+    vals_m, secrets_m = make_set(N_BIG, SEED_COMMIT + 2, "mixed")
+    commit_m, bid_m = sign_commit(vals_m, secrets_m, 1_002, SEED_COMMIT + 2, flags)
+    rows_m = commit_rows_of(vals_m, commit_m)
+    per = {k: sum(p.type_() == k for p in rows_m[0]) for k in ("ed25519", "sr25519")}
+    mixed = drive_verify(
+        "verify_commit mixed 10k", lambda: V.verify_commit(CHAIN_ID, vals_m, bid_m, 1_002,
+                                                           commit_m), device,
+        dict(ed, sr25519_verify=1, integrity_parts=2),
+        {"ed25519_verify": K.bucket_size(per["ed25519"]),
+         "sr25519_verify": K.bucket_size(per["sr25519"])}, held,
+        ("ed25519_decompress", "sr25519_decompress"), 16)
+    if K.bucket_size(per["ed25519"]) != N_MIXED_BUCKET != K.bucket_size(per["sr25519"]):
+        raise AssertionError(f"mixed 10k: rows per scheme {per}")
+    mixed["seam_ms"] = seam_ms(rows_m, device, mixed=True)
+    out["mixed 10k"] = mixed
+    print(f"commit phase mixed 10k: {per} rows, one K1 + one K2 at {N_MIXED_BUCKET} lanes, two "
+          f"K6, one combined header fetch of 16 bytes a run (warm {mixed['launches']})",
+          flush=True)
+
+    # 4. verify_commit, ed25519, 150 validators
+    vals_c, secrets_c = make_set(N_SMALL, SEED_COMMIT + 3, "ed25519")
+    commit_c, bid_c = sign_commit(vals_c, secrets_c, 1_003, SEED_COMMIT + 3)
+    small = drive_verify("verify_commit ed25519 150",
+                         lambda: V.verify_commit(CHAIN_ID, vals_c, bid_c, 1_003, commit_c),
+                         device, ed, {"ed25519_verify": K.bucket_size(N_SMALL)}, held,
+                         ("ed25519_decompress",), 8)
+    small["seam_ms"] = seam_ms(commit_rows_of(vals_c, commit_c), device)
+    out["ed25519 150"] = small
+
+    # 5. a blocksync window: 16 consecutive 150-validator commits under SYNC
+    vals_d, secrets_d = make_set(N_SMALL, SEED_COMMIT + 4, "ed25519")
+    window = [sign_commit(vals_d, secrets_d, 2_000 + j, SEED_COMMIT + 4) for j in range(N_WINDOW)]
+
+    def run_window(commits):
+        staged = [V.stage_verify_commit(CHAIN_ID, vals_d, b, 2_000 + j, c)
+                  for j, (c, b) in enumerate(commits)]
+        V.resolve_staged(staged)
+        return staged
+
+    sync_before = sched.get().health()["class_rows"][sched.SYNC]
+    win = drive_verify("window 16 x 150", lambda: run_window(window), device, ed,
+                       {"ed25519_verify": K.bucket_size(N_WINDOW * N_SMALL)}, held,
+                       ("ed25519_decompress",), 8)
+    synced = sched.get().health()["class_rows"][sched.SYNC] - sync_before
+    if synced != 7 * N_WINDOW * N_SMALL:  # cold, 5 warm, held
+        raise AssertionError(f"window: {synced} SYNC rows")
+    win_rows = [sum(r, []) for r in zip(*(commit_rows_of(vals_d, c) for c, _ in window))]
+    win["seam_ms"] = seam_ms(win_rows, device)
+    bad_window = list(window)
+    bad_window[BAD_COMMIT] = (with_bad_signature(window[BAD_COMMIT][0], BAD_IN_COMMIT),
+                              window[BAD_COMMIT][1])
+    staged = [V.stage_verify_commit(CHAIN_ID, vals_d, b, 2_000 + j, c)
+              for j, (c, b) in enumerate(bad_window)]
+
+    def resolve_bad():
+        try:
+            V.resolve_staged(staged)
+        except V.ErrInvalidCommitSignature as e:
+            if not str(e).startswith(f"wrong signature (#{BAD_IN_COMMIT})"):
+                raise AssertionError(f"bad window: {e}") from e
+            return
+        raise AssertionError("bad window passed")
+
+    _, launches, _, paths = counted(resolve_bad, device)
+    expect("bad window", launches, ed)
+    expect_fetch("bad window", paths, False)
+    if [s._passed for s in staged] != [True] * BAD_COMMIT + [False] * (N_WINDOW - BAD_COMMIT):
+        raise AssertionError(f"bad window: not raised at commit {BAD_COMMIT} in window order")
+    out["window"] = win
+    print(f"commit phase window: {N_WINDOW} x {N_SMALL} = {N_WINDOW * N_SMALL} signatures, one "
+          f"K5, one K1 at {K.bucket_size(N_WINDOW * N_SMALL)} lanes, one K6, one header-only "
+          f"fetch a window, {synced} SYNC rows in 7 windows; a bad signature in commit "
+          f"{BAD_COMMIT} raises there, the commits before it finished in window order",
+          flush=True)
+
+    # 6. the scheduler: mempool riders in a consensus drain, the deadline worker
+    vals_e, secrets_e = make_set(N_RIDERS, SEED_COMMIT + 5, "ed25519")
+    def valid_sig(j: int) -> bytes:
+        _, a, r, renc, pub = secrets_e[vals_e.validators[j].address]
+        return renc + ((r + O.sha512_mod_l(renc, pub, b"tx-%d" % j) * a) % O.L).to_bytes(
+            32, "little")
+
+    riders = []
+    for j, v in enumerate(vals_e.validators):
+        sig = valid_sig(j)
+        if j in RIDERS_BAD:
+            sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        riders.append((v.pub_key, b"tx-%d" % j, sig))
+    want = [j not in RIDERS_BAD for j in range(N_RIDERS)]
+    valid = [(k, m, valid_sig(j)) for j, (k, m, _) in enumerate(riders)]
+
+    def rider_batch(rows, verdicts, split):
+        futs = s.submit(rows, klass=sched.MEMPOOL)
+        t0 = time.perf_counter()
+        V.verify_commit(CHAIN_ID, vals_c, bid_c, 1_003, commit_c)
+        # the consensus caller returns before the riders' host recheck,
+        # which the deadline worker runs
+        split["commit_ms"] = (time.perf_counter() - t0) * 1e3
+        if [f.result(timeout=5) for f in futs] != verdicts:
+            raise AssertionError("riders: wrong verdicts")
+        split["futures_ms"] = (time.perf_counter() - t0) * 1e3
+
+    # the rider keys' first sight (decode and upload) is not the cell's
+    sched.reset()
+    s = sched.get()
+    rider_batch(valid, [True] * N_RIDERS, {})
+    sched.reset()
+    s = sched.get()
+    gc.collect()
+    rider_split: dict = {}
+    rider_ms, launches, lanes, paths = counted(
+        lambda: rider_batch(riders, want, rider_split), device)
+    expect("riders", launches, dict(ed, ed25519_decompress=0))
+    hs = s.health()
+    lanes_both = K.bucket_size(N_SMALL + N_RIDERS)  # 256: one batch carries both
+    if lanes["ed25519_verify"] != lanes_both or hs["batches"] != 1 or hs["worker_flushes"] or \
+            hs["deferred_rechecks"] != 1 or \
+            hs["class_rows"][sched.CONSENSUS] != N_SMALL or \
+            hs["class_rows"][sched.MEMPOOL] != N_RIDERS or hs["lanes_total"] != lanes_both or \
+            hs["frag_lanes_total"] != K.bucket_size(N_SMALL) + K.bucket_size(N_RIDERS):
+        raise AssertionError(f"riders: lanes {lanes}, health {hs}")
+    expect_fetch("riders", paths, False)
+    # the same batch with every rider valid: nothing to recheck
+    sched.reset()
+    s = sched.get()
+    valid_split: dict = {}
+    _, launches, _, _ = counted(lambda: rider_batch(valid, [True] * N_RIDERS, valid_split),
+                                device)
+    expect("riders, all valid", launches, dict(ed, ed25519_decompress=0))
+    if s.health()["deferred_rechecks"]:
+        raise AssertionError(f"riders, all valid: {s.health()}")
+    sched.reset()
+    s = sched.get()
+    # the deadline flushes carry valid rows only: a rejected lane's host
+    # recheck (~4 ms a lane) is not the worker's latency
+
+    def deadline_flush():
+        t0 = time.perf_counter()
+        futs = s.submit(valid, klass=sched.MEMPOOL)
+        if not all(f.result(timeout=5) for f in futs):
+            raise AssertionError("deadline flush: a valid row failed")
+        return (time.perf_counter() - t0) * 1e3
+
+    lat = []
+    _, launches, _, _ = counted(lambda: lat.append(deadline_flush()), device)
+    hs = s.health()
+    expect("deadline flush", launches, ed)
+    if hs["worker_flushes"] != 1 or \
+            lat[0] > 1e3 * s.class_deadline[sched.MEMPOOL] + DEADLINE_SLACK_MS:
+        raise AssertionError(f"deadline flush: {lat[0]:.3f} ms, health {hs}")
+    # two more through the same worker thread (its first flush pays the
+    # thread's first CUDA calls)
+    lat += [deadline_flush(), deadline_flush()]
+    hs = s.health()
+    if hs["worker_flushes"] != 3:
+        raise AssertionError(f"deadline flushes: {hs}")
+    out["riders"] = {"ms": rider_ms, **rider_split, "valid_commit_ms": valid_split["commit_ms"],
+                     "deadline_flush_ms": lat, "deadline_misses": hs["deadline_misses"]}
+    print(f"commit phase riders: {N_RIDERS} mempool rows ({len(RIDERS_BAD)} bad) rode the "
+          f"{N_SMALL}-validator consensus drain: one K1 at {lanes_both} lanes, one batch, "
+          f"fragmented lanes {K.bucket_size(N_SMALL) + K.bucket_size(N_RIDERS)} vs "
+          f"{lanes_both} ({rider_ms:.3f} ms from submit() to the last future); verify_commit "
+          f"returned in {rider_split['commit_ms']:.3f} ms (beside {N_RIDERS} valid riders: "
+          f"{valid_split['commit_ms']:.3f} ms; the commit alone, warm: {small['warm_ms']:.3f} ms), "
+          f"the riders' futures, rechecked on the deadline worker, at "
+          f"{rider_split['futures_ms']:.3f} ms; a mempool-only submit of the {N_RIDERS} rows, all "
+          f"valid, flushed by the deadline worker (its first flush) in {lat[0]:.3f} ms, the "
+          f"next two in "
+          f"{lat[1]:.3f} and {lat[2]:.3f} ms from submit() to the last future (deadline 10 ms; "
+          f"worker flushes {hs['worker_flushes']}, deadline misses {hs['deadline_misses']})",
+          flush=True)
+
+    sched.reset()
+    residency.clear_announced()  # later phases' fresh key tables pin nothing
+    for label, r in (("ed25519 10k", big), ("mixed 10k", mixed), ("ed25519 150", small),
+                     ("window 16 x 150", win)):
+        print(f"[{card}] verify_commit {label}: cold {r['cold_ms']:.3f} ms, warm "
+              f"{r['warm_ms']:.3f} ms (median of 5); the seam on the same rows "
+              f"(create_batch_verifier -> add -> verify, as drive() times it) "
+              f"{r['seam_ms']:.3f} ms (median of 5)", flush=True)
+    print(f"[{card}] verify_commit ed25519 10k, a new commit of the known set a run (the "
+          f"per-height case): {big['new_commit_ms']:.3f} ms (median of 5)", flush=True)
+    for name, r in light.items():
+        print(f"[{card}] verify_commit_{name} ed25519 10k: {r['rows']} rows at {r['lanes']} "
+              f"lanes, warm {r['warm_ms']:.3f} ms (median of 5); the seam on the same rows "
+              f"{r['seam_ms']:.3f} ms", flush=True)
+    print(f"commit phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def time_scheme(name: str, path: Path, lanes: tuple[int, ...], device, card: str,
@@ -1693,6 +2238,8 @@ def main() -> int:
     drive_commit(ed, N_SMALL, SEED_SMALL + 2, device, "150 plain bytes", held, factored=False)
     big_sr = drive_commit(sr, N_BIG, SEED_SR, device, "sr25519 10k", held)
     mixed = drive_mixed(paths, N_BIG, SEED_MIXED, device, held)
+    # the top of the main path, timed before the microbench and probe phases
+    commit = commit_phase(device, card, held)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -1757,17 +2304,25 @@ def main() -> int:
     from cometbft_tpu_torch.ops import challenge as CH
 
     kernels = {"kernels": []}
+    # launches of one warm verify_commit (decoders: its cold run): ed25519
+    # 10k, and the mixed 10k for sr25519
+    on_commit = {**commit["ed25519 10k"]["launches"],
+                 "ed25519_decompress": commit["ed25519 10k"]["cold"]["ed25519_decompress"],
+                 "sr25519_verify": commit["mixed 10k"]["launches"]["sr25519_verify"],
+                 "sr25519_decompress": commit["mixed 10k"]["cold"]["sr25519_decompress"]}
     for name, run, t, b, d, replaces in (
             ("ed25519", big, times, bounds, dec["ed25519"], "ed25519_kernel.py:97"),
             ("sr25519", big_sr, times_sr, bounds_sr, dec["sr25519"], "sr25519_kernel.py:102")):
         kernels["kernels"] += [
             _record(f"{name}_verify", "cometbft_tpu/ops/pallas_verify.py:198",
                     run["launches"][f"{name}_verify"], err[f"{name}_verify"],
-                    t[N_BIG]["verify"], t[N_BIG]["verify_plain"], b[N_BIG]["verify"]),
+                    t[N_BIG]["verify"], t[N_BIG]["verify_plain"], b[N_BIG]["verify"],
+                    launches_verify_commit=on_commit[f"{name}_verify"]),
             _record(f"{name}_decompress", f"cometbft_tpu/ops/{replaces}",
                     run["launches"][f"{name}_decompress"], err[f"{name}_decompress"],
                     d[N_BIG]["ms"], d[N_BIG]["plain_ms"], d[N_BIG]["bound"],
-                    ms_back_to_back=d[N_BIG]["ms_back_to_back"])]
+                    ms_back_to_back=d[N_BIG]["ms_back_to_back"],
+                    launches_verify_commit=on_commit[f"{name}_decompress"])]
     for name, source, replaces in (
             ("challenge_derive", "challenge25519.cu", "cometbft_tpu/ops/challenge.py:730"),
             ("integrity_parts", "integrity.cu", "cometbft_tpu/ops/ed25519_kernel.py:271")):
@@ -1778,6 +2333,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"], "lanes": N_BIG,
             "ms_back_to_back": r["ms_back_to_back"], "host_ms": r["host_ms"],
+            "launches_verify_commit": on_commit[name],
             **({"hash_only_ms": r["hash_only"]["ms"]} if name == "challenge_derive" else
                {"behind_k1_ms": r["behind_k1"]})})
     for name, r in mb_times.items():

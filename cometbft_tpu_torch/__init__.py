@@ -9,7 +9,12 @@ kernels (``csrc/``), with plain PyTorch versions of the same arithmetic
 beside each kernel for the CPU tests.
 
 Package map:
+  types/      sign bytes, commits, validator sets, and commit verification
+              (validation.verify_commit*, the staged blocksync windows)
+  sched/      the node-wide verify scheduler: continuous batching of all
+              signature work on one card
   crypto/     key types, the ZIP-215 host oracle, the batch-verifier registry
+              and the scheduler's client, Merkle trees, tmhash
   ops/        limb packing, field/curve arithmetic (plain torch), the kernel
               wrappers and their nvcc build, host staging, the key tables,
               device challenges and the integrity header
@@ -17,6 +22,7 @@ Package map:
   native/     C host hash rungs (SIMD SHA-512/Keccak/mod L, STROBE), built
               with cc at first use
   libs/       shared-prefix message rows (prefixrows.py)
+  utils/      the protobuf codec and canonical time
 
 Entry points take an explicit ``device`` and default to ``cuda``; they
 raise when no card is present unless the caller passes ``device="cpu"``.

@@ -14,6 +14,10 @@ from abc import ABC, abstractmethod
 # Address: 20-byte truncated SHA-256 of the pubkey bytes.
 ADDRESS_SIZE = 20
 
+# Wire cap on signature bytes in votes and commits, as in the JAX package:
+# the largest signature of any scheme it registers (BLS12-381's 96 bytes).
+MAX_SIGNATURE_SIZE = 96
+
 
 class PubKey(ABC):
     @abstractmethod

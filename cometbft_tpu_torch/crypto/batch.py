@@ -1,9 +1,18 @@
-"""Batch-verifier dispatch: by key type and backend, and the mixed-scheme
-verifier.
+"""Batch-verifier dispatch: by key type and backend, the scheduler's client
+and the mixed-scheme verifier. The port's counterpart of
+cometbft_tpu/crypto/batch.py.
 
 Backends: "gpu" (the default) runs the CUDA kernels and raises when no
 card is present; "cpu" runs the plain PyTorch versions and is chosen only
-explicitly. The backend is process-global, like the JAX package's.
+explicitly. There is no "auto" and no circuit breaker: the backend is what
+was set. It is process-global, like the JAX package's.
+
+With the verify scheduler enabled (sched.enabled(), the default),
+create_batch_verifier and create_mixed_batch_verifier return a
+ScheduledBatchVerifier: its verify() is an inline drain of the node-wide
+scheduler (sched/scheduler.py). With sched.configure(enabled=False) they
+return the per-key-type verifiers and MixedBatchVerifier, which run their
+own batches.
 """
 
 from __future__ import annotations
@@ -38,10 +47,31 @@ def get_backend() -> str:
     return _BACKEND
 
 
+def backend_device():
+    """The device the configured backend runs on: cuda for "gpu" (raising
+    without a card), the CPU for "cpu"."""
+    from cometbft_tpu_torch import resolve_device
+
+    return resolve_device("cuda" if _BACKEND == "gpu" else "cpu")
+
+
+def supports_batch_verifier(pub_key: crypto.PubKey | None) -> bool:
+    """Does this key type have a batch verifier (CometBFT's
+    crypto/batch.SupportsBatchVerifier)?"""
+    return pub_key is not None and pub_key.type_() in _REGISTRY
+
+
 def create_batch_verifier(pub_key: crypto.PubKey) -> crypto.BatchVerifier:
-    """A verifier for this key type on the configured backend. Raises
-    ErrInvalidKey for key types with no batch verifier, and RuntimeError
-    for the "gpu" backend when no card is present."""
+    """A verifier for this key type: the scheduler's client while the
+    scheduler is enabled, else the key type's verifier on the configured
+    backend. Raises ErrInvalidKey for key types with no batch verifier;
+    verify() raises RuntimeError on the "gpu" backend without a card."""
+    from cometbft_tpu_torch import sched
+
+    if pub_key.type_() not in _REGISTRY:
+        raise crypto.ErrInvalidKey(f"key type {pub_key.type_()!r} has no batch verifier")
+    if sched.enabled():
+        return ScheduledBatchVerifier()
     return _new_verifier(pub_key.type_())
 
 
@@ -57,7 +87,9 @@ class MixedBatchVerifier(crypto.BatchVerifier):
     mega-commit): add() routes each row to a per-type sub-verifier on the
     configured backend; verify() runs each sub-batch once — one kernel
     launch per scheme — and stitches the per-lane masks back into input
-    order. recheck_flips sums the sub-verifiers'."""
+    order. The sub-batches are launched before any is fetched and resolve
+    with one resolve_batches: one header fetch for all of them.
+    recheck_flips sums the sub-verifiers'."""
 
     def __init__(self):
         self._subs: dict[str, crypto.BatchVerifier] = {}
@@ -72,8 +104,14 @@ class MixedBatchVerifier(crypto.BatchVerifier):
         self._route.append((kt, sub.count() - 1))
 
     def verify(self) -> tuple[bool, list[bool]]:
-        masks = {kt: sub.verify()[1] for kt, sub in self._subs.items()}
-        out = [masks[kt][i] for kt, i in self._route]
+        from cometbft_tpu_torch.ops import ed25519_kernel
+
+        thunks = {kt: sub.verify_async() for kt, sub in self._subs.items()}
+        resolved = ed25519_kernel.resolve_batches(list(thunks.values()))
+        masks = dict(zip(thunks, resolved))
+        for kt, thunk in thunks.items():
+            self._subs[kt].recheck_flips += thunk.flips
+        out = [bool(masks[kt][i]) for kt, i in self._route]
         return all(out), out
 
     @property
@@ -84,10 +122,62 @@ class MixedBatchVerifier(crypto.BatchVerifier):
         return len(self._route)
 
 
-def create_mixed_batch_verifier() -> MixedBatchVerifier:
-    """A verifier for a batch of mixed key types on the configured backend.
-    The JAX package returns its scheduler's client here; the port has no
-    scheduler yet, so this is always a MixedBatchVerifier."""
+class ScheduledBatchVerifier(crypto.BatchVerifier):
+    """The scheduler's client behind crypto.BatchVerifier: add() checks the
+    key type and signature length and keeps the row in the columns the
+    batches take (sched.RowColumns: key bytes, messages, signatures by key
+    type; factored rows stay factored); verify() hands them to the
+    node-wide VerifyScheduler as one group under the ambient priority class
+    (sched.work_class) and drains it inline, with queued riders. Key types
+    may mix: the scheduler runs one batch per scheme and resolves them with
+    one fetch. recheck_flips counts
+    the lanes of this verifier's rows that the host recheck flipped. Like
+    the per-key-type verifiers, it raises at creation on the "gpu" backend
+    without a card."""
+
+    SIGNATURE_SIZE = 64
+
+    def __init__(self, klass: str | None = None):
+        from cometbft_tpu_torch import sched
+
+        backend_device()
+        self._klass = klass or sched.current_class()
+        self._rows = sched.RowColumns()
+        self.recheck_flips = 0
+
+    def add(self, pub_key: crypto.PubKey, msg, sig: bytes) -> None:
+        from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
+
+        kt = pub_key.type_()
+        if kt not in _REGISTRY:
+            raise crypto.ErrInvalidKey(f"key type {kt!r} has no batch verifier")
+        if len(sig) != self.SIGNATURE_SIZE:
+            raise crypto.ErrInvalidSignature("bad signature length")
+        self._rows.add(kt, pub_key.bytes_(), msg if isinstance(msg, PrefixedMsg) else bytes(msg),
+                       bytes(sig))
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        if not len(self._rows):
+            return True, []
+        from cometbft_tpu_torch import sched
+
+        group = sched.get().drain([self._rows], self._klass)[0]
+        self.recheck_flips += group.flips
+        out = group.mask.tolist()
+        return all(out), out
+
+    def count(self) -> int:
+        return len(self._rows)
+
+
+def create_mixed_batch_verifier() -> crypto.BatchVerifier:
+    """A verifier for a batch of mixed key types: the scheduler's client
+    while the scheduler is enabled, else a MixedBatchVerifier on the
+    configured backend."""
+    from cometbft_tpu_torch import sched
+
+    if sched.enabled():
+        return ScheduledBatchVerifier()
     return MixedBatchVerifier()
 
 

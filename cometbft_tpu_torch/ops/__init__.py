@@ -9,8 +9,12 @@
                       their plain versions
   _build.py           nvcc build of csrc/*.cu, loaded with ctypes
   ed25519_kernel.py   ed25519 host staging; the verify path both schemes
-                      share (verify_rows: the device-challenge and classic
-                      paths, pubkey cache, key staging, header, recheck)
+                      share (verify_batch_async stages and launches,
+                      resolve_batches fetches many batches' headers at once;
+                      verify_rows is the two for one batch: the
+                      device-challenge and classic paths, pubkey cache, key
+                      staging, header, recheck with per-group budgets)
+  dispatch.py         the dispatch stream and lock
   sr25519_kernel.py   sr25519 host staging (Merlin challenges), its scheme
   hashvec.py          host hash rungs (native, numpy, serial): Keccak,
                       SHA-512, mod L, prefixed-row reassembly

@@ -39,11 +39,18 @@ class CUDABatchVerifier(crypto.BatchVerifier):
         self._msgs.append(msg if isinstance(msg, PrefixedMsg) else bytes(msg))
         self._sigs.append(bytes(sig))
 
-    def verify(self) -> tuple[bool, list[bool]]:
-        mask, flips = ed25519_kernel.verify_rows(
+    def verify_async(self) -> ed25519_kernel.BatchThunk:
+        """Stage and launch the batch; the thunk resolves with
+        ed25519_kernel.resolve_batches (its flips are not added to
+        recheck_flips: the caller that resolves it counts them)."""
+        return ed25519_kernel.verify_batch_async(
             self.scheme, self._pubs, self._msgs, self._sigs, cache=self._cache,
             device=self.device)
-        self.recheck_flips += flips
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        thunk = self.verify_async()
+        mask = ed25519_kernel.resolve_batches([thunk])[0]
+        self.recheck_flips += thunk.flips
         return bool(mask.all()), mask.tolist()
 
     def count(self) -> int:

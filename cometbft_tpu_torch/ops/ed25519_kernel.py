@@ -2,8 +2,13 @@
 cache, the device glue around the kernels, and the integrity header.
 
 Per lane the device computes [8]([s]B - [k]A - R) == O (cofactored,
-ZIP-215). verify_rows runs the reference's two paths
-(cometbft_tpu/ops/ed25519_kernel.py verify_batch_async):
+ZIP-215). verify_batch_async stages and launches a batch on the dispatch
+stream (ops/dispatch.py) without waiting for the card; resolve_batches
+fetches the headers of many launched batches in one copy, and their
+payloads in one more only where a header is not happy (the reference's
+verify_batch_async / resolve_batches, cometbft_tpu/ops/ed25519_kernel.py);
+verify_rows is the two for one batch. A batch takes one of the reference's
+two paths:
 
   device challenge  when ops/challenge.plan_batch gives a Plan (a commit's
                     factored sign-bytes, libs/prefixrows.PrefixedMsg): R, s
@@ -22,8 +27,9 @@ unique-key full path over PubKeyCache. After the verify kernel, the
 integrity kernel K6 (ops/integrity.py) folds the all-ok verdict into the
 staging checksum: an 8-byte header crosses back, and the per-lane mask only
 when the header is not "happy". The few lanes the device rejects are
-re-verified by the exact host oracle (recheck_failed_lanes); a lane it
-flips back to valid means the device was wrong, and is counted.
+re-verified by the exact host oracle (recheck_failed_lanes, with a budget
+per producer group of a coalesced batch: apply_recheck); a lane it flips
+back to valid means the device was wrong, and is counted.
 
 There is no fallback: a kernel that fails raises, and a header or payload
 whose checksum or echo fails raises. The counters say which path ran:
@@ -41,6 +47,7 @@ The tables, the device glue and the recheck serve sr25519 too
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import hashlib
 import threading
 import time
@@ -53,6 +60,7 @@ from cometbft_tpu_torch import resolve_device
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
 from cometbft_tpu_torch.libs.prefixrows import as_bytes
 from cometbft_tpu_torch.ops import challenge
+from cometbft_tpu_torch.ops import dispatch
 from cometbft_tpu_torch.ops import hashvec
 from cometbft_tpu_torch.ops import integrity
 from cometbft_tpu_torch.ops import limbs as L
@@ -454,19 +462,6 @@ def decode_header(header: np.ndarray, expected) -> str:
     return "chk_mismatch"
 
 
-def decode_payload(payload: np.ndarray, n: int, pre_ok: np.ndarray, ok_a: np.ndarray,
-                   rows: tuple, verify_one: Callable) -> tuple[np.ndarray, int]:
-    """A fetched (2B + 1,) payload -> the final (N,) mask and the recheck's
-    flips. A failed staging checksum or mask echo raises: the port retries
-    nothing and has no host-oracle rung."""
-    mask, chk_ok, echo_ok = integrity.decode_mask(payload)
-    if not (chk_ok and echo_ok):
-        raise RuntimeError(f"device transfer integrity check failed: staging checksum "
-                           f"ok {chk_ok}, mask echo ok {echo_ok}")
-    eligible = pre_ok & ok_a
-    return recheck_failed_lanes(mask[:n] & eligible, eligible, *rows, verify_one)
-
-
 _fetch_lock = threading.Lock()
 _fetch_stats = {"happy_fetches": 0, "full_fetches": 0, "happy_bytes": 0, "full_bytes": 0}
 
@@ -494,9 +489,10 @@ def reset_fetch_stats() -> None:
 # ------------------------------------------------------------------ verify
 
 # Failed lanes are re-verified by the exact host oracle before they are
-# reported invalid, up to this many per batch (a batch with more failures
-# is genuinely bad). A lane the oracle accepts is flipped to valid and
-# counted: it means the device computed a wrong verdict.
+# reported invalid, up to this many per batch, or per recheck group of a
+# coalesced batch (a group with more failures is genuinely bad). A lane the
+# oracle accepts is flipped to valid and counted: it means the device
+# computed a wrong verdict.
 RECHECK_MAX = 32
 
 
@@ -519,26 +515,85 @@ def recheck_failed_lanes(mask: np.ndarray, eligible: np.ndarray, pubs, msgs,
     return mask, flips
 
 
-class _Parts:
-    """Wall time of verify_rows's parts into `out` (ms, summed by name),
-    each part synchronised on the device before and after; nothing when
-    `out` is None."""
+def apply_recheck(mask: np.ndarray, eligible: np.ndarray, rows: tuple, verify_one: Callable,
+                  groups: list[tuple[int, int]] | None = None) -> tuple[np.ndarray, int]:
+    """The host-oracle recheck with a budget per group: a coalesced batch
+    (a blocksync window, a scheduler flush) passes each producer's row
+    bounds as `groups`, so each keeps its own RECHECK_MAX and one genuinely
+    bad commit does not suppress the recheck of its neighbours. Returns
+    (mask, flips). groups=None rechecks the whole batch as one group;
+    lanes outside every group are not rechecked."""
+    pubs, msgs, sigs = rows
+    if groups is None:
+        return recheck_failed_lanes(mask, eligible, pubs, msgs, sigs, verify_one)
+    flips = 0
+    for a, b in groups:
+        mask[a:b], f = recheck_failed_lanes(mask[a:b], eligible[a:b], pubs[a:b], msgs[a:b],
+                                            sigs[a:b], verify_one)
+        flips += f
+    return mask, flips
 
-    def __init__(self, device: torch.device, out: dict | None):
-        self.device, self.out = device, out
+
+def decode_payload(payload: np.ndarray, n: int, pre_ok: np.ndarray, ok_a: np.ndarray,
+                   rows: tuple, verify_one: Callable,
+                   groups: list[tuple[int, int]] | None = None) -> tuple[np.ndarray, int]:
+    """A fetched (2B + 1,) payload -> the final (N,) mask and the recheck's
+    flips. A failed staging checksum or mask echo raises: the port retries
+    nothing and has no host-oracle rung."""
+    mask, chk_ok, echo_ok = integrity.decode_mask(payload)
+    if not (chk_ok and echo_ok):
+        raise RuntimeError(f"device transfer integrity check failed: staging checksum "
+                           f"ok {chk_ok}, mask echo ok {echo_ok}")
+    eligible = pre_ok & ok_a
+    return apply_recheck(mask[:n] & eligible, eligible, rows, verify_one, groups)
+
+
+_PARTS: contextvars.ContextVar = contextvars.ContextVar("verify_parts", default=None)
+
+
+@contextlib.contextmanager
+def timed_parts(out: dict | None):
+    """While entered, the verify path (verify_batch_async, resolve_batches)
+    and the layers above it that time themselves (the scheduler, commit
+    validation) add each part's wall time in ms into `out`, summed by name,
+    the device synchronised before and after each part. Nothing when `out`
+    is None (an outer collector stays in force)."""
+    if out is None:
+        yield
+        return
+    token = _PARTS.set(out)
+    try:
+        yield
+    finally:
+        _PARTS.reset(token)
+
+
+class _Parts:
+    """Wall time of the verify path's parts into the collector of
+    timed_parts (ms, summed by name), each part synchronised on the device
+    before and after; nothing outside a collector."""
+
+    def __init__(self, device: torch.device | None):
+        self.device, self.out = device, _PARTS.get()
 
     @contextlib.contextmanager
     def __call__(self, name: str):
         if self.out is None:
             yield
             return
-        if self.device.type == "cuda":
+        if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         yield
-        if self.device.type == "cuda":
+        if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.out[name] = self.out.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def host_part(name: str):
+    """A host-only part of a layer above the verify path (no device
+    synchronisation), timed into the current collector."""
+    return _Parts(None)(name)
 
 
 def _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev):
@@ -560,85 +615,186 @@ def _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev):
     return _words_to_device(fkw, dev), _to_device(fidx, dev), (fkw, fidx)
 
 
-def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes],
-                cache: PubKeyCache | None = None, device=None,
-                parts: dict | None = None) -> tuple[np.ndarray, int]:
-    """(N,) bool mask under `scheme` and the number of recheck flips. Runs
-    on the cache's device when a cache is given, else on `device` (default
-    cuda). msgs may hold factored rows (libs/prefixrows.PrefixedMsg): they
-    stay factored, and the host oracle alone materializes them. `parts`, a
-    dict, receives each part's wall time in ms (plan, keys, pack, derive,
-    verify, header, fetch, recheck), synchronised around each."""
+class BatchThunk:
+    """One staged and launched batch (verify_batch_async): what
+    resolve_batches needs to decode it, and every device tensor its kernels
+    read or write, held until the fetch so that the caching allocator cannot
+    hand their memory to a later batch while the card still uses it.
+    Calling it resolves it alone. After resolution `mask` holds the (N,)
+    verdicts, `flipped` the lanes the host recheck flipped to valid and
+    `flips` their number."""
+
+    __slots__ = ("scheme", "device", "n", "pre_ok", "ok_a", "rows", "groups", "expected",
+                 "header", "payload", "keep", "mask", "flipped", "flips")
+
+    def __init__(self, scheme: Scheme, device: torch.device, n: int, rows: tuple,
+                 groups: list[tuple[int, int]] | None):
+        self.scheme, self.device, self.n, self.rows, self.groups = scheme, device, n, rows, groups
+        self.pre_ok = self.ok_a = self.expected = self.header = self.payload = None
+        self.keep: tuple = ()
+        self.mask: np.ndarray | None = np.zeros(0, dtype=bool) if n == 0 else None
+        self.flipped = np.zeros(0, dtype=np.intp)
+        self.flips = 0
+
+    def __call__(self) -> np.ndarray:
+        return resolve_batches([self])[0]
+
+    @property
+    def eligible(self) -> np.ndarray:
+        """The lanes the host recheck may flip: they passed the structural
+        checks and their key decoded."""
+        return self.pre_ok & self.ok_a
+
+
+def _cache_for(scheme: Scheme, cache: PubKeyCache | None, device) -> PubKeyCache:
+    if cache is None:
+        return default_cache(device, scheme)
+    if cache.scheme is not scheme:
+        raise ValueError(f"cache holds {cache.scheme.name} keys, not {scheme.name}")
+    if device is not None and resolve_device(device) != cache.device:
+        raise ValueError(f"cache lives on {cache.device}, not {device}")
+    return cache
+
+
+def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes],
+                       cache: PubKeyCache | None = None, device=None,
+                       recheck_groups: list[tuple[int, int]] | None = None) -> BatchThunk:
+    """Stage and launch a batch under `scheme` without waiting for the card:
+    K5 (device challenges) -> K1/K2 -> K6 on the dispatch stream
+    (ops/dispatch.py), under the dispatch lock. Returns the BatchThunk that
+    resolve_batches fetches.
+    Runs on the cache's device when a cache is given, else on `device`
+    (default cuda). msgs may hold factored rows (libs/prefixrows.PrefixedMsg):
+    they stay factored, and the host oracle alone materializes them.
+    recheck_groups: the row bounds of a coalesced batch's producers
+    (apply_recheck; None: the whole batch is one group)."""
     n = len(sigs)
     if len(pubs) != n or len(msgs) != n:
         raise ValueError("pubs, msgs and sigs differ in length")
-    if cache is None:
-        cache = default_cache(device, scheme)
-    elif cache.scheme is not scheme:
-        raise ValueError(f"cache holds {cache.scheme.name} keys, not {scheme.name}")
-    elif device is not None and resolve_device(device) != cache.device:
-        raise ValueError(f"cache lives on {cache.device}, not {device}")
+    cache = _cache_for(scheme, cache, device)
     dev = cache.device
+    thunk = BatchThunk(scheme, dev, n, (None, msgs, sigs), recheck_groups)
     if n == 0:
-        return np.zeros(0, dtype=bool), 0
+        return thunk
     b = bucket_size(n)
-    part = _Parts(dev, parts)
-    with part("plan"):
-        pre_ok, safe_pubs, sig_rows, pub_rows = scheme.structural(pubs, sigs)
-    with part("keys"):
-        staged = _stage_gather(cache, safe_pubs, b, want_enc=scheme.device_challenge)
-        if scheme.device_challenge:
-            ok_a, a_dev, enc_dev, path, key_bytes = staged
-        else:
-            (ok_a, a_dev, path, key_bytes), enc_dev = staged, None
-    with part("plan"):
-        plan = challenge.plan_batch(msgs, pre_ok, device=dev) if scheme.device_challenge else None
-    if plan is None:  # classic: k on the host
+    with dispatch.launching(dev):
+        part = _Parts(dev)
+        with part("plan"):
+            pre_ok, safe_pubs, sig_rows, pub_rows = scheme.structural(pubs, sigs)
+            plan = (challenge.plan_batch(msgs, pre_ok, device=dev)
+                    if scheme.device_challenge else None)
         with part("pack"):
-            words = scheme.pack(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, b)
-            expected = _host_checksum(words)
-            block = _words_to_device(words.reshape(3 * 8, b), dev).reshape(3, 8, b)
-            residency.record_send(path, key_bytes + words.nbytes, sigs=n)
-        rw, sw, kw = block[0], block[1], block[2]
-        chk_arrs = (rw, sw, kw)
-    else:  # device challenge: k derived by K5
+            if plan is None:  # classic: k on the host
+                words = scheme.pack(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, b)
+                host = words.reshape(3 * 8, b)
+                fb_host: tuple = ()
+            else:  # device challenge: k derived by K5
+                host = np.empty(challenge.block_words(b, plan.var), dtype=np.uint32)
+                _pack_device_block(sig_rows, b, plan, host)
+        with part("keys"):
+            staged = _stage_gather(cache, safe_pubs, b, want_enc=scheme.device_challenge)
+            if scheme.device_challenge:
+                ok_a, a_dev, enc_dev, path, key_bytes = staged
+            else:
+                (ok_a, a_dev, path, key_bytes), enc_dev = staged, None
         with part("pack"):
-            host_block = np.empty(challenge.block_words(b, plan.var), dtype=np.uint32)
-            _pack_device_block(sig_rows, b, plan, host_block)
-            fkw, fidx, fb_host = _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev)
-            expected = _host_checksum(host_block, *fb_host)
-            block = _to_device(host_block.view(np.int32), dev)
-            residency.record_send(path, key_bytes + host_block.nbytes
+            fkw = fidx = None
+            if plan is not None:
+                fkw, fidx, fb_host = _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev)
+            expected = _host_checksum(host, *fb_host)
+            block = _to_device(host.view(np.int32), dev)
+            residency.record_send(path, key_bytes + host.nbytes
                                   + sum(a.nbytes for a in fb_host), sigs=n)
-        with part("derive"):
-            kw = challenge.derive(block, enc_dev, plan.dev_tab, b, plan.var, plan.plen,
-                                  plan.tlen, fkw, fidx)
-        rw = block[:8 * b].view(8, b)
-        sw = block[8 * b:16 * b].view(8, b)
-        chk_arrs = (block,) if fkw is None else (block, fkw, fidx)
-    with part("verify"):
-        mask_dev, allok_dev = scheme.verify_raw(*a_dev, rw, sw, kw)
-    with part("header"):
-        # K6 straight behind the verify kernel, on its raw verdicts; the
-        # checksummed arrays were uploaded before the derive and verify
-        # kernels ran, so K6 may start while the verify kernel's grid exits
-        header_dev, payload_dev = integrity.integrity_parts(mask_dev, allok_dev, expected,
-                                                            *chk_arrs, overlap=True)
-    with part("fetch"):
-        header = header_dev.cpu().numpy().view(np.uint32)
-        verdict = decode_header(header, expected)
-        if verdict == "happy":
-            _count_fetch(True, header.nbytes)
-        elif verdict == "full":
-            payload = payload_dev.cpu().numpy()
-            _count_fetch(False, header.nbytes + payload.nbytes)
+        if plan is None:
+            block = block.view(3, 8, b)
+            rw, sw, kw = block[0], block[1], block[2]
+            chk_arrs: tuple = (rw, sw, kw)
         else:
-            raise RuntimeError(f"reduced-fetch header of a {scheme.name} batch: {verdict}")
-    if verdict == "happy":
-        return pre_ok & ok_a, 0
-    with part("recheck"):
-        return decode_payload(payload, n, pre_ok, ok_a, (safe_pubs, msgs, sigs),
-                              scheme.verify_one)
+            with part("derive"):
+                kw = challenge.derive(block, enc_dev, plan.dev_tab, b, plan.var, plan.plen,
+                                      plan.tlen, fkw, fidx)
+            rw = block[:8 * b].view(8, b)
+            sw = block[8 * b:16 * b].view(8, b)
+            chk_arrs = (block,) if fkw is None else (block, fkw, fidx)
+        with part("verify"):
+            mask_dev, allok_dev = scheme.verify_raw(*a_dev, rw, sw, kw)
+        with part("header"):
+            # K6 straight behind the verify kernel, on its raw verdicts; the
+            # checksummed arrays were uploaded before the derive and verify
+            # kernels ran, so K6 may start while the verify kernel's grid exits
+            header_dev, payload_dev = integrity.integrity_parts(mask_dev, allok_dev, expected,
+                                                                *chk_arrs, overlap=True)
+    thunk.pre_ok, thunk.ok_a, thunk.expected = pre_ok, ok_a, expected
+    thunk.rows = (safe_pubs, msgs, sigs)
+    thunk.header, thunk.payload = header_dev, payload_dev
+    thunk.keep = (block, kw, a_dev, enc_dev, fkw, fidx, mask_dev, allok_dev,
+                  None if plan is None else plan.dev_tab)
+    return thunk
+
+
+def _fetch(dev: torch.device, tensors: list[torch.Tensor]) -> np.ndarray:
+    """One device->host copy of the tensors, concatenated on the device
+    (no concatenation for one), on the dispatch stream."""
+    with dispatch.on_stream(dev):
+        t = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
+        return t.cpu().numpy()
+
+
+def resolve_batches(thunks: list[BatchThunk]) -> list[np.ndarray]:
+    """The (N,) masks of launched batches, with a two-phase reduced fetch:
+    every batch's 8-byte header in one device->host copy, then the per-lane
+    payloads, again in one copy, only for batches whose header is not
+    happy. Thunks may mix schemes (a mixed commit's ed25519 and sr25519
+    batches): each carries its own oracle for the recheck. One fetch is
+    counted per call (fetch_stats), happy when no payload crossed. A
+    header or payload that fails its checksum or echo raises."""
+    todo = [t for t in thunks if t.mask is None]
+    by_dev: dict[torch.device, list[BatchThunk]] = {}
+    for t in todo:
+        by_dev.setdefault(t.device, []).append(t)
+    for dev, ts in by_dev.items():
+        part = _Parts(dev)
+        with part("fetch"):
+            headers = _fetch(dev, [t.header for t in ts]).view(np.uint32)
+            full = []
+            for i, t in enumerate(ts):
+                verdict = decode_header(headers[2 * i:2 * i + 2], t.expected)
+                if verdict == "full":
+                    full.append(t)
+                elif verdict != "happy":
+                    raise RuntimeError(f"reduced-fetch header of a {t.scheme.name} batch: "
+                                       f"{verdict}")
+            payloads = _fetch(dev, [t.payload for t in full]) if full else None
+            _count_fetch(not full, headers.nbytes + (payloads.nbytes if full else 0))
+        with part("recheck"):
+            off = 0
+            for t in ts:
+                if t in full:
+                    size = t.payload.shape[0]
+                    payload = payloads[off:off + size]
+                    t.mask, t.flips = decode_payload(payload, t.n, t.pre_ok, t.ok_a, t.rows,
+                                                     t.scheme.verify_one, t.groups)
+                    t.flipped = np.flatnonzero(t.mask & ~payload[:t.n].astype(bool))
+                    off += size
+                else:
+                    t.mask = t.pre_ok & t.ok_a
+                t.header = t.payload = None
+                t.keep = ()
+    return [t.mask for t in thunks]
+
+
+def verify_rows(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes],
+                cache: PubKeyCache | None = None, device=None,
+                parts: dict | None = None) -> tuple[np.ndarray, int]:
+    """(N,) bool mask under `scheme` and the number of recheck flips: one
+    verify_batch_async resolved alone. Runs on the cache's device when a
+    cache is given, else on `device` (default cuda). `parts`, a dict,
+    receives each part's wall time in ms (plan, keys, pack, derive, verify,
+    header, fetch, recheck), synchronised around each."""
+    with timed_parts(parts):
+        t = verify_batch_async(scheme, pubs, msgs, sigs, cache, device)
+        mask = resolve_batches([t])[0]
+    return mask, t.flips
 
 
 def verify_batch(pubs: list[bytes], msgs: list, sigs: list[bytes],

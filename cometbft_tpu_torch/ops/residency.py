@@ -19,6 +19,19 @@ coordinates. The port's counterpart of cometbft_tpu/ops/residency.py.
   full path     a batch the table cannot hold (more unique keys than rows)
                 returns None from stage(), and the caller takes the
                 unique-key full path (ed25519_kernel._stage_gather).
+  epoch pins    types/validation announces the validator set of every
+                commit it verifies (announce_validator_set, keyed by
+                ValidatorSet.hash()); a table pins the set's rows, so rider
+                keys never evict them, and a new epoch pins its own rows,
+                shipping only the keys it lacks. A known hash whose keys
+                changed drops its pin and uploads the set again (counted);
+                the rows are content-keyed, so no verdict depends on it.
+                A table reconciles its pins when the announcements change,
+                newest set first: the newest sets that fit together stay
+                pinned. (The reference reconciles at every batch, oldest
+                first, so two announced sets that do not fit together unpin
+                and re-upload each other batch after batch: ROADMAP Queue
+                3.)
 
 The reference's device programs map to torch ops on the device: its table
 init to zeros and ones, its scatter (_scatter_fn) to index_copy_, its
@@ -27,9 +40,8 @@ JAX's scatter is functional; here the tables update in place, and stream
 order gives the same snapshot: a batch's gathers are enqueued under the
 table lock, before any later batch's scatter can be.
 
-The reference's epoch pins (validator-set announcements), invalidate_device
-(the mesh) and its config knob that turns the indexed path off are not
-ported yet (ROADMAP Queue 1).
+The reference's invalidate_device (the mesh) and its config knob that turns
+the indexed path off are not ported yet (ROADMAP Queue 1).
 
 Send accounting: every host->device staging transfer is recorded under its
 path, "indexed" (index vector + staged words), "delta" (row uploads) or
@@ -38,6 +50,7 @@ path, "indexed" (index vector + staged words), "delta" (row uploads) or
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import weakref
 
@@ -138,8 +151,15 @@ class KeyTable:
         self._ok: dict[bytes, bool] = {}
         self._free: list[int] = list(range(self.cap - 1))
         self._dev: tuple[torch.Tensor, torch.Tensor] | None = None
+        # pinned epoch sets: set hash -> (content digest, keys), bounded so
+        # that interleaved sets (light-client hops across epochs) keep theirs
+        self._pinned_sets: dict[bytes, tuple[bytes, tuple]] = {}
+        self._pin_count: dict[bytes, int] = {}  # key -> sets pinning it
+        self._synced_version = -1  # the announcements the pins reflect
         self.counters = {"indexed_batches": 0, "delta_updates": 0, "delta_rows": 0,
-                         "evictions": 0}
+                         "evictions": 0, "full_set_uploads": 0, "hash_mismatches": 0}
+
+    _MAX_PINNED_SETS = 4
 
     def _build(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The device tables, made on the device (no upload) at first use:
@@ -157,15 +177,16 @@ class KeyTable:
     # ---------------------------------------------------------- eviction
 
     def _evict_one(self, protect: frozenset = frozenset()) -> int:
-        """Free the least-recently-used row outside `protect` (the batch's
-        own resident keys). Raises _NoRoom when nothing is evictable."""
+        """Free the least-recently-used unpinned row outside `protect` (the
+        batch's own resident keys). Raises _NoRoom when nothing is
+        evictable."""
         for key in self._rows:  # dict order: oldest first
-            if key not in protect:
+            if self._pin_count.get(key, 0) == 0 and key not in protect:
                 row = self._rows.pop(key)
                 self._ok.pop(key, None)
                 self.counters["evictions"] += 1
                 return row
-        raise _NoRoom("every resident row is staged by this batch")
+        raise _NoRoom("every resident row is pinned or staged by this batch")
 
     def _alloc_rows(self, n: int, protect: frozenset = frozenset()) -> list[int]:
         """Take n free rows, evicting as needed; on _NoRoom the rows taken
@@ -181,9 +202,10 @@ class KeyTable:
 
     # ------------------------------------------------------------ deltas
 
-    def _insert_keys(self, missing: list[bytes], protect: frozenset = frozenset()) -> int:
+    def _insert_keys(self, missing: list[bytes], protect: frozenset = frozenset(),
+                     path: str = "delta") -> int:
         """Decode and scatter `missing` keys into free or LRU rows; returns
-        the bytes uploaded."""
+        the bytes uploaded, accounted under `path`."""
         if not missing:
             return 0
         if len(missing) > self.cap - 1:
@@ -191,12 +213,12 @@ class KeyTable:
         ok, coords = self.cache.lookup_or_decompress(missing)
         rows = self._alloc_rows(len(missing), protect=protect)
         try:
-            return self._upload_rows(missing, ok, coords, rows)
+            return self._upload_rows(missing, ok, coords, rows, path)
         except Exception:
             self._free.extend(rows)  # a failed upload must not drain capacity
             raise
 
-    def _upload_rows(self, missing, ok, coords, rows) -> int:
+    def _upload_rows(self, missing, ok, coords, rows, path) -> int:
         from cometbft_tpu_torch.ops import ed25519_kernel as EK
         from cometbft_tpu_torch.ops import integrity
 
@@ -228,18 +250,77 @@ class KeyTable:
         self.counters["delta_updates"] += 1
         self.counters["delta_rows"] += len(missing)
         nbytes = vals.nbytes + enc.nbytes + 4 * db
-        record_send("delta", nbytes)
+        record_send(path, nbytes)
         return nbytes
+
+    # --------------------------------------------------------- epoch pins
+
+    def _sync_sets(self, announced: dict[bytes, tuple[bytes, tuple]]) -> None:
+        """Reconcile the pinned sets with the announced ones (oldest first
+        in `announced`): the newest sets are kept pinned while they fit the
+        table together (at most _MAX_PINNED_SETS); every other set is
+        unpinned (its rows stay as plain LRU rows). A kept set not yet
+        pinned inserts its missing keys and pins; a kept hash whose keys
+        changed unpins and uploads the set again (counted). The newest set
+        never gives its room to an older one, so two sets too large to pin
+        together do not evict each other at every reconciliation (the
+        reference's loop pins them in age order, each evicting the other)."""
+        keep: list[bytes] = []
+        rows = 0
+        for h, (_, keys) in reversed(list(announced.items())):
+            n = len(dict.fromkeys(keys))
+            if len(keep) < self._MAX_PINNED_SETS and rows + n <= self.cap - 1:
+                keep.append(h)
+                rows += n
+        for h in list(self._pinned_sets):
+            if h not in keep:
+                self._unpin(h)
+        for h in keep:
+            digest, keys = announced[h]
+            uniq = list(dict.fromkeys(keys))
+            cur = self._pinned_sets.get(h)
+            if cur is not None and cur[0] == digest:
+                continue
+            path = "delta"
+            if cur is not None:
+                self.counters["hash_mismatches"] += 1
+                self.counters["full_set_uploads"] += 1
+                self._unpin(h)
+                path = "full"
+            self._insert_keys([k for k in uniq if k not in self._rows],
+                              protect=frozenset(uniq), path=path)
+            self._pin(h, digest, uniq)
+
+    def _pin(self, set_hash: bytes, digest: bytes, keys) -> None:
+        keys = tuple(dict.fromkeys(keys))
+        self._pinned_sets[set_hash] = (digest, keys)
+        for k in keys:
+            self._pin_count[k] = self._pin_count.get(k, 0) + 1
+
+    def _unpin(self, set_hash: bytes) -> None:
+        _, keys = self._pinned_sets.pop(set_hash)
+        for k in keys:
+            c = self._pin_count.get(k, 0) - 1
+            if c <= 0:
+                self._pin_count.pop(k, None)
+            else:
+                self._pin_count[k] = c
 
     # ------------------------------------------------------------ staging
 
-    def stage(self, pubs: list[bytes], bucket: int, want_enc: bool = False):
+    def stage(self, pubs: list[bytes], bucket: int, want_enc: bool = False,
+              announced: dict | None = None, version: int | None = None):
         """The indexed send: (ok_a (N,), (ax, ay, az, at) (20, bucket)
         device tensors, index bytes), with want_enc the (8, bucket) int32
-        encoding words between the coordinates and the byte count. Unseen
-        keys delta-insert first; raises _NoRoom when the batch does not
-        fit."""
+        encoding words between the coordinates and the byte count. The
+        announced epoch sets are pinned first, then unseen keys
+        delta-insert; raises _NoRoom when the batch does not fit. `version`
+        names the announcements: the pins are
+        reconciled only when it changes (always when it is None)."""
         with self._lock:
+            if announced is not None and (version is None or version != self._synced_version):
+                self._sync_sets(announced)
+                self._synced_version = -1 if version is None else version
             uniq = dict.fromkeys(pubs)
             if len(uniq) > self.cap - 1:
                 raise _NoRoom(f"{len(uniq)} unique keys exceed the table")
@@ -268,10 +349,16 @@ class KeyTable:
         with self._lock:
             return [self._rows[p] for p in pubs]
 
+    def pinned(self) -> dict[bytes, int]:
+        """Pinned set hash -> its keys (tests)."""
+        with self._lock:
+            return {h: len(v[1]) for h, v in self._pinned_sets.items()}
+
     def stats(self) -> dict:
         with self._lock:
             return dict(self.counters, rows=len(self._rows), capacity=self.cap,
-                        free_rows=len(self._free))
+                        pinned_sets=len(self._pinned_sets),
+                        pinned_rows=len(self._pin_count), free_rows=len(self._free))
 
 
 # ------------------------------------------------------ registry
@@ -279,6 +366,66 @@ class KeyTable:
 _reg_lock = threading.Lock()
 # cache -> {put_key: KeyTable}: a table lives as long as its cache
 _tables: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# announced epoch sets per scheme name: set hash -> (content digest, keys),
+# the newest _MAX_ANNOUNCED
+_announced: dict[str, dict[bytes, tuple[bytes, tuple]]] = {}
+_MAX_ANNOUNCED = 4
+_last_announced_hash: bytes | None = None
+_announce_version = 0  # bumped at every change of _announced
+
+
+def announce_validator_set(vals) -> None:
+    """Register the active validator set for the key tables' epoch pins
+    (types/validation calls this on every commit it verifies). A stamp on
+    the object makes a repeated announcement of the same ValidatorSet free:
+    ValidatorSet.hash() is an O(N) Merkle root. A set changed after its
+    stamp pins one epoch late, which costs delta bytes, never a verdict
+    (rows are content-keyed)."""
+    global _last_announced_hash, _announce_version
+    if getattr(vals, "_wire_announced", False):
+        return
+    h = vals.hash()
+    if h != _last_announced_hash:
+        by_scheme: dict[str, list[bytes]] = {}
+        for v in vals.validators:
+            by_scheme.setdefault(v.pub_key.type_(), []).append(v.pub_key.bytes_())
+        with _reg_lock:
+            for scheme, keys in by_scheme.items():
+                if scheme not in ("ed25519", "sr25519"):
+                    continue
+                sets = _announced.setdefault(scheme, {})
+                if h in sets:
+                    continue
+                while len(sets) >= _MAX_ANNOUNCED:
+                    sets.pop(next(iter(sets)))
+                sets[h] = (hashlib.sha256(b"".join(keys)).digest(), tuple(keys))
+                _announce_version += 1
+            _last_announced_hash = h
+    vals._wire_announced = True
+
+
+def register_set(scheme: str, set_hash: bytes, keys: list[bytes]) -> None:
+    """Register an epoch set directly (tests, callers that know the set
+    hash without a ValidatorSet)."""
+    global _last_announced_hash, _announce_version
+    with _reg_lock:
+        sets = _announced.setdefault(scheme, {})
+        sets.pop(set_hash, None)
+        while len(sets) >= _MAX_ANNOUNCED:
+            sets.pop(next(iter(sets)))
+        sets[set_hash] = (hashlib.sha256(b"".join(keys)).digest(), tuple(keys))
+        _last_announced_hash = None
+        _announce_version += 1
+
+
+def clear_announced() -> None:
+    """Forget the announced epoch sets (the tables unpin them at their next
+    batch); the tables and their rows stay."""
+    global _last_announced_hash, _announce_version
+    with _reg_lock:
+        _announced.clear()
+        _last_announced_hash = None
+        _announce_version += 1
 
 
 def table_for(cache, put_key: str = "") -> KeyTable:
@@ -295,15 +442,24 @@ def table_for(cache, put_key: str = "") -> KeyTable:
 def stage(cache, pubs: list[bytes], bucket: int, put_key: str = "", want_enc: bool = False):
     """The indexed path for a batch: KeyTable.stage's tuple, or None when
     the full path must serve it (more unique keys than the table holds).
-    Any other failure raises."""
+    The scheme's announced epoch sets are pinned on the way. Any other
+    failure raises."""
+    tbl = table_for(cache, put_key)
+    with _reg_lock:
+        announced = dict(_announced.get(tbl.scheme, {}))
+        version = _announce_version
     try:
-        return table_for(cache, put_key).stage(pubs, bucket, want_enc=want_enc)
+        return tbl.stage(pubs, bucket, want_enc=want_enc, announced=announced, version=version)
     except _NoRoom:
         return None
 
 
 def reset() -> None:
-    """Forget every table and send counter (tests)."""
+    """Forget every table, announcement and send counter (tests)."""
+    global _last_announced_hash, _announce_version
     with _reg_lock:
         _tables.clear()
+        _announced.clear()
+        _last_announced_hash = None
+        _announce_version += 1
     reset_send_stats()

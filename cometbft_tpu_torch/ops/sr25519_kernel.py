@@ -105,6 +105,16 @@ def decompress_points(enc: np.ndarray, device=None) -> tuple[np.ndarray, np.ndar
     return EK.decompress_points(enc, device, SR25519)
 
 
+def verify_batch_async(pubs: list[bytes], msgs: list, sigs: list[bytes],
+                       cache: EK.PubKeyCache | None = None, device=None,
+                       recheck_groups: list[tuple[int, int]] | None = None) -> EK.BatchThunk:
+    """Stage and launch a schnorrkel batch without waiting for the card (the
+    counterpart of cometbft_tpu/ops/sr25519_kernel.py verify_batch_async):
+    the thunk resolves with ed25519_kernel.resolve_batches, alone or beside
+    an ed25519 batch in one fetch."""
+    return EK.verify_batch_async(SR25519, pubs, msgs, sigs, cache, device, recheck_groups)
+
+
 def verify_batch(pubs: list[bytes], msgs: list[bytes], sigs: list[bytes],
                  cache: EK.PubKeyCache | None = None, device=None
                  ) -> tuple[bool, list[bool]]:

@@ -3,6 +3,7 @@ challenge kernel (K5) and the integrity kernel (K6) of this checkout and of
 another one on the same CUDA card, in turns.
 
     python3 compare_kernels.py OTHER_DIR [--out FILE] [--probes | --e2e]
+    python3 compare_kernels.py --staging [--out FILE]
 
 OTHER_DIR is another checkout of the repository, for example an earlier
 commit unpacked with ``git archive`` into a directory that .gitignore
@@ -44,6 +45,16 @@ drive runs it): one cold run, then E2E_REPS warm runs, each on the host
 clock between two synchronisations, their median and spread. The trees
 run the same harness in fresh processes, so a gap between them is the
 trees' code, not what ran before in the process.
+
+--staging times, in this tree and this process only, the warm verify() of
+the ed25519 10k commit with a batch's staged arrays (the packed block and
+the fallback challenges, ed25519_kernel._to_device) sent two ways, in
+turns: by the tree's plain copies from pageable memory, and from
+page-locked blocks (PinnedStaging: a ring of blocks, each reused once the
+event recorded after its non_blocking copy has passed, as the reference's
+DoubleBuffer does). For each way, STAGING_REPS runs by part
+(ed25519_kernel.timed_parts, synchronised around each part) and as many
+on the host clock alone, their medians and spreads.
 """
 
 from __future__ import annotations
@@ -146,6 +157,87 @@ def _time_e2e(device) -> dict:
         warm = [CS.time_wall(run, 1, device) for _ in range(E2E_REPS)]
         out[cell] = {"cold_ms": cold, "warm_ms": float(np.median(warm)),
                      "warm_min_ms": min(warm), "warm_max_ms": max(warm)}
+    return out
+
+
+STAGING_REPS = 15
+
+
+class PinnedStaging:
+    """ed25519_kernel._to_device from page-locked host blocks: a ring of
+    blocks used in turn, each copy non_blocking, a block written again only
+    after the event recorded behind its last copy."""
+
+    def __init__(self, ring: int = 8):
+        self.blocks: list = [None] * ring
+        self.events: list = [None] * ring
+        self.turn = 0
+
+    def __call__(self, a: np.ndarray, device) -> torch.Tensor:
+        a = np.ascontiguousarray(a).view(np.int32)
+        k, self.turn = self.turn, (self.turn + 1) % len(self.blocks)
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        if self.blocks[k] is None or self.blocks[k].numel() < a.nbytes:
+            self.blocks[k] = torch.empty(max(a.nbytes, 1 << 20), dtype=torch.uint8,
+                                         pin_memory=True)
+        host = self.blocks[k][:a.nbytes]
+        host.numpy()[:] = a.reshape(-1).view(np.uint8)
+        out = torch.empty(a.shape, dtype=torch.int32, device=device)
+        out.view(-1).view(torch.uint8).copy_(host, non_blocking=True)
+        self.events[k] = torch.cuda.Event()
+        self.events[k].record()
+        return out
+
+
+def _time_staging(device, card: str) -> dict:
+    """This tree's 10k ed25519 verify() with plain and with pinned staging
+    copies (see the module's docstring)."""
+    import statistics
+
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import ed25519_kernel as EK
+
+    keys, msgs, sigs, bad = CS.commit_cell(CS._paths()["ed25519"], CS.N_BIG, CS.SEED_BIG)
+    expected = [i not in bad for i in range(len(sigs))]
+
+    def run():
+        v = crypto_batch.create_batch_verifier(keys[0])
+        for key, m, s in zip(keys, msgs, sigs):
+            v.add(key, m, s)
+        if v.verify()[1] != expected:
+            raise AssertionError("staging: wrong mask")
+
+    ways = {"plain": EK._to_device, "pinned": PinnedStaging()}
+    parts = {w: [] for w in ways}
+    wall = {w: [] for w in ways}
+    for rep in range(STAGING_REPS + 1):  # the first round warms both ways
+        for way, fn in ways.items():
+            EK._to_device = fn
+            try:
+                got: dict = {}
+                with EK.timed_parts(got):
+                    run()
+                ms = CS.time_wall(run, 1, device)
+            finally:
+                EK._to_device = ways["plain"]
+            if rep:
+                parts[way].append(got)
+                wall[way].append(ms)
+    out = {}
+    for way in ways:
+        names = sorted({k for p in parts[way] for k in p})
+        by = {k: [p.get(k, 0.0) for p in parts[way]] for k in names}
+        out[way] = {"wall_ms": statistics.median(wall[way]), "wall_min_ms": min(wall[way]),
+                    "wall_max_ms": max(wall[way]),
+                    "parts_ms": {k: statistics.median(v) for k, v in by.items()},
+                    "parts_min_ms": {k: min(v) for k, v in by.items()},
+                    "parts_max_ms": {k: max(v) for k, v in by.items()}}
+        o = out[way]
+        print(f"[{card}] staging {way}, ed25519 10k verify(): wall {o['wall_ms']:.3f} ms (median "
+              f"of {STAGING_REPS}, {o['wall_min_ms']:.3f}-{o['wall_max_ms']:.3f}); by part "
+              + ", ".join(f"{k} {o['parts_ms'][k]:.3f} ({o['parts_min_ms'][k]:.3f}-"
+                          f"{o['parts_max_ms'][k]:.3f})" for k in names), flush=True)
     return out
 
 
@@ -278,6 +370,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="then read this tree's K5 further (see the docstring)")
     ap.add_argument("--e2e", action="store_true",
                     help="time each tree's warm verify() instead of the kernels")
+    ap.add_argument("--staging", action="store_true",
+                    help="time this tree's 10k verify() with plain and pinned staging copies")
     # one tree's timing process: the tree and the encodings' file
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--words", type=pathlib.Path, help=argparse.SUPPRESS)
@@ -287,6 +381,15 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     if args.child:
         print(json.dumps(_child(args.child, args.words, args.e2e)), flush=True)
+        return 0
+    if args.staging:
+        card = CS._smi()
+        print(card, flush=True)
+        result = {"card": card, "staging": _time_staging(torch.device("cuda"), card)}
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(result, indent=1))
+        print(json.dumps(result))
         return 0
     if args.other is None:
         ap.error("the other checkout is required")

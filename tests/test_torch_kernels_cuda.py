@@ -593,3 +593,135 @@ def test_key_table_overflow_on_the_card_keeps_k5(cuda):
     assert CH.stats()["lanes_device"] == 2 * n
     assert sends["indexed"]["sigs"] == 0 and sends["full"]["sigs"] == 2 * n
     assert got.tolist() == want.tolist() and [i for i in range(n) if not got[i]] == [9]
+
+
+# ------------------------------------------------- commit verification
+
+
+def _commit_256(scheme: str, bad: tuple = ()):
+    """A signed 256-validator commit (the port's types/): ed25519 or mixed
+    (alternate keys ed25519 and sr25519), one NIL vote and one off-length
+    timestamp, signatures at `bad` tampered."""
+    from cometbft_tpu_torch.types import (BlockID, BlockIDFlag, Commit, CommitSig,
+                                          PartSetHeader, Validator, ValidatorSet)
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    n = 256
+    privs = [(ted if scheme == "ed25519" or i % 2 == 0 else tsr).gen_priv_key_from_secret(
+        b"commit-card-%d" % i) for i in range(n)]
+    by_addr = {p.pub_key().address(): p for p in privs}
+    vals = ValidatorSet([Validator.new(p.pub_key(), 10) for p in privs])
+    h = hashlib.sha256(b"card block").digest()
+    bid = BlockID(h, PartSetHeader(1, hashlib.sha256(h).digest()))
+    sigs = [CommitSig(BlockIDFlag.NIL if i == 30 else BlockIDFlag.COMMIT, v.address,
+                      Timestamp(1_700_000_000, 1000 if i == 7 else (1 << 28) + i))
+            for i, v in enumerate(vals.validators)]
+    commit = Commit(77, 0, bid, sigs)
+    for i, (cs, v) in enumerate(zip(sigs, vals.validators)):
+        cs.signature = by_addr[v.address].sign(commit.vote_sign_bytes("card-chain", i))
+        if i in bad:
+            cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    return vals, bid, commit
+
+
+def _outcome(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the outcome is compared
+        return type(e).__name__, str(e)
+    return ("pass",)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["ed25519", "mixed"])
+@pytest.mark.parametrize("bad", [(), (200,), (3, 250)])
+def test_verify_commit_on_the_card_equals_the_cpu(cuda, scheme, bad):
+    """verify_commit and the light checks of a 256-validator commit through
+    the scheduler on the card give the CPU port's outcome: passing, or the
+    same wrong-signature error."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.types import validation as V
+
+    vals, bid, commit = _commit_256(scheme, bad)
+    calls = (lambda: V.verify_commit("card-chain", vals, bid, 77, commit),
+             lambda: V.verify_commit_light("card-chain", vals, bid, 77, commit),
+             lambda: V.verify_commit_light_trusting("card-chain", vals, commit,
+                                                    V.Fraction(1, 3)))
+    try:
+        got = []
+        for backend in ("gpu", "cpu"):
+            sched.reset()
+            cb.set_backend(backend)
+            got.append([_outcome(c) for c in calls])
+    finally:
+        cb.set_backend("gpu")
+        sched.reset()
+    assert got[0] == got[1]
+    if bad:
+        assert got[0][0][0] == "ErrInvalidCommitSignature"
+        assert got[0][0][1].startswith(f"wrong signature (#{bad[0]})")
+    else:
+        assert got[0] == [("pass",)] * 3
+
+
+@pytest.mark.cuda
+def test_scheduler_launches_on_its_own_stream(cuda, monkeypatch):
+    """Every launch of a verify_commit (K5, K1, K6) and of a deadline-worker
+    flush goes to the scheduler's dispatch stream, not the default stream."""
+    import threading
+
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import dispatch
+    from cometbft_tpu_torch.types import validation as V
+
+    vals, bid, commit = _commit_256("ed25519")
+    seen: list[tuple[str, int]] = []
+    raw = _build.raw_stream
+
+    def recording(dev):
+        handle = raw(dev)
+        seen.append((threading.current_thread().name, handle))
+        return handle
+
+    verify_raw = TK.ED25519.verify_raw
+
+    def recording_verify(*args):
+        seen.append((threading.current_thread().name, torch.cuda.current_stream().cuda_stream))
+        return verify_raw(*args)
+
+    monkeypatch.setattr(_build, "raw_stream", recording)
+    monkeypatch.setattr(TK, "ED25519", TK.ED25519._replace(verify_raw=recording_verify))
+    cb.set_backend("gpu")
+    sched.reset()
+    try:
+        V.verify_commit("card-chain", vals, bid, 77, commit)
+        rows = [(v.pub_key, b"tx", bytes(64)) for v in vals.validators[:8]]
+        futs = sched.get().submit(rows, klass=sched.MEMPOOL)
+        assert [f.result(timeout=60) for f in futs] == [False] * 8
+        stream = sched.get().stream()
+        assert stream is dispatch.stream(cuda)
+        assert stream.cuda_stream != torch.cuda.default_stream(cuda).cuda_stream
+        assert {h for _, h in seen} == {stream.cuda_stream}
+        assert {t for t, _ in seen} == {threading.main_thread().name, "verify-sched"}
+    finally:
+        sched.reset()
+
+
+@pytest.mark.cuda
+def test_scheduler_warmup_runs_the_ladder_on_the_card(cuda):
+    """warmup() runs one valid batch at every rung up to its cap on the card
+    (one verify launch each)."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as cb
+
+    cb.set_backend("gpu")
+    sched.reset()
+    try:
+        before = VK.LAUNCHES["ed25519_verify"]
+        assert sched.get().warmup(256) == [8, 16, 32, 64, 128, 256]
+        assert VK.LAUNCHES["ed25519_verify"] == before + 6
+    finally:
+        sched.reset()

@@ -131,3 +131,91 @@ def test_overflow_takes_full_path(keys):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert TR.send_stats()["full"]["sends"] == 1 and TR.send_stats()["delta"]["sends"] >= 1
     TR.reset()
+
+
+# ------------------------------------------------------------ epoch pins
+
+
+def _announced(sets: list[tuple[bytes, list[bytes]]]) -> dict:
+    import hashlib
+
+    return {h: (hashlib.sha256(b"".join(ks)).digest(), tuple(ks)) for h, ks in sets}
+
+
+def test_pinned_set_survives_rider_churn_like_reference(tables, keys):
+    """An announced set of 8 keys is pinned; 16 rider keys pass through the
+    7 rows left, evicting one another but never a pinned row, in both
+    tables, with equal gathers."""
+    t, j = tables
+    ann = _announced([(b"set", keys[:8])])
+    for tbl in (t, j):
+        tbl.stage(keys[:2], 8, announced=ann)
+    pinned = t.rows_of(keys[:8])
+    assert pinned == [j._rows[k] for k in keys[:8]]
+    for i in range(8, 24, 4):
+        got = t.stage(keys[i:i + 4], 8, announced=ann)
+        want = j.stage(keys[i:i + 4], 8, announced=ann)
+        for a, b in zip(got[1], want[1]):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    assert t.rows_of(keys[:8]) == pinned == [j._rows[k] for k in keys[:8]]
+    assert t.stats()["pinned_rows"] == j.stats()["pinned_rows"] == 8
+    assert t.stats()["evictions"] == j.counters["evictions"] > 0
+
+
+def test_hash_mismatch_unpins_and_uploads_again_like_reference(tables, keys):
+    t, j = tables
+    for tbl in (t, j):
+        tbl.stage(keys[:2], 8, announced=_announced([(b"h", keys[:4])]))
+        tbl.stage(keys[:2], 8, announced=_announced([(b"h", keys[4:8])]))
+    for k in ("hash_mismatches", "full_set_uploads"):
+        assert t.counters[k] == j.counters[k] == 1
+    assert t.pinned() == {b"h": 4}
+    assert TR.send_stats()["full"]["sends"] == 1
+
+
+def test_two_sets_too_large_together_do_not_evict_each_other(tables, keys):
+    """Two announced sets of 10 keys cannot both pin in 15 rows. The newest
+    stays pinned and batch after batch nothing is uploaded again; the JAX
+    package's table, reconciling at every batch oldest first, re-uploads a
+    set each batch (ROADMAP Queue 3)."""
+    t, j = tables
+    ann = _announced([(b"old", keys[:10]), (b"new", keys[10:20])])
+    for _ in range(3):
+        t.stage(keys[10:12], 8, announced=ann, version=1)
+        j.stage(keys[10:12], 8, announced=ann)
+    assert t.pinned() == {b"new": 10}
+    assert t.counters["delta_updates"] == 1
+    assert j.counters["delta_updates"] >= 4
+    # a new announcement version reconciles again: the same choice, no upload
+    t.stage(keys[10:12], 8, announced=ann, version=2)
+    assert t.pinned() == {b"new": 10} and t.counters["delta_updates"] == 1
+
+
+def test_announce_validator_set_stamps_the_object(keys):
+    TR.reset()
+
+    class Vals:
+        def __init__(self):
+            self.validators = []
+            self.hashes = 0
+
+        def hash(self):
+            self.hashes += 1
+            return b"vals"
+
+    class V:
+        def __init__(self, k):
+            self.pub_key = ted.PubKey(k)
+
+    vals = Vals()
+    vals.validators = [V(k) for k in keys[:5]]
+    TR.announce_validator_set(vals)
+    TR.announce_validator_set(vals)
+    assert vals.hashes == 1 and vals._wire_announced
+    cache = TK.PubKeyCache("cpu")
+    TR.stage(cache, keys[:1], 8)
+    assert TR.table_for(cache).pinned() == {b"vals": 5}
+    TR.clear_announced()
+    TR.stage(cache, keys[:1], 8)
+    assert TR.table_for(cache).pinned() == {}
+    TR.reset()
