@@ -50,6 +50,17 @@ signature in commit 9), and 64 mempool rows submitted beside a
 worker. Every run's launches, lanes and fetches are asserted (one K5, one
 K1 (+ one K2), one K6 a scheme, a header-only fetch when valid) and each
 cell's time is printed beside the seam time of its own rows.
+Then the BLS phase (bls_phase): the five BLS12-381 kernels B1-B5
+(csrc/bls12381.cu) held against their plain versions by canonical value on
+edge-case inputs (x >= p staged as the generator, a non-square x, points
+outside G1/G2, both sign bits; 64 messages; 1,024 points in uneven groups
+and one summing to infinity; 64 Miller pairs), then all-BLS verify_commit
+at 150 validators (distinct timestamps: cold, warm, a tampered signature
+pinpointed per lane through the scheduler, aggregate_verify_agg) and at
+10,240 sharing one timestamp (cold, warm, tampered: the single-verify path
+at full width), and a mixed 50 ed25519 + 50 sr25519 + 50 bls12381 commit,
+every run's launches and errors asserted, each kernel timed at the main
+path's largest shape beside its bound from its Fp-product count.
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -227,7 +238,13 @@ def _kernel_label(mangled: str) -> str | None:
         return f"loop_kernel<{names[0]}>"
     if "stacked_conv_kernel" in mangled:
         return "stacked_conv_kernel"
-    for kernel, label in (("derive_kernel", "challenge_derive"),
+    m = re.match(r"_Z\d+bls_(decompress|point_sum)_kernelILi(\d)E", mangled)
+    if m:
+        return f"bls_{m.group(1)}_g{m.group(2)}"
+    for kernel, label in (("bls_hash_to_g2_kernel", "bls_hash_to_g2"),
+                          ("bls_miller_kernel", "bls_miller"),
+                          ("bls_final_exp_kernel", "bls_final_exp"),
+                          ("derive_kernel", "challenge_derive"),
                           ("sha512_rows_kernel", "challenge_sha512"),
                           ("reduce512_kernel", "challenge_reduce"),
                           ("integrity_kernel", "integrity")):
@@ -1088,6 +1105,8 @@ def sign_commit(vals, secrets, height: int, seed: int, flags=(set(), set(), set(
     sr = []
     for i, cs in enumerate(sigs):
         if i in absent:
+            continue
+        if cs.validator_address not in secrets:  # another scheme's validator
             continue
         kind, a, r, renc, pub = secrets[cs.validator_address]
         if kind == "ed25519":
@@ -2175,6 +2194,808 @@ def _k6_behind_k1(device, flat, expected) -> dict:
             "k1_alone": time_back_to_back(k1)}
 
 
+# ---------------------------------------------------------------- BLS phase
+
+SEED_BLS = 12_381  # the BLS phase's keys (seen nowhere else)
+BLS_BAD_SMALL, BLS_BAD_BIG = 77, BAD_SIG  # the tampered signatures of the 150 and 10k commits
+BLS_CHECK_LANES = 64  # B2's messages and B4/B5's pairs in the checks
+BLS_SUM_POINTS = 1_024  # B3's points in the checks
+# IMADs of one 12 x 32-bit Montgomery product (csrc/fp381.cuh fp_mul: 144
+# 32x32 -> 64-bit multiply-adds for a * b and 144 for m * p, two IMADs each,
+# and the reduction's carries)
+FP_MUL_IMADS = 590
+# kernel record name -> (launch entry, the XLA program it replaces)
+BLS_RECORDS = {
+    "bls_decompress_g1": "cometbft_tpu/ops/bls_kernel.py:180",
+    "bls_decompress_g2": "cometbft_tpu/ops/bls_kernel.py:180",
+    "bls_hash_to_g2": "cometbft_tpu/ops/bls_kernel.py:205",
+    "bls_point_sum_g1": "cometbft_tpu/ops/bls12381/points.py:203",
+    "bls_point_sum_g2": "cometbft_tpu/ops/bls12381/points.py:203",
+    "bls_miller": "cometbft_tpu/ops/bls_kernel.py:221",
+    "bls_final_exp": "cometbft_tpu/ops/bls12381/pairing.py:140",
+}
+
+
+def bls_fp_products() -> dict:
+    """The kernels' own Fp products (12 x 32-bit Montgomery multiplications)
+    a lane, counted from csrc/curve381.cuh's formulas (the "design" count;
+    the bounds use bls_least_products): an Fp2
+    product is 3, a square 2, an Fp12 product 54; a G1 doubling 8 and
+    addition 12 products, G2 24 and 36 (RCB 2015); a fixed exponent or
+    scalar of n bits and weight w costs n squarings or doublings and w
+    multiplications or additions. Keys: g1/g2 decompression without the
+    subgroup check, sub1/sub2 the check, h2g, add1/add2 (a point sum's
+    additions), aff1/aff2 (a sum to affine), miller, fexp (per check, its
+    lanes' products not included), mul12 (one more lane in a check)."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    p = O.BLS_P
+
+    def nw(e):
+        return e.bit_length(), bin(e).count("1")
+
+    def pw1(e):
+        n, w = nw(e)
+        return n + w
+
+    def pw2(e):
+        n, w = nw(e)
+        return 2 * n + 3 * w
+
+    def ladder(dbl, add, e):
+        n, w = nw(e)
+        return n * dbl + w * add
+
+    inv = pw1(p - 2)
+    f2_inv = 4 + inv
+    sqrt1 = pw1((p + 1) // 4) + 1
+    sqrt2 = pw2((p - 3) // 4) + 2 + 3 + 3 + pw2((p - 1) // 2) + 3 + 2
+    is_sq2 = 2 + pw1((p - 1) // 2)
+    svdw = 5 + 3 + f2_inv + 9 + 10 + 3 * 5 + 2 * is_sq2 + sqrt2 + 4
+    c = {"g1": 1 + 2 + sqrt1 + 1, "g2": 2 + 5 + sqrt2 + 2,
+         "sub1": ladder(8, 12, O.BLS_R), "sub2": ladder(24, 36, O.BLS_R),
+         "add1": 12, "add2": 36, "aff1": inv + 2, "aff2": f2_inv + 6}
+    c["h2g"] = 4 + 2 * svdw + 36 + ladder(24, 36, O._bls_setup()["h2"]) + c["aff2"]
+    xn, xw = nw(-O.BLS_X)
+    c["miller"] = (xn - 1) * (21 + 4 + 54 + 6 + 54 + 24) + (xw - 1) * (12 + 4 + 6 + 54 + 36)
+    exp_x = (xn + xw) * 54
+    f12_inv = 72 + 36 + f2_inv
+    c["fexp"] = (f12_inv + 54 + 18 + 54 + 2 * (exp_x + 54) + exp_x + 18 + 54
+                 + 2 * exp_x + 18 + 4 * 54 + 54)
+    c["mul12"] = 54
+    return c
+
+
+def _exp_products(e: int) -> int:
+    """Fp products of a sliding-window exponentiation by the fixed e at its
+    best window w: n - 1 squarings, one product a window but the first, and
+    2^(w-1) for the odd powers."""
+    bits = bin(e)[2:]
+    best = None
+    for w in range(1, 7):
+        i = windows = 0
+        while i < len(bits):
+            if bits[i] == "0":
+                i += 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            windows, i = windows + 1, j
+        cost = len(bits) - 1 + windows - 1 + (1 << (w - 1) if w > 1 else 0)
+        best = cost if best is None else min(best, cost)
+    return best
+
+
+def bls_least_products() -> dict:
+    """The fewest Fp products (a squaring counted as a product) that each
+    BLS kernel's function needs a lane, from the best known formulas; the
+    bounds are worked out from these. Keys as bls_fp_products.
+    - Fp2 product 3, square 2; Fp6 product 18; Fp12 product 54, square 36,
+      cyclotomic square 18 (Granger-Scott), product by a sparse line 39.
+    - An inversion 3 a lane (Montgomery's batch trick; the batch's one
+      inversion is left out, a binary GCD needs no products); an
+      exponentiation by a fixed e as _exp_products.
+    - Roots: Fp by (p + 1)/4 and a check; Fp2 by the norm (its root in Fp,
+      then t^((p - 3)/4) for t = (a0 + s)/2: two exponentiations); is-square
+      in Fp2 by the norm's Legendre symbol.
+    - G1 Jacobian doubling 7, mixed addition 11; G2 16, mixed 29, general 43;
+      affine additions with a batched inversion 6 (G1) and 15 (G2), so a
+      point sum stays affine.
+    - Subgroup checks by endomorphism: G1 phi(P) == [-x^2]P (Bowe 2019), G2
+      psi(P) == [x]P (Scott 2021).
+    - Hash to G2: two SvdW maps (RFC 9380 F.1 straight line), one affine
+      addition, cofactor clearing by psi (Budroni-Pintore: two |x|
+      ladders), to affine.
+    - Miller loop over |x| (64 bits, weight 6): 63 doubling steps with their
+      line (25, Aranha et al. 2011) and 5 addition steps (41), a sparse line
+      product each (39), an Fp12 square each (36); the first step starts
+      from f = 1 (no square, no product).
+    - Final exponentiation by the reference's chain (the cubed pairing):
+      the easy part (an Fp12 inversion 100, two products, a p^2 Frobenius
+      10), the hard part: five cyclotomic powers by |x| or |x| + 1, five
+      products, Frobenius maps 15 and 10, one cyclotomic square."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    p, x = O.BLS_P, -O.BLS_X
+
+    def ladder(dbl, add, e):
+        return (e.bit_length() - 1) * dbl + (bin(e).count("1") - 1) * add
+
+    e_sqrt, e_leg, e_isq = (_exp_products(e) for e in ((p + 1) // 4, (p - 1) // 2,
+                                                        (p - 3) // 4))
+    sqrt2 = 2 + e_sqrt + 1 + e_isq + 6
+    svdw = 49 + 2 * (2 + e_leg) + sqrt2
+    cofactor = ladder(16, 29, x) + ladder(16, 43, x) + 6 + 4 + 16 + 3 * 29 + 2 * 43
+    n, w = x.bit_length(), bin(x).count("1")
+    return {"g1": 2 + e_sqrt + 1, "g2": 5 + sqrt2,
+            "sub1": ladder(7, 11, x * x) + 1 + 5, "sub2": ladder(16, 29, x) + 6 + 11,
+            "add1": 6, "add2": 15, "aff1": 0, "aff2": 0,
+            "h2g": 2 * svdw + 15 + cofactor + 18,
+            "miller": (n - 1) * (25 + 39 + 36) - (36 + 39) + (w - 1) * (41 + 39),
+            "fexp": (100 + 54 + 10 + 54 + 2 * ladder(18, 54, x + 1) + 3 * ladder(18, 54, x)
+                     + 5 * 54 + 15 + 10 + 18),
+            "mul12": 54}
+
+
+def _sizes(starts: torch.Tensor) -> np.ndarray:
+    return np.diff(starts.cpu().numpy().astype(np.int64))
+
+
+def bls_call_products(name: str, args: tuple, c: dict) -> int:
+    """Fp products of one call of the BLS entry `name` on `args` (its
+    wrapper's arguments) under the per-lane counts c."""
+    if name.startswith("bls_decompress"):
+        g, x_raw, _, check = args
+        return x_raw.shape[-1] * (c[f"g{g}"] + int(check) * c[f"sub{g}"])
+    if name == "bls_hash_to_g2":
+        return args[0].shape[-1] * c["h2g"]
+    if name.startswith("bls_point_sum"):
+        g, _, _, starts, check = args
+        sizes = _sizes(starts)
+        return int((np.maximum(sizes, 1) - 1).sum()) * c[f"add{g}"] + len(sizes) * (
+            c[f"aff{g}"] + int(check) * c[f"sub{g}"])
+    if name == "bls_miller":
+        return args[0].shape[-1] * c["miller"]
+    sizes = _sizes(args[2])  # bls_final_exp
+    return int((np.maximum(sizes, 1) - 1).sum()) * c["mul12"] + len(sizes) * c["fexp"]
+
+
+def bls_bound(products: int, nbytes: int) -> tuple[float, str]:
+    """Least ms for `products` Fp products at the IMAD peak or `nbytes` at
+    the HBM rate, the larger."""
+    ops = products * FP_MUL_IMADS / IMAD_PER_S * 1e3
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def _bls_sign_many(items: list[tuple[int, bytes]]) -> list[bytes]:
+    """bls_sign of (secret, message) pairs on every core (a spawned process
+    pool: the oracle's pairing-free signing is pure Python)."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    if not items:
+        return []
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(min(8, len(items)), mp_context=ctx) as pool:
+        return list(pool.map(O.bls_sign, [k for k, _ in items], [m for _, m in items],
+                             [bls12381.DST] * len(items), chunksize=4))
+
+
+def _bls_cached_sigs(tag: str, items: list[tuple[int, bytes]]) -> list[bytes]:
+    """_bls_sign_many, cached under build/ by tag (the seed and sizes): the
+    file holds the signed (secret, message, signature) rows and is used only
+    where they match."""
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "build" / f"chip_smoke_bls_{tag}.json"
+    want = [[str(k), m.hex()] for k, m in items]
+    if path.exists():
+        try:
+            got = json.loads(path.read_text())
+            if [r[:2] for r in got] == want:
+                return [bytes.fromhex(r[2]) for r in got]
+        except (ValueError, IndexError):
+            pass
+    sigs = _bls_sign_many(items)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps([w + [s.hex()] for w, s in zip(want, sigs)]))
+    return sigs
+
+
+def _bls_stepped(n: int, seed: int):
+    """Secrets sk_i = sk0 + i and their compressed pubkeys, stepped by
+    adding g1 (one point addition a validator)."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    sk0 = int.from_bytes(hashlib.sha256(b"bls-%d" % seed).digest(), "big") % (O.BLS_R - n) + 1
+    g1 = O._ec_from_affine(O.BLS_G1)
+    pt = O._ec_mul(O._FpOps, sk0, g1)
+    out = []
+    for i in range(n):
+        if i:
+            pt = O._ec_add(O._FpOps, pt, g1)
+        out.append((sk0 + i, O.bls_g1_compress(O._ec_affine(O._FpOps, pt))))
+    return out
+
+
+def bls_set(n: int, seed: int, extra: list | None = None):
+    """n bls12381 validators of equal power (stepped secrets), plus the
+    `extra` Validators: (ValidatorSet, {address: secret})."""
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.types import Validator, ValidatorSet
+
+    secrets, vals = {}, list(extra or [])
+    for sk, pub in _bls_stepped(n, seed):
+        key = bls12381.PubKey(pub)
+        vals.append(Validator.new(key, 10))
+        secrets[key.address()] = sk
+    return ValidatorSet(vals), secrets
+
+
+def bls_commit(vals, bls_secrets, height: int, seed: int, shared_ts: bool,
+               ed_sr_secrets: dict | None = None):
+    """A Commit of `vals`: the ed25519/sr25519 validators sign as
+    sign_commit does, the bls12381 validators with their secrets. With
+    shared_ts every vote carries one timestamp, so the sign-bytes are one
+    message (D = 1); otherwise each its own (D = n), signed on every core
+    and cached under build/. With shared_ts the signatures are stepped:
+    sig_i = sig_{i-1} + H(m) for sk_i = sk_{i-1} + 1."""
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+    from cometbft_tpu_torch.types import BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    if ed_sr_secrets:
+        commit, bid = sign_commit(vals, ed_sr_secrets, height, seed)
+    else:
+        block_hash = hashlib.sha256(b"commit-%d-%d" % (seed, height)).digest()
+        bid = BlockID(block_hash, PartSetHeader(1, hashlib.sha256(block_hash).digest()))
+        commit = Commit(height, 0, bid, [
+            CommitSig(BlockIDFlag.COMMIT, v.address,
+                      Timestamp(1_700_000_000 + height, 0 if shared_ts else (1 << 28) + 1_000 * i))
+            for i, v in enumerate(vals.validators)])
+    rows = commit.vote_sign_bytes_all(CHAIN_ID)
+    idx = [i for i, cs in enumerate(commit.signatures) if cs.validator_address in bls_secrets]
+    if shared_ts:
+        msg = rows[idx[0]]
+        h = O._ec_from_affine(O.bls_hash_to_g2(msg, bls12381.DST))
+        sk_of = {bls_secrets[commit.signatures[i].validator_address]: i for i in idx}
+        sk0 = min(sk_of)
+        acc = O._ec_mul(O._Fp2Ops, sk0, h)
+        for k in range(len(idx)):
+            if k:
+                acc = O._ec_add(O._Fp2Ops, acc, h)
+            commit.signatures[sk_of[sk0 + k]].signature = O.bls_g2_compress(
+                O._ec_affine(O._Fp2Ops, acc))
+    else:
+        items = [(bls_secrets[commit.signatures[i].validator_address], rows[i]) for i in idx]
+        sigs = _bls_cached_sigs(f"{seed}_{height}_{len(idx)}", items)
+        for i, s in zip(idx, sigs):
+            commit.signatures[i].signature = s
+    return commit, bid
+
+
+def _bls_x_planes(encs: list[bytes], device):
+    """Compressed encodings -> (raw x planes, sign flags) on the card, as
+    bls_kernel stages them."""
+    from cometbft_tpu_torch.ops import bls_kernel as BK
+
+    rows = np.stack([np.frombuffer(e, np.uint8) for e in encs])
+    x, sign = BK._x_planes(rows)
+    return (torch.from_numpy(np.ascontiguousarray(x)).to(device),
+            torch.from_numpy(sign).to(device))
+
+
+def _bls_points(g: int, n: int, seed: int) -> list:
+    """n affine points of G1 or G2, stepped from a seeded multiple of the
+    generator by adding the generator."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    F = O._FpOps if g == 1 else O._Fp2Ops
+    gen = O._ec_from_affine(O.BLS_G1 if g == 1 else O.BLS_G2)
+    pt = O._ec_mul(F, seed, gen)
+    out = []
+    for i in range(n):
+        if i:
+            pt = O._ec_add(F, pt, gen)
+        out.append(O._ec_affine(F, pt))
+    return out
+
+
+def _bls_coords(g: int, affs: list) -> list[list[int]]:
+    if g == 1:
+        return [[a[0] for a in affs], [a[1] for a in affs]]
+    return [[a[k][j] for a in affs] for k in (0, 1) for j in (0, 1)]
+
+
+class BlsHeld:
+    """Kernel against plain version on the same card tensors: values by
+    canonical value, flags bit for bit; the largest difference kept per
+    entry."""
+
+    def __init__(self):
+        self.err: dict[str, int] = {}
+
+    def hold(self, name: str, got: tuple, want_fn) -> tuple[tuple, float]:
+        """(the plain version's outputs, its wall ms)."""
+        from cometbft_tpu_torch.ops import bls_launch as BL
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = want_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bad = 0
+        for g, w in zip(got, want):
+            if g.dim() == 2:  # planes: canonical values
+                bad += sum(a != b for gc, wc in zip(BL.values(g), BL.values(w))
+                           for a, b in zip(gc, wc))
+            else:  # flags
+                bad += int((g.to(torch.int64) != w.to(torch.int64)).sum())
+        self.err[name] = max(self.err.get(name, 0), bad)
+        if bad:
+            raise AssertionError(f"{name}: kernel and plain version differ in {bad} values")
+        return want, plain_ms
+
+
+class BlsRecorder:
+    """Records every BLS kernel call made under it: the entry, its
+    arguments and its outputs, copied on the card, so that the main path's
+    own calls can be held against their plain versions and timed."""
+
+    ENTRIES = ("decompress", "hash_to_g2", "point_sum", "miller", "final_exp")
+
+    def __init__(self):
+        self.calls: list[tuple[str, str, tuple, tuple]] = []
+
+    def __enter__(self):
+        from cometbft_tpu_torch.ops import bls_launch as BL
+
+        self._saved = {n: getattr(BL, n) for n in self.ENTRIES}
+        for n, fn in self._saved.items():
+            setattr(BL, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.ops import bls_launch as BL
+
+        for n, fn in self._saved.items():
+            setattr(BL, n, fn)
+
+    def _wrap(self, n, fn):
+        def copy(t):
+            return t.clone() if isinstance(t, torch.Tensor) else t
+
+        def run(*args):
+            out = fn(*args)
+            key = f"bls_{n}_g{args[0]}" if n in ("decompress", "point_sum") else f"bls_{n}"
+            outs = out if isinstance(out, tuple) else (out,)
+            self.calls.append((key, n, tuple(copy(a) for a in args),
+                               tuple(copy(o) for o in outs)))
+            return out
+        return run
+
+
+def _bls_call_shape(n: str, args: tuple) -> str:
+    if n in ("decompress", "point_sum"):
+        lanes = args[1].shape[-1]
+    else:
+        lanes = args[0].shape[-1]
+    if n == "point_sum":
+        return f"{lanes} points in {args[3].shape[0] - 1} groups"
+    if n == "final_exp":
+        return f"{lanes} Miller values in {args[2].shape[0] - 1} checks"
+    return f"{lanes} lanes" + (f", subgroup check {bool(args[3])}" if n == "decompress" else "")
+
+
+def hold_recorded(calls: list, held: BlsHeld, card: str) -> list[dict]:
+    """Each recorded call's outputs against the plain version on the same
+    card tensors. Returns one entry a call: key, entry, args, the plain
+    version's ms."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    def plain(n, args):
+        want = getattr(BL, f"{n}_plain")(*args)
+        return want if isinstance(want, tuple) else (want,)
+
+    out = []
+    for key, n, args, outs in calls:
+        _, plain_ms = held.hold(key, outs, lambda: plain(n, args))
+        print(f"[{card}] {key} held on the main path's own call ({_bls_call_shape(n, args)}): "
+              f"equal to its plain version ({plain_ms:.1f} ms)", flush=True)
+        out.append({"key": key, "entry": n, "args": args, "outs": outs, "plain_ms": plain_ms})
+    return out
+
+
+def check_bls(device, held: BlsHeld) -> None:
+    """B1-B5 against their plain versions on the card, on inputs whose first
+    lanes are edge cases: B1 (G1 and G2, with and without the subgroup
+    check) on a key staged in place of an x >= p (the generator), an x with
+    no square root, points on the curves outside G1/G2 and both sign bits;
+    B2 on 64 messages with the empty one; B3 (G1, and G2 with the subgroup
+    check) on 1,024 points in 3 uneven groups and a group summing to
+    infinity; B4 and B5 on 64 pairs, 32 checks, half of them products equal
+    to one."""
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+    from cometbft_tpu_torch.ops import bls_kernel as BK
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops.bls12381 import htc
+
+    p = O.BLS_P
+    # B1
+    g1 = _bls_points(1, 6, 3)
+    g1.append((g1[0][0], p - g1[0][1]))
+    g2 = _bls_points(2, 6, 5)
+    g2.append((g2[0][0], O.f2_neg(g2[0][1])))
+    x_bad = p.to_bytes(48, "big")
+    e1 = [bytes([x_bad[0] | 0x80]) + x_bad[1:], O.bls_g1_compress((0, 2))]
+    e1 += [O.bls_g1_compress(a) for a in g1]
+    e2 = [bytes([x_bad[0] | 0x80]) + x_bad[1:] + bytes(48),
+          O.bls_g2_compress(O._svdw_map_fp2((3, 4), O._bls_setup()["svdw"]))]
+    e2 += [O.bls_g2_compress(a) for a in g2]
+    rng = np.random.default_rng(SEED_BLS)
+    while True:  # an x with no root on G1, one on G2
+        x = int.from_bytes(rng.bytes(47), "big")
+        if pow((x ** 3 + 4) % p, (p - 1) // 2, p) == p - 1:
+            e1.append(bytes([0x80]) + x.to_bytes(48, "big")[1:])
+            break
+    while True:
+        x = (int.from_bytes(rng.bytes(47), "big"), int.from_bytes(rng.bytes(47), "big"))
+        if not O.f2_legendre_is_square(O.f2_add(O.f2_mul(O.f2_sq(x), x), O._B2)):
+            e2.append(bytes([0x80]) + x[1].to_bytes(48, "big")[1:] + x[0].to_bytes(48, "big"))
+            break
+    pre1, rows1, _ = BK._structural_check(e1, [BK._G2_GEN_ENC] * len(e1), len(e1))
+    pre2, _, rows2 = BK._structural_check([BK._G1_GEN_ENC] * len(e2), e2, len(e2))
+    if pre1[0] or pre2[0] or not pre1[1:].all() or not pre2[1:].all():
+        raise AssertionError("BLS checks: the x >= p lane must be, and only it, a host reject")
+    for g, rows in ((1, rows1), (2, rows2)):
+        x, sign = _bls_x_planes([r.tobytes() for r in rows], device)
+        if len(set(sign.tolist())) != 2:
+            raise AssertionError("BLS checks: B1's lanes must carry both sign bits")
+        for check in (True, False):
+            got = BL.decompress(g, x, sign, check)
+            held.hold(f"bls_decompress_g{g}", got, lambda: BL.decompress_plain(g, x, sign, check))
+            want_ok = [1] * (len(rows) - 1) + [0]
+            if check:
+                want_ok[1] = 0  # on the curve, outside the subgroup
+            if got[0].tolist() != want_ok:
+                raise AssertionError(f"B1 g{g} check={check}: ok {got[0].tolist()}")
+    # B2
+    msgs = [b""] + [b"bls-check-%d" % i for i in range(BLS_CHECK_LANES - 1)]
+    u = torch.from_numpy(np.stack(htc.hash_to_field_limbs(msgs, bls12381.DST))).to(device)
+    h, hid = BL.hash_to_g2(u)
+    held.hold("bls_hash_to_g2", (h, hid), lambda: BL.hash_to_g2_plain(u))
+    hv = BL.values(h)
+    if ((hv[0][0], hv[1][0]), (hv[2][0], hv[3][0])) != O.bls_hash_to_g2(b"", bls12381.DST):
+        raise AssertionError("B2: H(empty message) differs from the oracle")
+    # B3: groups of 1000, 19 and 3 points and one of P, -P
+    for g in (1, 2):
+        affs = _bls_points(g, BLS_SUM_POINTS - 2, 7 + g)
+        neg = (affs[0][0], p - affs[0][1]) if g == 1 else (affs[0][0], O.f2_neg(affs[0][1]))
+        affs = affs + [affs[0], neg]
+        sizes = [1000, 19, 3]
+        order = np.concatenate([rng.permutation(sum(sizes)), [len(affs) - 2, len(affs) - 1]])
+        starts = np.cumsum([0] + sizes + [2])
+        order_t = torch.from_numpy(order.astype(np.int32)).to(device)
+        starts_t = torch.from_numpy(starts.astype(np.int32)).to(device)
+        planes = BL.planes_of_ints(_bls_coords(g, affs), device)
+        got = BL.point_sum(g, planes, order_t, starts_t, g == 2)
+        held.hold(f"bls_point_sum_g{g}", got,
+                  lambda: BL.point_sum_plain(g, planes, order_t, starts_t, g == 2))
+        if got[1].tolist() != [0, 0, 0, 1]:
+            raise AssertionError(f"B3 g{g}: identity flags {got[1].tolist()}")
+    # B4/B5: checks c < 16 pair (P, Q) with (-P, Q): one; the others (P, Q)
+    # with (P, Q'): not one
+    n = BLS_CHECK_LANES
+    p_aff, q_aff = [], []
+    for c, a in enumerate(_bls_points(1, n // 2, 11)):
+        one = c < n // 4
+        p_aff += [a, (a[0], p - a[1]) if one else a]
+        q_aff += [((hv[0][k], hv[1][k]), (hv[2][k], hv[3][k]))
+                  for k in ((c, c) if one else (c, c + 1))]
+    pk = BL.planes_of_ints(_bls_coords(1, p_aff), device)
+    qk = BL.planes_of_ints(_bls_coords(2, q_aff), device)
+    f = BL.miller(pk, qk)
+    held.hold("bls_miller", (f,), lambda: (BL.miller_plain(pk, qk),))
+    lanes = torch.arange(n, dtype=torch.int32, device=device)
+    starts = torch.arange(0, n + 1, 2, dtype=torch.int32, device=device)
+    got = BL.final_exp(f, lanes, starts)
+    held.hold("bls_final_exp", got, lambda: BL.final_exp_plain(f, lanes, starts))
+    if got[0].tolist() != [1] * (n // 4) + [0] * (n // 4):
+        raise AssertionError(f"B5: verdicts {got[0].tolist()}")
+
+
+def _bls_counted(fn, device):
+    """fn() with every count set to 0 just before and read just after:
+    (wall ms, launches of every kernel, path counters, the exception fn
+    raised or None)."""
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    _reset_counts()
+    BL.reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    err = None
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the cell asserts what it raised
+        err = e
+    _sync(device)
+    return ((time.perf_counter() - t0) * 1e3, {**_launches(), **BL.LAUNCHES},
+            crypto_batch.path_stats(), err)
+
+
+def _bls_want(**kw) -> dict:
+    base = dict.fromkeys(("bls_decompress_g1", "bls_decompress_g2", "bls_hash_to_g2",
+                          "bls_point_sum_g1", "bls_point_sum_g2", "bls_miller",
+                          "bls_final_exp", "integrity_parts", "ed25519_verify",
+                          "sr25519_verify"), 0)
+    base.update(kw)
+    return base
+
+
+_AGG = dict(bls_decompress_g2=1, bls_hash_to_g2=1, bls_point_sum_g1=1, bls_point_sum_g2=1,
+            bls_miller=1, bls_final_exp=1)
+_SINGLE = dict(bls_decompress_g1=1, bls_decompress_g2=1, bls_hash_to_g2=1, bls_miller=1,
+               bls_final_exp=1, integrity_parts=1)
+
+
+def bls_by_part(label: str, call, card: str) -> dict:
+    """call() (a warm all-BLS verify_commit) once by part: the host parts of
+    ed25519_kernel.timed_parts (rows, aggregate = the whole check, pack,
+    keys, verify, fetch), and each BLS kernel's call synchronised around it
+    (ms)."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops import ed25519_kernel as EK
+
+    saved = {n: getattr(BL, n) for n in ("decompress", "hash_to_g2", "point_sum", "miller",
+                                         "final_exp")}
+    kernels: dict[str, float] = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            key = f"{name}_g{args[0]}" if name in ("decompress", "point_sum") else name
+            kernels[key] = kernels.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    parts: dict[str, float] = {}
+    for name, fn in saved.items():
+        setattr(BL, name, timed(name, fn))
+    try:
+        with EK.timed_parts(parts):
+            call()
+    finally:
+        for name, fn in saved.items():
+            setattr(BL, name, fn)
+    print(f"[{card}] BLS {label} by part (ms, synchronised around each): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + "; kernels: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in kernels.items()), flush=True)
+    return {"parts": parts, "kernels": kernels}
+
+
+def bls_cell(label: str, call, device, want: dict, totals: dict, raises: str = "",
+             card: str = "") -> float:
+    """One BLS cell: call() counted on its own, its launches `want` exactly
+    (and nothing of K1/K2 or K6 beyond them), its error `raises` (a message
+    prefix) or none. Adds its launches to `totals`; prints and returns its
+    wall time."""
+    ms, launches, _, err = _bls_counted(call, device)
+    expect(label, launches, want)
+    if raises:
+        if err is None or not str(err).startswith(raises):
+            raise AssertionError(f"{label}: expected {raises!r}, got {err!r}")
+    elif err is not None:
+        raise err
+    for k, v in launches.items():
+        if k.startswith("bls_"):
+            totals[k] = totals.get(k, 0) + v
+    print(f"[{card}] BLS {label}: {ms:.3f} ms, launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v), flush=True)
+    return ms
+
+
+def bls_phase(device, card: str) -> dict:
+    """The BLS phase: B1-B5 held against their plain versions, then the
+    cells through verify_commit* and the scheduler, every run's launches,
+    verdicts and errors asserted: an all-BLS 150-validator commit (distinct
+    timestamps: D = 150, 151 Miller lanes) cold, warm, with one tampered
+    signature (the aggregate fails, the per-lane pinpoint runs 150 rows at
+    256 lanes through the scheduler and names the index) and through
+    aggregate_verify_agg; a 10,240-validator commit sharing one timestamp
+    (D = 1) cold, warm and tampered (the single-verify path at 10,240
+    lanes); a mixed commit of 50 ed25519 + 50 sr25519 + 50 bls12381
+    validators (one K1, one K2, the BLS pipeline, one combined header
+    fetch) and its rows with a bad lane of each scheme (mask order). Then
+    the cold 150 and tampered 10k commits once more, recorded: every kernel
+    call held against its plain version on the same card tensors, each
+    kernel timed (CUDA events) on its largest call. Returns the kernel
+    records."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import bls_kernel as BK
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops import ed25519_kernel as EK
+    from cometbft_tpu_torch.types import validation as V
+
+    t_phase = time.perf_counter()
+    held = BlsHeld()
+    check_bls(device, held)
+    print(f"[{card}] BLS checks: B1-B5 held against their plain versions on edge cases "
+          f"({time.perf_counter() - t_phase:.1f} s): differences {held.err}", flush=True)
+    crypto_batch.set_backend("gpu")
+    sched.reset()
+    BK.reset_valset_cache()
+    totals: dict[str, int] = {}
+    cells: dict[str, float] = {}
+
+    # 1. all-BLS 150, distinct timestamps
+    t0 = time.perf_counter()
+    vals, secrets = bls_set(N_SMALL, SEED_BLS)
+    commit, bid = bls_commit(vals, secrets, 2_000, SEED_BLS, shared_ts=False)
+    print(f"BLS 150 commit built and signed in {time.perf_counter() - t0:.1f} s", flush=True)
+    h = commit.height
+    call = lambda: V.verify_commit(CHAIN_ID, vals, bid, h, commit)  # noqa: E731
+    cells["150 cold"] = bls_cell("verify_commit 150 cold", call, device,
+                                 _bls_want(**_AGG, bls_decompress_g1=1), totals, card=card)
+    cells["150 warm"] = statistics.median(
+        bls_cell("verify_commit 150 warm", call, device, _bls_want(**_AGG), totals, card=card)
+        for _ in range(3))
+    by_part = {"150 warm": bls_by_part("verify_commit 150 warm", call, card)}
+    bad = with_bad_signature(commit, BLS_BAD_SMALL)
+    bad.signatures[BLS_BAD_SMALL].signature = commit.signatures[BLS_BAD_SMALL + 1].signature
+    lanes0 = sched.get().health()["lanes_total"]
+    cells["150 tampered"] = bls_cell(
+        "verify_commit 150 tampered", lambda: V.verify_commit(CHAIN_ID, vals, bid, h, bad),
+        device, _bls_want(**{k: _AGG.get(k, 0) + _SINGLE.get(k, 0)
+                             for k in set(_AGG) | set(_SINGLE)}), totals,
+        raises=f"wrong signature (#{BLS_BAD_SMALL})", card=card)
+    if sched.get().health()["lanes_total"] - lanes0 != 256:
+        raise AssertionError("BLS 150 tampered: the pinpoint did not run 256 lanes")
+    pubs, msgs, sigs = commit_rows_of(vals, commit)
+    agg = BK.aggregate_signatures(sigs)
+
+    def agg_call():
+        if V._bls_aggregate_agg_ok(pubs, msgs, agg) is not True:
+            raise AssertionError("aggregate_verify_agg rejected the commit's aggregate")
+    cells["150 aggregate_verify_agg"] = bls_cell(
+        "aggregate_verify_agg 150", agg_call, device,
+        _bls_want(bls_decompress_g2=1, bls_hash_to_g2=1, bls_point_sum_g1=1, bls_miller=1,
+                  bls_final_exp=1), totals, card=card)
+
+    # 2. all-BLS 10,240, one shared timestamp
+    t0 = time.perf_counter()
+    vals_b, secrets_b = bls_set(N_BIG, SEED_BLS + 1)
+    commit_b, bid_b = bls_commit(vals_b, secrets_b, 2_001, SEED_BLS + 1, shared_ts=True)
+    print(f"BLS 10k commit built and signed in {time.perf_counter() - t0:.1f} s", flush=True)
+    hb = commit_b.height
+    call_b = lambda: V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, commit_b)  # noqa: E731
+    cells["10k cold"] = bls_cell("verify_commit 10k cold", call_b, device,
+                                 _bls_want(**_AGG, bls_decompress_g1=1), totals, card=card)
+    cells["10k warm"] = statistics.median(
+        bls_cell("verify_commit 10k warm", call_b, device, _bls_want(**_AGG), totals, card=card)
+        for _ in range(3))
+    by_part["10k warm"] = bls_by_part("verify_commit 10k warm", call_b, card)
+    bad_b = with_bad_signature(commit_b, BLS_BAD_BIG)
+    bad_b.signatures[BLS_BAD_BIG].signature = commit_b.signatures[BLS_BAD_BIG + 1].signature
+    cells["10k tampered"] = bls_cell(
+        "verify_commit 10k tampered",
+        lambda: V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, bad_b), device,
+        _bls_want(**{k: _AGG.get(k, 0) + _SINGLE.get(k, 0) for k in set(_AGG) | set(_SINGLE)}),
+        totals, raises=f"wrong signature (#{BLS_BAD_BIG})", card=card)
+
+    # 3. mixed 150: 50 ed25519 + 50 sr25519 + 50 bls12381
+    t0 = time.perf_counter()
+    es_vals, es_secrets = make_set(100, SEED_BLS + 2, "mixed")
+    vals_m, secrets_m = bls_set(50, SEED_BLS + 3, extra=es_vals.validators)
+    commit_m, bid_m = bls_commit(vals_m, secrets_m, 2_002, SEED_BLS + 3, shared_ts=False,
+                                 ed_sr_secrets=es_secrets)
+    print(f"BLS mixed 150 commit built and signed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    hm = commit_m.height
+    EK.reset_fetch_stats()
+    mixed_want = _bls_want(**dict(_SINGLE, integrity_parts=3, ed25519_verify=1,
+                                  sr25519_verify=1))
+    call_m = lambda: V.verify_commit(CHAIN_ID, vals_m, bid_m, hm, commit_m)  # noqa: E731
+    bls_cell("verify_commit mixed 150 (first)", call_m, device,
+             dict(mixed_want, ed25519_decompress=1, sr25519_decompress=1), totals, card=card)
+    ms, launches, paths, err = _bls_counted(call_m, device)
+    if err is not None:
+        raise err
+    expect("verify_commit mixed 150", launches, mixed_want)
+    expect_fetch("verify_commit mixed 150", paths, True)
+    cells["mixed 150"] = ms
+    print(f"[{card}] BLS verify_commit mixed 150: {ms:.3f} ms, one header fetch "
+          f"{paths['fetch']}", flush=True)
+    rows = list(zip(*commit_rows_of(vals_m, commit_m)))
+    bad_lanes = sorted([i for i, r in enumerate(rows) if r[0].type_() == kt][3]
+                       for kt in ("ed25519", "sr25519", "bls12381"))
+    for i in bad_lanes:
+        p_, m_, s_ = rows[i]
+        rows[i] = (p_, m_, s_[:40] + bytes([s_[40] ^ 1]) + s_[41:])
+    v = crypto_batch.create_mixed_batch_verifier()
+    for r in rows:
+        v.add(*r)
+    ok, mask = v.verify()
+    if ok or [i for i, m in enumerate(mask) if not m] != bad_lanes:
+        raise AssertionError(f"mixed 150 mask order: rejected "
+                             f"{[i for i, m in enumerate(mask) if not m]}, expected {bad_lanes}")
+    print(f"[{card}] BLS mixed 150 rows with a bad lane of each scheme at {bad_lanes}: "
+          f"mask order kept", flush=True)
+    missing = [k for k in BLS_RECORDS if totals.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"BLS kernels never launched on the main path: {missing}")
+
+    # 4. the main path's own calls: the 150 commit cold (the aggregate with
+    # the keys' B1) and the tampered 10k commit (its aggregate, then the
+    # single-verify path at 10,240 lanes), recorded; each call held against
+    # its plain version on the same card tensors; each kernel timed on its
+    # largest call, its bound worked out from that call's inputs
+    t0 = time.perf_counter()
+    BK.reset_valset_cache()
+    with BlsRecorder() as rec:
+        call()
+        try:
+            V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, bad_b)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            if not str(e).startswith(f"wrong signature (#{BLS_BAD_BIG})"):
+                raise
+        else:
+            raise AssertionError("BLS 10k tampered: no error in the recorded run")
+    held_calls = hold_recorded(rec.calls, held, card)
+    single = [c for c in held_calls if c["key"] == "bls_final_exp"
+              and c["args"][2].shape[0] - 1 == N_BIG]
+    if len(single) != 1 or [i for i, v in enumerate(single[0]["outs"][0].tolist())
+                            if not v] != [BLS_BAD_BIG]:
+        raise AssertionError("BLS 10k single-verify: B5 must reject exactly the tampered lane")
+    print(f"[{card}] BLS main-path calls held against their plain versions: "
+          f"{len(held_calls)} calls in {time.perf_counter() - t0:.1f} s", flush=True)
+    least, design = bls_least_products(), bls_fp_products()
+    records = []
+    for name in BLS_RECORDS:
+        mine = [c for c in held_calls if c["key"] == name]
+        if not mine:
+            raise AssertionError(f"{name}: no call on the recorded main path")
+        c = max(mine, key=lambda c: bls_call_products(name, c["args"], least))
+        args, fn = c["args"], getattr(BL, c["entry"])
+        ms = time_kernel(lambda: fn(*args), reps=3)
+        products = bls_call_products(name, args, least)
+        nbytes = sum(t.numel() * t.element_size() for t in args + c["outs"]
+                     if isinstance(t, torch.Tensor))
+        b = bls_bound(products, nbytes)
+        design_b = bls_bound(bls_call_products(name, args, design), nbytes)
+        n = args[1].shape[-1] if c["entry"] in ("decompress", "point_sum") else args[0].shape[-1]
+        units = (args[3].shape[0] - 1 if c["entry"] == "point_sum" else
+                 args[2].shape[0] - 1 if c["entry"] == "final_exp" else n)
+        shape = BL.launch_shape(name, units, device)
+        print(f"[{card}] {name}: {ms:.3f} ms on {_bls_call_shape(c['entry'], args)} (median "
+              f"of 3), plain {c['plain_ms']:.1f} ms on the same call; bound {b[0]:.4f} ms "
+              f"({b[1]}: {products} Fp products x {FP_MUL_IMADS} IMADs, {nbytes} B), "
+              f"{b[0] / ms:.1%}; the kernel's own formulas {design_b[0]:.4f} ms; "
+              f"{shape['registers']} registers, {shape['local_bytes']} B stack, "
+              f"{shape['blocks_per_sm']} blocks/SM", flush=True)
+        records.append({
+            "name": name, "route": "cuda", "source": "cometbft_tpu_torch/csrc/bls12381.cu",
+            "replaces": BLS_RECORDS[name], "launches": totals[name],
+            "max_abs_err": held.err[name], "ms": ms, "plain_ms": c["plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "lanes": n,
+            "units": units, "fp_products": products, "design_bound_ms": design_b[0],
+            "registers": shape["registers"], "stack_bytes": shape["local_bytes"]})
+    print(f"[{card}] BLS cells (wall ms): " + ", ".join(f"{k} {v:.3f}" for k, v in cells.items())
+          + f"; BLS phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"records": records, "cells": cells, "launches": totals, "by_part": by_part}
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -2197,7 +3018,8 @@ def main() -> int:
     print(card, flush=True)
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    stems = ("verify25519", "decompress25519", "microbench", "challenge25519", "integrity")
+    stems = ("verify25519", "decompress25519", "microbench", "challenge25519", "integrity",
+             "bls12381")
     with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
         builds = dict(zip(stems, pool.map(_build.build, stems)))
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -2240,6 +3062,7 @@ def main() -> int:
     mixed = drive_mixed(paths, N_BIG, SEED_MIXED, device, held)
     # the top of the main path, timed before the microbench and probe phases
     commit = commit_phase(device, card, held)
+    bls = bls_phase(device, card)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -2346,6 +3169,7 @@ def main() -> int:
             "body": r["body"], "lanes": MB_RECORD_LANES, "iters": r["iters"],
             "ms_back_to_back": r["ms_back_to_back"],
             "us_per_iter": mb["per"][(r["body"], MB_RECORD_LANES)]})
+    kernels["kernels"] += bls["records"]
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s since the kernel build began",
           flush=True)
     print(json.dumps(kernels), flush=True)

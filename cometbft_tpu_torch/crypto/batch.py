@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Callable
 
 from cometbft_tpu_torch import crypto
-from cometbft_tpu_torch.crypto import ed25519, sr25519
+from cometbft_tpu_torch.crypto import bls12381, ed25519, sr25519
 
 BACKENDS = ("gpu", "cpu")
 _BACKEND = "gpu"
@@ -55,10 +55,24 @@ def backend_device():
     return resolve_device("cuda" if _BACKEND == "gpu" else "cpu")
 
 
+def check_bls_enabled(key_type: str) -> None:
+    """A BLS key while the scheme is switched off (bls12381.set_enabled) is
+    a configuration error and raises ErrInvalidKey: nothing falls back
+    quietly."""
+    if key_type == bls12381.KEY_TYPE and not bls12381.enabled():
+        raise crypto.ErrInvalidKey(
+            "bls12381 key reached the batch-verify seam but the scheme is disabled "
+            "(bls12381.set_enabled(False)); enable it or remove BLS keys from the validator set")
+
+
 def supports_batch_verifier(pub_key: crypto.PubKey | None) -> bool:
     """Does this key type have a batch verifier (CometBFT's
-    crypto/batch.SupportsBatchVerifier)?"""
-    return pub_key is not None and pub_key.type_() in _REGISTRY
+    crypto/batch.SupportsBatchVerifier)? Raises for a BLS key while the
+    scheme is disabled."""
+    if pub_key is None:
+        return False
+    check_bls_enabled(pub_key.type_())
+    return pub_key.type_() in _REGISTRY
 
 
 def create_batch_verifier(pub_key: crypto.PubKey) -> crypto.BatchVerifier:
@@ -97,6 +111,7 @@ class MixedBatchVerifier(crypto.BatchVerifier):
 
     def add(self, pub_key: crypto.PubKey, msg, sig: bytes) -> None:
         kt = pub_key.type_()
+        check_bls_enabled(kt)
         sub = self._subs.get(kt)
         if sub is None:
             sub = self._subs[kt] = _new_verifier(kt)
@@ -135,7 +150,8 @@ class ScheduledBatchVerifier(crypto.BatchVerifier):
     the per-key-type verifiers, it raises at creation on the "gpu" backend
     without a card."""
 
-    SIGNATURE_SIZE = 64
+    # signature sizes by key type (BLS G2 signatures are 96 bytes)
+    SIGNATURE_SIZES = {ed25519.KEY_TYPE: 64, sr25519.KEY_TYPE: 64, bls12381.KEY_TYPE: 96}
 
     def __init__(self, klass: str | None = None):
         from cometbft_tpu_torch import sched
@@ -149,9 +165,10 @@ class ScheduledBatchVerifier(crypto.BatchVerifier):
         from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
 
         kt = pub_key.type_()
+        check_bls_enabled(kt)
         if kt not in _REGISTRY:
             raise crypto.ErrInvalidKey(f"key type {kt!r} has no batch verifier")
-        if len(sig) != self.SIGNATURE_SIZE:
+        if len(sig) != self.SIGNATURE_SIZES[kt]:
             raise crypto.ErrInvalidSignature("bad signature length")
         self._rows.add(kt, pub_key.bytes_(), msg if isinstance(msg, PrefixedMsg) else bytes(msg),
                        bytes(sig))
@@ -211,6 +228,7 @@ def _factory(verifier: str, device: str) -> Callable[[], crypto.BatchVerifier]:
 
 
 for _kt, _verifier in ((ed25519.KEY_TYPE, "CUDABatchVerifier"),
-                       (sr25519.KEY_TYPE, "SrCUDABatchVerifier")):
+                       (sr25519.KEY_TYPE, "SrCUDABatchVerifier"),
+                       (bls12381.KEY_TYPE, "BlsCUDABatchVerifier")):
     register(_kt, "gpu", _factory(_verifier, "cuda"))
     register(_kt, "cpu", _factory(_verifier, "cpu"))

@@ -1,5 +1,6 @@
 """crypto.BatchVerifiers backed by the port's verify kernels — the
-counterparts of cometbft_tpu's TPUBatchVerifier and SrTPUBatchVerifier.
+counterparts of cometbft_tpu's TPUBatchVerifier, SrTPUBatchVerifier and
+BlsTPUBatchVerifier.
 Messages pass through as they are given: a factored row
 (libs/prefixrows.PrefixedMsg, e.g. from SharedPrefixRows.rows_for) stays
 factored down to the device challenges."""
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 from cometbft_tpu_torch import crypto, resolve_device
 from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
-from cometbft_tpu_torch.ops import ed25519_kernel, sr25519_kernel
+from cometbft_tpu_torch.ops import bls_kernel, ed25519_kernel, sr25519_kernel
 
 SIGNATURE_SIZE = 64
 
@@ -63,3 +64,24 @@ class SrCUDABatchVerifier(CUDABatchVerifier):
     crypto/sr25519/batch.go). A cache, when given, must be an sr25519 one."""
 
     scheme = sr25519_kernel.SR25519
+
+
+class BlsCUDABatchVerifier(CUDABatchVerifier):
+    """BLS12-381 batched single-verify on the device (ops/bls_kernel.py: the
+    kernels B1-B5 and K6); 96-byte signatures. A commit whose signers are all
+    BLS is checked by the aggregate path (types/validation.py), not behind
+    this per-lane seam. It keeps no key cache."""
+
+    def add(self, pub_key: crypto.PubKey, msg, sig: bytes) -> None:
+        if pub_key.type_() != bls_kernel.SCHEME:
+            raise crypto.ErrInvalidKey(
+                f"the cuda {bls_kernel.SCHEME} batch verifier got a {pub_key.type_()} key")
+        if len(sig) != bls_kernel.SIGNATURE_SIZE:
+            raise crypto.ErrInvalidSignature("bad signature length")
+        self._pubs.append(pub_key.bytes_())
+        self._msgs.append(msg if isinstance(msg, PrefixedMsg) else bytes(msg))
+        self._sigs.append(bytes(sig))
+
+    def verify_async(self) -> ed25519_kernel.BatchThunk:
+        return bls_kernel.verify_batch_async(self._pubs, self._msgs, self._sigs,
+                                             device=self.device)

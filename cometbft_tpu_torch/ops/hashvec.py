@@ -481,3 +481,16 @@ def assemble_prefixed_rows(msgs, mlen: int) -> np.ndarray:
             out[i:j] = np.frombuffer(b"".join(msgs[i:j]), dtype=np.uint8).reshape(j - i, mlen)
         i = j
     return out
+
+
+def sha256_many(datas: list[bytes]) -> np.ndarray:
+    """N messages -> (N, 32) uint8 digests, bit for bit hashlib.sha256 (the
+    BLS hash-to-field's expand_message_xmd; one call per round across a
+    batch), counted as the "sha256" core's serial rung."""
+    n = len(datas)
+    out = np.empty((n, 32), dtype=np.uint8)
+    for i, d in enumerate(datas):
+        out[i] = np.frombuffer(hashlib.sha256(d).digest(), dtype=np.uint8)
+    if n:
+        _count("sha256", "serial", n)
+    return out

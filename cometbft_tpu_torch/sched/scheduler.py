@@ -20,10 +20,11 @@ queue coalesces them, the way an inference server batches requests:
              a group waiting past `starvation_limit` rides the next batch
              whatever its class.
   dispatch   one batch groups its rows by scheme and launches each scheme's
-             rows with ed25519_kernel.verify_batch_async (K5 -> K1/K2 ->
-             K6 on the dispatch stream, ops/dispatch.py), then resolves
-             every scheme's batch with one resolve_batches: one header
-             fetch. Each producer group is a recheck group with its own
+             rows (ed25519 and sr25519 with ed25519_kernel.verify_batch_async:
+             K5 -> K1/K2 -> K6; bls12381 with bls_kernel.verify_batch_async:
+             B1 -> B2 -> B4 -> B5 -> K6; on the dispatch stream,
+             ops/dispatch.py), then resolves every scheme's batch with one
+             resolve_batches: one header fetch. Each producer group is a recheck group with its own
              budget. A failing batch fails its groups' futures and raises.
   rechecks   an inline drain rechecks only its own groups' rejected lanes
              on the host oracle before it returns; its riders' rechecks run
@@ -35,7 +36,7 @@ queue coalesces them, the way an inference server batches requests:
 
 Left out of the reference: the "sched.flush" chaos site and its
 fragmented fallback, the multi-card mesh routing, trace spans and
-Prometheus metrics, the BLS branch, and the host-oracle rung for schemes
+Prometheus metrics, and the host-oracle rung for schemes
 without a kernel (every scheme the port has runs on a kernel; the "cpu"
 backend runs the same batches on the kernels' plain versions).
 
@@ -49,6 +50,7 @@ from __future__ import annotations
 import bisect
 import concurrent.futures
 import contextvars
+import functools
 import logging
 import threading
 import time
@@ -181,9 +183,15 @@ class _Group:
 
 
 def _schemes() -> dict:
-    from cometbft_tpu_torch.ops import ed25519_kernel, sr25519_kernel
+    """Key type -> the function that stages and launches a batch of its rows
+    (pubs, msgs, sigs, device=, recheck_groups=) and returns its thunk."""
+    from cometbft_tpu_torch.ops import bls_kernel, ed25519_kernel, sr25519_kernel
 
-    return {"ed25519": ed25519_kernel.ED25519, "sr25519": sr25519_kernel.SR25519}
+    return {"ed25519": functools.partial(ed25519_kernel.verify_batch_async,
+                                         ed25519_kernel.ED25519),
+            "sr25519": functools.partial(ed25519_kernel.verify_batch_async,
+                                         sr25519_kernel.SR25519),
+            bls_kernel.SCHEME: bls_kernel.verify_batch_async}
 
 
 class VerifyScheduler:
@@ -480,9 +488,9 @@ class VerifyScheduler:
                     d[1].extend(msgs)
                     d[2].extend(sigs)
                     d[3].append((gi, a, a + len(sigs)))
-        thunks = [EK.verify_batch_async(schemes[kt], pubs, msgs, sigs, device=device,
-                                        recheck_groups=[(a, b) for gi, a, b in spans
-                                                        if not groups[gi].rider])
+        thunks = [schemes[kt](pubs, msgs, sigs, device=device,
+                              recheck_groups=[(a, b) for gi, a, b in spans
+                                              if not groups[gi].rider])
                   for kt, (pubs, msgs, sigs, spans) in per.items()]
         resolved = EK.resolve_batches(thunks)
         with EK.host_part("sched"):

@@ -21,11 +21,19 @@ at once and defer the signatures: prefetch_staged verifies a window of
 staged commits as one batch (one scheduler group a commit, under SYNC),
 resolve_staged then raises at the first bad commit in window order.
 
+A commit whose signers are all bls12381 keys is first decided by one
+aggregate pairing-product check (_bls_aggregate_ok: ops/bls_kernel.
+aggregate_verify); an accepted aggregate returns, a failed one re-runs the
+rows per lane through the batch path to name the first bad signature. Such
+a set with the scheme switched off (crypto/bls12381.set_enabled) raises
+ErrInvalidKey. Staged all-BLS commits are aggregate-checked at finish(),
+outside the window's batch.
+
 What differs from the reference: nothing falls back off the card. Only
 ErrInvalidKey and ErrInvalidSignature from BatchVerifier.add() (a key type
 with no batch verifier, a signature of the wrong length) send a commit to
 the serial path, as the reference intends; a CUDA or staging error
-propagates. The BLS aggregate commit checks wait for the BLS slice.
+propagates.
 """
 
 from __future__ import annotations
@@ -135,6 +143,43 @@ def _commit_rows(chain_id: str, vals: ValidatorSet, commit: Commit, voting_power
         return pubs, sign_rows.rows_for(idxs), sigs, idxs
 
 
+def _bls_set(pubs) -> bool:
+    """Are the rows' keys all bls12381 (the aggregate path's shape)? Raises
+    ErrInvalidKey when they are and the scheme is switched off."""
+    from cometbft_tpu_torch.crypto import bls12381
+
+    if not pubs or any(p.type_() != bls12381.KEY_TYPE for p in pubs):
+        return False
+    crypto_batch.check_bls_enabled(bls12381.KEY_TYPE)
+    return True
+
+
+def _bls_aggregate_ok(pubs, msgs, sigs) -> bool | None:
+    """The aggregate commit check (ops/bls_kernel.aggregate_verify) when every
+    signer is a bls12381 key: None when the rows are not all BLS (the caller
+    batches them per lane), True on an accepted aggregate, False when it
+    fails (the caller then re-runs the rows per lane to name the offending
+    signature: the aggregate is a verdict on the commit, not a mask)."""
+    if not _bls_set(pubs):
+        return None
+    from cometbft_tpu_torch.ops import bls_kernel
+
+    with ed25519_kernel.host_part("aggregate"):
+        return bls_kernel.aggregate_verify([p.bytes_() for p in pubs], msgs,
+                                           [bytes(s) for s in sigs])
+
+
+def _bls_aggregate_agg_ok(pubs, msgs, agg_sig: bytes) -> bool | None:
+    """The certificate sibling of _bls_aggregate_ok: the signature arrives
+    already aggregated (ops/bls_kernel.aggregate_verify_agg). The same
+    contract: None when the rows are not all BLS, else the verdict."""
+    if not _bls_set(pubs):
+        return None
+    from cometbft_tpu_torch.ops import bls_kernel
+
+    return bls_kernel.aggregate_verify_agg([p.bytes_() for p in pubs], msgs, bytes(agg_sig))
+
+
 def _raise_first_bad(commit: Commit, idxs: list[int], mask) -> None:
     for i, sig_ok in enumerate(mask):
         if not sig_ok:
@@ -151,8 +196,12 @@ def _verify_commit_batch(chain_id: str, vals: ValidatorSet, commit: Commit,
     pubs, msgs, sigs, idxs = _commit_rows(chain_id, vals, commit, voting_power_needed,
                                           ignore_sig, count_sig, count_all_signatures,
                                           lookup_by_index)
+    # all-BLS signers: one pairing-product check; a failed aggregate falls
+    # through to the per-lane path to name the bad signature
+    if _bls_aggregate_ok(pubs, msgs, sigs):
+        return
     # every key type becomes one device batch of the same flush (a mixed
-    # ed25519 + sr25519 mega-commit: two batches, one fetch)
+    # ed25519 + sr25519 + bls12381 commit: three batches, one fetch)
     bv = crypto_batch.create_mixed_batch_verifier()
     try:
         for pub, msg, sig in zip(pubs, msgs, sigs):
@@ -269,13 +318,17 @@ class StagedCommitVerification:
     synchronous call would. The rows are not dispatched at staging:
     prefetch_staged verifies every staged commit of a window in one batch.
     An all-ed25519 commit keeps its rows as key bytes (ed_rows), any other
-    as keys (rows)."""
+    as keys (rows). An all-BLS commit (bls=True) is not part of the window's
+    batch: finish() decides it with one aggregate check, and only a failed
+    aggregate verifies its rows per lane."""
 
-    def __init__(self, commit: Commit, sig_idxs: list[int], rows=None, ed_rows=None):
+    def __init__(self, commit: Commit, sig_idxs: list[int], rows=None, ed_rows=None,
+                 bls: bool = False):
         self.commit = commit
         self.sig_idxs = sig_idxs
         self._rows = rows  # (pub keys, msgs, sigs)
         self._ed_rows = ed_rows  # (pub key bytes, msgs, sigs), all ed25519
+        self._bls = bls
         self._mask = None
         self._passed = False
 
@@ -286,6 +339,10 @@ class StagedCommitVerification:
             return
         if mask is None:
             mask = self._mask
+        if mask is None and self._bls:
+            if _bls_aggregate_ok(*self._rows):
+                self._passed = True
+                return
         if mask is None:
             if self._ed_rows is not None:
                 mask = ed25519_kernel.verify_batch_async(
@@ -309,6 +366,8 @@ class StagedCommitVerification:
 
 def _stage_rows(commit: Commit, rows) -> StagedCommitVerification:
     pubs, msgs, sigs, idxs = rows
+    if _bls_set(pubs):
+        return StagedCommitVerification(commit, idxs, rows=(pubs, msgs, sigs), bls=True)
     if all(p.type_() == "ed25519" for p in pubs):
         return StagedCommitVerification(commit, idxs,
                                         ed_rows=([p.bytes_() for p in pubs], msgs, sigs))
@@ -410,7 +469,7 @@ def _prefetch_via_scheduler(staged: list[StagedCommitVerification], klass: str) 
     todo: list[StagedCommitVerification] = []
     rowlists: list = []
     for s in staged:
-        if s._passed or s._mask is not None:
+        if s._passed or s._mask is not None or s._bls:
             continue
         if s._ed_rows is not None:
             rows = sched.RowColumns.single(ed25519.KEY_TYPE, *s._ed_rows)

@@ -134,10 +134,10 @@ def pub_key_to_proto(pub_key: crypto.PubKey) -> bytes:
 
 
 def pub_key_from_proto(data: bytes) -> crypto.PubKey:
-    """crypto.PublicKey oneof -> the port's key: ed25519 (field 1) or
-    sr25519 (field 3). secp256k1 (2) and bls12381 (4) raise ErrInvalidKey:
-    the port has no such keys yet."""
-    from cometbft_tpu_torch.crypto import ed25519, sr25519
+    """crypto.PublicKey oneof -> the port's key: ed25519 (field 1), sr25519
+    (field 3) or bls12381 (field 4). secp256k1 (2) raises ErrInvalidKey: the
+    port has no such keys."""
+    from cometbft_tpu_torch.crypto import bls12381, ed25519, sr25519
 
     r = pb.Reader(data)
     while not r.at_end():
@@ -146,9 +146,10 @@ def pub_key_from_proto(data: bytes) -> crypto.PubKey:
             return ed25519.PubKey(r.read_bytes())
         if f == 3:
             return sr25519.PubKey(r.read_bytes())
-        if f in (2, 4):
-            raise crypto.ErrInvalidKey(
-                f"{'secp256k1' if f == 2 else 'bls12381'} keys are not supported by the port")
+        if f == 4:
+            return bls12381.PubKey(r.read_bytes())
+        if f == 2:
+            raise crypto.ErrInvalidKey("secp256k1 keys are not supported by the port")
         r.skip(w)
     raise ValueError("empty/unsupported PublicKey proto")
 

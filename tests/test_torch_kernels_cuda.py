@@ -725,3 +725,141 @@ def test_scheduler_warmup_runs_the_ladder_on_the_card(cuda):
         assert VK.LAUNCHES["ed25519_verify"] == before + 6
     finally:
         sched.reset()
+
+
+# ------------------------------------------------------------- BLS12-381
+
+
+class _BlsData:
+    """Edge-case inputs for B1-B5 from the oracle (this module imports only
+    the port)."""
+
+    def __init__(self):
+        import random
+
+        from cometbft_tpu_torch.crypto import bls12381_math as o
+
+        self.o, self.P, self.rng = o, o.BLS_P, random.Random(60)
+
+    def points(self, g: int, n: int) -> list:
+        o = self.o
+        F = o._FpOps if g == 1 else o._Fp2Ops
+        gen = o._ec_from_affine(o.BLS_G1 if g == 1 else o.BLS_G2)
+        return [o._ec_affine(F, o._ec_mul(F, self.rng.randrange(1, o.BLS_R), gen))
+                for _ in range(n)]
+
+    def no_root_x(self, g: int):
+        o, P = self.o, self.P
+        while True:
+            if g == 1:
+                x = self.rng.randrange(P)
+                if pow((x ** 3 + 4) % P, (P - 1) // 2, P) == P - 1:
+                    return x
+            else:
+                x = (self.rng.randrange(P), self.rng.randrange(P))
+                if not o.f2_legendre_is_square(o.f2_add(o.f2_mul(o.f2_sq(x), x), o._B2)):
+                    return x
+
+
+def _bls_inputs():
+    """Edge lanes for B1: both sign bits, points on the curves outside G1/G2
+    ((0, 2) of order 3; an SvdW image before cofactor clearing)."""
+    H = _BlsData()
+    g1 = H.points(1, 3)
+    g1.append((g1[0][0], H.P - g1[0][1]))
+    g2 = H.points(2, 3)
+    g2.append((g2[0][0], H.o.f2_neg(g2[0][1])))
+    off2 = H.o._svdw_map_fp2((3, 4), H.o._bls_setup()["svdw"])
+    return H, g1 + [(0, 2)], g2 + [off2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2])
+def test_bls_decompress_matches_plain(cuda, g):
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops.bls12381 import fp
+
+    H, g1, g2 = _bls_inputs()
+    if g == 1:
+        encs = [H.o.bls_g1_compress(a) for a in g1]
+        x = torch.from_numpy(fp.ints_to_limbs(
+            [int.from_bytes(bytes([e[0] & 0x1F]) + e[1:], "big") for e in encs] +
+            [H.no_root_x(1)]))
+    else:
+        encs = [H.o.bls_g2_compress(a) for a in g2]
+        nx = H.no_root_x(2)
+        x = torch.stack([torch.from_numpy(fp.ints_to_limbs(
+            [int.from_bytes(e[48:], "big") for e in encs] + [nx[0]])),
+            torch.from_numpy(fp.ints_to_limbs(
+                [int.from_bytes(bytes([e[0] & 0x1F]) + e[1:48], "big") for e in encs] + [nx[1]]))])
+    sign = torch.tensor([(e[0] >> 5) & 1 for e in encs] + [1], dtype=torch.int32)
+    x, sign = x.to(cuda).contiguous(), sign.to(cuda)
+    for check in (False, True):
+        ok, xy = BL.decompress(g, x, sign, check)
+        okp, xyp = BL.decompress_plain(g, x, sign, check)
+        assert ok.tolist() == okp.tolist() == [1, 1, 1, 1, int(not check), 0]
+        assert BL.values(xy) == BL.values(xyp)
+
+
+@pytest.mark.cuda
+def test_bls_hash_sum_miller_final_exp_match_plain(cuda):
+    """B2 on three messages (the empty one among them), B3 on three groups
+    with an identity sum, B4 and B5 on two checks (a product that is one and
+    one that is not), by canonical value against the plain versions."""
+    from cometbft_tpu_torch.crypto import bls12381 as tbls
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops.bls12381 import htc
+
+    H, g1, _ = _bls_inputs()
+    u = torch.from_numpy(np.stack(htc.hash_to_field_limbs([b"", b"a", b"b"], tbls.DST))).to(cuda)
+    h, hid = BL.hash_to_g2(u)
+    hp, hidp = BL.hash_to_g2_plain(u)
+    assert hid.tolist() == hidp.tolist() == [0, 0, 0]
+    assert BL.values(h) == BL.values(hp)
+    pk = [g1[0], g1[3], g1[1], g1[2]]  # lanes 0 and 1 cancel
+    coords = [[a[0] for a in pk], [a[1] for a in pk]]
+    order = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 2, 3, 4], dtype=torch.int32, device=cuda)
+    planes = BL.planes_of_ints(coords, cuda)
+    got = BL.point_sum(1, planes, order, starts, True)
+    want = BL.point_sum_plain(1, planes, order, starts, True)
+    assert got[1].tolist() == want[1].tolist() == [1, 0, 0]
+    assert got[2].tolist() == want[2].tolist() == [1, 1, 1]
+    assert BL.values(got[0]) == BL.values(want[0])
+    # e(P, H) e(-P, H) = 1 and e(P, H) != 1
+    p = [[g1[0][0]] * 2, [g1[0][1], H.P - g1[0][1]]]
+    hv = [v[:1] * 2 for v in BL.values(h)]
+    pq = BL.planes_of_ints(p, cuda), BL.planes_of_ints(hv, cuda)
+    f = BL.miller(*pq)
+    fp_ = BL.miller_plain(*pq)
+    assert BL.values(f) == BL.values(fp_)
+    lanes = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)
+    st = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda)
+    ok, e, allok = BL.final_exp(f, lanes, st)
+    okp, ep, allokp = BL.final_exp_plain(fp_, lanes, st)
+    assert ok.tolist() == okp.tolist() == [1, 0] and allok.tolist() == allokp.tolist() == [0]
+    assert BL.values(e) == BL.values(ep)
+
+
+@pytest.mark.cuda
+def test_bls_verify_and_aggregate_on_the_card_match_oracle(cuda):
+    """The whole device path: verify_batch's mask on the edge lanes and the
+    aggregate check, against the oracle."""
+    from cometbft_tpu_torch.crypto import bls12381 as tbls
+    from cometbft_tpu_torch.crypto import bls12381_math as bo
+    from cometbft_tpu_torch.ops import bls_kernel as BK
+
+    keys = [tbls.gen_priv_key_from_secret(b"card-bls-%d" % i) for i in range(5)]
+    msgs = [b"m-%d" % i for i in range(5)]
+    pubs = [k.pub_key().bytes_() for k in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    sigs[1] = keys[1].sign(b"wrong")
+    sigs[2] = b"\x00" * 96
+    sigs[3] = bytes([0xC0]) + bytes(95)
+    want = [bo.bls_verify(p, m, s, tbls.DST) for p, m, s in zip(pubs, msgs, sigs)]
+    assert BK.verify_batch(pubs, msgs, sigs, device=cuda)[1] == want
+    good = [0, 4]
+    ps, ms, ss = ([v[i] for i in good] for v in (pubs, msgs, sigs))
+    assert BK.aggregate_verify(ps, ms, ss, device=cuda)
+    assert not BK.aggregate_verify(ps, ms, [ss[0], sigs[1]], device=cuda)
+    assert BK.aggregate_verify_agg(ps, ms, BK.aggregate_signatures(ss), device=cuda)

@@ -230,7 +230,13 @@ def test_pub_key_proto_round_trip(kind):
 
 @pytest.mark.parametrize("field,size", [(2, 33), (4, 48)])
 def test_pub_key_from_proto_refuses_key_types_the_port_lacks(field, size):
+    """secp256k1 (field 2) is refused; bls12381 (field 4) decodes to the
+    port's bls12381 key, as in the reference."""
     data = tpb.Writer().bytes(field, b"\x02" * size, always=True).output()
+    if field == 4:
+        key = tvalidator.pub_key_from_proto(data)
+        assert key.type_() == "bls12381" and key.bytes_() == b"\x02" * size
+        return
     with pytest.raises(tcrypto.ErrInvalidKey):
         tvalidator.pub_key_from_proto(data)
 
