@@ -242,8 +242,10 @@ def _kernel_label(mangled: str) -> str | None:
     if m:
         return f"bls_{m.group(1)}_g{m.group(2)}"
     for kernel, label in (("bls_hash_to_g2_kernel", "bls_hash_to_g2"),
+                          ("bls_hash_to_g2_lane_kernel", "bls_hash_to_g2_lane"),
                           ("bls_miller_kernel", "bls_miller"),
                           ("bls_final_exp_kernel", "bls_final_exp"),
+                          ("bls_final_exp_lane_kernel", "bls_final_exp_lane"),
                           ("derive_kernel", "challenge_derive"),
                           ("sha512_rows_kernel", "challenge_sha512"),
                           ("reduce512_kernel", "challenge_reduce"),
@@ -2216,27 +2218,75 @@ BLS_RECORDS = {
 }
 
 
+def _pow_w4_products(e: int) -> int:
+    """Fp products of csrc/fp381.cuh fp_pow for the fixed e: a table of 16
+    powers (14 products), then fixed 4-bit windows from the top, 4 squares a
+    window and one product a non-zero digit."""
+    top = (e.bit_length() - 1) & ~3
+    return 14 + top + sum(1 for i in range(0, top, 4) if (e >> i) & 15)
+
+
+def _gls_columns(digits: list[int]) -> tuple[int, int]:
+    """(bits, non-zero columns) of a joint ladder over the first four base-x
+    digits (csrc/curve381.cuh jac_mul_c; the fifth, one bit, is one more
+    addition)."""
+    bits = max(d.bit_length() for d in digits[:4])
+    return bits, sum(1 for b in range(bits) if any((d >> b) & 1 for d in digits[:4]))
+
+
+def _wnaf(k: int, w: int = 5) -> list[int]:
+    """The width-w NAF of k > 0, most significant digit first."""
+    out = []
+    while k:
+        d = 0
+        if k & 1:
+            d = k & ((1 << w) - 1)
+            if d >= 1 << (w - 1):
+                d -= 1 << w
+            k -= d
+        out.append(d)
+        k >>= 1
+    return out[::-1]
+
+
+def _svdw_products() -> int:
+    """Fp products of one SvdW map (csrc/curve381.cuh svdw_map): 61 around
+    the root by the norm's two 4-bit-window exponentiations."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    p = O.BLS_P
+    return 61 + _pow_w4_products((p + 1) // 4) + _pow_w4_products((p - 3) // 4)
+
+
 def bls_fp_products() -> dict:
     """The kernels' own Fp products (12 x 32-bit Montgomery multiplications)
-    a lane, counted from csrc/curve381.cuh's formulas (the "design" count;
-    the bounds use bls_least_products): an Fp2
-    product is 3, a square 2, an Fp12 product 54; a G1 doubling 8 and
-    addition 12 products, G2 24 and 36 (RCB 2015); a fixed exponent or
-    scalar of n bits and weight w costs n squarings or doublings and w
-    multiplications or additions. Keys: g1/g2 decompression without the
-    subgroup check, sub1/sub2 the check, h2g, add1/add2 (a point sum's
-    additions), aff1/aff2 (a sum to affine), miller, fexp (per check, its
-    lanes' products not included), mul12 (one more lane in a check)."""
+    a lane, counted from csrc/curve381.cuh's and group381.cuh's formulas
+    (the "design" count; the bounds use bls_least_products): an Fp2
+    product is 3, a square 2, an Fp6 product 18, an Fp12 product 54, a
+    cyclotomic square 18 (three Fp4 squares of two Fp2 products); a G1
+    doubling 8 and addition 12 products, G2 24 and 36 (RCB 2015); G2 in
+    Jacobian coordinates (B2's cofactor) a doubling 16 and an addition 44,
+    psi 6; a
+    fixed exponent or scalar of n bits and weight w costs n squarings or
+    doublings and w multiplications or additions, except fp_pow's 4-bit
+    windows (_pow_w4_products); inverses and Legendre symbols are binary (no
+    products; an inverse 1 to leave R^-1). Keys: g1/g2 decompression without
+    the subgroup check, sub1/sub2 the check, h2g (B2: two SvdW maps, the RCB
+    sum, the cofactor by Budroni-Pintore (two |x| ladders, three psi, five
+    additions) and [c], c = (3(x^2 - 1))^-1 mod r, by its base-x split over
+    psi (a joint ladder of four 64-bit digits), to affine), add1/add2 (a
+    point
+    sum's additions), aff1/aff2 (a sum to affine), miller, fexp (B5 per
+    check, its lanes' products not included), mul12 (one more lane in a
+    check). B2's trios and B5's sextets split these products:
+    bls_chain_products counts one thread's chain."""
     from cometbft_tpu_torch.crypto import bls12381_math as O
+    from cometbft_tpu_torch.ops import bls_launch as BL
 
     p = O.BLS_P
 
     def nw(e):
         return e.bit_length(), bin(e).count("1")
-
-    def pw1(e):
-        n, w = nw(e)
-        return n + w
 
     def pw2(e):
         n, w = nw(e)
@@ -2246,24 +2296,46 @@ def bls_fp_products() -> dict:
         n, w = nw(e)
         return n * dbl + w * add
 
-    inv = pw1(p - 2)
-    f2_inv = 4 + inv
-    sqrt1 = pw1((p + 1) // 4) + 1
-    sqrt2 = pw2((p - 3) // 4) + 2 + 3 + 3 + pw2((p - 1) // 2) + 3 + 2
-    is_sq2 = 2 + pw1((p - 1) // 2)
-    svdw = 5 + 3 + f2_inv + 9 + 10 + 3 * 5 + 2 * is_sq2 + sqrt2 + 4
+    inv, f2_inv = 1, 5
+    sqrt1 = _pow_w4_products((p + 1) // 4) + 1
+    sqrt2 = pw2((p - 3) // 4) + 2 + 3 + 3 + pw2((p - 1) // 2) + 3 + 2  # B1's f2_sqrt
+    svdw = _svdw_products()
     c = {"g1": 1 + 2 + sqrt1 + 1, "g2": 2 + 5 + sqrt2 + 2,
          "sub1": ladder(8, 12, O.BLS_R), "sub2": ladder(24, 36, O.BLS_R),
          "add1": 12, "add2": 36, "aff1": inv + 2, "aff2": f2_inv + 6}
-    c["h2g"] = 4 + 2 * svdw + 36 + ladder(24, 36, O._bls_setup()["h2"]) + c["aff2"]
+    x_ladder = ladder(16, 44, -O.BLS_X) - 16 - 44  # the top bit starts it
+    bits, cols = _gls_columns(BL.gls_digits(BL.cofactor_c()))
+    cofactor = (2 * x_ladder + 3 * 6 + 16 + 5 * 44
+                + 4 * 6 + 11 * 44 + (bits - 1) * 16 + (cols - 1) * 44 + 44)
+    c["h2g"] = 4 + 2 * svdw + 36 + 8 + cofactor + 16
     xn, xw = nw(-O.BLS_X)
     c["miller"] = (xn - 1) * (21 + 4 + 54 + 6 + 54 + 24) + (xw - 1) * (12 + 4 + 6 + 54 + 36)
-    exp_x = (xn + xw) * 54
-    f12_inv = 72 + 36 + f2_inv
-    c["fexp"] = (f12_inv + 54 + 18 + 54 + 2 * (exp_x + 54) + exp_x + 18 + 54
-                 + 2 * exp_x + 18 + 4 * 54 + 54)
+    exp_x = (xn - 1) * 18 + (xw - 1) * 54
+    f12_inv = 4 * 18 + 38
+    c["fexp"] = f12_inv + 54 + 18 + 54 + 5 * exp_x + 2 * 54 + 18 + 3 * 54 + 18 + 18 + 2 * 54
     c["mul12"] = 54
     return c
+
+
+def bls_chain_products() -> dict:
+    """Fp products on one thread's chain in B2's trios and B5's sextets: B2
+    splits every Fp2 product three ways and runs its two SvdW maps at once;
+    B5 splits an Fp12 product six ways (three Fp2 products a thread) and a
+    cyclotomic square six ways (one). h2g a message, fexp a check, mul12 a
+    further value on one sextet (a check's T sextets take a stride each,
+    then a tree). The widest calls run one lane a thread (bls_fp_products)."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    svdw = _svdw_products()
+    x = -O.BLS_X
+    bits, cols = _gls_columns(BL.gls_digits(BL.cofactor_c()))
+    x_ladder = (x.bit_length() - 1) * 7 + (bin(x).count("1") - 1) * 16
+    rounds = (2 * x_ladder + 3 * 2 + 7 + 5 * 16
+              + 4 * 2 + 11 * 16 + (bits - 1) * 7 + (cols - 1) * 16 + 16)
+    exp_x = (x.bit_length() - 1) * 3 + (bin(x).count("1") - 1) * 9
+    fexp = 110 + 9 + 18 + 9 + 5 * exp_x + 2 * 9 + 18 + 3 * 9 + 18 + 3 + 2 * 9
+    return {"h2g": 2 + svdw + 36 + 8 + rounds + 16, "fexp": fexp, "mul12": 9}
 
 
 def _exp_products(e: int) -> int:
@@ -2294,19 +2366,27 @@ def bls_least_products() -> dict:
     - Fp2 product 3, square 2; Fp6 product 18; Fp12 product 54, square 36,
       cyclotomic square 18 (Granger-Scott), product by a sparse line 39.
     - An inversion 3 a lane (Montgomery's batch trick; the batch's one
-      inversion is left out, a binary GCD needs no products); an
-      exponentiation by a fixed e as _exp_products.
+      inversion is left out, a binary GCD needs no products); a Legendre
+      symbol none (binary); an exponentiation by a fixed e as _exp_products.
     - Roots: Fp by (p + 1)/4 and a check; Fp2 by the norm (its root in Fp,
       then t^((p - 3)/4) for t = (a0 + s)/2: two exponentiations); is-square
-      in Fp2 by the norm's Legendre symbol.
+      in Fp2 by the norm's Legendre symbol (the norm's two products).
     - G1 Jacobian doubling 7, mixed addition 11; G2 16, mixed 29, general 43;
       affine additions with a batched inversion 6 (G1) and 15 (G2), so a
       point sum stays affine.
     - Subgroup checks by endomorphism: G1 phi(P) == [-x^2]P (Bowe 2019), G2
       psi(P) == [x]P (Scott 2021).
     - Hash to G2: two SvdW maps (RFC 9380 F.1 straight line), one affine
-      addition, cofactor clearing by psi (Budroni-Pintore: two |x|
-      ladders), to affine.
+      addition, cofactor clearing, to affine. The cofactor is the oracle's
+      h2 = #E'(Fp2) / r (crypto/bls12381_math.py _bls_setup), and RFC 9380's
+      h_eff = 3(x^2 - 1) h2, so Budroni-Pintore's psi formula (two |x|
+      ladders) alone gives a different point. Counted: the fewer of (a)
+      Budroni-Pintore, then [c], c = (3(x^2 - 1))^-1 mod r, on the G2 point
+      by a GLS split (psi acts as [x] on G2; c's base-x digits: a joint
+      table of the 15 sums of the four 64-bit ones normalised by one batched
+      inversion, one doubling a bit and one mixed addition a non-zero
+      column, one more for the last digit, a bit) and (b) a width-5 NAF
+      ladder of h2 with a normalised table (mixed additions).
     - Miller loop over |x| (64 bits, weight 6): 63 doubling steps with their
       line (25, Aranha et al. 2011) and 5 addition steps (41), a sparse line
       product each (39), an Fp12 square each (36); the first step starts
@@ -2316,17 +2396,28 @@ def bls_least_products() -> dict:
       10), the hard part: five cyclotomic powers by |x| or |x| + 1, five
       products, Frobenius maps 15 and 10, one cyclotomic square."""
     from cometbft_tpu_torch.crypto import bls12381_math as O
+    from cometbft_tpu_torch.ops import bls_launch as BL
 
-    p, x = O.BLS_P, -O.BLS_X
+    p, x, r = O.BLS_P, -O.BLS_X, O.BLS_R
+    h2 = O._bls_setup()["h2"]
 
     def ladder(dbl, add, e):
         return (e.bit_length() - 1) * dbl + (bin(e).count("1") - 1) * add
 
-    e_sqrt, e_leg, e_isq = (_exp_products(e) for e in ((p + 1) // 4, (p - 1) // 2,
-                                                        (p - 3) // 4))
+    e_sqrt, e_isq = (_exp_products(e) for e in ((p + 1) // 4, (p - 3) // 4))
     sqrt2 = 2 + e_sqrt + 1 + e_isq + 6
-    svdw = 49 + 2 * (2 + e_leg) + sqrt2
-    cofactor = ladder(16, 29, x) + ladder(16, 43, x) + 6 + 4 + 16 + 3 * 29 + 2 * 43
+    svdw = 49 + 2 * 2 + sqrt2
+    # (a) Budroni-Pintore, then [c] by GLS over psi
+    bp = ladder(16, 29, x) + ladder(16, 43, x) + 6 + 4 + 16 + 3 * 29 + 2 * 43
+    digits = BL.gls_digits(BL.cofactor_c())
+    bits, cols = _gls_columns(digits)
+    gls = (6 * (len(digits) - 1) + 11 * 43 + (9 + 8) * 15 + (bits - 1) * 16
+           + (cols - 1) * 29 + (len(digits) - 4) * 29)
+    # (b) the NAF ladder of h2, its 8 odd multiples normalised
+    naf = _wnaf(h2)
+    windowed = (16 + 7 * 43 + 3 * 3 * 8 + 8 * 8 + (len(naf) - 1) * 16
+                + (sum(1 for d in naf if d) - 1) * 29)
+    cofactor = min(bp + gls, windowed)
     n, w = x.bit_length(), bin(x).count("1")
     return {"g1": 2 + e_sqrt + 1, "g2": 5 + sqrt2,
             "sub1": ladder(7, 11, x * x) + 1 + 5, "sub2": ladder(16, 29, x) + 6 + 11,
@@ -2611,15 +2702,17 @@ def hold_recorded(calls: list, held: BlsHeld, card: str) -> list[dict]:
     return out
 
 
-def check_bls(device, held: BlsHeld) -> None:
+def check_bls(device, held: BlsHeld, card: str = "") -> None:
     """B1-B5 against their plain versions on the card, on inputs whose first
     lanes are edge cases: B1 (G1 and G2, with and without the subgroup
     check) on a key staged in place of an x >= p (the generator), an x with
     no square root, points on the curves outside G1/G2 and both sign bits;
-    B2 on 64 messages with the empty one; B3 (G1, and G2 with the subgroup
-    check) on 1,024 points in 3 uneven groups and a group summing to
-    infinity; B4 and B5 on 64 pairs, 32 checks, half of them products equal
-    to one."""
+    B2 on 64 messages with the empty one, and on one message alone (one
+    trio); B3 (G1, and G2 with the subgroup check) on 1,024 points in 3
+    uneven groups and a group summing to infinity; B4 and B5 on 64 pairs,
+    32 checks, half of them products equal to one; B5 on one check of 151
+    of those values (ten trios and their tree) and on checks whose product
+    is zero or one, forced or not. Prints B2's and B5's launch shapes."""
     from cometbft_tpu_torch.crypto import bls12381
     from cometbft_tpu_torch.crypto import bls12381_math as O
     from cometbft_tpu_torch.ops import bls_kernel as BK
@@ -2673,6 +2766,11 @@ def check_bls(device, held: BlsHeld) -> None:
     hv = BL.values(h)
     if ((hv[0][0], hv[1][0]), (hv[2][0], hv[3][0])) != O.bls_hash_to_g2(b"", bls12381.DST):
         raise AssertionError("B2: H(empty message) differs from the oracle")
+    u1 = u[..., 1:2].contiguous()
+    got = BL.hash_to_g2(u1)
+    held.hold("bls_hash_to_g2", got, lambda: BL.hash_to_g2_plain(u1))
+    if [v[0] for v in BL.values(got[0])] != [v[1] for v in hv]:
+        raise AssertionError("B2: one message alone differs from the same message among 64")
     # B3: groups of 1000, 19 and 3 points and one of P, -P
     for g in (1, 2):
         affs = _bls_points(g, BLS_SUM_POINTS - 2, 7 + g)
@@ -2708,6 +2806,30 @@ def check_bls(device, held: BlsHeld) -> None:
     held.hold("bls_final_exp", got, lambda: BL.final_exp_plain(f, lanes, starts))
     if got[0].tolist() != [1] * (n // 4) + [0] * (n // 4):
         raise AssertionError(f"B5: verdicts {got[0].tolist()}")
+    # one check of 151 values (the 150 commit's aggregate shape: ten trios);
+    # a pair of one-pairs at its head, so the tree meets both orders
+    lanes151 = torch.tensor([k % n for k in range(151)], dtype=torch.int32, device=device)
+    starts151 = torch.tensor([0, 151], dtype=torch.int32, device=device)
+    got = BL.final_exp(f, lanes151, starts151)
+    held.hold("bls_final_exp", got, lambda: BL.final_exp_plain(f, lanes151, starts151))
+    # products of zero and of one: a Miller value 0 and one 1 beside two
+    # pairs; checks [0] forced, [1], [0], [1, 0] forced, [pair 0]
+    zero_one = BL.planes_of_ints([[0, 1]] + [[0, 0]] * 11, device)
+    fz = torch.cat([f[:, :2], zero_one], 1).contiguous()
+    lz = torch.tensor([2, 3, 2, 3, 2, 0, 1], dtype=torch.int32, device=device)
+    sz = torch.tensor([0, 1, 2, 3, 5, 7], dtype=torch.int32, device=device)
+    force = torch.tensor([1, 0, 0, 1, 0], dtype=torch.int32, device=device)
+    got = BL.final_exp(fz, lz, sz, force=force)
+    held.hold("bls_final_exp", got, lambda: BL.final_exp_plain(fz, lz, sz, force=force))
+    if got[0].tolist() != [1, 1, 0, 1, 1] or got[2].tolist() != [0]:
+        raise AssertionError(f"B5 zero/one checks: verdicts {got[0].tolist()}, all {got[2]}")
+    for label, entry, units, values in (
+            ("1 message", "bls_hash_to_g2", 1, 1), ("150 messages", "bls_hash_to_g2", 150, 150),
+            (f"{N_BIG} messages", "bls_hash_to_g2", N_BIG, N_BIG),
+            ("one check of 151", "bls_final_exp", 1, 151), ("one check of 2", "bls_final_exp", 1, 2),
+            (f"{N_BIG} checks of 2", "bls_final_exp", N_BIG, 2 * N_BIG)):
+        print(f"  launch shape {entry}, {label}: {BL.launch_shape(entry, units, device, values)}",
+              flush=True)
 
 
 def _bls_counted(fn, device):
@@ -2805,7 +2927,7 @@ def bls_cell(label: str, call, device, want: dict, totals: dict, raises: str = "
     return ms
 
 
-def bls_phase(device, card: str) -> dict:
+def bls_phase(device, card: str, report: str = "") -> dict:
     """The BLS phase: B1-B5 held against their plain versions, then the
     cells through verify_commit* and the scheduler, every run's launches,
     verdicts and errors asserted: an all-BLS 150-validator commit (distinct
@@ -2829,8 +2951,11 @@ def bls_phase(device, card: str) -> dict:
     from cometbft_tpu_torch.types import validation as V
 
     t_phase = time.perf_counter()
+    for kernel, lines in ptxas_summary(report).items():
+        if kernel.startswith(("bls_hash_to_g2", "bls_final_exp")):
+            print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
     held = BlsHeld()
-    check_bls(device, held)
+    check_bls(device, held, card)
     print(f"[{card}] BLS checks: B1-B5 held against their plain versions on edge cases "
           f"({time.perf_counter() - t_phase:.1f} s): differences {held.err}", flush=True)
     crypto_batch.set_backend("gpu")
@@ -2960,7 +3085,24 @@ def bls_phase(device, card: str) -> dict:
         raise AssertionError("BLS 10k single-verify: B5 must reject exactly the tampered lane")
     print(f"[{card}] BLS main-path calls held against their plain versions: "
           f"{len(held_calls)} calls in {time.perf_counter() - t0:.1f} s", flush=True)
-    least, design = bls_least_products(), bls_fp_products()
+    least, design, chain = bls_least_products(), bls_fp_products(), bls_chain_products()
+    print(f"[{card}] Fp products a lane, least / the kernels' own / one thread's chain: B2 "
+          f"{least['h2g']} / {design['h2g']} / {chain['h2g']} a message; B5 {least['fexp']} / "
+          f"{design['fexp']} / {chain['fexp']} a check + {least['mul12']} / {design['mul12']} / "
+          f"{chain['mul12']} a further Miller value (the widest calls: one lane a thread, the "
+          f"own counts)", flush=True)
+    # B2 and B5 on each of their recorded calls: the aggregates' one
+    # message / one check (the 10k commit's), the 150 commit's and the
+    # single-verify path's 10,240
+    by_call: dict[str, dict[str, float]] = {}
+    for c in held_calls:
+        if c["key"] in ("bls_hash_to_g2", "bls_final_exp"):
+            label = _bls_call_shape(c["entry"], c["args"])
+            if label not in by_call.setdefault(c["key"], {}):
+                args, fn = c["args"], getattr(BL, c["entry"])
+                by_call[c["key"]][label] = time_kernel(lambda: fn(*args), reps=5)
+                print(f"[{card}] {c['key']}: {by_call[c['key']][label]:.3f} ms on its recorded "
+                      f"call of {label} (median of 5)", flush=True)
     records = []
     for name in BLS_RECORDS:
         mine = [c for c in held_calls if c["key"] == name]
@@ -2977,7 +3119,8 @@ def bls_phase(device, card: str) -> dict:
         n = args[1].shape[-1] if c["entry"] in ("decompress", "point_sum") else args[0].shape[-1]
         units = (args[3].shape[0] - 1 if c["entry"] == "point_sum" else
                  args[2].shape[0] - 1 if c["entry"] == "final_exp" else n)
-        shape = BL.launch_shape(name, units, device)
+        shape = BL.launch_shape(name, units, device,
+                                n if c["entry"] == "final_exp" else None)
         print(f"[{card}] {name}: {ms:.3f} ms on {_bls_call_shape(c['entry'], args)} (median "
               f"of 3), plain {c['plain_ms']:.1f} ms on the same call; bound {b[0]:.4f} ms "
               f"({b[1]}: {products} Fp products x {FP_MUL_IMADS} IMADs, {nbytes} B), "
@@ -2990,7 +3133,8 @@ def bls_phase(device, card: str) -> dict:
             "max_abs_err": held.err[name], "ms": ms, "plain_ms": c["plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "lanes": n,
             "units": units, "fp_products": products, "design_bound_ms": design_b[0],
-            "registers": shape["registers"], "stack_bytes": shape["local_bytes"]})
+            "registers": shape["registers"], "stack_bytes": shape["local_bytes"],
+            **({"ms_by_call": by_call[name]} if name in by_call else {})})
     print(f"[{card}] BLS cells (wall ms): " + ", ".join(f"{k} {v:.3f}" for k, v in cells.items())
           + f"; BLS phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"records": records, "cells": cells, "launches": totals, "by_part": by_part}
@@ -3062,7 +3206,7 @@ def main() -> int:
     mixed = drive_mixed(paths, N_BIG, SEED_MIXED, device, held)
     # the top of the main path, timed before the microbench and probe phases
     commit = commit_phase(device, card, held)
-    bls = bls_phase(device, card)
+    bls = bls_phase(device, card, builds["bls12381"][1])
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():

@@ -7,8 +7,9 @@
 //      Replaces cometbft_tpu/ops/bls_kernel.py:180 _jit_decompress, :191
 //      _jit_subgroup_g1, :198 _jit_subgroup_g2 (points.py:172, 233, 248).
 //   B2 bls_hash_to_g2_kernel     the raw hash_to_field planes -> SvdW map
-//      twice, add, cofactor clearing -> affine H(m). Replaces :205
-//      _jit_hash_msgs (htc.py:70, 102, points.to_affine).
+//      twice, add, cofactor clearing ([h2], h2 = #E'(Fp2) / r, the
+//      oracle's) -> affine H(m). Replaces :205 _jit_hash_msgs (htc.py:70,
+//      102, points.to_affine).
 //   B3 bls_point_sum_kernel<G>   a segmented sum: group g sums the affine
 //      points of lanes order[starts[g]..starts[g+1]), to affine, with the
 //      identity flag and (check_sub) the subgroup check of the sum. Replaces
@@ -32,14 +33,28 @@
 // Miller loops and a final exponentiation), so the IMAD peak sets the bound
 // and the bytes moved are negligible.
 //
-// What the design does about it, simply first: one lane a thread, in blocks
-// of 32 lanes so that small batches spread over the SMs; the field product
-// and the tower and point operations are out-of-line functions (their
-// operands in the thread's stack frame), which keeps the build short; the
-// fixed exponents and scalars are public, so the ladders branch on their
-// bits uniformly across a warp. B3 gives each group a block of 128 threads,
-// each summing a stride of the group's lanes, then a tree in shared memory.
-// B5 gives each check one thread.
+// What the design does about it. B1, B3 and B4: one lane a thread, in
+// blocks of 32 lanes so that small batches spread over the SMs; the tower
+// and point operations are out-of-line functions (their operands in the
+// thread's stack frame), the Fp product inlined into them; the fixed
+// exponents and scalars are public, so the ladders branch on their bits
+// uniformly across a warp. B3 gives each group a block of 128 threads, each
+// summing a stride of the group's lanes, then a tree in shared memory.
+//
+// B2 and B5 run one lane's serial chain of products, whatever the width of
+// the call (one message or one check is a whole aggregate check), so they
+// cut the chain rather than the total: fewer products (B2: roots by the
+// norm, binary Legendre symbols and inverses, the cofactor by psi; B5:
+// Granger-Scott cyclotomic squares) and a few threads a lane
+// (group381.cuh). B2: one message a trio (ten a warp), its two SvdW maps on
+// two threads at once, then every Fp2 product split three ways. B5: T
+// sextets a check (five a warp; T = 5 where a check has more than two
+// Miller values), each multiplying a stride of the check's values, then a
+// tree across the T; the check's first sextet then runs the final
+// exponentiation with each Fp12 product split six ways (three Fp2 products
+// a thread) and each cyclotomic square six ways (one). Calls wider than
+// the card's sub-partitions hold in such warps (B2's 10,240 messages, B5's
+// 10,240 checks of two) take one lane a thread instead (lane_kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,11 +62,17 @@
 #include <type_traits>
 
 #include "curve381.cuh"
+#include "sm_count.cuh"
 
 using namespace bls;
 
 constexpr int THREADS = 32;
 constexpr int SUM_THREADS = 128;
+constexpr int TRIOS = 10;         // B2's trios a warp (lanes 0-29)
+constexpr int SEXTETS = 5;        // B5's sextets a warp (lanes 0-29)
+constexpr int H2G_SLOT = 2 * nwords<fp2>;  // B2's exchange: an affine point, or an Fp product
+constexpr int FE_SLOT = nwords<fp6>;        // B5's exchange: three Fp2 or an Fp6 product
+constexpr int F12_WORDS = nwords<fp12>;
 
 template <int G>
 __global__ void bls_decompress_kernel(const int32_t* x_raw, const int32_t* sign, int check_sub,
@@ -60,7 +81,21 @@ __global__ void bls_decompress_kernel(const int32_t* x_raw, const int32_t* sign,
   if (j < B) lane_decompress<G>(x_raw, sign, check_sub, B, j, out, ok);
 }
 
+// one warp a block: message blockIdx.x * TRIOS + lane / 3 on trio lane / 3
 __global__ void bls_hash_to_g2_kernel(const int32_t* u, int B, uint32_t* out, int32_t* is_id) {
+  __shared__ uint32_t xbuf[TRIOS * 6 * H2G_SLOT];
+  const int lane = threadIdx.x;
+  if (lane >= 3 * TRIOS) return;
+  const int k = lane / 3;
+  const long long j = (long long)blockIdx.x * TRIOS + k;
+  if (j >= B) return;  // a trio leaves whole: no other lane syncs with it
+  trio g{lane % 3, 7u << (3 * k), xbuf + k * 6 * H2G_SLOT, H2G_SLOT, 0};
+  group_hash_to_g2(u, B, j, out, is_id, g);
+}
+
+// one message a thread, for the widest calls
+__global__ void bls_hash_to_g2_lane_kernel(const int32_t* u, int B, uint32_t* out,
+                                           int32_t* is_id) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j < B) lane_hash_to_g2(u, B, j, out, is_id);
 }
@@ -89,10 +124,31 @@ __global__ void bls_miller_kernel(const uint32_t* p, const uint32_t* q, int L, u
   if (j < L) lane_miller(p, q, L, j, f);
 }
 
+// one warp a block: SEXTETS / T checks, sextet r of check q at sextets
+// q T + r
 __global__ void bls_final_exp_kernel(const uint32_t* f, int L, const int32_t* lanes,
                                      const int32_t* starts, int C, const int32_t* gate_a,
                                      const int32_t* gate_b, const int32_t* force,
-                                     uint32_t* e_out, int32_t* ok, int32_t* allok) {
+                                     uint32_t* e_out, int32_t* ok, int32_t* allok, int T) {
+  __shared__ uint32_t xbuf[SEXTETS * 12 * FE_SLOT];
+  __shared__ uint32_t part[SEXTETS * F12_WORDS];
+  const int lane = threadIdx.x;
+  if (lane >= 6 * SEXTETS) return;
+  const int k = lane / 6, q = k / T, r = k % T;
+  const long long c = (long long)blockIdx.x * (SEXTETS / T) + q;
+  if (c >= C) return;  // a check's sextets leave together
+  sextet g{lane % 6, 0x3Fu << (6 * k), xbuf + k * 12 * FE_SLOT, FE_SLOT, 0};
+  lanes_group grp{((1u << (6 * T)) - 1u) << (6 * q * T)};
+  if (group_final_exp(f, L, lanes, starts, C, c, r, T, g, grp, part + q * T * F12_WORDS, gate_a,
+                      gate_b, force, e_out, ok) == 0)
+    atomicAnd(allok, 0);
+}
+
+// one check a thread, for the widest calls of checks of two values
+__global__ void bls_final_exp_lane_kernel(const uint32_t* f, int L, const int32_t* lanes,
+                                          const int32_t* starts, int C, const int32_t* gate_a,
+                                          const int32_t* gate_b, const int32_t* force,
+                                          uint32_t* e_out, int32_t* ok, int32_t* allok) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   if (!lane_final_exp(f, L, lanes, starts, C, c, gate_a, gate_b, force, e_out, ok))
@@ -108,6 +164,18 @@ static int launched(cudaError_t err) {
 }
 
 static int blocks(long long n, int threads) { return (int)((n + threads - 1) / threads); }
+
+// B2 and B5 run a group a lane while its warps are one an SM sub-partition
+// at most (`per_warp` lanes a warp); wider, one thread a lane (a group's
+// exchanges and the additions every thread repeats then cost more than its
+// shorter chain saves)
+static bool lane_kernel(long long units, int per_warp) {
+  return blocks(units, per_warp) > 4 * sm_count();
+}
+
+// B5's sextets a check for `values` Miller values a check (rounded up): one
+// for pairs, else the warp's five
+static int sextets_per_check(long long values) { return values <= 2 ? 1 : SEXTETS; }
 
 // The constant table (fp381.cuh K_*) into the current device's c_k.
 extern "C" int bls_set_constants(const uint32_t* host, int n) {
@@ -131,8 +199,12 @@ extern "C" int bls_decompress(int g, const void* x_raw, const void* sign, int ch
 
 // B2. u (4, 35, B) raw; out (48, B) affine x, y; is_id (B,).
 extern "C" int bls_hash_to_g2(const void* u, int B, void* out, void* is_id, void* stream) {
-  bls_hash_to_g2_kernel<<<blocks(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)u, B, (uint32_t*)out, (int32_t*)is_id);
+  if (lane_kernel(B, TRIOS))
+    bls_hash_to_g2_lane_kernel<<<blocks(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)u, B, (uint32_t*)out, (int32_t*)is_id);
+  else
+    bls_hash_to_g2_kernel<<<blocks(B, TRIOS), THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)u, B, (uint32_t*)out, (int32_t*)is_id);
   return launched(cudaSuccess);
 }
 
@@ -161,31 +233,46 @@ extern "C" int bls_miller(const void* p, const void* q, int L, void* f, void* st
 }
 
 // B5. f (144, L); lanes (M,), starts (C + 1,); gates and force (C,) or null;
-// e_out (144, C); ok (C,); allok (1,), 1 before the launch.
+// e_out (144, C); ok (C,); allok (1,), 1 before the launch. The sextets a
+// check follow L / C, the Miller values a check on average.
 extern "C" int bls_final_exp(const void* f, int L, const void* lanes, const void* starts, int C,
                              const void* gate_a, const void* gate_b, const void* force,
                              void* e_out, void* ok, void* allok, void* stream) {
-  bls_final_exp_kernel<<<blocks(C, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)f, L, (const int32_t*)lanes, (const int32_t*)starts, C,
-      (const int32_t*)gate_a, (const int32_t*)gate_b, (const int32_t*)force, (uint32_t*)e_out,
-      (int32_t*)ok, (int32_t*)allok);
+  const int T = sextets_per_check(((long long)L + C - 1) / C);
+  if (T == 1 && lane_kernel(C, SEXTETS))
+    bls_final_exp_lane_kernel<<<blocks(C, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)f, L, (const int32_t*)lanes, (const int32_t*)starts, C,
+        (const int32_t*)gate_a, (const int32_t*)gate_b, (const int32_t*)force,
+        (uint32_t*)e_out, (int32_t*)ok, (int32_t*)allok);
+  else
+    bls_final_exp_kernel<<<blocks(C, SEXTETS / T), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)f, L, (const int32_t*)lanes, (const int32_t*)starts, C,
+        (const int32_t*)gate_a, (const int32_t*)gate_b, (const int32_t*)force,
+        (uint32_t*)e_out, (int32_t*)ok, (int32_t*)allok, T);
   return launched(cudaSuccess);
 }
 
 // The launch shape of entry e (0 decompress<1>, 1 decompress<2>, 2
 // hash_to_g2, 3 point_sum<1>, 4 point_sum<2>, 5 miller, 6 final_exp) at `n`
-// lanes (groups for B3, checks for B5): threads per block, blocks, resident
-// blocks per SM, SMs, local memory per thread, registers, static shared
-// memory. Returns a cudaError_t.
-extern "C" int bls_launch_shape(int e, int n, int* out) {
+// lanes (groups for B3, checks for B5, with `values` Miller values in all),
+// as the entry launches it: threads per block, blocks, resident blocks per
+// SM, SMs, local memory per thread, registers, static shared memory, B5's
+// sextets a check (0 where none), and 1 where B2 or B5 take their one-lane
+// kernel. Returns a cudaError_t.
+extern "C" int bls_launch_shape(int e, int n, int values, int* out) {
+  if (e < 0 || e > 6 || n <= 0) return (int)cudaErrorInvalidValue;
+  const int T = e == 6 ? sextets_per_check(((long long)values + n - 1) / n) : 0;
+  const bool lane =
+      (e == 2 && lane_kernel(n, TRIOS)) || (e == 6 && T == 1 && lane_kernel(n, SEXTETS));
   const void* fns[7] = {(const void*)bls_decompress_kernel<1>,
                         (const void*)bls_decompress_kernel<2>,
-                        (const void*)bls_hash_to_g2_kernel,
+                        lane ? (const void*)bls_hash_to_g2_lane_kernel
+                             : (const void*)bls_hash_to_g2_kernel,
                         (const void*)bls_point_sum_kernel<1>,
                         (const void*)bls_point_sum_kernel<2>,
                         (const void*)bls_miller_kernel,
-                        (const void*)bls_final_exp_kernel};
-  if (e < 0 || e > 6 || n <= 0) return (int)cudaErrorInvalidValue;
+                        lane ? (const void*)bls_final_exp_lane_kernel
+                             : (const void*)bls_final_exp_kernel};
   const int threads = (e == 3 || e == 4) ? SUM_THREADS : THREADS;
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[e], threads, 0);
@@ -195,11 +282,17 @@ extern "C" int bls_launch_shape(int e, int n, int* out) {
   cudaFuncAttributes attr = {};
   err = cudaFuncGetAttributes(&attr, fns[e]);
   out[0] = threads;
-  out[1] = (e == 3 || e == 4) ? n : blocks(n, threads);
+  out[1] = (e == 3 || e == 4) ? n
+           : lane            ? blocks(n, threads)
+           : e == 2          ? blocks(n, TRIOS)
+           : e == 6          ? blocks(n, SEXTETS / T)
+                             : blocks(n, threads);
   out[2] = per_sm;
   out[3] = sms;
   out[4] = (int)attr.localSizeBytes;
   out[5] = attr.numRegs;
   out[6] = (int)attr.sharedSizeBytes;
+  out[7] = lane ? 0 : T;
+  out[8] = lane;
   return (int)err;
 }

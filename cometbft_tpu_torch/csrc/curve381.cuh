@@ -1,17 +1,20 @@
-// The BLS12-381 groups and the pairing over tower381.cuh, one lane per
-// thread: G1 over Fp (y^2 = x^3 + 4), G2 on the twist over Fp2
-// (y^2 = x^3 + 4(1 + u)), complete projective formulas (Renes-Costello-Batina
-// 2015, algorithms 7 and 9 for a = 0), the fixed-scalar ladders (the subgroup
-// order r, the G2 cofactor), decompression, the SvdW hash-to-G2 map, the
-// optimal-ate Miller loop and the final exponentiation. Each is the plain
-// version's function (ops/bls12381/points.py, htc.py, pairing.py) value for
-// value: the Miller loop keeps the plain version's projective T and line
-// scalings, so its Fp12 output equals the plain one, and the final
-// exponentiation is the oracle's chain.
+// The BLS12-381 groups and the pairing over tower381.cuh and group381.cuh:
+// G1 over Fp (y^2 = x^3 + 4), G2 on the twist over Fp2 (y^2 = x^3 +
+// 4(1 + u)), complete projective formulas (Renes-Costello-Batina 2015,
+// algorithms 7 and 9 for a = 0) and the fixed-scalar ladders (the subgroup
+// order r) one lane a thread, decompression, the SvdW hash-to-G2 map, the
+// optimal-ate Miller loop; then the two bodies that run on thread groups:
+// hash to G2 (its cofactor clearing by psi: Budroni-Pintore, then a GLS
+// split, in Jacobian coordinates) and the segmented product with the final exponentiation
+// (cyclotomic squares). Each is the plain version's function
+// (ops/bls12381/points.py, htc.py, pairing.py) value for value: the Miller
+// loop keeps the plain version's projective T and line scalings, so its
+// Fp12 output equals the plain one, and the final exponentiation is the
+// oracle's chain.
 
 #pragma once
 
-#include "tower381.cuh"
+#include "group381.cuh"
 
 namespace bls {
 
@@ -199,7 +202,8 @@ __device__ __forceinline__ void svdw_g(fp2& o, const fp2& x) {
   f2_add(o, t, b);
 }
 
-// map_to_curve_svdw on the twist (RFC 9380 §6.6.1), branch-free
+// map_to_curve_svdw on the twist (RFC 9380 §6.6.1); the square tests by the
+// norm's Legendre symbol, the root by the norm (f2_sqrt_fast)
 __device__ BLS_NOINLINE void svdw_map(proj<fp2>& o, const fp2& u) {
   fp2 z, c1, c2, c3, c4, one, tv1, tv2, tv3, tv4, t, x1, x2, x3, x, y, gx;
   f2_k(z, K_SVDW);
@@ -231,19 +235,10 @@ __device__ BLS_NOINLINE void svdw_map(proj<fp2>& o, const fp2& u) {
   f2_sel(x, e2, x2, x3);
   f2_sel(x, e1, x1, x);
   svdw_g(gx, x);
-  f2_sqrt(y, gx);
+  f2_sqrt_fast(y, gx);
   f2_neg(t, y);
   f2_sel(y, f2_sgn0(u) != f2_sgn0(y), t, y);
   pt_from_affine(o, x, y);
-}
-
-// SvdW both field elements, add, clear the cofactor
-__device__ __forceinline__ void map_to_g2(proj<fp2>& o, const fp2& u0, const fp2& u1) {
-  proj<fp2> q0, q1;
-  svdw_map(q0, u0);
-  svdw_map(q1, u1);
-  pt_add(q0, q0, q1);
-  pt_mul_const(o, q0, E_H2);
 }
 
 // ------------------------------------------------------------------ pairing
@@ -309,38 +304,257 @@ __device__ BLS_NOINLINE void miller_loop(fp12& f, const fp& px, const fp& py, co
   f12_conj(f, f);
 }
 
-// a^e for e = +-|x| or +-(|x| + 1), a in the cyclotomic subgroup (inverse =
-// conjugate): x - 1 = -(|x| + 1)
-__device__ __forceinline__ void cyclo_exp_x(fp12& o, const fp12& a, bool plus_one) {
-  fp12 c;
-  f12_conj(c, a);  // x < 0
-  f12_pow(o, c, E_X);
-  if (plus_one) f12_mul(o, o, c);
+// ------------------------------------------- G2 in Jacobian coordinates
+// (x, y) = (X / Z^2, Y / Z^3), the identity Z = 0; the oracle's formulas
+// (crypto/bls12381_math.py _ec_dbl, _ec_add: dbl-2009-l, add-2007-bl), each
+// Fp2 product or square a group operation (group381.cuh). The branches read
+// values every thread of a group holds alike.
+
+struct jac {
+  fp2 x, y, z;
+};
+
+__device__ __forceinline__ void jac_identity(jac& o) {
+  f2_one(o.x);
+  f2_one(o.y);
+  f2_zero(o.z);
+}
+
+// 5 squares and 2 products; o may alias p
+template <class G>
+__device__ BLS_NOINLINE void jac_dbl(jac& o, const jac& p, G& g) {
+  fp2 a, b, c, d, e, f, t, x3, y3;
+  g2_sq(a, p.x, g);
+  g2_sq(b, p.y, g);
+  g2_sq(c, b, g);
+  f2_add(t, p.x, b);
+  g2_sq(d, t, g);
+  f2_sub(d, d, a);
+  f2_sub(d, d, c);
+  f2_dbl(d, d);
+  f2_mul3(e, a);
+  g2_sq(f, e, g);
+  f2_dbl(t, d);
+  f2_sub(x3, f, t);
+  f2_sub(t, d, x3);
+  g2_mul(y3, e, t, g);
+  f2_dbl(t, c);
+  f2_dbl(t, t);
+  f2_dbl(t, t);
+  f2_sub(y3, y3, t);
+  g2_mul(t, p.y, p.z, g);
+  f2_dbl(o.z, t);
+  o.x = x3;
+  o.y = y3;
+}
+
+// 4 squares and 12 products; P == Q doubles, P == -Q gives the identity; o
+// may alias p or q
+template <class G>
+__device__ BLS_NOINLINE void jac_add(jac& o, const jac& p, const jac& q, G& g) {
+  if (f2_is_zero(p.z)) {
+    o = q;
+    return;
+  }
+  if (f2_is_zero(q.z)) {
+    o = p;
+    return;
+  }
+  fp2 z1z1, z2z2, u1, u2, s1, s2, t;
+  g2_sq(z1z1, p.z, g);
+  g2_sq(z2z2, q.z, g);
+  g2_mul(u1, p.x, z2z2, g);
+  g2_mul(u2, q.x, z1z1, g);
+  g2_mul(t, p.y, q.z, g);
+  g2_mul(s1, t, z2z2, g);
+  g2_mul(t, q.y, p.z, g);
+  g2_mul(s2, t, z1z1, g);
+  if (f2_eq(u1, u2)) {
+    if (f2_eq(s1, s2)) {
+      jac_dbl(o, p, g);
+    } else {
+      jac_identity(o);
+    }
+    return;
+  }
+  fp2 h, i, j, r, v, x3, y3, z3;
+  f2_sub(h, u2, u1);
+  f2_dbl(t, h);
+  g2_sq(i, t, g);
+  g2_mul(j, h, i, g);
+  f2_sub(r, s2, s1);
+  f2_dbl(r, r);
+  g2_mul(v, u1, i, g);
+  g2_sq(x3, r, g);
+  f2_sub(x3, x3, j);
+  f2_dbl(t, v);
+  f2_sub(x3, x3, t);
+  f2_sub(t, v, x3);
+  g2_mul(y3, r, t, g);
+  g2_mul(t, s1, j, g);
+  f2_dbl(t, t);
+  f2_sub(y3, y3, t);
+  g2_mul(z3, h, p.z, g);
+  g2_mul(z3, z3, q.z, g);
+  f2_dbl(o.z, z3);
+  o.x = x3;
+  o.y = y3;
+}
+
+// psi(P) = (conj(X) cx, conj(Y) cy, conj(Z)): the twist's Frobenius
+// endomorphism (acts as [x] on G2); o may alias p
+template <class G>
+__device__ BLS_NOINLINE void jac_psi(jac& o, const jac& p, G& g) {
+  fp2 k, t;
+  f2_k(k, K_PSI);
+  f2_conj(t, p.x);
+  g2_mul(o.x, t, k, g);
+  f2_k(k, K_PSI + 2 * NW);
+  f2_conj(t, p.y);
+  g2_mul(o.y, t, k, g);
+  f2_conj(o.z, p.z);
+}
+
+// bit b of the table's base-x digit i of c
+__device__ __forceinline__ uint32_t gls_bit(int i, int b) {
+  return (c_k[K_GLS + 2 * i + (b >> 5)] >> (b & 31)) & 1u;
+}
+
+// [c]Q for Q in G2 (or the identity), c = (3(x^2 - 1))^-1 mod r =
+// sum d_i x^i with 0 <= d_i < |x| (the table's digits): psi acts on G2 as
+// [x], so [c]Q = sum [d_i] psi^i(Q), four 64-bit digits and a last one of a
+// bit. A joint ladder: the 15 sums of psi^0..3(Q), then one doubling a bit
+// and one addition a non-zero column of the digits' bits (Gallant, Lambert
+// and Vanstone's split, with psi as the endomorphism). The digits are
+// public and alike on every lane.
+template <class G>
+__device__ BLS_NOINLINE void jac_mul_c(jac& o, const jac& q, G& g) {
+  jac tab[16], last;
+  tab[1] = q;
+  jac_psi(tab[2], q, g);
+  jac_psi(tab[4], tab[2], g);
+  jac_psi(tab[8], tab[4], g);
+  jac_psi(last, tab[8], g);
+  for (int m = 3; m < 16; ++m)
+    if (m & (m - 1)) jac_add(tab[m], tab[m & (m - 1)], tab[m & -m], g);
+  int b = 63;
+  int col = 0;
+  for (; b >= 0 && !col; --b)
+    col = (int)(gls_bit(0, b) | gls_bit(1, b) << 1 | gls_bit(2, b) << 2 | gls_bit(3, b) << 3);
+  jac acc = tab[col];
+  for (; b >= 0; --b) {
+    jac_dbl(acc, acc, g);
+    col = (int)(gls_bit(0, b) | gls_bit(1, b) << 1 | gls_bit(2, b) << 2 | gls_bit(3, b) << 3);
+    if (col) jac_add(acc, acc, tab[col], g);
+  }
+  if (gls_bit(4, 0)) jac_add(acc, acc, last, g);
+  o = acc;
+}
+
+// [x]P for the curve parameter x < 0: |x| by its bits, then negated
+template <class G>
+__device__ BLS_NOINLINE void jac_mul_x(jac& o, const jac& p, G& g) {
+  jac acc = p;
+  for (int i = exp_nbits(E_X) - 2; i >= 0; --i) {
+    jac_dbl(acc, acc, g);
+    if (exp_bit(E_X, i)) jac_add(acc, acc, p, g);
+  }
+  f2_neg(acc.y, acc.y);
+  o = acc;
+}
+
+// o = p - q
+template <class G>
+__device__ __forceinline__ void jac_sub(jac& o, const jac& p, const jac& q, G& g) {
+  jac n = q;
+  f2_neg(n.y, n.y);
+  jac_add(o, p, n, g);
+}
+
+// [h2]P, the oracle's cofactor clearing (h2 = #E'(Fp2) / r), for any twist
+// point P: Budroni and Pintore's psi formula (RFC 9380 G.3) gives
+// [h_eff]P = [x^2 - x - 1]P + [x - 1]psi(P) + psi^2(2P), h_eff =
+// 3(x^2 - 1) h2, in G2; then [c] with c = (3(x^2 - 1))^-1 mod r by its
+// base-x split. Three 64-bit ladders instead of h2's 507 bits.
+template <class G>
+__device__ BLS_NOINLINE void jac_clear_cofactor(jac& o, const jac& p, G& g) {
+  jac t1, t2, t3;
+  jac_mul_x(t1, p, g);
+  jac_psi(t2, p, g);
+  jac_dbl(t3, p, g);
+  jac_psi(t3, t3, g);
+  jac_psi(t3, t3, g);
+  jac_sub(t3, t3, t2, g);
+  jac_add(t2, t1, t2, g);
+  jac_mul_x(t2, t2, g);
+  jac_add(t3, t3, t2, g);
+  jac_sub(t3, t3, t1, g);
+  jac_sub(t3, t3, p, g);
+  jac_mul_c(o, t3, g);
+}
+
+// RCB projective (x = X / Z) -> Jacobian
+__device__ __forceinline__ void jac_from_proj(jac& o, const proj<fp2>& p) {
+  fp2 zz;
+  f2_mul(o.x, p.x, p.z);
+  f2_sq(zz, p.z);
+  f2_mul(o.y, p.y, zz);
+  o.z = p.z;
+}
+
+// (x, y) affine; the identity gives (0, 0) and true
+__device__ __forceinline__ bool jac_to_affine(fp2& x, fp2& y, const jac& p) {
+  fp2 zi, zi2, zi3;
+  f2_inv(zi, p.z);
+  f2_sq(zi2, zi);
+  f2_mul(zi3, zi2, zi);
+  f2_mul(x, p.x, zi2);
+  f2_mul(y, p.y, zi3);
+  return f2_is_zero(p.z);
+}
+
+// ----------------------------------------------- the final exponentiation
+
+// a^|x| or a^(|x| + 1) for a = conj(b), b in the cyclotomic subgroup
+// (inverse = conjugate, x < 0): b^x and b^(x - 1)
+template <class G>
+__device__ BLS_NOINLINE void cyclo_exp_x(fp12& o, const fp12& b, bool plus_one, G& g) {
+  fp12 c, acc;
+  f12_conj(c, b);
+  acc = c;
+  for (int i = exp_nbits(E_X) - 2; i >= 0; --i) {
+    g12_cyclo_sq(acc, acc, g);
+    if (exp_bit(E_X, i)) g12_mul(acc, acc, c, g);
+  }
+  if (plus_one) g12_mul(acc, acc, c, g);
+  o = acc;
 }
 
 // the oracle's bls_final_exp: easy part, then
-// (x-1)^2 (x+p) (x^2+p^2-1) + 3
-__device__ BLS_NOINLINE void final_exp(fp12& o, const fp12& f_in) {
+// (x-1)^2 (x+p) (x^2+p^2-1) + 3; every square after the easy part is
+// cyclotomic
+template <class G>
+__device__ BLS_NOINLINE void final_exp(fp12& o, const fp12& f_in, G& g) {
   fp12 f, t, y, y2;
   f12_conj(t, f_in);
   f12_inv(f, f_in);
-  f12_mul(f, t, f);
+  g12_mul(f, t, f, g);
   f12_frob(t, f, 2);
-  f12_mul(f, t, f);
-  cyclo_exp_x(y, f, true);
-  cyclo_exp_x(y, y, true);
-  cyclo_exp_x(t, y, false);
+  g12_mul(f, t, f, g);
+  cyclo_exp_x(y, f, true, g);
+  cyclo_exp_x(y, y, true, g);
+  cyclo_exp_x(t, y, false, g);
   f12_frob(y2, y, 1);
-  f12_mul(y, t, y2);
-  cyclo_exp_x(y2, y, false);
-  cyclo_exp_x(y2, y2, false);
+  g12_mul(y, t, y2, g);
+  cyclo_exp_x(y2, y, false, g);
+  cyclo_exp_x(y2, y2, false, g);
   f12_frob(t, y, 2);
-  f12_mul(y2, y2, t);
+  g12_mul(y2, y2, t, g);
   f12_conj(t, y);
-  f12_mul(y, y2, t);
-  f12_sq(t, f);
-  f12_mul(t, t, f);
-  f12_mul(o, y, t);
+  g12_mul(y, y2, t, g);
+  g12_cyclo_sq(t, f, g);
+  g12_mul(t, t, f, g);
+  g12_mul(o, y, t, g);
 }
 
 // ------------------------------------------------------------ lane bodies
@@ -403,21 +617,6 @@ __device__ __forceinline__ void lane_decompress(const int32_t* x_raw, const int3
   ok[j] = k;
 }
 
-// B2: the raw hash_to_field planes (u0.c0, u0.c1, u1.c0, u1.c1, 35 limbs
-// each) -> affine H(m) and whether it is the identity
-__device__ __forceinline__ void lane_hash_to_g2(const int32_t* u, long long B, long long j,
-                                                uint32_t* out, int32_t* is_id) {
-  fp2 u0, u1, x, y;
-  fp_from_limbs11(u0.a, u + j, B);
-  fp_from_limbs11(u0.b, u + NL * B + j, B);
-  fp_from_limbs11(u1.a, u + 2 * NL * B + j, B);
-  fp_from_limbs11(u1.b, u + 3 * NL * B + j, B);
-  proj<fp2> h;
-  map_to_g2(h, u0, u1);
-  is_id[j] = pt_to_affine(x, y, h);
-  aff_st(out, B, j, x, y);
-}
-
 // B3: one group's sum over lanes order[a..b) (stepping by `step` from a),
 // from affine points, into acc
 template <class T>
@@ -457,27 +656,127 @@ __device__ __forceinline__ void lane_miller(const uint32_t* p, const uint32_t* q
   f12_st(f, L, j, r);
 }
 
-// B5: check c multiplies the Miller values of lanes[starts[c]..starts[c+1]),
-// exponentiates, and compares with one; the verdict is and-ed with the
-// gates and forced true by `force` (any may be null). Returns the verdict.
+// B2 on a group: the raw hash_to_field planes (u0.c0, u0.c1, u1.c0, u1.c1,
+// 35 limbs each) -> affine H(m) and whether it is the identity. On a trio
+// threads 0 and 1 map u0 and u1 at once (thread 2 maps u1 again) and trade
+// the points; the sum's cofactor clearing then splits each Fp2 product.
+template <class G>
+__device__ __forceinline__ void group_hash_to_g2(const int32_t* u, long long B, long long j,
+                                                 uint32_t* out, int32_t* is_id, G& g) {
+  proj<fp2> q0, q1;
+  if constexpr (G::N == 1) {
+    fp2 u0, u1;
+    fp_from_limbs11(u0.a, u + j, B);
+    fp_from_limbs11(u0.b, u + NL * B + j, B);
+    fp_from_limbs11(u1.a, u + 2 * NL * B + j, B);
+    fp_from_limbs11(u1.b, u + 3 * NL * B + j, B);
+    svdw_map(q0, u0);
+    svdw_map(q1, u1);
+  } else {
+    const long long k = g.t == 0 ? 0 : 2;
+    fp2 uk;
+    fp_from_limbs11(uk.a, u + k * NL * B + j, B);
+    fp_from_limbs11(uk.b, u + (k + 1) * NL * B + j, B);
+    svdw_map(q0, uk);
+    tr_put(g, words_of(q0), 2 * nwords<fp2>);  // x, y (z = 1)
+    from_words(q0.x, g.at(0));
+    from_words(q0.y, g.at(0) + nwords<fp2>);
+    from_words(q1.x, g.at(1));
+    from_words(q1.y, g.at(1) + nwords<fp2>);
+    f2_one(q1.z);
+  }
+  pt_add(q0, q0, q1);
+  jac q, h;
+  jac_from_proj(q, q0);
+  jac_clear_cofactor(h, q, g);
+  fp2 x, y;
+  const bool id = jac_to_affine(x, y, h);
+  if (g.t == 0) {
+    is_id[j] = id;
+    aff_st(out, B, j, x, y);
+  }
+}
+
+// B2 one lane a thread
+__device__ __forceinline__ void lane_hash_to_g2(const int32_t* u, long long B, long long j,
+                                                uint32_t* out, int32_t* is_id) {
+  solo g;
+  group_hash_to_g2(u, B, j, out, is_id, g);
+}
+
+// B5's product on a group: trio r of the T trios that share a check
+// multiplies the Miller values of lanes[a + r], lanes[a + r + T], ..., then
+// the T partial products meet in a tree in `part` (T x 144 words, shared by
+// the check's trios; grp syncs them). The product is the check's; on T = 1
+// part is not used.
+template <class G, class Grp>
+__device__ __forceinline__ void group_product(fp12& acc, const uint32_t* f, long long L,
+                                              const int32_t* lanes, int a, int b, int r, int T,
+                                              G& g, Grp& grp, uint32_t* part) {
+  bool have = false;
+  for (int i = a + r; i < b; i += T) {
+    fp12 v;
+    f12_ld(v, f, L, lanes[i]);
+    if (have) {
+      g12_mul(acc, acc, v, g);
+    } else {
+      acc = v;
+    }
+    have = true;
+  }
+  if (!have) f12_one(acc);
+  if (T == 1) return;
+  constexpr int W = nwords<fp12>;
+  if (g.t == 0) f12_st(part + r * W, 1, 0, acc);
+  grp.sync();
+  for (int m = T; m > 1;) {
+    const int h = (m + 1) / 2;
+    if (r < m - h) {
+      fp12 x, y;
+      f12_ld(x, part + r * W, 1, 0);
+      f12_ld(y, part + (r + h) * W, 1, 0);
+      g12_mul(x, x, y, g);
+      if (g.t == 0) f12_st(part + r * W, 1, 0, x);
+    }
+    grp.sync();
+    m = h;
+  }
+  f12_ld(acc, part, 1, 0);
+}
+
+// B5 on a group: check c's product (group_product), then on its first trio
+// (r = 0) the final exponentiation and the compare with one, and-ed with the
+// gates and forced true by `force` (any may be null). Returns the verdict on
+// thread 0 of trio 0, -1 on every other thread.
+template <class G, class Grp>
+__device__ __forceinline__ int group_final_exp(const uint32_t* f, long long L,
+                                               const int32_t* lanes, const int32_t* starts,
+                                               long long C, long long c, int r, int T, G& g,
+                                               Grp& grp, uint32_t* part, const int32_t* gate_a,
+                                               const int32_t* gate_b, const int32_t* force,
+                                               uint32_t* e_out, int32_t* ok) {
+  fp12 acc, e;
+  group_product(acc, f, L, lanes, starts[c], starts[c + 1], r, T, g, grp, part);
+  if (r != 0) return -1;
+  final_exp(e, acc, g);
+  if (g.t != 0) return -1;
+  f12_st(e_out, C, c, e);
+  bool v = f12_is_one(e);
+  if (gate_a) v = v && gate_a[c] != 0;
+  if (gate_b) v = v && gate_b[c] != 0;
+  if (force && force[c] != 0) v = true;
+  ok[c] = v;
+  return v;
+}
+
+// B5 one check a thread; returns the verdict
 __device__ __forceinline__ bool lane_final_exp(const uint32_t* f, long long L, const int32_t* lanes,
                                                const int32_t* starts, long long C, long long c,
                                                const int32_t* gate_a, const int32_t* gate_b,
                                                const int32_t* force, uint32_t* e_out, int32_t* ok) {
-  fp12 acc, v;
-  f12_one(acc);
-  for (int k = starts[c]; k < starts[c + 1]; ++k) {
-    f12_ld(v, f, L, lanes[k]);
-    f12_mul(acc, acc, v);
-  }
-  final_exp(v, acc);
-  f12_st(e_out, C, c, v);
-  bool r = f12_is_one(v);
-  if (gate_a) r = r && gate_a[c] != 0;
-  if (gate_b) r = r && gate_b[c] != 0;
-  if (force && force[c] != 0) r = true;
-  ok[c] = r;
-  return r;
+  solo g;
+  return group_final_exp(f, L, lanes, starts, C, c, 0, 1, g, g, nullptr, gate_a, gate_b, force,
+                         e_out, ok) != 0;
 }
 
 }  // namespace bls

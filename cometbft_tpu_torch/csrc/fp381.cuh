@@ -5,11 +5,17 @@
 // Montgomery domain with R = 2^384, always fully reduced into [0, p): every
 // operation ends with a conditional subtraction, so equality is word
 // equality and zero has one representative. The product is CIOS Montgomery
-// multiplication with 32x32 -> 64-bit multiply-adds written as (uint64_t)a * b
-// in portable C++ (nvcc emits IMAD.WIDE.U32); p < 2^381 leaves two spare bits,
-// so the CIOS sum stays below 2p. There is no inline assembly: a host C++
+// multiplication: on the card in PTX carry chains (mad.lo.cc / madc.hi.cc,
+// the even and the odd words of a row as two chains), on the host in its
+// portable "no-carry" form (p's top word is below 2^31 - 1, so the row's two
+// carry words never overflow) with (uint64_t)a * b multiply-adds; both give
+// the one fully reduced value. It is inlined into its callers, so that its
+// operands stay in registers. Inversion and the Legendre symbol are binary
+// (variable-time: every input of the BLS kernels is public), a few hundred
+// word shifts and subtractions instead of a 380-bit exponentiation; fixed
+// exponents use 4-bit windows. Apart from the card's product, a host C++
 // compiler builds the same code with __device__ and __forceinline__ defined
-// away (tests/test_torch_bls_host.py).
+// away (tests/test_torch_bls_host.py, tests/test_torch_bls_formulas.py).
 //
 // Every constant (p, R^2, the Montgomery inverse, the curve and map constants,
 // the Frobenius gammas, the fixed exponents and scalars) is read from one
@@ -56,7 +62,11 @@ constexpr int K_E_R = 612;      //   r, the subgroup order (8 words)
 constexpr int K_E_H2 = 620;     //   the G2 cofactor (16 words)
 constexpr int K_E_X = 636;      //   |x|, the curve parameter (2 words)
 constexpr int K_NBITS = 638;    // bit lengths of the 7 exponents above, in order
-constexpr int NK = 645;
+constexpr int K_R3 = 645;       // R^3 mod p (raw): the binary inverse back to Montgomery
+constexpr int K_GLS = 657;      // c = (3(x^2 - 1))^-1 mod r as sum d_i x^i, 0 <= d_i < |x|:
+constexpr int GLS_DIGITS = 5;   //   d_0 .. d_4, two words each
+constexpr int K_PSI = K_GLS + 2 * GLS_DIGITS;  // Fp2 xi^-((p-1)/3), xi^-((p-1)/2): psi on the twist
+constexpr int NK = K_PSI + 4 * NW;
 
 enum Exp { E_PM2 = 0, E_SQRT, E_SQRT2, E_LEG, E_R, E_H2, E_X };
 
@@ -158,7 +168,6 @@ __device__ __forceinline__ void fp_sub(fp& o, const fp& a, const fp& b) {
     c >>= 32;
   }
 }
-
 __device__ __forceinline__ void fp_neg(fp& o, const fp& a) {
   fp z;
   fp_zero(z);
@@ -167,35 +176,85 @@ __device__ __forceinline__ void fp_neg(fp& o, const fp& a) {
 
 __device__ __forceinline__ void fp_dbl(fp& o, const fp& a) { fp_add(o, a, a); }
 
-// CIOS Montgomery product a * b / 2^384 mod p
-__device__ BLS_NOINLINE void fp_mul(fp& o, const fp& a, const fp& b) {
-  uint32_t t[NW + 2];
-  for (int i = 0; i < NW + 2; ++i) t[i] = 0;
+#ifdef __CUDA_ARCH__
+// t[k..k+12] += the words a0, a2, .., a10 times b at t[k], t[k+2], ..:
+// lo halves at even offsets, hi halves at odd ones, one carry chain
+// (mad.lo.cc / madc.hi.cc), its carry into the 13th word
+#define BLS_MAD_CHAIN(T0, T1, T2, T3, T4, T5, T6, T7, T8, T9, T10, T11, T12, A0, A2, A4, A6, A8, \
+                      A10, B)                                                                    \
+  asm("mad.lo.cc.u32 %0, %13, %19, %0;\n\t madc.hi.cc.u32 %1, %13, %19, %1;\n\t"              \
+      "madc.lo.cc.u32 %2, %14, %19, %2;\n\t madc.hi.cc.u32 %3, %14, %19, %3;\n\t"             \
+      "madc.lo.cc.u32 %4, %15, %19, %4;\n\t madc.hi.cc.u32 %5, %15, %19, %5;\n\t"             \
+      "madc.lo.cc.u32 %6, %16, %19, %6;\n\t madc.hi.cc.u32 %7, %16, %19, %7;\n\t"             \
+      "madc.lo.cc.u32 %8, %17, %19, %8;\n\t madc.hi.cc.u32 %9, %17, %19, %9;\n\t"             \
+      "madc.lo.cc.u32 %10, %18, %19, %10;\n\t madc.hi.cc.u32 %11, %18, %19, %11;\n\t"         \
+      "addc.u32 %12, %12, 0;"                                                                    \
+      : "+r"(T0), "+r"(T1), "+r"(T2), "+r"(T3), "+r"(T4), "+r"(T5), "+r"(T6), "+r"(T7),          \
+        "+r"(T8), "+r"(T9), "+r"(T10), "+r"(T11), "+r"(T12)                                      \
+      : "r"(A0), "r"(A2), "r"(A4), "r"(A6), "r"(A8), "r"(A10), "r"(B))
+
+// CIOS Montgomery product a * b / 2^384 mod p on the card: each row adds
+// a * b[i] and then m * p as two carry chains each (even and odd words),
+// then drops the zero low word; t stays below 2p
+__device__ __forceinline__ void fp_mul(fp& o, const fp& x, const fp& y) {
+  uint32_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0, t5 = 0, t6 = 0, t7 = 0, t8 = 0, t9 = 0,
+           t10 = 0, t11 = 0, t12 = 0, t13 = 0;
+  const uint32_t* a = x.v;
+  uint32_t p[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) p[i] = c_k[K_P + i];
   const uint32_t n0 = c_k[K_N0];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t b = y.v[i];
+    BLS_MAD_CHAIN(t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11, t12, a[0], a[2], a[4], a[6],
+                  a[8], a[10], b);
+    BLS_MAD_CHAIN(t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11, t12, t13, a[1], a[3], a[5], a[7],
+                  a[9], a[11], b);
+    const uint32_t m = t0 * n0;
+    BLS_MAD_CHAIN(t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11, t12, p[0], p[2], p[4], p[6],
+                  p[8], p[10], m);
+    BLS_MAD_CHAIN(t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11, t12, t13, p[1], p[3], p[5], p[7],
+                  p[9], p[11], m);
+    t0 = t1, t1 = t2, t2 = t3, t3 = t4, t4 = t5, t5 = t6, t6 = t7, t7 = t8, t8 = t9, t9 = t10;
+    t10 = t11, t11 = t12, t12 = t13, t13 = 0;
+  }
+  const uint32_t t[NW] = {t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11};
+  fp_reduce_once(o, t, t12);
+}
+#undef BLS_MAD_CHAIN
+#else
+// CIOS Montgomery product a * b / 2^384 mod p, no-carry form: row i adds
+// a * b[i] (carry A) and m * p (carry C) in one pass; t stays below 2p. The
+// host's product, and the card's reference (tests/test_torch_bls_host.py
+// holds the host build against the plain versions; chip_smoke.py holds the
+// card's)
+__device__ __forceinline__ void fp_mul(fp& o, const fp& a, const fp& b) {
+  uint32_t t[NW];
+  const uint32_t n0 = c_k[K_N0];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) t[j] = 0;
+#pragma unroll
   for (int i = 0; i < NW; ++i) {
     const uint32_t bi = b.v[i];
-    uint64_t c = 0;
-    for (int j = 0; j < NW; ++j) {
-      c += (uint64_t)a.v[j] * bi + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[NW];
-    t[NW] = (uint32_t)c;
-    t[NW + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * n0;
-    c = ((uint64_t)m * c_k[K_P] + t[0]) >> 32;
+    uint64_t x = (uint64_t)a.v[0] * bi + t[0];
+    uint32_t A = (uint32_t)(x >> 32);
+    const uint32_t m = (uint32_t)x * n0;
+    uint64_t y = (uint64_t)m * c_k[K_P] + (uint32_t)x;
+    uint32_t C = (uint32_t)(y >> 32);
+#pragma unroll
     for (int j = 1; j < NW; ++j) {
-      c += (uint64_t)m * c_k[K_P + j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
+      x = (uint64_t)a.v[j] * bi + t[j] + A;
+      A = (uint32_t)(x >> 32);
+      y = (uint64_t)m * c_k[K_P + j] + (uint32_t)x + C;
+      C = (uint32_t)(y >> 32);
+      t[j - 1] = (uint32_t)y;
     }
-    c += t[NW];
-    t[NW - 1] = (uint32_t)c;
-    t[NW] = t[NW + 1] + (uint32_t)(c >> 32);
+    t[NW - 1] = C + A;
   }
-  fp_reduce_once(o, t, t[NW]);
+  fp_reduce_once(o, t, 0);
 }
+#endif
 
 __device__ __forceinline__ void fp_sq(fp& o, const fp& a) { fp_mul(o, a, a); }
 
@@ -213,19 +272,184 @@ __device__ __forceinline__ void fp_mul12(fp& o, const fp& a) {
   fp_add(o, t, t);
 }
 
-// a^e for a fixed exponent of the table, MSB first
+// the 4-bit digit of exponent e at bit i (a multiple of 4)
+__device__ __forceinline__ int exp_digit4(int e, int i) {
+  return (int)((c_k[exp_offset(e) + (i >> 5)] >> (i & 31)) & 15);
+}
+
+// a^e for a fixed exponent of the table: fixed 4-bit windows, MSB first
 __device__ BLS_NOINLINE void fp_pow(fp& o, const fp& a, int e) {
-  fp acc;
-  fp_one(acc);
-  for (int i = exp_nbits(e) - 1; i >= 0; --i) {
-    fp_sq(acc, acc);
-    if (exp_bit(e, i)) fp_mul(acc, acc, a);
+  fp tab[16];
+  fp_one(tab[0]);
+  tab[1] = a;
+  for (int i = 2; i < 16; ++i) fp_mul(tab[i], tab[i - 1], a);
+  const int top = (exp_nbits(e) - 1) & ~3;
+  fp acc = tab[exp_digit4(e, top)];
+  for (int i = top - 4; i >= 0; i -= 4) {
+    for (int k = 0; k < 4; ++k) fp_mul(acc, acc, acc);
+    const int d = exp_digit4(e, i);
+    if (d) fp_mul(acc, acc, tab[d]);
   }
   o = acc;
 }
 
-// Fermat inverse; inv(0) = 0
-__device__ __forceinline__ void fp_inv(fp& o, const fp& a) { fp_pow(o, a, E_PM2); }
+// ---------------------------------------------- binary (variable-time) code
+// on raw words below 2^384; the inputs are public
+
+__device__ __forceinline__ int bls_ctz(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __ffs((int)x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+__device__ __forceinline__ bool w_is_zero(const uint32_t* a) {
+  uint32_t acc = 0;
+  for (int i = 0; i < NW; ++i) acc |= a[i];
+  return acc == 0;
+}
+
+__device__ __forceinline__ bool w_is_one(const uint32_t* a) {
+  uint32_t acc = a[0] ^ 1u;
+  for (int i = 1; i < NW; ++i) acc |= a[i];
+  return acc == 0;
+}
+
+// a < b
+__device__ __forceinline__ bool w_lt(const uint32_t* a, const uint32_t* b) {
+  int64_t br = 0;
+  for (int i = 0; i < NW; ++i) {
+    br += (int64_t)a[i] - b[i];
+    br >>= 32;
+  }
+  return br < 0;
+}
+
+// a -= b (a >= b)
+__device__ __forceinline__ void w_sub(uint32_t* a, const uint32_t* b) {
+  int64_t br = 0;
+  for (int i = 0; i < NW; ++i) {
+    br += (int64_t)a[i] - b[i];
+    a[i] = (uint32_t)br;
+    br >>= 32;
+  }
+}
+
+// a >>= s, 0 < s < 32
+__device__ __forceinline__ void w_shr(uint32_t* a, int s) {
+  for (int i = 0; i < NW - 1; ++i) a[i] = (a[i] >> s) | (a[i + 1] << (32 - s));
+  a[NW - 1] >>= s;
+}
+
+// x / 2 mod p for x < p
+__device__ __forceinline__ void w_half_mod_p(uint32_t* x) {
+  const uint32_t m = 0u - (x[0] & 1u);
+  uint64_t c = 0;
+  for (int i = 0; i < NW; ++i) {
+    c += (uint64_t)x[i] + (c_k[K_P + i] & m);
+    x[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  w_shr(x, 1);  // x + p < 2^382: no carry out
+}
+
+// x = x - y mod p for x, y < p
+__device__ __forceinline__ void w_sub_mod_p(uint32_t* x, const uint32_t* y) {
+  int64_t br = 0;
+  for (int i = 0; i < NW; ++i) {
+    br += (int64_t)x[i] - y[i];
+    x[i] = (uint32_t)br;
+    br >>= 32;
+  }
+  const uint32_t m = 0u - (uint32_t)(br < 0);
+  uint64_t c = 0;
+  for (int i = 0; i < NW; ++i) {
+    c += (uint64_t)x[i] + (c_k[K_P + i] & m);
+    x[i] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// the inverse by the binary extended Euclidean algorithm on the Montgomery
+// word A = aR: x1 A = u, x2 A = v (mod p) until u or v is 1; then
+// A^-1 R^3 / R = a^-1 R. inv(0) = 0
+__device__ BLS_NOINLINE void fp_inv(fp& o, const fp& a) {
+  if (fp_is_zero(a)) {
+    fp_zero(o);
+    return;
+  }
+  uint32_t u[NW], v[NW], x1[NW], x2[NW];
+  for (int i = 0; i < NW; ++i) {
+    u[i] = a.v[i];
+    v[i] = c_k[K_P + i];
+    x1[i] = 0;
+    x2[i] = 0;
+  }
+  x1[0] = 1;
+  while (!w_is_one(u) && !w_is_one(v)) {
+    while (!(u[0] & 1u)) {
+      w_shr(u, 1);
+      w_half_mod_p(x1);
+    }
+    while (!(v[0] & 1u)) {
+      w_shr(v, 1);
+      w_half_mod_p(x2);
+    }
+    if (!w_lt(u, v)) {
+      w_sub(u, v);
+      w_sub_mod_p(x1, x2);
+    } else {
+      w_sub(v, u);
+      w_sub_mod_p(x2, x1);
+    }
+  }
+  const bool one_u = w_is_one(u);
+  fp r, r3;
+  for (int i = 0; i < NW; ++i) r.v[i] = one_u ? x1[i] : x2[i];
+  fp_k(r3, K_R3);
+  fp_mul(o, r, r3);
+}
+
+// the Legendre symbol (a / p) by the binary Jacobi algorithm: 1, -1, or 0
+// for zero. It reads a's Montgomery word aR, whose symbol is a's (R = 2^384
+// is a square)
+__device__ BLS_NOINLINE int fp_legendre(const fp& a) {
+  uint32_t u[NW], v[NW];
+  for (int i = 0; i < NW; ++i) {
+    u[i] = a.v[i];
+    v[i] = c_k[K_P + i];
+  }
+  int t = 1;
+  while (!w_is_zero(u)) {
+    while (u[0] == 0) {  // a whole zero word: shift by 32, an even count
+      for (int i = 0; i < NW - 1; ++i) u[i] = u[i + 1];
+      u[NW - 1] = 0;
+    }
+    const int s = bls_ctz(u[0]);
+    if (s) {
+      w_shr(u, s);
+      const uint32_t v8 = v[0] & 7u;
+      if ((s & 1) && (v8 == 3 || v8 == 5)) t = -t;
+    }
+    if (w_lt(u, v)) {  // reciprocity: swap, u and v odd
+      for (int i = 0; i < NW; ++i) {
+        const uint32_t w = u[i];
+        u[i] = v[i];
+        v[i] = w;
+      }
+      if ((u[0] & 3u) == 3 && (v[0] & 3u) == 3) t = -t;
+    }
+    w_sub(u, v);
+  }
+  return w_is_one(v) ? t : 0;
+}
+
+// a / 2 mod p
+__device__ __forceinline__ void fp_half(fp& o, const fp& a) {
+  o = a;
+  w_half_mod_p(o.v);
+}
 
 // root candidate a^((p+1)/4); returns whether a is a square
 __device__ __forceinline__ bool fp_sqrt(fp& o, const fp& a) {

@@ -4,6 +4,8 @@
 // f6_*, f12_*); every element is fully reduced, so values compare word for
 // word with the plain version's canonical values (ops/bls12381/tower.py).
 // An Fp12 is 144 words: the kernels keep it in the thread's stack frame.
+// Products are out of line down to Fp2, whose Fp products inline and
+// interleave.
 
 #pragma once
 
@@ -76,8 +78,11 @@ __device__ __forceinline__ void f2_conj(fp2& o, const fp2& x) {
   fp_neg(o.b, x.b);
 }
 
-// Karatsuba: (a0 b0 - a1 b1, (a0 + a1)(b0 + b1) - a0 b0 - a1 b1)
-__device__ BLS_NOINLINE void f2_mul(fp2& o, const fp2& x, const fp2& y) {
+// Karatsuba: (a0 b0 - a1 b1, (a0 + a1)(b0 + b1) - a0 b0 - a1 b1); inlined
+// in the cyclotomic square, f2_mul out of line elsewhere (a longer inlined
+// run of products measured slower on the card: the code outgrows the
+// instruction cache)
+__device__ __forceinline__ void f2_mul_in(fp2& o, const fp2& x, const fp2& y) {
   fp t0, t1, sa, sb, t2;
   fp_mul(t0, x.a, y.a);
   fp_mul(t1, x.b, y.b);
@@ -88,6 +93,8 @@ __device__ BLS_NOINLINE void f2_mul(fp2& o, const fp2& x, const fp2& y) {
   fp_sub(t2, t2, t0);
   fp_sub(o.b, t2, t1);
 }
+
+__device__ BLS_NOINLINE void f2_mul(fp2& o, const fp2& x, const fp2& y) { f2_mul_in(o, x, y); }
 
 // ((a0 + a1)(a0 - a1), 2 a0 a1)
 __device__ BLS_NOINLINE void f2_sq(fp2& o, const fp2& x) {
@@ -140,12 +147,11 @@ __device__ BLS_NOINLINE void f2_pow(fp2& o, const fp2& x, int e) {
   o = acc;
 }
 
-// norm(x)^((p-1)/2) != -1 (zero counts as a square)
+// the norm's Legendre symbol is not -1 (zero counts as a square)
 __device__ __forceinline__ bool f2_is_square(const fp2& x) {
   fp n;
   f2_norm(n, x);
-  fp_pow(n, n, E_LEG);
-  return !fp_eq_k(n, K_MINUS1);
+  return fp_legendre(n) != -1;
 }
 
 // algorithm 9 of eprint 2012/685 (p = 3 mod 4), branch-free as the plain
@@ -167,6 +173,36 @@ __device__ BLS_NOINLINE bool f2_sqrt(fp2& o, const fp2& x) {
   f2_sq(t, cand);
   o = cand;
   return f2_eq(t, x);
+}
+
+// a root by the norm, with roots in Fp only (Adj and Rodriguez-Henriquez
+// 2012, algorithm 8 for q = 3 mod 4): s = sqrt(a0^2 + a1^2), d = (a0 + s)/2
+// (or (a0 - s)/2 when that is not a square), w = d^((p-3)/4) = 1/sqrt(d),
+// root = d w + (a1 w / 2) u: two exponentiations in Fp instead of two in
+// Fp2. Where the candidate does not square back (x not a square, or d = 0
+// with x != 0) it is f2_sqrt's, so the result and the flag are always
+// f2_sqrt's up to the root's sign.
+__device__ BLS_NOINLINE bool f2_sqrt_fast(fp2& o, const fp2& x) {
+  fp n, s, d, w;
+  f2_norm(n, x);
+  fp_pow(s, n, E_SQRT);
+  fp_add(d, x.a, s);
+  fp_half(d, d);
+  if (fp_legendre(d) == -1) {
+    fp_sub(d, x.a, s);
+    fp_half(d, d);
+  }
+  fp_pow(w, d, E_SQRT2);
+  fp2 cand, t;
+  fp_mul(cand.a, d, w);
+  fp_mul(cand.b, x.b, w);
+  fp_half(cand.b, cand.b);
+  f2_sq(t, cand);
+  if (f2_eq(t, x)) {
+    o = cand;
+    return true;
+  }
+  return f2_sqrt(o, x);
 }
 
 // RFC 9380 sgn0 for m = 2
@@ -345,15 +381,63 @@ __device__ BLS_NOINLINE void f12_frob(fp12& o, const fp12& a, int n) {
   for (int k = 0; k < 6; ++k) *out[k] = r[k];
 }
 
-// x^e for the table's exponent e (MSB first)
-__device__ BLS_NOINLINE void f12_pow(fp12& o, const fp12& x, int e) {
-  fp12 acc;
-  f12_one(acc);
-  for (int i = exp_nbits(e) - 1; i >= 0; --i) {
-    f12_sq(acc, acc);
-    if (exp_bit(e, i)) f12_mul(acc, acc, x);
-  }
-  o = acc;
+// the Fp4 square (x + y s)^2, s^2 = xi: (t0, t1) = (x^2 + xi y^2, 2 x y)
+__device__ __forceinline__ void f4_sq(fp2& t0, fp2& t1, const fp2& x, const fp2& y) {
+  fp2 xy, s, u;
+  f2_mul_in(xy, x, y);
+  f2_add(s, x, y);
+  f2_mul_xi(u, y);
+  f2_add(u, u, x);
+  f2_mul_in(t0, s, u);
+  f2_sub(t0, t0, xy);
+  f2_mul_xi(u, xy);
+  f2_sub(t0, t0, u);
+  f2_dbl(t1, xy);
+}
+
+// the cyclotomic square's Fp4 pairs (Granger and Scott 2010): pair k is
+// (x, y) = (cyclo_x(a, k), cyclo_y(a, k)) of a's coefficients
+__device__ __forceinline__ const fp2& cyclo_x(const fp12& a, int k) {
+  return k == 0 ? a.d0.c0 : k == 1 ? a.d1.c0 : a.d0.c1;
+}
+__device__ __forceinline__ const fp2& cyclo_y(const fp12& a, int k) {
+  return k == 0 ? a.d1.c1 : k == 1 ? a.d0.c2 : a.d1.c2;
+}
+__device__ __forceinline__ const fp2& d0_c(const fp12& a, int k) {
+  return k == 0 ? a.d0.c0 : k == 1 ? a.d0.c1 : a.d0.c2;
+}
+__device__ __forceinline__ const fp2& d1_c(const fp12& a, int k) {
+  return k == 0 ? a.d1.c0 : k == 1 ? a.d1.c1 : a.d1.c2;
+}
+
+// pair k's square (t0, t1) gives two coefficients of a's square:
+// d0.c[k] = 3 t0 - 2 a.d0.c[k] and d1.c[k + 1 mod 3] = 3 t1' + 2 a.d1.c[..],
+// t1' = t1 (k < 2) or xi t1 (k = 2)
+__device__ __forceinline__ void cyclo_pair_out(fp2& o0, fp2& o1, const fp12& a, int k,
+                                               const fp2& t0, const fp2& t1) {
+  fp2 u, d;
+  f2_sub(d, t0, d0_c(a, k));
+  f2_dbl(d, d);
+  f2_add(o0, d, t0);
+  f2_mul_xi(u, t1);
+  f2_sel(u, k == 2, u, t1);
+  f2_add(d, u, d1_c(a, (k + 1) % 3));
+  f2_dbl(d, d);
+  f2_add(o1, d, u);
+}
+
+// a^2 for a in the cyclotomic subgroup (every value after the easy part):
+// 18 Fp products instead of 54. o may alias a.
+__device__ BLS_NOINLINE void f12_cyclo_sq(fp12& o, const fp12& a) {
+  fp2 t[6], r[6];
+  for (int k = 0; k < 3; ++k) f4_sq(t[2 * k], t[2 * k + 1], cyclo_x(a, k), cyclo_y(a, k));
+  for (int k = 0; k < 3; ++k) cyclo_pair_out(r[2 * k], r[2 * k + 1], a, k, t[2 * k], t[2 * k + 1]);
+  o.d0.c0 = r[0];
+  o.d1.c1 = r[1];
+  o.d0.c1 = r[2];
+  o.d1.c2 = r[3];
+  o.d0.c2 = r[4];
+  o.d1.c0 = r[5];
 }
 
 __device__ __forceinline__ bool f12_is_one(const fp12& a) {

@@ -7,7 +7,8 @@ their plain PyTorch versions.
                    cometbft_tpu/ops/bls_kernel.py:180 _jit_decompress, :191
                    _jit_subgroup_g1 and :198 _jit_subgroup_g2.
   hash_to_g2   B2  the raw hash_to_field planes -> affine H(m) and its
-                   identity flag. Replaces :205 _jit_hash_msgs.
+                   identity flag: [h2](map(u0) + map(u1)), h2 the oracle's
+                   twist cofactor. Replaces :205 _jit_hash_msgs.
   point_sum    B3  a segmented sum of affine points by group, to affine, with
                    identity flags and (check_subgroup) the subgroup check of
                    each sum. Replaces points.sum_tree in _aggregate_device
@@ -134,14 +135,53 @@ def _to_words(limbs: torch.Tensor) -> torch.Tensor:
 # fp381.cuh's K_* layout
 _LAYOUT = ("P", "ONE", "R2", "HALF", "N0", "B1", "MINUS1", "B2", "NEG_G1", "XI_INV", "SVDW",
            "FROB1", "FROB2", "E_PM2", "E_SQRT", "E_SQRT2", "E_LEG", "E_R", "E_H2", "E_X",
-           "NBITS")
-NK = 645
+           "NBITS", "R3", "GLS", "PSI")
+GLS_DIGITS = 5
+NK = 657 + 2 * GLS_DIGITS + 48
+
+
+def gls_digits(k: int) -> list[int]:
+    """k = sum d_i x^i with 0 <= d_i < |x|, x the (negative) curve
+    parameter: the digits of a scalar for psi, which acts as [x] on G2."""
+    x = oracle.BLS_X
+    out = []
+    while k:
+        d = k % -x
+        out.append(d)
+        k = (k - d) // x
+    return out
+
+
+def cofactor_c() -> int:
+    """c = (3(x^2 - 1))^-1 mod r: RFC 9380's h_eff is 3(x^2 - 1) h2, so
+    [c][h_eff]P = [h2]P, the oracle's cofactor clearing, for every twist
+    point P ([h2]P has order r or 1)."""
+    setup = oracle._bls_setup()
+    x = oracle.BLS_X
+    h_eff = 3 * (x * x - 1) * setup["h2"]
+    c = pow(3 * (x * x - 1), -1, oracle.BLS_R)
+    assert (c * h_eff - setup["h2"]) % (setup["h2"] * oracle.BLS_R) == 0
+    return c
+
+
+def psi_constants() -> tuple:
+    """psi(x, y) = (conj(x) cx, conj(y) cy) on the twist, cx = xi^-((p-1)/3),
+    cy = xi^-((p-1)/2): the Frobenius through the untwist. Checked: psi
+    acts on G2 as [x]."""
+    cx = oracle.f2_inv(oracle.f2_pow(oracle.BLS_XI, (P - 1) // 3))
+    cy = oracle.f2_inv(oracle.f2_pow(oracle.BLS_XI, (P - 1) // 2))
+    g = oracle.BLS_G2
+    F = oracle._Fp2Ops
+    psi_g = (oracle.f2_mul(oracle.f2_conj(g[0]), cx), oracle.f2_mul(oracle.f2_conj(g[1]), cy))
+    assert psi_g == oracle._ec_affine(F, oracle._ec_mul(F, oracle.BLS_X, oracle._ec_from_affine(g)))
+    return cx, cy
 
 
 def constants_table() -> np.ndarray:
     """The kernels' constant table (csrc/fp381.cuh K_*), every value from
     the oracle: field constants in Montgomery form, exponents and scalars as
-    raw little-endian words, then the exponents' bit lengths."""
+    raw little-endian words, the exponents' bit lengths, R^3, the base-x
+    digits of cofactor_c() and the psi constants."""
     setup = oracle._bls_setup()
 
     def m(x):  # Montgomery words
@@ -173,6 +213,13 @@ def constants_table() -> np.ndarray:
         assert e.bit_length() <= 32 * nw
         t += [(e >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
     t += [e.bit_length() for e in exps]              # K_NBITS = 638
+    t += _words(R32 ** 3 % P)                        # K_R3 = 645
+    digits = gls_digits(cofactor_c())
+    assert len(digits) == GLS_DIGITS and max(digits) < 1 << 64 and digits[-1] == 1
+    for d in digits:                                 # K_GLS = 657
+        t += [d & 0xFFFFFFFF, d >> 32]
+    for k in psi_constants():                        # K_PSI = 667
+        t += m2(k)
     assert len(t) == NK
     return np.asarray(t, dtype=np.uint32)
 
@@ -318,7 +365,7 @@ def _lib(dev: torch.device) -> ctypes.CDLL:
             lib.bls_point_sum.argtypes = [ci, vp, ll, vp, vp, ci, ci, vp, vp, vp, vp]
             lib.bls_miller.argtypes = [vp, vp, ci, vp, vp]
             lib.bls_final_exp.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
-            lib.bls_launch_shape.argtypes = [ci, ci, ctypes.POINTER(ci)]
+            lib.bls_launch_shape.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
             for fn in (lib.bls_set_constants, lib.bls_decompress, lib.bls_hash_to_g2,
                        lib.bls_point_sum, lib.bls_miller, lib.bls_final_exp,
                        lib.bls_launch_shape):
@@ -466,17 +513,22 @@ def final_exp(f_planes: torch.Tensor, lanes: torch.Tensor, starts: torch.Tensor,
     return ok, e, allok
 
 
-def launch_shape(entry: str, n: int, dev: torch.device) -> dict[str, int]:
-    """How `entry` launches over n lanes (groups for B3, checks for B5) on
-    CUDA device `dev`: threads per block, blocks, resident blocks per SM,
-    SMs, waves, local memory per thread, registers, static shared memory.
-    Launches nothing."""
-    out = (ctypes.c_int * 7)()
+def launch_shape(entry: str, n: int, dev: torch.device, values: int | None = None
+                 ) -> dict[str, int]:
+    """How `entry` launches over n lanes (groups for B3, checks for B5, with
+    `values` Miller values in all, n by default) on CUDA device `dev`:
+    threads per block, blocks, resident blocks per SM, SMs, waves, local
+    memory per thread, registers, static shared memory, B5's trios a check
+    (0 where none) and whether B2 or B5 take their one-lane kernel (the
+    widest calls). Launches nothing."""
+    out = (ctypes.c_int * 9)()
     with _build.on_device(dev):
-        err = _lib(dev).bls_launch_shape(ENTRIES.index(entry), n, out)
+        err = _lib(dev).bls_launch_shape(ENTRIES.index(entry), n, n if values is None else values,
+                                         out)
     if err != 0:
         raise RuntimeError(f"bls launch shape failed: cudaError_t {err}")
-    threads, blocks, per_sm, sms, local_bytes, registers, shared = out
+    threads, blocks, per_sm, sms, local_bytes, registers, shared, trios, lane = out
     return {"threads_per_block": threads, "blocks": blocks, "blocks_per_sm": per_sm,
             "sms": sms, "waves": -(-blocks // max(1, per_sm * sms)), "local_bytes": local_bytes,
-            "registers": registers, "shared_bytes": shared}
+            "registers": registers, "shared_bytes": shared, "trios_per_check": trios,
+            "lane_kernel": lane}

@@ -2,7 +2,7 @@
 challenge kernel (K5) and the integrity kernel (K6) of this checkout and of
 another one on the same CUDA card, in turns.
 
-    python3 compare_kernels.py OTHER_DIR [--out FILE] [--probes | --e2e]
+    python3 compare_kernels.py OTHER_DIR [--out FILE] [--probes | --e2e | --bls]
     python3 compare_kernels.py --staging [--out FILE]
 
 OTHER_DIR is another checkout of the repository, for example an earlier
@@ -45,6 +45,16 @@ drive runs it): one cold run, then E2E_REPS warm runs, each on the host
 clock between two synchronisations, their median and spread. The trees
 run the same harness in fresh processes, so a gap between them is the
 trees' code, not what ran before in the process.
+
+--bls times, instead, the BLS kernels B2 (hash to G2) and B5 (product and
+final exponentiation) of each tree on the calls of chip_smoke.py's BLS
+cells: B2 on 1, 150 and 10,240 messages (hash_to_field of seeded
+messages), B5 on one check of 151 Miller values and one of 2 (the
+aggregate checks) and on 10,240 checks of 2 (the single-verify path), on
+seeded Fp12 values; each call is held first against its tree's plain
+version by canonical value (B2 on its first 64 messages), then timed per
+launch (chip_smoke.time_kernel, the median of 20 launches between two
+CUDA events). It prints each tree's kernel registers and stack.
 
 --staging times, in this tree and this process only, the warm verify() of
 the ed25519 10k commit with a batch's staged arrays (the packed block and
@@ -92,10 +102,77 @@ def _words_file() -> pathlib.Path:
     return out
 
 
-def _child(tree: pathlib.Path, words_file: pathlib.Path, e2e: bool) -> dict:
-    """This process times `tree`'s kernels, or with `e2e` its verify():
-    its package first on sys.path (chip_smoke, already imported from this
-    tree, loads the port lazily)."""
+BLS_MSGS = 10_240  # B2's largest call; B5's single-verify checks
+BLS_B2_LANES = (1, 150, BLS_MSGS)
+BLS_B5_CALLS = (("one check of 151", 151, 1), ("one check of 2", 2, 1),
+                (f"{BLS_MSGS} checks of 2", 2 * BLS_MSGS, BLS_MSGS))
+BLS_HELD_MSGS = 64
+
+
+def _bls_file() -> pathlib.Path:
+    """B2's hash_to_field planes and B5's Miller values, made once in this
+    tree's build/."""
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.ops.bls12381 import htc
+
+    out = HERE / "build" / "bls_inputs.npz"
+    out.parent.mkdir(exist_ok=True)
+    msgs = [b"compare-bls-%d" % i for i in range(BLS_MSGS)]
+    u = np.stack(htc.hash_to_field_limbs(msgs, bls12381.DST))
+    rng = np.random.default_rng(CS.SEED_BLS)
+    f = rng.integers(0, 1 << 32, (144, 2 * BLS_MSGS), dtype=np.uint64).astype(np.uint32)
+    f[11::12] &= 0x0FFFFFFF  # each value below p: words of a Montgomery value
+    np.savez(out, u=u, f=f.view(np.int32))
+    return out
+
+
+def _time_bls(device, bls_file: pathlib.Path) -> dict:
+    """B2 and B5 of the imported tree, held and timed (see the docstring)."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    data = np.load(bls_file)
+    u_all = torch.from_numpy(np.ascontiguousarray(data["u"])).to(device)
+    f_all = torch.from_numpy(np.ascontiguousarray(data["f"])).to(device)
+    out = {}
+
+    def held(name, got, want):
+        for g, w in zip(got, want):
+            same = (BL.values(g) == BL.values(w)) if g.dim() == 2 else torch.equal(
+                g.cpu().to(torch.int64), w.cpu().to(torch.int64))
+            if not same:
+                raise AssertionError(f"{name} differs from its plain version")
+
+    def shape(entry, n, values):
+        try:
+            s = BL.launch_shape(entry, n, device, values)
+        except TypeError:  # a tree whose launch_shape takes no values
+            s = BL.launch_shape(entry, n, device)
+        return {k: s.get(k, 0) for k in ("blocks", "registers", "local_bytes", "shared_bytes",
+                                         "lane_kernel")}
+
+    for n in BLS_B2_LANES:
+        u = u_all[..., :n].contiguous()
+        k = min(n, BLS_HELD_MSGS)
+        uh = u[..., :k].contiguous()
+        held(f"B2 at {k} messages", BL.hash_to_g2(uh), BL.hash_to_g2_plain(uh))
+        out[f"b2 {n}"] = {"ms": CS.time_kernel(lambda: BL.hash_to_g2(u)),
+                          **shape("bls_hash_to_g2", n, n)}
+    for label, values, checks in BLS_B5_CALLS:
+        f = f_all[:, :values].contiguous()
+        lanes = torch.arange(values, dtype=torch.int32, device=device)
+        starts = torch.linspace(0, values, checks + 1, device=device).round().to(torch.int32)
+        if checks == 1:
+            held(f"B5 {label}", BL.final_exp(f, lanes, starts),
+                 BL.final_exp_plain(f, lanes, starts))
+        out[f"b5 {label}"] = {"ms": CS.time_kernel(lambda: BL.final_exp(f, lanes, starts)),
+                              **shape("bls_final_exp", checks, values)}
+    return out
+
+
+def _child(tree: pathlib.Path, words_file: pathlib.Path, mode: str) -> dict:
+    """This process times `tree`'s kernels, with mode "e2e" its verify(),
+    with "bls" its B2 and B5: its package first on sys.path (chip_smoke,
+    already imported from this tree, loads the port lazily)."""
     sys.path.insert(0, str(tree))
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import verify_kernel as VK
@@ -103,8 +180,10 @@ def _child(tree: pathlib.Path, words_file: pathlib.Path, e2e: bool) -> dict:
     if not pathlib.Path(VK.__file__).resolve().is_relative_to(tree.resolve()):
         raise RuntimeError(f"{VK.__file__} is not in {tree}")
     device = torch.device("cuda")
-    if e2e:
+    if mode == "e2e":
         return _time_e2e(device)
+    if mode == "bls":
+        return _time_bls(device, words_file)
     data = np.load(words_file)
     out = {}
     for name in SCHEMES:
@@ -370,6 +449,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="then read this tree's K5 further (see the docstring)")
     ap.add_argument("--e2e", action="store_true",
                     help="time each tree's warm verify() instead of the kernels")
+    ap.add_argument("--bls", action="store_true",
+                    help="time each tree's BLS kernels B2 and B5 instead")
     ap.add_argument("--staging", action="store_true",
                     help="time this tree's 10k verify() with plain and pinned staging copies")
     # one tree's timing process: the tree and the encodings' file
@@ -379,8 +460,9 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
+    mode = "e2e" if args.e2e else "bls" if args.bls else ""
     if args.child:
-        print(json.dumps(_child(args.child, args.words, args.e2e)), flush=True)
+        print(json.dumps(_child(args.child, args.words, mode)), flush=True)
         return 0
     if args.staging:
         card = CS._smi()
@@ -395,13 +477,13 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("the other checkout is required")
     card = CS._smi()
     print(card, flush=True)
-    words_file = None if args.e2e else _words_file()
+    words_file = None if args.e2e else _bls_file() if args.bls else _words_file()
     trees = {"other": args.other.resolve(), "this": HERE}
     runs = []
     for label in ("other", "this", "this", "other"):
         done = subprocess.run([sys.executable, str(HERE / "compare_kernels.py"),
                                "--child", str(trees[label]), "--words", str(words_file)]
-                              + (["--e2e"] if args.e2e else []),
+                              + ([f"--{mode}"] if mode else []),
                               capture_output=True, text=True, check=False)
         if done.returncode:
             sys.stderr.write(done.stdout + done.stderr)
@@ -413,6 +495,12 @@ def main(argv: list[str] | None = None) -> int:
                 print(f"[{card}] {label} tree, verify() {key}: cold {t['cold_ms']:.3f} ms, warm "
                       f"{t['warm_ms']:.3f} ms (median of {E2E_REPS}, {t['warm_min_ms']:.3f}-"
                       f"{t['warm_max_ms']:.3f})", flush=True)
+                continue
+            if key.startswith(("b2 ", "b5 ")):
+                print(f"[{card}] {label} tree, {key}: {t['ms']:.4f} ms per launch (median of "
+                      f"20); {t['blocks']} blocks, {t['registers']} registers, "
+                      f"{t['local_bytes']} B stack, {t['shared_bytes']} B shared"
+                      + (", one lane a thread" if t["lane_kernel"] else ""), flush=True)
                 continue
             unit = ("lanes and iterations" if key.startswith("k3 ") else
                     "lanes" if key.startswith(("k5 ", "k6 ")) else "keys")

@@ -1,0 +1,521 @@
+"""The formulas of the BLS kernels B2 and B5 on the host CPU, their thread
+groups included: csrc/curve381.cuh's group bodies over csrc/group381.cuh,
+built with the host C++ compiler (__host__, __device__ and __forceinline__
+defined away) into a shared library loaded with ctypes, each trio (B2) or
+sextet (B5) three or six host threads that exchange through slots and a
+barrier where the card's warp uses shared memory and __syncwarp (as
+tests/test_torch_fe32_host.py runs the verify kernels' quads).
+
+Held, by canonical value, against the oracle (crypto/bls12381_math.py), the
+one-lane formulas they replace and the plain versions (ops/bls_launch.py):
+- the cofactor clearing (Budroni-Pintore's psi formula for RFC 9380's
+  h_eff = 3(x^2 - 1) h2, then [c], c = (3(x^2 - 1))^-1 mod r, by its base-x
+  split over psi, in Jacobian coordinates) computes the oracle's [h2] =
+  [#E'(Fp2) / r], not [h_eff], on twist points outside G2 and the
+  identity, with the addition's doubling and inverse cases;
+- the cyclotomic square (one thread, and split over a sextet) equals
+  f12_mul(a, a) on easy-part outputs and on a zero Miller value, and the
+  sextet's Fp12 product the plain one;
+- the binary inverse and Legendre symbol and the root by the norm agree
+  with the exponentiations they replace, on squares, non-squares and 0;
+- a check's product on T sextets (a stride each, then a tree) equals the
+  serial product for 1, 2, 151 and 256 values;
+- B2 on trios and B5 on sextets equal hash_to_g2_plain and
+  final_exp_plain lane for lane. Exact everywhere. Skips only where no C++
+  compiler is found.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu_torch.crypto import bls12381 as bls
+from cometbft_tpu_torch.crypto import bls12381_math as o
+from cometbft_tpu_torch.ops import bls_launch as BL
+from cometbft_tpu_torch.ops.bls12381 import fp, htc, tower
+
+CSRC = pathlib.Path(BL.__file__).resolve().parent.parent / "csrc"
+P = o.BLS_P
+H2 = o._bls_setup()["h2"]
+
+_WRAPPER = r"""
+#include <cstring>
+#include <functional>
+#include <pthread.h>
+#include <thread>
+#include <vector>
+#include "curve381.cuh"
+using namespace bls;
+
+// A group of N host threads: slots in a shared buffer, a barrier where the
+// card's group calls __syncwarp over its lanes.
+template <int NN>
+struct host_lanes {
+  static constexpr int N = NN;
+  int t;
+  pthread_barrier_t* bar;
+  uint32_t* buf;
+  int slot;
+  int parity;
+  uint32_t* at(int j) { return buf + (parity * N + j) * slot; }
+  void sync() { pthread_barrier_wait(bar); }
+};
+using host_trio = host_lanes<3>;
+using host_sextet = host_lanes<6>;
+
+struct host_group {
+  pthread_barrier_t* bar;
+  void sync() { pthread_barrier_wait(bar); }
+};
+
+// f(group r, its thread object, the check's group) on N T host threads
+template <int N, class F>
+static void run_groups(int T, int slot, const F& f) {
+  std::vector<pthread_barrier_t> bars(T);
+  pthread_barrier_t gbar;
+  for (int r = 0; r < T; ++r) pthread_barrier_init(&bars[r], nullptr, N);
+  pthread_barrier_init(&gbar, nullptr, N * T);
+  std::vector<uint32_t> buf((size_t)T * 2 * N * slot, 0xdeadbeefu);
+  std::vector<std::thread> th;
+  for (int r = 0; r < T; ++r)
+    for (int t = 0; t < N; ++t)
+      th.emplace_back([&, r, t] {
+        host_lanes<N> g{t, &bars[r], buf.data() + (size_t)r * 2 * N * slot, slot, 0};
+        host_group grp{&gbar};
+        f(r, g, grp);
+      });
+  for (auto& x : th) x.join();
+  for (int r = 0; r < T; ++r) pthread_barrier_destroy(&bars[r]);
+  pthread_barrier_destroy(&gbar);
+}
+
+static void ld_jac(jac& q, const uint32_t* pts, const int32_t* ident, long long n, long long j) {
+  proj<fp2> p;
+  aff_ld(p.x, p.y, pts, n, j);
+  f2_one(p.z);
+  if (ident[j]) pt_identity(p);
+  jac_from_proj(q, p);
+}
+
+static void st_jac(uint32_t* out, int32_t* id, long long n, long long j, const jac& h) {
+  fp2 x, y;
+  id[j] = jac_to_affine(x, y, h);
+  aff_st(out, n, j, x, y);
+}
+
+extern "C" {
+int set_constants(const uint32_t* k, int n) {
+  if (n != NK) return 1;
+  std::memcpy(c_k, k, sizeof(uint32_t) * NK);
+  return 0;
+}
+
+// [h2] of affine twist points (ident: the identity): Budroni-Pintore and
+// the GLS ladder of c on a trio (out, id) and one thread's RCB ladder
+// pt_mul_const(h2) (ref, rid)
+void cofactor(const uint32_t* pts, const int32_t* ident, int n, uint32_t* out, int32_t* id,
+              uint32_t* ref, int32_t* rid) {
+  for (int j = 0; j < n; ++j) {
+    run_groups<3>(1, nwords<fp>, [&](int, host_trio& g, host_group&) {
+      jac q, h;
+      ld_jac(q, pts, ident, n, j);
+      jac_clear_cofactor(h, q, g);
+      if (g.t == 0) st_jac(out, id, n, j, h);
+    });
+    proj<fp2> p, r;
+    aff_ld(p.x, p.y, pts, n, j);
+    f2_one(p.z);
+    if (ident[j]) pt_identity(p);
+    pt_mul_const(r, p, E_H2);
+    fp2 x, y;
+    rid[j] = pt_to_affine(x, y, r);
+    aff_st(ref, n, j, x, y);
+  }
+}
+
+// P + Q and 2P on a trio, Jacobian in and affine out
+void jac_ops(const uint32_t* p, const int32_t* pid, const uint32_t* q, const int32_t* qid, int n,
+             uint32_t* sum, int32_t* sid, uint32_t* dbl, int32_t* did) {
+  for (int j = 0; j < n; ++j)
+    run_groups<3>(1, nwords<fp>, [&](int, host_trio& g, host_group&) {
+      jac a, b, s, d;
+      ld_jac(a, p, pid, n, j);
+      ld_jac(b, q, qid, n, j);
+      jac_add(s, a, b, g);
+      jac_dbl(d, a, g);
+      if (g.t == 0) {
+        st_jac(sum, sid, n, j, s);
+        st_jac(dbl, did, n, j, d);
+      }
+    });
+}
+
+// the easy part of the final exponentiation of f (144, n), then its square
+// by g12_cyclo_sq on a sextet (sq), by f12_cyclo_sq (one thread, sq1) and by
+// f12_mul (ref); and the easy part times itself by g12_mul on a sextet (prod)
+void cyclo(const uint32_t* f, int n, uint32_t* easy, uint32_t* sq, uint32_t* sq1, uint32_t* ref,
+           uint32_t* prod) {
+  for (int j = 0; j < n; ++j) {
+    fp12 a, t, e;
+    f12_ld(a, f, n, j);
+    f12_conj(t, a);
+    f12_inv(e, a);
+    f12_mul(e, t, e);
+    f12_frob(t, e, 2);
+    f12_mul(e, t, e);
+    f12_st(easy, n, j, e);
+    f12_mul(t, e, e);
+    f12_st(ref, n, j, t);
+    f12_cyclo_sq(t, e);
+    f12_st(sq1, n, j, t);
+    run_groups<6>(1, nwords<fp6>, [&](int, host_sextet& g, host_group&) {
+      fp12 s, m;
+      g12_cyclo_sq(s, e, g);
+      g12_mul(m, e, a, g);
+      if (g.t == 0) {
+        f12_st(sq, n, j, s);
+        f12_st(prod, n, j, m);
+      }
+    });
+  }
+}
+
+// Fp2 values x (24, n): the Legendre test (sq) and f2_sqrt_fast (root, ok)
+// beside the exponentiations they replace: norm^((p-1)/2) (sq_exp) and
+// f2_sqrt (root_old, ok_old); and Fp: fp_inv and fp_legendre of x.a beside
+// x.a^(p-2) and x.a^((p-1)/2)
+void roots(const uint32_t* x, int n, int32_t* sq, int32_t* sq_exp, uint32_t* root, int32_t* ok,
+           uint32_t* root_old, int32_t* ok_old, uint32_t* inv, uint32_t* inv_exp, int32_t* leg,
+           int32_t* leg_exp) {
+  for (int j = 0; j < n; ++j) {
+    fp2 a, r;
+    f2_ld(a, x, n, j);
+    sq[j] = f2_is_square(a);
+    fp nrm, e;
+    f2_norm(nrm, a);
+    fp_pow(e, nrm, E_LEG);
+    sq_exp[j] = !fp_eq_k(e, K_MINUS1);
+    ok[j] = f2_sqrt_fast(r, a);
+    f2_st(root, n, j, r);
+    ok_old[j] = f2_sqrt(r, a);
+    f2_st(root_old, n, j, r);
+    fp_inv(e, a.a);
+    fp_st(inv, n, j, e);
+    fp_pow(e, a.a, E_PM2);
+    fp_st(inv_exp, n, j, e);
+    leg[j] = fp_legendre(a.a);
+    fp_pow(e, a.a, E_LEG);
+    leg_exp[j] = fp_is_zero(e) ? 0 : fp_eq_k(e, K_MINUS1) ? -1 : 1;
+  }
+}
+
+// each check's product on T sextets (out) and serially (ref), (144, C)
+void product(const uint32_t* f, int L, const int32_t* lanes, const int32_t* starts, int C, int T,
+             uint32_t* out, uint32_t* ref) {
+  std::vector<uint32_t> part((size_t)T * 12 * NW);
+  for (int c = 0; c < C; ++c) {
+    run_groups<6>(T, nwords<fp6>, [&](int r, host_sextet& g, host_group& grp) {
+      fp12 acc;
+      group_product(acc, f, L, lanes, starts[c], starts[c + 1], r, T, g, grp, part.data());
+      if (r == 0 && g.t == 0) f12_st(out, C, c, acc);
+    });
+    fp12 acc, v;
+    f12_one(acc);
+    for (int k = starts[c]; k < starts[c + 1]; ++k) {
+      f12_ld(v, f, L, lanes[k]);
+      f12_mul(acc, acc, v);
+    }
+    f12_st(ref, C, c, acc);
+  }
+}
+
+// B2 a trio a message
+void hash_to_g2(const int32_t* u, int B, uint32_t* out, int32_t* is_id) {
+  for (int j = 0; j < B; ++j)
+    run_groups<3>(1, 2 * nwords<fp2>, [&](int, host_trio& g, host_group&) {
+      group_hash_to_g2(u, B, j, out, is_id, g);
+    });
+}
+
+// B5 on T sextets a check; returns the all-ok word
+int final_exp(const uint32_t* f, int L, const int32_t* lanes, const int32_t* starts, int C, int T,
+              const int32_t* ga, const int32_t* gb, const int32_t* force, uint32_t* e,
+              int32_t* ok) {
+  int allok = 1;
+  std::vector<uint32_t> part((size_t)T * 12 * NW);
+  for (int c = 0; c < C; ++c)
+    run_groups<6>(T, nwords<fp6>, [&](int r, host_sextet& g, host_group& grp) {
+      if (group_final_exp(f, L, lanes, starts, C, c, r, T, g, grp, part.data(), ga, gb, force,
+                          e, ok) == 0)
+        allok = 0;
+    });
+  return allok;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain versions' small tensors run faster on one intra-op thread,
+    and parallel test workers then do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++, c++ or clang++)")
+    d = tmp_path_factory.mktemp("bls_formulas")
+    src = d / "bls_formulas.cpp"
+    src.write_text(_WRAPPER)
+    so = d / "libbls_formulas.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-D__host__=",
+                    "-D__device__=", "-D__forceinline__=inline", f"-I{CSRC}", str(src), "-o",
+                    str(so)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.set_constants.argtypes = [vp, ci]
+    lib.cofactor.argtypes = [vp, vp, ci, vp, vp, vp, vp]
+    lib.jac_ops.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, vp]
+    lib.cyclo.argtypes = [vp, ci, vp, vp, vp, vp, vp]
+    lib.roots.argtypes = [vp, ci] + [vp] * 10
+    lib.product.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp]
+    lib.hash_to_g2.argtypes = [vp, ci, vp, vp]
+    lib.final_exp.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.final_exp.restype = ci
+    table = BL.constants_table()
+    assert lib.set_constants(table.ctypes.data, table.size) == 0
+    return lib
+
+
+def _i32(vals):
+    return torch.tensor(vals, dtype=torch.int32)
+
+
+def _empty(rows, n):
+    return torch.empty(rows * BL.NW, n, dtype=torch.int32)
+
+
+def _g2_planes(affs):
+    """Affine twist points (None: the identity) -> planes and identity flags."""
+    pts = [a if a is not None else ((0, 0), (0, 0)) for a in affs]
+    planes = BL.planes_of_ints([[a[k][c] for a in pts] for k in (0, 1) for c in (0, 1)])
+    return planes, _i32([a is None for a in affs])
+
+
+def _g2_affs(planes, ident):
+    v = BL.values(planes)
+    return [None if ident[j] else ((v[0][j], v[1][j]), (v[2][j], v[3][j]))
+            for j in range(planes.shape[-1])]
+
+
+def _off_subgroup(n, seed):
+    """Twist points outside G2: SvdW images of random field elements, before
+    any cofactor clearing."""
+    rng = random.Random(seed)
+    svdw = o._bls_setup()["svdw"]
+    return [o._svdw_map_fp2((rng.randrange(P), rng.randrange(P)), svdw) for _ in range(n)]
+
+
+def _mul(k, a):
+    return o._ec_affine(o._Fp2Ops, o._ec_mul(o._Fp2Ops, k, o._ec_from_affine(a)))
+
+
+def test_gls_digits_and_cofactor_identity():
+    """The table's digits split c = (3(x^2 - 1))^-1 mod r in base x (psi
+    acts as [x] on G2), and RFC 9380's h_eff is 3(x^2 - 1) times the
+    oracle's h2, so [c] after [h_eff] is [h2]."""
+    c = BL.cofactor_c()
+    x = o.BLS_X
+    digits = BL.gls_digits(c)
+    assert sum(d * x ** i for i, d in enumerate(digits)) == c
+    assert all(0 <= d < -x for d in digits) and digits[-1] == 1
+    t = BL.constants_table()
+    assert [int(t[657 + 2 * i]) | int(t[658 + 2 * i]) << 32 for i in range(5)] == digits
+    h_eff = 0xbc69f08f2ee75b3584c6a0ea91b352888e2a8e9145ad7689986ff031508ffe1329c2f178731db956d82bf015d1212b02ec0ec69d7477c1ae954cbc06689f6a359894c0adebbf6b4e8020005aaa95551
+    assert h_eff == 3 * (x * x - 1) * H2
+    assert c * 3 * (x * x - 1) % o.BLS_R == 1
+
+
+def test_cofactor_ladder_is_h2_not_h_eff(lib):
+    """Points outside G2, a G2 point and the identity: the trio's
+    Budroni-Pintore and GLS ladder of c equal pt_mul_const(h2) and the
+    oracle's [h2]; [h_eff] would differ."""
+    affs = _off_subgroup(5, 70) + [o.BLS_G2, None]
+    planes, ident = _g2_planes(affs)
+    n = len(affs)
+    out, ref = _empty(4, n), _empty(4, n)
+    oid, rid = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+    lib.cofactor(planes.data_ptr(), ident.data_ptr(), n, out.data_ptr(), oid.data_ptr(),
+                 ref.data_ptr(), rid.data_ptr())
+    assert oid.tolist() == rid.tolist() == [0] * (n - 1) + [1]
+    assert BL.values(out) == BL.values(ref)
+    got = _g2_affs(out, oid)
+    for a, g in zip(affs[:-1], got[:-1]):
+        assert g == _mul(H2, a)
+        assert _mul(o.BLS_R, g) is None  # in G2
+    h_eff = 3 * (o.BLS_X ** 2 - 1) * H2
+    assert got[0] != _mul(h_eff, affs[0])
+    assert got[n - 2] == _mul(H2 % o.BLS_R, o.BLS_G2)
+
+
+def test_jacobian_addition_cases(lib):
+    """P + Q, P + P (doubles), P + (-P) (the identity), P + O, O + Q, and
+    2P of a point and of the identity, on a trio, against the oracle."""
+    a, b = _off_subgroup(2, 71)
+    neg = (a[0], o.f2_neg(a[1]))
+    ps = [a, a, a, a, None]
+    qs = [b, a, neg, None, b]
+    pp, pid = _g2_planes(ps)
+    qp, qid = _g2_planes(qs)
+    n = len(ps)
+    s, d = _empty(4, n), _empty(4, n)
+    sid, did = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+    lib.jac_ops(pp.data_ptr(), pid.data_ptr(), qp.data_ptr(), qid.data_ptr(), n, s.data_ptr(),
+                sid.data_ptr(), d.data_ptr(), did.data_ptr())
+    F = o._Fp2Ops
+    for j, (p, q) in enumerate(zip(ps, qs)):
+        want = o._ec_affine(F, o._ec_add(F, o._ec_from_affine(p), o._ec_from_affine(q)))
+        assert _g2_affs(s, sid)[j] == want
+        assert _g2_affs(d, did)[j] == o._ec_affine(F, o._ec_dbl(F, o._ec_from_affine(p)))
+
+
+def _rand_f12(n, seed):
+    rng = random.Random(seed)
+    return [[rng.randrange(P) for _ in range(n)] for _ in range(12)]
+
+
+def test_cyclotomic_square_matches_product(lib):
+    """Easy-part outputs of random values, of one and of a zero Miller value:
+    the sextet's and one thread's cyclotomic squares equal f12_mul(a, a),
+    and the sextet's Fp12 product (the easy-part output times the input)
+    equals the plain version's."""
+    vals = _rand_f12(4, 72)
+    for k in range(12):
+        vals[k] += [1 if k == 0 else 0, 0]  # one, then zero
+    f = BL.planes_of_ints(vals)
+    n = f.shape[-1]
+    easy, sq, sq1, ref, prod = (_empty(12, n) for _ in range(5))
+    lib.cyclo(f.data_ptr(), n, easy.data_ptr(), sq.data_ptr(), sq1.data_ptr(), ref.data_ptr(),
+              prod.data_ptr())
+    assert BL.values(sq) == BL.values(sq1) == BL.values(ref)
+    e = BL.values(easy)
+    assert [v[n - 1] for v in e] == [0] * 12  # zero stays zero
+    assert [v[n - 2] for v in e] == [1] + [0] * 11
+    assert len({tuple(v[j] for v in e) for j in range(n - 2)}) == n - 2
+    want = BL._to_words(tower.f12_mul(BL._from_words(easy).reshape(2, 3, 2, fp.NLIMBS, n),
+                                      BL._from_words(f).reshape(2, 3, 2, fp.NLIMBS, n)))
+    assert BL.values(prod) == BL.values(want)
+
+
+def test_legendre_inverse_and_root_by_the_norm(lib):
+    """Squares, non-squares (in Fp2 and their real parts in Fp), 0, one and
+    a purely real non-square: the binary Legendre symbol and inverse and
+    the root by the norm agree with the exponentiations they replace."""
+    rng = random.Random(73)
+    xs = []
+    for _ in range(4):
+        r = (rng.randrange(P), rng.randrange(P))
+        xs.append(o.f2_sq(r))
+    while len(xs) < 8:
+        x = (rng.randrange(P), rng.randrange(P))
+        if not o.f2_legendre_is_square(x):
+            xs.append(x)
+    nr = next(a for a in range(2, 50) if pow(a, (P - 1) // 2, P) == P - 1)
+    xs += [(0, 0), (1, 0), (nr, 0), (0, nr), (P - 1, 0)]
+    n = len(xs)
+    planes = BL.planes_of_ints([[x[0] for x in xs], [x[1] for x in xs]])
+    i32 = [torch.empty(n, dtype=torch.int32) for _ in range(6)]
+    w = [_empty(2, n), _empty(2, n), _empty(1, n), _empty(1, n)]
+    sq, sq_exp, ok, ok_old, leg, leg_exp = i32
+    root, root_old, inv, inv_exp = w
+    lib.roots(planes.data_ptr(), n, sq.data_ptr(), sq_exp.data_ptr(), root.data_ptr(),
+              ok.data_ptr(), root_old.data_ptr(), ok_old.data_ptr(), inv.data_ptr(),
+              inv_exp.data_ptr(), leg.data_ptr(), leg_exp.data_ptr())
+    want_sq = [int(o.f2_legendre_is_square(x)) for x in xs]
+    assert sq.tolist() == sq_exp.tolist() == want_sq
+    assert ok.tolist() == ok_old.tolist() == want_sq
+    r_new, r_old = BL.values(root), BL.values(root_old)
+    for j, x in enumerate(xs):
+        a, b = (r_new[0][j], r_new[1][j]), (r_old[0][j], r_old[1][j])
+        if want_sq[j]:
+            assert o.f2_sq(a) == x and a in (b, o.f2_neg(b))
+        else:
+            assert a == b  # the old candidate, bit for bit
+    assert BL.values(inv) == BL.values(inv_exp)
+    assert BL.values(inv)[0] == [pow(x[0], P - 2, P) for x in xs]
+    assert leg.tolist() == leg_exp.tolist()
+    assert leg.tolist() == [0 if x[0] == 0 else 1 if pow(x[0], (P - 1) // 2, P) == 1 else -1
+                            for x in xs]
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 5])
+def test_tree_product_matches_serial(lib, T):
+    """Checks of 1, 2, 151 and 256 values (and an empty one) over a shuffled
+    lane order: T sextets' strides and tree equal the serial product."""
+    sizes = [1, 2, 151, 256, 0]
+    L = 300
+    rng = np.random.default_rng(74 + T)
+    f = BL.planes_of_ints(_rand_f12(L, 75))
+    lanes = _i32(np.concatenate([rng.choice(L, s, replace=False) for s in sizes]))
+    starts = _i32(np.cumsum([0] + sizes))
+    C = len(sizes)
+    out, ref = _empty(12, C), _empty(12, C)
+    lib.product(f.data_ptr(), L, lanes.data_ptr(), starts.data_ptr(), C, T, out.data_ptr(),
+                ref.data_ptr())
+    assert BL.values(out) == BL.values(ref)
+    assert [v[C - 1] for v in BL.values(out)] == [1] + [0] * 11
+
+
+def test_hash_to_g2_trios_match_plain_and_oracle(lib):
+    msgs = [b""] + [b"bls-formulas-%d" % i for i in range(7)]
+    u = torch.from_numpy(np.stack(htc.hash_to_field_limbs(msgs, bls.DST)))
+    n = len(msgs)
+    out, ident = _empty(4, n), torch.empty(n, dtype=torch.int32)
+    lib.hash_to_g2(u.data_ptr(), n, out.data_ptr(), ident.data_ptr())
+    want, want_id = BL.hash_to_g2_plain(u)
+    assert ident.tolist() == want_id.tolist() == [0] * n
+    assert BL.values(out) == BL.values(want)
+    assert _g2_affs(out, ident)[0] == o.bls_hash_to_g2(b"", bls.DST)
+
+
+def test_final_exp_trios_match_plain(lib):
+    """Checks of 1, 2, 3 and 5 values over 11 lanes, on one sextet a check
+    and on two, with a gate and a force; a check over e(P, Q) e(-P, Q) is
+    one."""
+    L = 11
+    vals = _rand_f12(L - 2, 76)
+    p = o._ec_affine(o._FpOps, o._ec_mul(o._FpOps, 5, o._ec_from_affine(o.BLS_G1)))
+    f_pq = o.bls_miller_loop(p, o.BLS_G2)
+    f_npq = o.bls_miller_loop((p[0], P - p[1]), o.BLS_G2)
+    for k, c in enumerate(c for d in (f_pq, f_npq) for cc in d for c2 in cc for c in c2):
+        vals[k % 12].append(c)
+    f = BL.planes_of_ints(vals)
+    sizes = [1, 2, 3, 5]
+    lanes = _i32([0, L - 2, L - 1, 1, 2, 3, 4, 5, 6, 7, 8])
+    starts = _i32(np.cumsum([0] + sizes))
+    C = len(sizes)
+    gate = _i32([1, 1, 0, 1])
+    force = _i32([0, 0, 0, 1])
+    want_ok, want_e, want_all = BL.final_exp_plain(f, lanes, starts, gate, None, force)
+    assert want_ok.tolist() == [0, 1, 0, 1]
+    for T in (1, 2):
+        e, ok = _empty(12, C), torch.empty(C, dtype=torch.int32)
+        allok = lib.final_exp(f.data_ptr(), L, lanes.data_ptr(), starts.data_ptr(), C, T,
+                              gate.data_ptr(), None, force.data_ptr(), e.data_ptr(), ok.data_ptr())
+        assert ok.tolist() == want_ok.tolist()
+        assert allok == int(want_all) == 0
+        assert BL.values(e) == BL.values(want_e)

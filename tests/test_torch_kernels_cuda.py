@@ -842,6 +842,55 @@ def test_bls_hash_sum_miller_final_exp_match_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 10_240])
+def test_bls_hash_to_g2_trios_match_plain(cuda, n):
+    """B2 on one message (one trio of one warp) and on 10,240 (one message
+    a thread), every lane by canonical value against the plain version."""
+    from cometbft_tpu_torch.crypto import bls12381 as tbls
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops.bls12381 import htc
+
+    msgs = [b"card-h2g-%d" % i for i in range(n)]
+    u = torch.from_numpy(np.stack(htc.hash_to_field_limbs(msgs, tbls.DST))).to(cuda)
+    h, hid = BL.hash_to_g2(u)
+    hp, hidp = BL.hash_to_g2_plain(u)
+    assert hid.tolist() == hidp.tolist() == [0] * n
+    assert BL.values(h) == BL.values(hp)
+
+
+@pytest.mark.cuda
+def test_bls_final_exp_one_check_of_151_matches_plain(cuda):
+    """B5 on one check of 151 seeded Fp12 values (ten trios, their strides
+    and tree, then the final exponentiation on one trio), on 75 checks of 2
+    of the same values (a trio a check) and on 6,144 checks of 2 (one check
+    a thread), against the plain version."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    rng = np.random.default_rng(61)
+    w = rng.integers(0, 1 << 32, (144, 151), dtype=np.uint64).astype(np.uint32)
+    w[11::12] &= 0x0FFFFFFF  # each value below p
+    f = torch.from_numpy(w.view(np.int32)).to(cuda)
+    lanes = torch.arange(151, dtype=torch.int32, device=cuda)
+    for starts in ([0, 151], list(range(0, 151, 2))):
+        st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+        got = BL.final_exp(f, lanes, st)
+        want = BL.final_exp_plain(f, lanes, st)
+        assert got[0].tolist() == want[0].tolist() == [0] * (len(starts) - 1)
+        assert got[2].tolist() == want[2].tolist() == [0]
+        assert BL.values(got[1]) == BL.values(want[1])
+    w = rng.integers(0, 1 << 32, (144, 12_288), dtype=np.uint64).astype(np.uint32)
+    w[11::12] &= 0x0FFFFFFF
+    f = torch.from_numpy(w.view(np.int32)).to(cuda)
+    lanes = torch.arange(12_288, dtype=torch.int32, device=cuda)
+    st = torch.arange(0, 12_289, 2, dtype=torch.int32, device=cuda)
+    assert BL.launch_shape("bls_final_exp", 6_144, cuda, 12_288)["lane_kernel"] == 1
+    got = BL.final_exp(f, lanes, st)
+    want = BL.final_exp_plain(f, lanes, st)
+    assert got[0].tolist() == want[0].tolist() and got[2].tolist() == want[2].tolist()
+    assert BL.values(got[1]) == BL.values(want[1])
+
+
+@pytest.mark.cuda
 def test_bls_verify_and_aggregate_on_the_card_match_oracle(cuda):
     """The whole device path: verify_batch's mask on the edge lanes and the
     aggregate check, against the oracle."""
