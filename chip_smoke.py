@@ -241,8 +241,12 @@ def _kernel_label(mangled: str) -> str | None:
     m = re.match(r"_Z\d+bls_(decompress|point_sum)_kernelILi(\d)E", mangled)
     if m:
         return f"bls_{m.group(1)}_g{m.group(2)}"
+    m = re.match(r"_Z\d+bls_miller_group_kernelILi(\d+)E", mangled)
+    if m:
+        return {"6": "bls_miller_sextet", "16": "bls_miller_half"}.get(m.group(1))
     for kernel, label in (("bls_hash_to_g2_kernel", "bls_hash_to_g2"),
                           ("bls_hash_to_g2_lane_kernel", "bls_hash_to_g2_lane"),
+                          ("bls_decompress_g2_trio_kernel", "bls_decompress_g2_trio"),
                           ("bls_miller_kernel", "bls_miller"),
                           ("bls_final_exp_kernel", "bls_final_exp"),
                           ("bls_final_exp_lane_kernel", "bls_final_exp_lane"),
@@ -2206,15 +2210,29 @@ BLS_SUM_POINTS = 1_024  # B3's points in the checks
 # 32x32 -> 64-bit multiply-adds for a * b and 144 for m * p, two IMADs each,
 # and the reduction's carries)
 FP_MUL_IMADS = 590
-# kernel record name -> (launch entry, the XLA program it replaces)
+# kernel record name -> the XLA program it replaces
 BLS_RECORDS = {
     "bls_decompress_g1": "cometbft_tpu/ops/bls_kernel.py:180",
     "bls_decompress_g2": "cometbft_tpu/ops/bls_kernel.py:180",
+    "bls_decompress_g2_trio": "cometbft_tpu/ops/bls_kernel.py:198",
     "bls_hash_to_g2": "cometbft_tpu/ops/bls_kernel.py:205",
     "bls_point_sum_g1": "cometbft_tpu/ops/bls12381/points.py:203",
     "bls_point_sum_g2": "cometbft_tpu/ops/bls12381/points.py:203",
     "bls_miller": "cometbft_tpu/ops/bls_kernel.py:221",
+    "bls_miller_sextet": "cometbft_tpu/ops/bls_kernel.py:221",
+    "bls_miller_half": "cometbft_tpu/ops/bls_kernel.py:221",
     "bls_final_exp": "cometbft_tpu/ops/bls12381/pairing.py:140",
+}
+# the records of the entries with more than one kernel: (entry, the
+# wrapper's kernel argument that forces it, its launch count in
+# bls_launch.LAUNCHES); B1 G2's one-lane kernel and B4's one-pair kernel
+# keep the record names they had as the only kernels of their entries
+BLS_SPLIT = {
+    "bls_decompress_g2": ("bls_decompress_g2", "lane", "bls_decompress_g2_lane"),
+    "bls_decompress_g2_trio": ("bls_decompress_g2", "trio", "bls_decompress_g2_trio"),
+    "bls_miller": ("bls_miller", "lane", "bls_miller_lane"),
+    "bls_miller_sextet": ("bls_miller", "sextet", "bls_miller_sextet"),
+    "bls_miller_half": ("bls_miller", "half", "bls_miller_half"),
 }
 
 
@@ -2265,13 +2283,16 @@ def bls_fp_products() -> dict:
     product is 3, a square 2, an Fp6 product 18, an Fp12 product 54, a
     cyclotomic square 18 (three Fp4 squares of two Fp2 products); a G1
     doubling 8 and addition 12 products, G2 24 and 36 (RCB 2015); G2 in
-    Jacobian coordinates (B2's cofactor) a doubling 16 and an addition 44,
-    psi 6; a
+    Jacobian coordinates (B2's cofactor, the G2 subgroup test) a doubling
+    16 and an addition 44, psi 6; a
     fixed exponent or scalar of n bits and weight w costs n squarings or
     doublings and w multiplications or additions, except fp_pow's 4-bit
     windows (_pow_w4_products); inverses and Legendre symbols are binary (no
     products; an inverse 1 to leave R^-1). Keys: g1/g2 decompression without
-    the subgroup check, sub1/sub2 the check, h2g (B2: two SvdW maps, the RCB
+    the subgroup check (g2 a lane with a root: the root by the norm), sub1
+    the check [r]P == O, sub2 psi(P) == [x]P (psi, an |x| ladder, the
+    Jacobian compare), jac2 the move of a projective sum to Jacobian
+    coordinates before it (B3 G2), h2g (B2: two SvdW maps, the RCB
     sum, the cofactor by Budroni-Pintore (two |x| ladders, three psi, five
     additions) and [c], c = (3(x^2 - 1))^-1 mod r, by its base-x split over
     psi (a joint ladder of four 64-bit digits), to affine), add1/add2 (a
@@ -2288,28 +2309,32 @@ def bls_fp_products() -> dict:
     def nw(e):
         return e.bit_length(), bin(e).count("1")
 
-    def pw2(e):
-        n, w = nw(e)
-        return 2 * n + 3 * w
-
     def ladder(dbl, add, e):
         n, w = nw(e)
         return n * dbl + w * add
 
     inv, f2_inv = 1, 5
     sqrt1 = _pow_w4_products((p + 1) // 4) + 1
-    sqrt2 = pw2((p - 3) // 4) + 2 + 3 + 3 + pw2((p - 1) // 2) + 3 + 2  # B1's f2_sqrt
     svdw = _svdw_products()
-    c = {"g1": 1 + 2 + sqrt1 + 1, "g2": 2 + 5 + sqrt2 + 2,
-         "sub1": ladder(8, 12, O.BLS_R), "sub2": ladder(24, 36, O.BLS_R),
-         "add1": 12, "add2": 36, "aff1": inv + 2, "aff2": f2_inv + 6}
+    # x^3 + b, the norm's Legendre symbol (its two squares), f2_sqrt_fast
+    # (the norm, two 4-bit-window exponentiations, the candidate and its
+    # check), the sign rule's two conversions
+    root2 = 2 + _pow_w4_products((p + 1) // 4) + _pow_w4_products((p - 3) // 4) + 2 + 2
     x_ladder = ladder(16, 44, -O.BLS_X) - 16 - 44  # the top bit starts it
+    c = {"g1": 1 + 2 + sqrt1 + 1, "g2": 2 + 3 + 2 + root2 + 2,
+         "sub1": ladder(8, 12, O.BLS_R), "sub2": 6 + x_ladder + 22, "jac2": 8,
+         "add1": 12, "add2": 36, "aff1": inv + 2, "aff2": f2_inv + 6}
     bits, cols = _gls_columns(BL.gls_digits(BL.cofactor_c()))
     cofactor = (2 * x_ladder + 3 * 6 + 16 + 5 * 44
                 + 4 * 6 + 11 * 44 + (bits - 1) * 16 + (cols - 1) * 44 + 44)
     c["h2g"] = 4 + 2 * svdw + 36 + 8 + cofactor + 16
     xn, xw = nw(-O.BLS_X)
-    c["miller"] = (xn - 1) * (21 + 4 + 54 + 6 + 54 + 24) + (xw - 1) * (12 + 4 + 6 + 54 + 36)
+    # a doubling step: the Fp12 square 36, the tangent's and the doubling's
+    # first products 16 (three Fp2 squares, two products, two Fp2-by-Fp) and
+    # second 24, the sparse line product 42; the first step (f = 1) only the
+    # 40; an addition step 18 + 22 (the chord and RCB's addition with
+    # Q's Z = 1) and the line product 42
+    c["miller"] = 40 + (xn - 2) * (36 + 16 + 24 + 42) + (xw - 1) * (18 + 22 + 42)
     exp_x = (xn - 1) * 18 + (xw - 1) * 54
     f12_inv = 4 * 18 + 38
     c["fexp"] = f12_inv + 54 + 18 + 54 + 5 * exp_x + 2 * 54 + 18 + 3 * 54 + 18 + 18 + 2 * 54
@@ -2318,12 +2343,17 @@ def bls_fp_products() -> dict:
 
 
 def bls_chain_products() -> dict:
-    """Fp products on one thread's chain in B2's trios and B5's sextets: B2
-    splits every Fp2 product three ways and runs its two SvdW maps at once;
-    B5 splits an Fp12 product six ways (three Fp2 products a thread) and a
+    """Fp products on one thread's chain in the group kernels: B2 splits
+    every Fp2 product three ways and runs its two SvdW maps at once; B5
+    splits an Fp12 product six ways (three Fp2 products a thread) and a
     cyclotomic square six ways (one). h2g a message, fexp a check, mul12 a
     further value on one sextet (a check's T sextets take a stride each,
-    then a tree). The widest calls run one lane a thread (bls_fp_products)."""
+    then a tree). B1 G2 (g2 + sub2): every thread of the trio decompresses,
+    then the psi test splits each Fp2 product or square three ways. B4
+    (miller on a sextet, miller_half on a half-warp): each Miller step's
+    batches deal their Fp products out six or sixteen ways, a thread taking
+    the ceiling of its share. The widest calls run one lane a thread
+    (bls_fp_products)."""
     from cometbft_tpu_torch.crypto import bls12381_math as O
     from cometbft_tpu_torch.ops import bls_launch as BL
 
@@ -2335,7 +2365,16 @@ def bls_chain_products() -> dict:
               + 4 * 2 + 11 * 16 + (bits - 1) * 7 + (cols - 1) * 16 + 16)
     exp_x = (x.bit_length() - 1) * 3 + (bin(x).count("1") - 1) * 9
     fexp = 110 + 9 + 18 + 9 + 5 * exp_x + 2 * 9 + 18 + 3 * 9 + 18 + 3 + 2 * 9
-    return {"h2g": 2 + svdw + 36 + 8 + rounds + 16, "fexp": fexp, "mul12": 9}
+    xn, xw = x.bit_length(), bin(x).count("1")
+    psi_test = 2 + (xn - 1) * 7 + (xw - 1) * 16 + 8
+    def miller(n):  # a thread's share of each batch of a group of n
+        def share(k):
+            return -(-k // n)
+        return (share(16) + share(24) + (xn - 2) * (share(52) + share(24) + share(42))
+                + (xw - 1) * (share(18) + share(22) + share(42)))
+    return {"h2g": 2 + svdw + 36 + 8 + rounds + 16, "fexp": fexp, "mul12": 9,
+            "g2": bls_fp_products()["g2"], "sub2": psi_test, "miller": miller(6),
+            "miller_half": miller(16)}
 
 
 def _exp_products(e: int) -> int:
@@ -2390,7 +2429,13 @@ def bls_least_products() -> dict:
     - Miller loop over |x| (64 bits, weight 6): 63 doubling steps with their
       line (25, Aranha et al. 2011) and 5 addition steps (41), a sparse line
       product each (39), an Fp12 square each (36); the first step starts
-      from f = 1 (no square, no product).
+      from f = 1 (no square, no product). Aranha's formulas scale each line
+      otherwise than the plain version (and its T): they compute another
+      Miller value, equal only after the final exponentiation. miller_floor:
+      the least known that keeps the plain scalings, RCB's T and the plain
+      sparse slots (c0, v w, v^2 w; their product by f is 42, not the
+      39 of Aranha's slots), which is the kernel's own count (the tangent
+      and the doubling 40 a step, sharing Y^2 and Y Z).
     - Final exponentiation by the reference's chain (the cubed pairing):
       the easy part (an Fp12 inversion 100, two products, a p^2 Frobenius
       10), the hard part: five cyclotomic powers by |x| or |x| + 1, five
@@ -2424,6 +2469,7 @@ def bls_least_products() -> dict:
             "add1": 6, "add2": 15, "aff1": 0, "aff2": 0,
             "h2g": 2 * svdw + 15 + cofactor + 18,
             "miller": (n - 1) * (25 + 39 + 36) - (36 + 39) + (w - 1) * (41 + 39),
+            "miller_floor": 40 + (n - 2) * (40 + 42 + 36) + (w - 1) * (40 + 42),
             "fexp": (100 + 54 + 10 + 54 + 2 * ladder(18, 54, x + 1) + 3 * ladder(18, 54, x)
                      + 5 * 54 + 15 + 10 + 18),
             "mul12": 54}
@@ -2445,8 +2491,8 @@ def bls_call_products(name: str, args: tuple, c: dict) -> int:
         g, _, _, starts, check = args
         sizes = _sizes(starts)
         return int((np.maximum(sizes, 1) - 1).sum()) * c[f"add{g}"] + len(sizes) * (
-            c[f"aff{g}"] + int(check) * c[f"sub{g}"])
-    if name == "bls_miller":
+            c[f"aff{g}"] + int(check) * (c[f"sub{g}"] + c.get(f"jac{g}", 0)))
+    if name.startswith("bls_miller"):
         return args[0].shape[-1] * c["miller"]
     sizes = _sizes(args[2])  # bls_final_exp
     return int((np.maximum(sizes, 1) - 1).sum()) * c["mul12"] + len(sizes) * c["fexp"]
@@ -2634,9 +2680,10 @@ class BlsHeld:
 
 
 class BlsRecorder:
-    """Records every BLS kernel call made under it: the entry, its
-    arguments and its outputs, copied on the card, so that the main path's
-    own calls can be held against their plain versions and timed."""
+    """Records every BLS kernel call made under it: the kernel (B1 G2's and
+    B4's by which of their two kernels ran), the entry, its arguments and
+    its outputs, copied on the card, so that the main path's own calls can
+    be held against their plain versions and timed."""
 
     ENTRIES = ("decompress", "hash_to_g2", "point_sum", "miller", "final_exp")
 
@@ -2662,8 +2709,14 @@ class BlsRecorder:
             return t.clone() if isinstance(t, torch.Tensor) else t
 
         def run(*args):
+            from cometbft_tpu_torch.ops import bls_launch as BL
+
+            before = dict(BL.LAUNCHES)
             out = fn(*args)
             key = f"bls_{n}_g{args[0]}" if n in ("decompress", "point_sum") else f"bls_{n}"
+            for group_key in ("bls_decompress_g2_trio", "bls_miller_sextet", "bls_miller_half"):
+                if BL.LAUNCHES[group_key] > before[group_key]:
+                    key = group_key
             outs = out if isinstance(out, tuple) else (out,)
             self.calls.append((key, n, tuple(copy(a) for a in args),
                                tuple(copy(o) for o in outs)))
@@ -2706,13 +2759,18 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
     """B1-B5 against their plain versions on the card, on inputs whose first
     lanes are edge cases: B1 (G1 and G2, with and without the subgroup
     check) on a key staged in place of an x >= p (the generator), an x with
-    no square root, points on the curves outside G1/G2 and both sign bits;
-    B2 on 64 messages with the empty one, and on one message alone (one
-    trio); B3 (G1, and G2 with the subgroup check) on 1,024 points in 3
-    uneven groups and a group summing to infinity; B4 and B5 on 64 pairs,
-    32 checks, half of them products equal to one; B5 on one check of 151
-    of those values (ten trios and their tree) and on checks whose product
-    is zero or one, forced or not. Prints B2's and B5's launch shapes."""
+    no square root, points on the curves outside G1/G2 and both sign bits,
+    B1 G2 on its trio and its one-lane kernel each, on those lanes and on
+    the lane count where the crossover takes one lane a thread; B2 on 64
+    messages with the empty one, and on one message alone (one trio); B3
+    (G1, and G2 with the subgroup check) on 1,024 points in 3 uneven groups,
+    a group summing to infinity and (G2) a group whose sum lies outside G2;
+    B4 and B5 on 64 pairs, 32 checks, half of them products equal to one, B4
+    on its half-warp, sextet and one-pair kernels each, on those pairs and
+    on the pair counts of its two crossovers; B5 on one check of 151 of those values
+    (ten trios and their tree) and on checks whose product is zero or one,
+    forced or not. Prints the group kernels' launch shapes and
+    crossovers."""
     from cometbft_tpu_torch.crypto import bls12381
     from cometbft_tpu_torch.crypto import bls12381_math as O
     from cometbft_tpu_torch.ops import bls_kernel as BK
@@ -2751,13 +2809,26 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
         if len(set(sign.tolist())) != 2:
             raise AssertionError("BLS checks: B1's lanes must carry both sign bits")
         for check in (True, False):
-            got = BL.decompress(g, x, sign, check)
-            held.hold(f"bls_decompress_g{g}", got, lambda: BL.decompress_plain(g, x, sign, check))
-            want_ok = [1] * (len(rows) - 1) + [0]
-            if check:
-                want_ok[1] = 0  # on the curve, outside the subgroup
-            if got[0].tolist() != want_ok:
-                raise AssertionError(f"B1 g{g} check={check}: ok {got[0].tolist()}")
+            for kernel in ((None,) if g == 1 else (None, "trio", "lane")):
+                trios = BL.LAUNCHES["bls_decompress_g2_trio"]
+                got = BL.decompress(g, x, sign, check, kernel=kernel)
+                key = f"bls_decompress_g{g}" + (
+                    "_trio" if BL.LAUNCHES["bls_decompress_g2_trio"] > trios else "")
+                held.hold(key, got, lambda: BL.decompress_plain(g, x, sign, check))
+                want_ok = [1] * (len(rows) - 1) + [0]
+                if check:
+                    want_ok[1] = 0  # on the curve, outside the subgroup
+                if got[0].tolist() != want_ok:
+                    raise AssertionError(f"B1 g{g} check={check} {kernel}: ok {got[0].tolist()}")
+    # B1 G2 at its crossover: the edge lanes repeated, both kernels
+    n1 = _bls_crossover("bls_decompress_g2", device, lambda s: s["lane_kernel"])
+    x, sign = _bls_x_planes([rows2[k % len(rows2)].tobytes() for k in range(n1)], device)
+    for kernel in (None, "trio"):
+        got = BL.decompress(2, x, sign, True, kernel=kernel)
+        held.hold("bls_decompress_g2" + ("_trio" if kernel else ""), got,
+                  lambda: BL.decompress_plain(2, x, sign, True))
+    print(f"  B1 G2 held on both kernels at {len(rows2)} lanes (a trio a lane) and at its "
+          f"crossover, {n1} lanes (one lane a thread)", flush=True)
     # B2
     msgs = [b""] + [b"bls-check-%d" % i for i in range(BLS_CHECK_LANES - 1)]
     u = torch.from_numpy(np.stack(htc.hash_to_field_limbs(msgs, bls12381.DST))).to(device)
@@ -2771,22 +2842,28 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
     held.hold("bls_hash_to_g2", got, lambda: BL.hash_to_g2_plain(u1))
     if [v[0] for v in BL.values(got[0])] != [v[1] for v in hv]:
         raise AssertionError("B2: one message alone differs from the same message among 64")
-    # B3: groups of 1000, 19 and 3 points and one of P, -P
+    # B3: groups of 1000, 19 and 3 points, one of P, -P and (G2) one of a
+    # G2 point and a twist point outside G2 (its sum outside G2)
+    off_g2 = O._svdw_map_fp2((3, 4), O._bls_setup()["svdw"])
     for g in (1, 2):
         affs = _bls_points(g, BLS_SUM_POINTS - 2, 7 + g)
         neg = (affs[0][0], p - affs[0][1]) if g == 1 else (affs[0][0], O.f2_neg(affs[0][1]))
-        affs = affs + [affs[0], neg]
+        affs = affs + [affs[0], neg] + ([off_g2] if g == 2 else [])
         sizes = [1000, 19, 3]
-        order = np.concatenate([rng.permutation(sum(sizes)), [len(affs) - 2, len(affs) - 1]])
-        starts = np.cumsum([0] + sizes + [2])
+        extra = [[BLS_SUM_POINTS - 2, BLS_SUM_POINTS - 1]] + ([[1, BLS_SUM_POINTS]] if g == 2
+                                                                else [])
+        order = np.concatenate([rng.permutation(sum(sizes))] + extra)
+        starts = np.cumsum([0] + sizes + [2] * len(extra))
         order_t = torch.from_numpy(order.astype(np.int32)).to(device)
         starts_t = torch.from_numpy(starts.astype(np.int32)).to(device)
         planes = BL.planes_of_ints(_bls_coords(g, affs), device)
         got = BL.point_sum(g, planes, order_t, starts_t, g == 2)
         held.hold(f"bls_point_sum_g{g}", got,
                   lambda: BL.point_sum_plain(g, planes, order_t, starts_t, g == 2))
-        if got[1].tolist() != [0, 0, 0, 1]:
-            raise AssertionError(f"B3 g{g}: identity flags {got[1].tolist()}")
+        if got[1].tolist() != [0, 0, 0, 1] + [0] * (g - 1) or got[2].tolist() != (
+                [1, 1, 1, 1, 0] if g == 2 else [1, 1, 1, 1]):
+            raise AssertionError(f"B3 g{g}: identity flags {got[1].tolist()}, subgroup "
+                                 f"{got[2].tolist()}")
     # B4/B5: checks c < 16 pair (P, Q) with (-P, Q): one; the others (P, Q)
     # with (P, Q'): not one
     n = BLS_CHECK_LANES
@@ -2799,7 +2876,26 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
     pk = BL.planes_of_ints(_bls_coords(1, p_aff), device)
     qk = BL.planes_of_ints(_bls_coords(2, q_aff), device)
     f = BL.miller(pk, qk)
-    held.hold("bls_miller", (f,), lambda: (BL.miller_plain(pk, qk),))
+    want = BL.miller_plain(pk, qk)
+    held.hold("bls_miller_half", (f,), lambda: (want,))
+    for kernel, key in (("sextet", "bls_miller_sextet"), ("lane", "bls_miller")):
+        held.hold(key, (BL.miller(pk, qk, kernel=kernel),), lambda: (want,))
+    # B4 at its crossovers, the pairs repeated: the half-warp's to the
+    # sextet, the sextet's to one pair a thread, each kernel on both sides
+    n_half = _bls_crossover("bls_miller", device, lambda s: s["group_threads"] != 16)
+    n4 = _bls_crossover("bls_miller", device, lambda s: s["lane_kernel"])
+    for m, kernels in ((n_half, (None, "half")), (n4, (None, "sextet"))):
+        idx = torch.arange(m, device=device) % n
+        pc, qc = pk[:, idx].contiguous(), qk[:, idx].contiguous()
+        want_m = BL.miller_plain(pc, qc)
+        for kernel in kernels:
+            used = {k: BL.LAUNCHES[k] for k in ("bls_miller_half", "bls_miller_sextet")}
+            got = BL.miller(pc, qc, kernel=kernel)
+            key = next((k for k, v in used.items() if BL.LAUNCHES[k] > v), "bls_miller")
+            held.hold(key, (got,), lambda: (want_m,))
+    print(f"  B4 held on its three kernels at {n} pairs (a half-warp a pair), at the "
+          f"half-warp's crossover, {n_half} pairs (a sextet a pair), and at the sextet's, "
+          f"{n4} pairs (one pair a thread)", flush=True)
     lanes = torch.arange(n, dtype=torch.int32, device=device)
     starts = torch.arange(0, n + 1, 2, dtype=torch.int32, device=device)
     got = BL.final_exp(f, lanes, starts)
@@ -2823,13 +2919,38 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
     held.hold("bls_final_exp", got, lambda: BL.final_exp_plain(fz, lz, sz, force=force))
     if got[0].tolist() != [1, 1, 0, 1, 1] or got[2].tolist() != [0]:
         raise AssertionError(f"B5 zero/one checks: verdicts {got[0].tolist()}, all {got[2]}")
-    for label, entry, units, values in (
-            ("1 message", "bls_hash_to_g2", 1, 1), ("150 messages", "bls_hash_to_g2", 150, 150),
-            (f"{N_BIG} messages", "bls_hash_to_g2", N_BIG, N_BIG),
-            ("one check of 151", "bls_final_exp", 1, 151), ("one check of 2", "bls_final_exp", 1, 2),
-            (f"{N_BIG} checks of 2", "bls_final_exp", N_BIG, 2 * N_BIG)):
-        print(f"  launch shape {entry}, {label}: {BL.launch_shape(entry, units, device, values)}",
-              flush=True)
+    for label, entry, units, values, check in (
+            ("150 lanes, no subgroup check", "bls_decompress_g2", 150, None, False),
+            ("256 lanes", "bls_decompress_g2", 256, None, True),
+            (f"{n1} lanes", "bls_decompress_g2", n1, None, True),
+            (f"{N_BIG} lanes", "bls_decompress_g2", N_BIG, None, True),
+            ("1 message", "bls_hash_to_g2", 1, 1, True),
+            ("150 messages", "bls_hash_to_g2", 150, 150, True),
+            (f"{N_BIG} messages", "bls_hash_to_g2", N_BIG, N_BIG, True),
+            ("2 pairs", "bls_miller", 2, None, True), ("151 pairs", "bls_miller", 151, None, True),
+            (f"{n_half} pairs", "bls_miller", n_half, None, True),
+            (f"{n4} pairs", "bls_miller", n4, None, True),
+            (f"{2 * N_BIG} pairs", "bls_miller", 2 * N_BIG, None, True),
+            ("one check of 151", "bls_final_exp", 1, 151, True),
+            ("one check of 2", "bls_final_exp", 1, 2, True),
+            (f"{N_BIG} checks of 2", "bls_final_exp", N_BIG, 2 * N_BIG, True)):
+        shape = BL.launch_shape(entry, units, device, values, check_subgroup=check)
+        print(f"  launch shape {entry}, {label}: {shape}", flush=True)
+
+
+def _bls_crossover(entry: str, device, past) -> int:
+    """The fewest lanes (pairs) at which `entry` (with the subgroup check)
+    launches as `past(launch_shape)` holds: a crossover, from launch_shape."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if past(BL.launch_shape(entry, mid, device)):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
 
 
 def _bls_counted(fn, device):
@@ -2939,10 +3060,10 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     lanes); a mixed commit of 50 ed25519 + 50 sr25519 + 50 bls12381
     validators (one K1, one K2, the BLS pipeline, one combined header
     fetch) and its rows with a bad lane of each scheme (mask order). Then
-    the cold 150 and tampered 10k commits once more, recorded: every kernel
-    call held against its plain version on the same card tensors, each
-    kernel timed (CUDA events) on its largest call. Returns the kernel
-    records."""
+    the cold 150, tampered 150 and tampered 10k commits once more, recorded:
+    every kernel call held against its plain version on the same card
+    tensors, each kernel timed (CUDA events) on its largest call and on
+    every recorded call. Returns the kernel records."""
     from cometbft_tpu_torch import sched
     from cometbft_tpu_torch.crypto import batch as crypto_batch
     from cometbft_tpu_torch.ops import bls_kernel as BK
@@ -2952,7 +3073,8 @@ def bls_phase(device, card: str, report: str = "") -> dict:
 
     t_phase = time.perf_counter()
     for kernel, lines in ptxas_summary(report).items():
-        if kernel.startswith(("bls_hash_to_g2", "bls_final_exp")):
+        if kernel.startswith(("bls_decompress_g2", "bls_hash_to_g2", "bls_miller",
+                              "bls_final_exp")):
             print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
     held = BlsHeld()
     check_bls(device, held, card)
@@ -3057,26 +3179,31 @@ def bls_phase(device, card: str, report: str = "") -> dict:
                              f"{[i for i, m in enumerate(mask) if not m]}, expected {bad_lanes}")
     print(f"[{card}] BLS mixed 150 rows with a bad lane of each scheme at {bad_lanes}: "
           f"mask order kept", flush=True)
-    missing = [k for k in BLS_RECORDS if totals.get(k, 0) < 1]
+    missing = [k for k in BLS_RECORDS if totals.get(BLS_SPLIT.get(k, (k, None, k))[2], 0) < 1]
     if missing:
         raise AssertionError(f"BLS kernels never launched on the main path: {missing}")
 
     # 4. the main path's own calls: the 150 commit cold (the aggregate with
-    # the keys' B1) and the tampered 10k commit (its aggregate, then the
-    # single-verify path at 10,240 lanes), recorded; each call held against
+    # the keys' B1), the tampered 150 commit (its aggregate, then the
+    # single-verify pinpoint at 256 lanes: B1 G2's trios, B4's sextets) and
+    # the tampered 10k commit (its aggregate, then the single-verify path at
+    # 10,240 lanes: one lane a thread), recorded; each call held against
     # its plain version on the same card tensors; each kernel timed on its
     # largest call, its bound worked out from that call's inputs
     t0 = time.perf_counter()
     BK.reset_valset_cache()
     with BlsRecorder() as rec:
         call()
-        try:
-            V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, bad_b)
-        except Exception as e:  # noqa: BLE001 - asserted below
-            if not str(e).startswith(f"wrong signature (#{BLS_BAD_BIG})"):
-                raise
-        else:
-            raise AssertionError("BLS 10k tampered: no error in the recorded run")
+        for label, run, index in (
+                ("150", lambda: V.verify_commit(CHAIN_ID, vals, bid, h, bad), BLS_BAD_SMALL),
+                ("10k", lambda: V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, bad_b), BLS_BAD_BIG)):
+            try:
+                run()
+            except Exception as e:  # noqa: BLE001 - asserted below
+                if not str(e).startswith(f"wrong signature (#{index})"):
+                    raise
+            else:
+                raise AssertionError(f"BLS {label} tampered: no error in the recorded run")
     held_calls = hold_recorded(rec.calls, held, card)
     single = [c for c in held_calls if c["key"] == "bls_final_exp"
               and c["args"][2].shape[0] - 1 == N_BIG]
@@ -3086,17 +3213,25 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     print(f"[{card}] BLS main-path calls held against their plain versions: "
           f"{len(held_calls)} calls in {time.perf_counter() - t0:.1f} s", flush=True)
     least, design, chain = bls_least_products(), bls_fp_products(), bls_chain_products()
-    print(f"[{card}] Fp products a lane, least / the kernels' own / one thread's chain: B2 "
-          f"{least['h2g']} / {design['h2g']} / {chain['h2g']} a message; B5 {least['fexp']} / "
+    print(f"[{card}] Fp products a lane, least / the kernels' own / one thread's chain: B1 G2 "
+          f"{least['g2']} + {least['sub2']} / {design['g2']} + {design['sub2']} / {chain['g2']} + "
+          f"{chain['sub2']} (decompression + the subgroup test); B2 "
+          f"{least['h2g']} / {design['h2g']} / {chain['h2g']} a message; B4 {least['miller']} "
+          f"(Aranha's scalings; {least['miller_floor']} with the plain ones) / "
+          f"{design['miller']} / {chain['miller_half']} (half-warp), {chain['miller']} "
+          f"(sextet) a pair; B5 {least['fexp']} / "
           f"{design['fexp']} / {chain['fexp']} a check + {least['mul12']} / {design['mul12']} / "
           f"{chain['mul12']} a further Miller value (the widest calls: one lane a thread, the "
           f"own counts)", flush=True)
-    # B2 and B5 on each of their recorded calls: the aggregates' one
-    # message / one check (the 10k commit's), the 150 commit's and the
-    # single-verify path's 10,240
+    # B1 G2, B2, B3 G2, B4 and B5 on each of their recorded calls: the
+    # aggregates' (the 150 commit's and the 10k commit's: 150 and 10,240
+    # signatures, one message or 150, 151 or 2 pairs, one check) and the
+    # single-verify path's (256 and 10,240 lanes, 20,480 pairs)
     by_call: dict[str, dict[str, float]] = {}
     for c in held_calls:
-        if c["key"] in ("bls_hash_to_g2", "bls_final_exp"):
+        if c["key"] in ("bls_decompress_g2", "bls_decompress_g2_trio", "bls_hash_to_g2",
+                        "bls_point_sum_g2", "bls_miller", "bls_miller_sextet",
+                        "bls_miller_half", "bls_final_exp"):
             label = _bls_call_shape(c["entry"], c["args"])
             if label not in by_call.setdefault(c["key"], {}):
                 args, fn = c["args"], getattr(BL, c["entry"])
@@ -3109,7 +3244,9 @@ def bls_phase(device, card: str, report: str = "") -> dict:
         if not mine:
             raise AssertionError(f"{name}: no call on the recorded main path")
         c = max(mine, key=lambda c: bls_call_products(name, c["args"], least))
-        args, fn = c["args"], getattr(BL, c["entry"])
+        entry, kernel, count = BLS_SPLIT.get(name, (name, None, name))
+        args, fn = c["args"], functools.partial(getattr(BL, c["entry"]),
+                                                **({"kernel": kernel} if kernel else {}))
         ms = time_kernel(lambda: fn(*args), reps=3)
         products = bls_call_products(name, args, least)
         nbytes = sum(t.numel() * t.element_size() for t in args + c["outs"]
@@ -3119,8 +3256,10 @@ def bls_phase(device, card: str, report: str = "") -> dict:
         n = args[1].shape[-1] if c["entry"] in ("decompress", "point_sum") else args[0].shape[-1]
         units = (args[3].shape[0] - 1 if c["entry"] == "point_sum" else
                  args[2].shape[0] - 1 if c["entry"] == "final_exp" else n)
-        shape = BL.launch_shape(name, units, device,
-                                n if c["entry"] == "final_exp" else None)
+        shape = BL.launch_shape(entry, units, device,
+                                n if c["entry"] == "final_exp" else None,
+                                check_subgroup=c["entry"] != "decompress" or bool(args[3]),
+                                kernel=kernel)
         print(f"[{card}] {name}: {ms:.3f} ms on {_bls_call_shape(c['entry'], args)} (median "
               f"of 3), plain {c['plain_ms']:.1f} ms on the same call; bound {b[0]:.4f} ms "
               f"({b[1]}: {products} Fp products x {FP_MUL_IMADS} IMADs, {nbytes} B), "
@@ -3129,7 +3268,7 @@ def bls_phase(device, card: str, report: str = "") -> dict:
               f"{shape['blocks_per_sm']} blocks/SM", flush=True)
         records.append({
             "name": name, "route": "cuda", "source": "cometbft_tpu_torch/csrc/bls12381.cu",
-            "replaces": BLS_RECORDS[name], "launches": totals[name],
+            "replaces": BLS_RECORDS[name], "launches": totals[count],
             "max_abs_err": held.err[name], "ms": ms, "plain_ms": c["plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "lanes": n,
             "units": units, "fp_products": products, "design_bound_ms": design_b[0],

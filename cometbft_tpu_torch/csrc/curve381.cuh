@@ -1,16 +1,17 @@
 // The BLS12-381 groups and the pairing over tower381.cuh and group381.cuh:
 // G1 over Fp (y^2 = x^3 + 4), G2 on the twist over Fp2 (y^2 = x^3 +
 // 4(1 + u)), complete projective formulas (Renes-Costello-Batina 2015,
-// algorithms 7 and 9 for a = 0) and the fixed-scalar ladders (the subgroup
-// order r) one lane a thread, decompression, the SvdW hash-to-G2 map, the
-// optimal-ate Miller loop; then the two bodies that run on thread groups:
-// hash to G2 (its cofactor clearing by psi: Budroni-Pintore, then a GLS
-// split, in Jacobian coordinates) and the segmented product with the final exponentiation
-// (cyclotomic squares). Each is the plain version's function
-// (ops/bls12381/points.py, htc.py, pairing.py) value for value: the Miller
-// loop keeps the plain version's projective T and line scalings, so its
-// Fp12 output equals the plain one, and the final exponentiation is the
-// oracle's chain.
+// algorithms 7 and 9 for a = 0), the fixed-scalar ladder of the subgroup
+// order r (G1's subgroup check), decompression, the SvdW hash-to-G2 map;
+// then the bodies that run on thread groups as well as one lane a thread:
+// G2 in Jacobian coordinates with its subgroup check psi(P) == [x]P (Scott
+// 2021), hash to G2 (its cofactor clearing by psi: Budroni-Pintore, then a
+// GLS split), the optimal-ate Miller loop on batches of products, and the
+// segmented product with the final exponentiation (cyclotomic squares).
+// Each is the plain version's function (ops/bls12381/points.py, htc.py,
+// pairing.py) value for value: the Miller loop keeps the plain version's
+// projective T and line scalings, so its Fp12 output equals the plain one,
+// and the final exponentiation is the oracle's chain.
 
 #pragma once
 
@@ -147,10 +148,10 @@ __device__ BLS_NOINLINE void pt_mul_const(proj<T>& o, const proj<T>& p, int e) {
   o = acc;
 }
 
-// [r]P == O; the identity counts as in the subgroup
-template <class T>
-__device__ __forceinline__ bool pt_in_subgroup(const proj<T>& p) {
-  proj<T> r;
+// G1: [r]P == O; the identity counts as in the subgroup. (G2's test is
+// psi(P) == [x]P, below with the Jacobian code.)
+__device__ __forceinline__ bool pt_in_subgroup(const proj<fp>& p) {
+  proj<fp> r;
   pt_mul_const(r, p, E_R);
   return f_is_zero(r.z);
 }
@@ -180,13 +181,18 @@ __device__ __forceinline__ bool g1_decompress(fp& y, const fp& x, bool sign) {
   return ok;
 }
 
+// The root exists iff the norm of x^3 + b is a square in Fp: its binary
+// Legendre symbol decides before any exponentiation. A square takes the
+// root by the norm (f2_sqrt_fast: f2_sqrt's root up to sign, and the sign
+// rule then picks the same y); a non-square takes f2_sqrt's candidate,
+// which is the plain version's y on a lane it rejects.
 __device__ __forceinline__ bool g2_decompress(fp2& y, const fp2& x, bool sign) {
   fp2 t, b;
   f2_sq(t, x);
   f2_mul(t, t, x);
   f2_k(b, K_B2);
   f2_add(t, t, b);
-  const bool ok = f2_sqrt(y, t);
+  const bool ok = f2_is_square(t) ? f2_sqrt_fast(y, t) : f2_sqrt(y, t);
   f2_neg(t, y);
   f2_sel(y, f2_lexi_larger(y) != sign, t, y);
   return ok;
@@ -239,69 +245,6 @@ __device__ BLS_NOINLINE void svdw_map(proj<fp2>& o, const fp2& u) {
   f2_neg(t, y);
   f2_sel(y, f2_sgn0(u) != f2_sgn0(y), t, y);
   pt_from_affine(o, x, y);
-}
-
-// ------------------------------------------------------------------ pairing
-
-// the sparse line c0 + c_vw v w + c_v2w v^2 w
-__device__ __forceinline__ void line_f12(fp12& o, const fp2& c0, const fp2& c_vw, const fp2& c_v2w) {
-  fp2 xi_inv;
-  f2_k(xi_inv, K_XI_INV);
-  f12_one(o);
-  o.d0.c0 = c0;
-  f2_mul(o.d1.c1, c_vw, xi_inv);
-  f2_mul(o.d1.c2, c_v2w, xi_inv);
-}
-
-// f_{|x|,Q}(P), conjugated (x < 0); P = (px, py) affine G1 and Q = (qx, qy)
-// affine twist points, in Montgomery form. Non-identity inputs.
-__device__ BLS_NOINLINE void miller_loop(fp12& f, const fp& px, const fp& py, const fp2& qx,
-                                         const fp2& qy) {
-  proj<fp2> t, q;
-  pt_from_affine(q, qx, qy);
-  t = q;
-  f12_one(f);
-  for (int i = exp_nbits(E_X) - 2; i >= 0; --i) {
-    // tangent at T, scaled by 2 Y Z^2
-    fp2 xx, yz, yy, c0, c_vw, c_v2w, s, u;
-    fp12 l;
-    f2_mul(xx, t.x, t.x);
-    f2_mul(yz, t.y, t.z);
-    f2_mul(yy, t.y, t.y);
-    f2_mul(s, yz, t.z);
-    f2_dbl(s, s);
-    f2_mul_fp(c0, s, py);
-    f2_mul3(s, t.x);
-    f2_mul(c_vw, xx, s);
-    f2_mul(s, yy, t.z);
-    f2_dbl(s, s);
-    f2_sub(c_vw, c_vw, s);
-    f2_mul(s, xx, t.z);
-    f2_mul3(s, s);
-    f2_mul_fp(s, s, px);
-    f2_neg(c_v2w, s);
-    f12_sq(f, f);
-    line_f12(l, c0, c_vw, c_v2w);
-    f12_mul(f, f, l);
-    pt_dbl(t, t);
-    if (exp_bit(E_X, i)) {
-      // chord through the new T and Q, scaled by X - xQ Z
-      f2_mul(s, qx, t.z);
-      f2_sub(s, t.x, s);
-      f2_mul_fp(c0, s, py);
-      f2_mul(s, qy, t.z);
-      f2_sub(s, t.y, s);
-      f2_mul_fp(s, s, px);
-      f2_neg(c_v2w, s);
-      f2_mul(s, t.y, qx);
-      f2_mul(u, t.x, qy);
-      f2_sub(c_vw, s, u);
-      line_f12(l, c0, c_vw, c_v2w);
-      f12_mul(f, f, l);
-      pt_add(t, t, q);
-    }
-  }
-  f12_conj(f, f);
 }
 
 // ------------------------------------------- G2 in Jacobian coordinates
@@ -513,6 +456,186 @@ __device__ __forceinline__ bool jac_to_affine(fp2& x, fp2& y, const jac& p) {
   return f2_is_zero(p.z);
 }
 
+// P in G2 iff psi(P) == [x]P, for every point P of E'(Fp2) (Scott, "A note
+// on group membership tests for G1, G2 and GT on BLS pairing-friendly
+// curves", ePrint 2021/1130, section 4: psi acts as [x] on G2 and as no
+// such map on the rest of E'(Fp2) for BLS12 curves): one psi and one |x|
+// ladder (63 doublings, 5 additions) instead of r's 255-bit ladder. The
+// two sides compare across Jacobian coordinates (X1 Z2^2 = X2 Z1^2, Y1 Z2^3
+// = Y2 Z1^3); the identity counts as in the subgroup, as with [r]P == O.
+template <class G>
+__device__ BLS_NOINLINE bool jac_in_g2(const jac& p, G& g) {
+  jac a, b;
+  jac_psi(a, p, g);
+  jac_mul_x(b, p, g);
+  const bool za = f2_is_zero(a.z), zb = f2_is_zero(b.z);
+  if (za || zb) return za && zb;
+  fp2 a2, b2, a3, b3, l, r;
+  g2_sq(a2, a.z, g);
+  g2_sq(b2, b.z, g);
+  g2_mul(l, a.x, b2, g);
+  g2_mul(r, b.x, a2, g);
+  if (!f2_eq(l, r)) return false;
+  g2_mul(a3, a2, a.z, g);
+  g2_mul(b3, b2, b.z, g);
+  g2_mul(l, a.y, b3, g);
+  g2_mul(r, b.y, a3, g);
+  return f2_eq(l, r);
+}
+
+// G2: the one membership test of the port (B1 G2 and B3 G2)
+template <class G>
+__device__ __forceinline__ bool pt_in_subgroup(const proj<fp2>& p, G& g) {
+  jac q;
+  jac_from_proj(q, p);
+  return jac_in_g2(q, g);
+}
+
+__device__ __forceinline__ bool pt_in_subgroup(const proj<fp2>& p) {
+  solo g;
+  return pt_in_subgroup(p, g);
+}
+
+// ------------------------------------------------------------------ pairing
+// f_{|x|,Q}(P), conjugated (x < 0), on T = Q in RCB projective coordinates
+// as the plain version walks it: each doubling step f = f^2 l_T,T(P), T =
+// 2T; where x's bit is set, f = f l_T,Q(P), T = T + Q. The lines keep the
+// plain version's scalings (the tangent by 2 Y Z^2, the chord by X - xQ Z)
+// and land in its sparse slots c0 + c_vw v w + c_v2w v^2 w, the last two
+// times xi^-1 (f2_mul_xi_inv: additions). What the step costs: an Fp12
+// square of 36 Fp products (the complex method), a product by the sparse
+// line of 42 (f12_line_job), the tangent and the doubling sharing Y^2 and
+// Y Z (40), no square and no product in the first step (f = 1: f = l).
+// The products of a step go out on three batches (group381.cuh): the
+// square beside the tangent's and the doubling's first products; their
+// second products; the line product.
+
+// the sparse line's coefficients, xi^-1 applied to the last two; on the
+// first step f = l, else f = f l
+template <class G>
+__device__ __forceinline__ void miller_line(fp12& f, const fp2& c0, const fp2& c_vw,
+                                            const fp2& c_v2w, bool first, G& g) {
+  fp2 b1, b2;
+  f2_mul_xi_inv(b1, c_vw);
+  f2_mul_xi_inv(b2, c_v2w);
+  if (first) {
+    f12_one(f);
+    f.d0.c0 = c0;
+    f.d1.c1 = b1;
+    f.d1.c2 = b2;
+    return;
+  }
+  g12_mul_line(f, f, c0, b1, b2, g);
+}
+
+// f = f^2 l (the tangent at T, scaled by 2 Y Z^2); T = 2T (RCB algorithm 9)
+template <class G>
+__device__ BLS_NOINLINE void miller_dbl(fp12& f, proj<fp2>& t, const fp& px, const fp& py,
+                                        bool first, G& g) {
+  batch<G, MILLER_JOBS> b(g);
+  f12_sq_job sq;
+  if (!first) sq.queue(b, f);
+  fp2 xx, yy, zz, yz, xy, zpy, zpx;
+  b.sq(xx, t.x);
+  b.sq(yy, t.y);
+  b.sq(zz, t.z);
+  b.mul(yz, t.y, t.z);
+  b.mul(xy, t.x, t.y);
+  b.mul_fp(zpy, t.z, py);
+  b.mul_fp(zpx, t.z, px);
+  b.run(g);
+  if (!first) sq.finish(f);
+  fp2 t2, z8, y3, t0b, s;
+  f_mul_b3(t2, zz);
+  f2_dbl(z8, yy);
+  f2_dbl(z8, z8);
+  f2_dbl(z8, z8);
+  f2_add(y3, yy, t2);
+  f2_mul3(s, t2);
+  f2_sub(t0b, yy, s);
+  fp2 c0, xxx, yyz, xxzpx, x3, z3, q3, q4;
+  b.mul(c0, yz, zpy);
+  b.mul(xxx, xx, t.x);
+  b.mul(yyz, yy, t.z);
+  b.mul(xxzpx, xx, zpx);
+  b.mul(x3, t2, z8);
+  b.mul(z3, yz, z8);
+  b.mul(q3, t0b, y3);
+  b.mul(q4, t0b, xy);
+  b.run(g);
+  f2_dbl(t.x, q4);
+  f2_add(t.y, x3, q3);
+  t.z = z3;
+  // c0 = 2 (Y Z)(Z py), c_vw = 3 X^2 X - 2 Y^2 Z, c_v2w = -3 X^2 (Z px)
+  fp2 c_vw, c_v2w;
+  f2_dbl(c0, c0);
+  f2_mul3(c_vw, xxx);
+  f2_dbl(s, yyz);
+  f2_sub(c_vw, c_vw, s);
+  f2_mul3(c_v2w, xxzpx);
+  f2_neg(c_v2w, c_v2w);
+  miller_line(f, c0, c_vw, c_v2w, first, g);
+}
+
+// f = f l (the chord through T and Q, scaled by X - xQ Z); T = T + Q (RCB
+// algorithm 7 with Q's Z = 1: the chord's products X yQ, Y xQ, xQ Z, yQ Z
+// serve the addition too)
+template <class G>
+__device__ BLS_NOINLINE void miller_add(fp12& f, proj<fp2>& t, const fp& px, const fp& py,
+                                        const fp2& qx, const fp2& qy, G& g) {
+  batch<G, MILLER_JOBS> b(g);
+  fp2 xqx, yqy, yqx, xqy, qxz, qyz;
+  b.mul(xqx, t.x, qx);
+  b.mul(yqy, t.y, qy);
+  b.mul(yqx, t.y, qx);
+  b.mul(xqy, t.x, qy);
+  b.mul(qxz, qx, t.z);
+  b.mul(qyz, qy, t.z);
+  b.run(g);
+  fp2 s0, s2, c_vw, t3, t4, y3, x3, t2b, z3, t1b, y3b;
+  f2_sub(s0, t.x, qxz);
+  f2_sub(s2, t.y, qyz);
+  f2_sub(c_vw, yqx, xqy);
+  f2_add(t3, xqy, yqx);
+  f2_add(t4, t.y, qyz);
+  f2_add(y3, t.x, qxz);
+  f2_mul3(x3, xqx);
+  f_mul_b3(t2b, t.z);
+  f2_add(z3, yqy, t2b);
+  f2_sub(t1b, yqy, t2b);
+  f_mul_b3(y3b, y3);
+  fp2 c0, c_v2w, p1, p2, p3, p4, p5, p6;
+  b.mul_fp(c0, s0, py);
+  b.mul_fp(c_v2w, s2, px);
+  b.mul(p1, t3, t1b);
+  b.mul(p2, t4, y3b);
+  b.mul(p3, y3b, x3);
+  b.mul(p4, t1b, z3);
+  b.mul(p5, z3, t4);
+  b.mul(p6, x3, t3);
+  b.run(g);
+  f2_sub(t.x, p1, p2);
+  f2_add(t.y, p3, p4);
+  f2_add(t.z, p5, p6);
+  f2_neg(c_v2w, c_v2w);
+  miller_line(f, c0, c_vw, c_v2w, false, g);
+}
+
+// P = (px, py) affine G1 and Q = (qx, qy) affine twist points, in
+// Montgomery form, neither the identity
+template <class G>
+__device__ BLS_NOINLINE void miller_loop(fp12& f, const fp& px, const fp& py, const fp2& qx,
+                                         const fp2& qy, G& g) {
+  proj<fp2> t;
+  pt_from_affine(t, qx, qy);
+  f12_one(f);
+  for (int i = exp_nbits(E_X) - 2; i >= 0; --i) {
+    miller_dbl(f, t, px, py, i == exp_nbits(E_X) - 2, g);
+    if (exp_bit(E_X, i)) miller_add(f, t, px, py, qx, qy, g);
+  }
+  f12_conj(f, f);
+}
+
 // ----------------------------------------------- the final exponentiation
 
 // a^|x| or a^(|x| + 1) for a = conj(b), b in the cyclotomic subgroup
@@ -584,15 +707,17 @@ __device__ __forceinline__ void aff_st(uint32_t* p, long long B, long long j, co
   f2_st(p + 2 * NW * B, B, j, y);
 }
 
-// B1: raw x planes (35 limbs a component, components B * 35 apart) and the
-// sign flag -> affine (x, y) and ok (the root exists, and with check_sub
-// [r]P == O)
-template <int G>
-__device__ __forceinline__ void lane_decompress(const int32_t* x_raw, const int32_t* sign,
-                                                int check_sub, long long B, long long j,
-                                                uint32_t* out, int32_t* ok) {
+// B1 on a group: raw x planes (35 limbs a component, components B * 35
+// apart) and the sign flag -> affine (x, y) and ok (the root exists, and
+// with check_sub the point is in G1 or G2). Every thread of a group
+// decompresses (the roots are exponentiations in Fp, not split); on a trio
+// G2's subgroup test splits its Fp2 products three ways. Thread 0 stores.
+template <int GRP, class G>
+__device__ __forceinline__ void group_decompress(const int32_t* x_raw, const int32_t* sign,
+                                                 int check_sub, long long B, long long j,
+                                                 uint32_t* out, int32_t* ok, G& g) {
   bool k;
-  if constexpr (G == 1) {
+  if constexpr (GRP == 1) {
     fp x, y;
     fp_from_limbs11(x, x_raw + j, B);
     k = g1_decompress(y, x, sign[j] != 0);
@@ -608,13 +733,22 @@ __device__ __forceinline__ void lane_decompress(const int32_t* x_raw, const int3
     fp_from_limbs11(x.b, x_raw + NL * B + j, B);
     k = g2_decompress(y, x, sign[j] != 0);
     if (check_sub && k) {
-      proj<fp2> p;
-      pt_from_affine(p, x, y);
-      k = pt_in_subgroup(p);
+      jac p{x, y, {}};
+      f2_one(p.z);
+      k = jac_in_g2(p, g);
     }
-    aff_st(out, B, j, x, y);
+    if (g.t == 0) aff_st(out, B, j, x, y);
   }
-  ok[j] = k;
+  if (g.t == 0) ok[j] = k;
+}
+
+// B1 one lane a thread
+template <int GRP>
+__device__ __forceinline__ void lane_decompress(const int32_t* x_raw, const int32_t* sign,
+                                                int check_sub, long long B, long long j,
+                                                uint32_t* out, int32_t* ok) {
+  solo g;
+  group_decompress<GRP>(x_raw, sign, check_sub, B, j, out, ok, g);
 }
 
 // B3: one group's sum over lanes order[a..b) (stepping by `step` from a),
@@ -644,16 +778,25 @@ __device__ __forceinline__ void lane_sum_out(const proj<T>& s, int check_sub, lo
   aff_st(out, G, g, x, y);
 }
 
-// B4: P affine G1 (x, y planes), Q affine twist -> the Miller value
-__device__ __forceinline__ void lane_miller(const uint32_t* p, const uint32_t* q, long long L,
-                                            long long j, uint32_t* f) {
+// B4 on a group: P affine G1 (x, y planes), Q affine twist -> the Miller
+// value; thread 0 stores
+template <class G>
+__device__ __forceinline__ void group_miller(const uint32_t* p, const uint32_t* q, long long L,
+                                             long long j, uint32_t* f, G& g) {
   fp px, py;
   fp2 qx, qy;
   aff_ld(px, py, p, L, j);
   aff_ld(qx, qy, q, L, j);
   fp12 r;
-  miller_loop(r, px, py, qx, qy);
-  f12_st(f, L, j, r);
+  miller_loop(r, px, py, qx, qy, g);
+  if (g.t == 0) f12_st(f, L, j, r);
+}
+
+// B4 one pair a thread
+__device__ __forceinline__ void lane_miller(const uint32_t* p, const uint32_t* q, long long L,
+                                            long long j, uint32_t* f) {
+  solo g;
+  group_miller(p, q, L, j, f, g);
 }
 
 // B2 on a group: the raw hash_to_field planes (u0.c0, u0.c1, u1.c0, u1.c1,

@@ -10,10 +10,15 @@
 // portable "no-carry" form (p's top word is below 2^31 - 1, so the row's two
 // carry words never overflow) with (uint64_t)a * b multiply-adds; both give
 // the one fully reduced value. It is inlined into its callers, so that its
-// operands stay in registers. Inversion and the Legendre symbol are binary
-// (variable-time: every input of the BLS kernels is public), a few hundred
-// word shifts and subtractions instead of a 380-bit exponentiation; fixed
-// exponents use 4-bit windows. Apart from the card's product, a host C++
+// operands stay in registers. Additions, subtractions and the final
+// reduction are likewise PTX carry chains on the card (add.cc / addc.cc,
+// each chain two asm statements of six words with the carry handed over in
+// a register: the carry flag does not live from one asm statement to the
+// next, and a chain split across statements loses it) and 64-bit C++ on
+// the host. Inversion and the Legendre symbol are binary (variable-time:
+// every input of the BLS kernels is public), a few hundred word shifts and
+// subtractions instead of a 380-bit exponentiation; fixed exponents use
+// 4-bit windows. Apart from the card's product and additions, a host C++
 // compiler builds the same code with __device__ and __forceinline__ defined
 // away (tests/test_torch_bls_host.py, tests/test_torch_bls_formulas.py).
 //
@@ -127,6 +132,50 @@ __device__ __forceinline__ void fp_sel(fp& o, bool c, const fp& a, const fp& b) 
   for (int i = 0; i < NW; ++i) o.v[i] = (a.v[i] & m) | (b.v[i] & ~m);
 }
 
+#ifdef __CUDA_ARCH__
+// The card's additions: each 12-word chain as two asm blocks of six words,
+// the carry (or borrow) handed from the first to the second in a register
+// and turned back into the flag there (c + 0xffffffff carries iff c = 1;
+// 0 - b borrows iff b = 1), so no flag lives across asm statements.
+#define BLS_ADD6(O0, O1, O2, O3, O4, O5, C, A0, A1, A2, A3, A4, A5, B0, B1, B2, B3, B4, B5, CIN) \
+  asm("add.cc.u32 %0, %7, 0xffffffff;\n\t"                                                       \
+      "addc.cc.u32 %0, %8, %14;\n\t"                                                            \
+      "addc.cc.u32 %1, %9, %15;\n\t"                                                            \
+      "addc.cc.u32 %2, %10, %16;\n\t"                                                           \
+      "addc.cc.u32 %3, %11, %17;\n\t"                                                           \
+      "addc.cc.u32 %4, %12, %18;\n\t"                                                           \
+      "addc.cc.u32 %5, %13, %19;\n\t"                                                           \
+      "addc.u32 %6, 0, 0;"                                                                      \
+      : "=&r"(O0), "=&r"(O1), "=&r"(O2), "=&r"(O3), "=&r"(O4), "=&r"(O5), "=r"(C)              \
+      : "r"(CIN), "r"(A0), "r"(A1), "r"(A2), "r"(A3), "r"(A4), "r"(A5), "r"(B0), "r"(B1),      \
+        "r"(B2), "r"(B3), "r"(B4), "r"(B5))
+#define BLS_SUB6(O0, O1, O2, O3, O4, O5, C, A0, A1, A2, A3, A4, A5, B0, B1, B2, B3, B4, B5, BIN) \
+  asm("sub.cc.u32 %0, 0, %7;\n\t"                                                               \
+      "subc.cc.u32 %0, %8, %14;\n\t"                                                            \
+      "subc.cc.u32 %1, %9, %15;\n\t"                                                            \
+      "subc.cc.u32 %2, %10, %16;\n\t"                                                           \
+      "subc.cc.u32 %3, %11, %17;\n\t"                                                           \
+      "subc.cc.u32 %4, %12, %18;\n\t"                                                           \
+      "subc.cc.u32 %5, %13, %19;\n\t"                                                           \
+      "subc.u32 %6, 0, 0;"                                                                      \
+      : "=&r"(O0), "=&r"(O1), "=&r"(O2), "=&r"(O3), "=&r"(O4), "=&r"(O5), "=r"(C)              \
+      : "r"(BIN), "r"(A0), "r"(A1), "r"(A2), "r"(A3), "r"(A4), "r"(A5), "r"(B0), "r"(B1),      \
+        "r"(B2), "r"(B3), "r"(B4), "r"(B5))
+
+// x (value < 2p, with an extra top word) -> x mod p
+__device__ __forceinline__ void fp_reduce_once(fp& o, const uint32_t* x, uint32_t top) {
+  uint32_t s[NW], p[NW], br;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) p[i] = c_k[K_P + i];
+  BLS_SUB6(s[0], s[1], s[2], s[3], s[4], s[5], br, x[0], x[1], x[2], x[3], x[4], x[5], p[0], p[1],
+           p[2], p[3], p[4], p[5], 0u);
+  BLS_SUB6(s[6], s[7], s[8], s[9], s[10], s[11], br, x[6], x[7], x[8], x[9], x[10], x[11], p[6],
+           p[7], p[8], p[9], p[10], p[11], br & 1u);
+  const uint32_t m = 0u - (uint32_t)(top >= (br & 1u));  // x >= p: take x - p
+#pragma unroll
+  for (int i = 0; i < NW; ++i) o.v[i] = (s[i] & m) | (x[i] & ~m);
+}
+#else
 // x (value < 2p, with an extra top word) -> x mod p
 __device__ __forceinline__ void fp_reduce_once(fp& o, const uint32_t* x, uint32_t top) {
   uint32_t s[NW];
@@ -140,7 +189,45 @@ __device__ __forceinline__ void fp_reduce_once(fp& o, const uint32_t* x, uint32_
   const uint32_t m = 0u - (uint32_t)(br >= 0);  // x >= p: take x - p
   for (int i = 0; i < NW; ++i) o.v[i] = (s[i] & m) | (x[i] & ~m);
 }
+#endif
 
+#ifdef __CUDA_ARCH__
+// o = a + b - p where that is >= 0, else a + b (a, b < p)
+__device__ __forceinline__ void fp_add(fp& o, const fp& a, const fp& b) {
+  uint32_t t[NW], s[NW], p[NW], c, top, br;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) p[i] = c_k[K_P + i];
+  BLS_ADD6(t[0], t[1], t[2], t[3], t[4], t[5], c, a.v[0], a.v[1], a.v[2], a.v[3], a.v[4],
+           a.v[5], b.v[0], b.v[1], b.v[2], b.v[3], b.v[4], b.v[5], 0u);
+  BLS_ADD6(t[6], t[7], t[8], t[9], t[10], t[11], top, a.v[6], a.v[7], a.v[8], a.v[9], a.v[10],
+           a.v[11], b.v[6], b.v[7], b.v[8], b.v[9], b.v[10], b.v[11], c);
+  BLS_SUB6(s[0], s[1], s[2], s[3], s[4], s[5], br, t[0], t[1], t[2], t[3], t[4], t[5], p[0], p[1],
+           p[2], p[3], p[4], p[5], 0u);
+  BLS_SUB6(s[6], s[7], s[8], s[9], s[10], s[11], br, t[6], t[7], t[8], t[9], t[10], t[11], p[6],
+           p[7], p[8], p[9], p[10], p[11], br & 1u);
+  const uint32_t m = 0u - (uint32_t)(top >= (br & 1u));  // the sum is >= p: take it minus p
+#pragma unroll
+  for (int i = 0; i < NW; ++i) o.v[i] = (s[i] & m) | (t[i] & ~m);
+}
+
+// o = a - b, plus p where that borrows (a, b < p)
+__device__ __forceinline__ void fp_sub(fp& o, const fp& a, const fp& b) {
+  uint32_t t[NW], q[NW], c, br;
+  BLS_SUB6(t[0], t[1], t[2], t[3], t[4], t[5], br, a.v[0], a.v[1], a.v[2], a.v[3], a.v[4], a.v[5],
+           b.v[0], b.v[1], b.v[2], b.v[3], b.v[4], b.v[5], 0u);
+  BLS_SUB6(t[6], t[7], t[8], t[9], t[10], t[11], br, a.v[6], a.v[7], a.v[8], a.v[9], a.v[10],
+           a.v[11], b.v[6], b.v[7], b.v[8], b.v[9], b.v[10], b.v[11], br & 1u);
+  const uint32_t m = 0u - (br & 1u);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) q[i] = c_k[K_P + i] & m;
+  BLS_ADD6(o.v[0], o.v[1], o.v[2], o.v[3], o.v[4], o.v[5], c, t[0], t[1], t[2], t[3], t[4], t[5],
+           q[0], q[1], q[2], q[3], q[4], q[5], 0u);
+  BLS_ADD6(o.v[6], o.v[7], o.v[8], o.v[9], o.v[10], o.v[11], c, t[6], t[7], t[8], t[9], t[10],
+           t[11], q[6], q[7], q[8], q[9], q[10], q[11], c);
+}
+#undef BLS_ADD6
+#undef BLS_SUB6
+#else
 __device__ __forceinline__ void fp_add(fp& o, const fp& a, const fp& b) {
   uint32_t t[NW];
   uint64_t c = 0;
@@ -168,6 +255,8 @@ __device__ __forceinline__ void fp_sub(fp& o, const fp& a, const fp& b) {
     c >>= 32;
   }
 }
+#endif
+
 __device__ __forceinline__ void fp_neg(fp& o, const fp& a) {
   fp z;
   fp_zero(z);

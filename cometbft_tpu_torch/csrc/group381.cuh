@@ -1,19 +1,24 @@
-// Thread groups for the BLS kernels B2 and B5 (bls12381.cu), over
+// Thread groups for the BLS kernels B1 G2, B2, B4 and B5 (bls12381.cu), over
 // tower381.cuh: the Fp2 and Fp12 operations of one lane split across a few
 // threads of a warp, as the verify kernels split a point operation across a
 // quad (quad25519.cuh).
 //
 // Every thread of a group holds the lane's whole state and does most of its
 // additions itself; the products are split, each thread computing one part
-// and publishing it to the others. B2 runs trios (N = 3): an Fp2 product
-// (Karatsuba) is three Fp products, one a thread. B5 runs sextets (N = 6):
-// an Fp12 product (Karatsuba over Fp6 over Fp2) is 18 Fp2 products, three a
-// thread; a cyclotomic square (Granger and Scott 2010) six Fp2 products,
-// one a thread. The threads run the same instructions on different
-// operands: a warp issues one stream for all its groups, so a lane's chain
-// of products is as long as one thread's share.
+// and publishing it to the others. B1 G2 and B2 run trios (N = 3): an Fp2
+// product (Karatsuba) is three Fp products, one a thread. B5 runs sextets
+// (N = 6): an Fp12 product (Karatsuba over Fp6 over Fp2) is 18 Fp2
+// products, three a thread; a cyclotomic square (Granger and Scott 2010)
+// six Fp2 products, one a thread. B4 runs half-warps (N = 16) or sextets
+// over batches: a batch queues the independent Fp2 products of one stage of
+// a Miller step (the Fp12 square beside the line's and the doubling's
+// products, or the product by the sparse line) and deals their Fp products
+// out N ways.
+// The threads run the same instructions on different operands: a warp
+// issues one stream for all its groups, so a lane's chain of products is
+// as long as one thread's share.
 //
-// A group type G has N (1, 3 or 6), t (this thread's index) and, for N > 1,
+// A group type G has N (1, 3, 6 or 16), t (this thread's index) and, for N > 1,
 // at(j) (the exchange slot of thread j) and sync() (wait for the group);
 // parity selects one of two slot sets, so one sync an exchange suffices. On
 // the card the group is N lanes of a warp, its slots in shared memory and
@@ -36,8 +41,8 @@ struct solo {
 };
 
 #ifdef __CUDACC__
-// N lanes of a warp (a trio, N = 3; a sextet, N = 6); slot words of shared
-// memory a lane, two sets
+// N lanes of a warp (a trio, N = 3; a sextet, N = 6; a half-warp, N =
+// 16); slot words of shared memory a lane, two sets
 template <int NN>
 struct lanes_of {
   static constexpr int N = NN;
@@ -229,6 +234,269 @@ __device__ BLS_NOINLINE void g12_cyclo_sq(fp12& o, const fp12& a, G& g) {
     from_words(o.d0.c2, g.at(4));
     from_words(o.d1.c0, g.at(4) + nwords<fp2>);
   }
+}
+
+// ---------------------------------------------------- batches of products
+// A batch queues up to MJ jobs, each an Fp2 product, an Fp2 square or an
+// Fp2-by-Fp product, that are independent: no job reads another's output,
+// and no output is read before run(). Solo, each job runs as it is queued.
+// On a group of N threads the jobs' Fp products (three an Fp2 product, two
+// a square or an Fp2-by-Fp product) form one list, alike on every thread;
+// thread t computes products t, t + N, t + 2N, ..., each (x0 + x1)(y0 + y1)
+// with x1, y1 zero where the product needs no sum, publishes them, and
+// after the group's sync every thread assembles every job's output (a
+// second exchange of the outputs, each thread assembling a share, measured
+// slower on the card). The operands are read at run(): they must live,
+// unchanged, until then.
+
+enum { JOB_MUL = 0, JOB_SQ = 1, JOB_MUL_FP = 2 };
+
+template <class G, int MJ>
+struct batch {
+  static constexpr int MP = 3 * MJ;                  // Fp products at most
+  static constexpr int MK = (MP + G::N - 1) / G::N;  // one thread's share at most
+  static constexpr int SLOT = MK * NW;               // exchange words a thread
+  int t, nj = 0, np = 0;
+  fp2* out[MJ];
+  int kind[MJ];
+  const fp* x0[MK];  // this thread's products (x0 + x1)(y0 + y1)
+  const fp* x1[MK];
+  const fp* y0[MK];
+  const fp* y1[MK];
+  fp neg[MK];  // -b of a square's (a + b)(a - b)
+  fp zero;
+
+  __device__ explicit batch(const G& g) : t(g.t) { fp_zero(zero); }
+
+  __device__ __forceinline__ void prod(const fp* a0, const fp* a1, const fp* b0, const fp* b1,
+                                       bool neg_b1) {
+    if (np % G::N == t) {
+      const int k = np / G::N;
+      x0[k] = a0;
+      x1[k] = a1 ? a1 : &zero;
+      y0[k] = b0;
+      if (neg_b1) {
+        fp_neg(neg[k], *b1);
+        y1[k] = &neg[k];
+      } else {
+        y1[k] = b1 ? b1 : &zero;
+      }
+    }
+    ++np;
+  }
+
+  // o = x y: x.a y.a, x.b y.b, (x.a + x.b)(y.a + y.b)
+  __device__ __forceinline__ void mul(fp2& o, const fp2& x, const fp2& y) {
+    out[nj] = &o;
+    kind[nj++] = JOB_MUL;
+    prod(&x.a, nullptr, &y.a, nullptr, false);
+    prod(&x.b, nullptr, &y.b, nullptr, false);
+    prod(&x.a, &x.b, &y.a, &y.b, false);
+  }
+
+  // o = x^2: (a + b)(a - b), a b
+  __device__ __forceinline__ void sq(fp2& o, const fp2& x) {
+    out[nj] = &o;
+    kind[nj++] = JOB_SQ;
+    prod(&x.a, &x.b, &x.a, &x.b, true);
+    prod(&x.a, nullptr, &x.b, nullptr, false);
+  }
+
+  // o = x k for k in Fp
+  __device__ __forceinline__ void mul_fp(fp2& o, const fp2& x, const fp& k) {
+    out[nj] = &o;
+    kind[nj++] = JOB_MUL_FP;
+    prod(&x.a, nullptr, &k, nullptr, false);
+    prod(&x.b, nullptr, &k, nullptr, false);
+  }
+
+  __device__ BLS_NOINLINE void run(G& g) {
+    fp mine[MK];
+    const int nk = (np + G::N - 1) / G::N;
+    for (int k = 0; k < nk; ++k) {
+      if (k * G::N + t < np) {
+        fp a, b;
+        fp_add(a, *x0[k], *x1[k]);
+        fp_add(b, *y0[k], *y1[k]);
+        fp_mul(mine[k], a, b);
+      }
+    }
+    tr_put(g, mine[0].v, nk * NW);
+    for (int j = 0, i = 0; j < nj; ++j) {
+      const int parts = kind[j] == JOB_MUL ? 3 : 2;
+      const fp* p[3];
+      for (int q = 0; q < parts; ++q, ++i)
+        p[q] = reinterpret_cast<const fp*>(g.at(i % G::N) + (i / G::N) * NW);
+      fp2& o = *out[j];
+      if (kind[j] == JOB_MUL) {
+        fp s;
+        fp_add(s, *p[0], *p[1]);
+        fp_sub(o.a, *p[0], *p[1]);
+        fp_sub(o.b, *p[2], s);
+      } else if (kind[j] == JOB_SQ) {
+        o.a = *p[0];
+        fp_dbl(o.b, *p[1]);
+      } else {
+        o.a = *p[0];
+        o.b = *p[1];
+      }
+    }
+    nj = np = 0;
+  }
+};
+
+template <int MJ>
+struct batch<solo, MJ> {
+  static constexpr int SLOT = 0;
+  __device__ explicit batch(const solo&) {}
+  __device__ __forceinline__ void mul(fp2& o, const fp2& x, const fp2& y) { f2_mul(o, x, y); }
+  __device__ __forceinline__ void sq(fp2& o, const fp2& x) { f2_sq(o, x); }
+  __device__ __forceinline__ void mul_fp(fp2& o, const fp2& x, const fp& k) { f2_mul_fp(o, x, k); }
+  __device__ __forceinline__ void run(solo&) {}
+};
+
+// An Fp6 product x y as six Fp2 products on a batch (Karatsuba, f6_mul's
+// terms): queue(), the batch's run(), then finish(). x and y must live
+// until the run.
+struct f6_job {
+  fp2 s[6], r[6];
+
+  template <class B>
+  __device__ __forceinline__ void queue(B& b, const fp6& x, const fp6& y) {
+    f2_add(s[0], x.c1, x.c2);
+    f2_add(s[1], y.c1, y.c2);
+    f2_add(s[2], x.c0, x.c1);
+    f2_add(s[3], y.c0, y.c1);
+    f2_add(s[4], x.c0, x.c2);
+    f2_add(s[5], y.c0, y.c2);
+    b.mul(r[0], x.c0, y.c0);
+    b.mul(r[1], x.c1, y.c1);
+    b.mul(r[2], x.c2, y.c2);
+    b.mul(r[3], s[0], s[1]);
+    b.mul(r[4], s[2], s[3]);
+    b.mul(r[5], s[4], s[5]);
+  }
+
+  // (t0 + xi (m12 - t1 - t2), m01 - t0 - t1 + xi t2, m02 - t0 - t2 + t1)
+  __device__ __forceinline__ void finish(fp6& o) const {
+    fp2 u;
+    f2_add(u, r[1], r[2]);
+    f2_sub(o.c0, r[3], u);
+    f2_mul_xi(o.c0, o.c0);
+    f2_add(o.c0, o.c0, r[0]);
+    f2_add(u, r[0], r[1]);
+    f2_sub(o.c1, r[4], u);
+    f2_mul_xi(u, r[2]);
+    f2_add(o.c1, o.c1, u);
+    f2_add(u, r[0], r[2]);
+    f2_sub(o.c2, r[5], u);
+    f2_add(o.c2, o.c2, r[1]);
+  }
+};
+
+// a^2 in Fp12 by the complex method: with A = a0 a1 and B = (a0 + a1)(a0 +
+// v a1), a^2 = (B - A - v A) + 2 A w; two Fp6 products, 12 Fp2 products (36
+// Fp products, not f12_mul(a, a)'s 54). a must live until the run; the
+// output may alias it.
+struct f12_sq_job {
+  fp6 s, u;
+  f6_job m0, m1;
+
+  template <class B>
+  __device__ __forceinline__ void queue(B& b, const fp12& a) {
+    f6_add(s, a.d0, a.d1);
+    f6_mul_v(u, a.d1);
+    f6_add(u, u, a.d0);
+    m0.queue(b, a.d0, a.d1);
+    m1.queue(b, s, u);
+  }
+
+  __device__ __forceinline__ void finish(fp12& o) {
+    fp6 x, y;
+    m0.finish(x);
+    m1.finish(y);
+    f6_sub(y, y, x);
+    f6_mul_v(u, x);
+    f6_sub(o.d0, y, u);
+    f6_add(o.d1, x, x);
+  }
+};
+
+// f l for the sparse line l = c0 + (b1 v + b2 v^2) w, with L0 = c0 and L1 =
+// (0, b1, b2): f0 L0 (three Fp2 products), f1 L1 (five: a1 b1, a2 b2,
+// (a1 + a2)(b1 + b2), a0 b1, a0 b2) and (f0 + f1)(c0, b1, b2) (six), then
+// (f0 L0 + v f1 L1, (f0 + f1)(L0 + L1) - f0 L0 - f1 L1): 14 Fp2 products
+// (42 Fp products, not f12_mul's 54). f must live until the run; the output
+// may alias it.
+struct f12_line_job {
+  fp6 s, l;
+  fp2 t0[3], a11, a22, m, a01, a02, s12, b12;
+  f6_job cross;
+
+  template <class B>
+  __device__ __forceinline__ void queue(B& b, const fp12& f, const fp2& c0, const fp2& b1,
+                                        const fp2& b2) {
+    l.c0 = c0;
+    l.c1 = b1;
+    l.c2 = b2;
+    b.mul(t0[0], f.d0.c0, l.c0);
+    b.mul(t0[1], f.d0.c1, l.c0);
+    b.mul(t0[2], f.d0.c2, l.c0);
+    f2_add(s12, f.d1.c1, f.d1.c2);
+    f2_add(b12, l.c1, l.c2);
+    b.mul(a11, f.d1.c1, l.c1);
+    b.mul(a22, f.d1.c2, l.c2);
+    b.mul(m, s12, b12);
+    b.mul(a01, f.d1.c0, l.c1);
+    b.mul(a02, f.d1.c0, l.c2);
+    f6_add(s, f.d0, f.d1);
+    cross.queue(b, s, l);
+  }
+
+  __device__ __forceinline__ void finish(fp12& o) {
+    fp6 x, y, c;
+    x.c0 = t0[0];
+    x.c1 = t0[1];
+    x.c2 = t0[2];
+    // f1 L1 = (xi (m - a11 - a22), a01 + xi a22, a02 + a11)
+    fp2 u;
+    f2_add(u, a11, a22);
+    f2_sub(y.c0, m, u);
+    f2_mul_xi(y.c0, y.c0);
+    f2_mul_xi(u, a22);
+    f2_add(y.c1, a01, u);
+    f2_add(y.c2, a02, a11);
+    cross.finish(c);
+    f6_sub(c, c, x);
+    f6_sub(o.d1, c, y);
+    f6_mul_v(y, y);
+    f6_add(o.d0, x, y);
+  }
+};
+
+// the jobs of the Miller loop's batches at most (a doubling step's first:
+// the Fp12 square's 12 beside the tangent's and the doubling's 7)
+constexpr int MILLER_JOBS = 20;
+
+// o = a^2 in Fp12 (f12_sq_job on one batch); o may alias a
+template <class G>
+__device__ BLS_NOINLINE void g12_sq(fp12& o, const fp12& a, G& g) {
+  batch<G, MILLER_JOBS> b(g);
+  f12_sq_job q;
+  q.queue(b, a);
+  b.run(g);
+  q.finish(o);
+}
+
+// o = f (c0 + (b1 v + b2 v^2) w) (f12_line_job on one batch); o may alias f
+template <class G>
+__device__ BLS_NOINLINE void g12_mul_line(fp12& o, const fp12& f, const fp2& c0, const fp2& b1,
+                                          const fp2& b2, G& g) {
+  batch<G, MILLER_JOBS> b(g);
+  f12_line_job q;
+  q.queue(b, f, c0, b1, b2);
+  b.run(g);
+  q.finish(o);
 }
 
 }  // namespace bls

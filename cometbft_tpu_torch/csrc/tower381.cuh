@@ -119,6 +119,16 @@ __device__ __forceinline__ void f2_mul_xi(fp2& o, const fp2& x) {
   o.a = t;
 }
 
+// xi^-1 x = (1 - u) x / 2 = ((a0 + a1) / 2, (a1 - a0) / 2): additions and
+// halvings, no product (f2_mul(x, K_XI_INV)'s value)
+__device__ __forceinline__ void f2_mul_xi_inv(fp2& o, const fp2& x) {
+  fp s, d;
+  fp_add(s, x.a, x.b);
+  fp_sub(d, x.b, x.a);
+  fp_half(o.a, s);
+  fp_half(o.b, d);
+}
+
 __device__ __forceinline__ void f2_norm(fp& o, const fp2& x) {
   fp s, t;
   fp_sq(s, x.a);
@@ -341,8 +351,6 @@ __device__ BLS_NOINLINE void f12_mul(fp12& o, const fp12& a, const fp12& b) {
   f6_mul_v(t1, t1);
   f6_add(o.d0, t0, t1);
 }
-
-__device__ __forceinline__ void f12_sq(fp12& o, const fp12& a) { f12_mul(o, a, a); }
 
 __device__ __forceinline__ void f12_conj(fp12& o, const fp12& a) {
   o.d0 = a.d0;

@@ -2,8 +2,10 @@
 their plain PyTorch versions.
 
   decompress   B1  x -> (ok, affine x, y): y = sqrt(x^3 + b) with the sign
-                   rule, ok = the root exists, and with check_subgroup
-                   [r]P == O. Replaces the XLA programs
+                   rule, ok = the root exists, and with check_subgroup the
+                   point is in the subgroup (the kernel tests G2 by psi(P)
+                   == [x]P, the plain version by [r]P == O: the same
+                   verdict on every twist point). Replaces the XLA programs
                    cometbft_tpu/ops/bls_kernel.py:180 _jit_decompress, :191
                    _jit_subgroup_g1 and :198 _jit_subgroup_g2.
   hash_to_g2   B2  the raw hash_to_field planes -> affine H(m) and its
@@ -35,7 +37,13 @@ how a kernel is held against its plain version.
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; there is no other route. The plain
 versions (`*_plain`) run on any device. ``LAUNCHES`` counts kernel launches
-per entry.
+per entry. B1 G2 with the subgroup check has two kernels, a trio of
+threads a lane and one lane a thread, and B4 three, a half-warp or a
+sextet of threads a pair and one pair a thread: the narrower calls take the
+larger groups, past measured crossovers (``launch_shape`` says which a call
+takes). Their wrappers' ``kernel`` argument forces one ("trio" or "lane";
+"half", "sextet" or "lane"), for holding each against the plain version on
+both sides of each crossover.
 """
 
 from __future__ import annotations
@@ -53,7 +61,10 @@ from cometbft_tpu_torch.ops.bls12381 import points as pts
 
 ENTRIES = ("bls_decompress_g1", "bls_decompress_g2", "bls_hash_to_g2", "bls_point_sum_g1",
            "bls_point_sum_g2", "bls_miller", "bls_final_exp")
-LAUNCHES = dict.fromkeys(ENTRIES, 0)
+# an entry's launches, and those of each kernel of the entries with more than one
+KERNEL_COUNTS = ("bls_decompress_g2_trio", "bls_decompress_g2_lane", "bls_miller_half",
+                 "bls_miller_sextet", "bls_miller_lane")
+LAUNCHES = dict.fromkeys(ENTRIES + KERNEL_COUNTS, 0)
 
 P = oracle.BLS_P
 NW = 12  # kernel words a value
@@ -360,12 +371,13 @@ def _lib(dev: torch.device) -> ctypes.CDLL:
             lib = _build.library("bls12381")
             vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.bls_set_constants.argtypes = [vp, ci]
-            lib.bls_decompress.argtypes = [ci, vp, vp, ci, ci, vp, vp, vp]
+            pi = ctypes.POINTER(ci)
+            lib.bls_decompress.argtypes = [ci, vp, vp, ci, ci, vp, vp, vp, ci, pi]
             lib.bls_hash_to_g2.argtypes = [vp, ci, vp, vp, vp]
             lib.bls_point_sum.argtypes = [ci, vp, ll, vp, vp, ci, ci, vp, vp, vp, vp]
-            lib.bls_miller.argtypes = [vp, vp, ci, vp, vp]
+            lib.bls_miller.argtypes = [vp, vp, ci, vp, vp, ci, pi]
             lib.bls_final_exp.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
-            lib.bls_launch_shape.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+            lib.bls_launch_shape.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
             for fn in (lib.bls_set_constants, lib.bls_decompress, lib.bls_hash_to_g2,
                        lib.bls_point_sum, lib.bls_miller, lib.bls_final_exp,
                        lib.bls_launch_shape):
@@ -391,12 +403,19 @@ def _check(name: str, t: torch.Tensor, dev: torch.device, shape: tuple | None = 
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(entry: str, dev: torch.device, call) -> None:
+def _launch(entry: str, dev: torch.device, call, kernels: dict[int, str] | None = None) -> None:
+    """call(lib, stream) launches; with `kernels` (the count of each of the
+    entry's kernels by the number the entry reports) it also takes a
+    pointer to an int that the entry sets to the kernel it ran."""
+    used = ctypes.c_int(0)
     with _build.on_device(dev):
-        err = call(_lib(dev), _build.raw_stream(dev))
+        lib, stream = _lib(dev), _build.raw_stream(dev)
+        err = call(lib, stream, ctypes.byref(used)) if kernels else call(lib, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
     LAUNCHES[entry] += 1
+    if kernels:
+        LAUNCHES[kernels[used.value]] += 1
 
 
 def _route(t: torch.Tensor) -> bool:
@@ -413,9 +432,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def decompress(g: int, x_raw: torch.Tensor, sign: torch.Tensor, check_subgroup: bool):
+# the entries' kernel argument by name
+_B1_KERNELS = {None: 0, "trio": 1, "lane": 2}
+_B4_KERNELS = {None: 0, "sextet": 1, "lane": 2, "half": 3}
+
+
+def _kernel(kernel: str | None, names: dict) -> int:
+    if kernel not in names:
+        raise ValueError(f"kernel must be one of {list(names)}, got {kernel!r}")
+    return names[kernel]
+
+
+def decompress(g: int, x_raw: torch.Tensor, sign: torch.Tensor, check_subgroup: bool,
+               kernel: str | None = None):
     """B1: g = 1, x_raw (35, B); g = 2, x_raw (2, 35, B) [c0, c1]; sign (B,)
-    int32 -> (ok (B,) int32, affine planes (2 g rows, B))."""
+    int32 -> (ok (B,) int32, affine planes (2 g rows, B)). kernel: None (the
+    crossover's), "trio" (G2's trio kernel) or "lane" (one lane a thread;
+    G1 has no other)."""
+    mode = _kernel(kernel, _B1_KERNELS)
     if not _route(x_raw):
         return decompress_plain(g, x_raw, sign, check_subgroup)
     dev = x_raw.device
@@ -424,9 +458,12 @@ def decompress(g: int, x_raw: torch.Tensor, sign: torch.Tensor, check_subgroup: 
     _check("sign", sign, dev, (b,))
     ok = torch.empty(b, dtype=torch.int32, device=dev)
     out = torch.empty(2 * g * NW, b, dtype=torch.int32, device=dev)
-    _launch(ENTRIES[g - 1], dev, lambda lib, s: lib.bls_decompress(
-        g, x_raw.data_ptr(), sign.data_ptr(), int(check_subgroup), b, out.data_ptr(),
-        ok.data_ptr(), s))
+    def call(lib, s, lane=None):
+        return lib.bls_decompress(g, x_raw.data_ptr(), sign.data_ptr(), int(check_subgroup), b,
+                                  out.data_ptr(), ok.data_ptr(), s, mode,
+                                  ctypes.byref(ctypes.c_int()) if lane is None else lane)
+    _launch(ENTRIES[g - 1], dev, call,
+            {0: "bls_decompress_g2_trio", 1: "bls_decompress_g2_lane"} if g == 2 else None)
     return ok, out
 
 
@@ -470,9 +507,12 @@ def point_sum(g: int, planes: torch.Tensor, order: torch.Tensor, starts: torch.T
     return out, ident, sub
 
 
-def miller(p_planes: torch.Tensor, q_planes: torch.Tensor) -> torch.Tensor:
+def miller(p_planes: torch.Tensor, q_planes: torch.Tensor, kernel: str | None = None
+           ) -> torch.Tensor:
     """B4: (2 rows, L) affine G1 and (4 rows, L) affine twist planes ->
-    (12 rows, L) Miller values."""
+    (12 rows, L) Miller values. kernel: None (the crossovers'), "half" (a
+    half-warp a pair), "sextet" or "lane" (one pair a thread)."""
+    mode = _kernel(kernel, _B4_KERNELS)
     if not _route(p_planes):
         return miller_plain(p_planes, q_planes)
     dev = p_planes.device
@@ -480,8 +520,9 @@ def miller(p_planes: torch.Tensor, q_planes: torch.Tensor) -> torch.Tensor:
     _check("p", p_planes, dev, (2 * NW, n))
     _check("q", q_planes, dev, (4 * NW, n))
     f = torch.empty(12 * NW, n, dtype=torch.int32, device=dev)
-    _launch("bls_miller", dev, lambda lib, s: lib.bls_miller(
-        p_planes.data_ptr(), q_planes.data_ptr(), n, f.data_ptr(), s))
+    _launch("bls_miller", dev, lambda lib, s, lane: lib.bls_miller(
+        p_planes.data_ptr(), q_planes.data_ptr(), n, f.data_ptr(), s, mode, lane),
+        {1: "bls_miller_sextet", 2: "bls_miller_lane", 3: "bls_miller_half"})
     return f
 
 
@@ -513,22 +554,27 @@ def final_exp(f_planes: torch.Tensor, lanes: torch.Tensor, starts: torch.Tensor,
     return ok, e, allok
 
 
-def launch_shape(entry: str, n: int, dev: torch.device, values: int | None = None
-                 ) -> dict[str, int]:
+def launch_shape(entry: str, n: int, dev: torch.device, values: int | None = None,
+                 check_subgroup: bool = True, kernel: str | None = None) -> dict[str, int]:
     """How `entry` launches over n lanes (groups for B3, checks for B5, with
-    `values` Miller values in all, n by default) on CUDA device `dev`:
-    threads per block, blocks, resident blocks per SM, SMs, waves, local
-    memory per thread, registers, static shared memory, B5's trios a check
-    (0 where none) and whether B2 or B5 take their one-lane kernel (the
-    widest calls). Launches nothing."""
-    out = (ctypes.c_int * 9)()
+    `values` Miller values in all, n by default; B1 with `check_subgroup`)
+    on CUDA device `dev`, with `kernel` as B1 G2 and B4 take it: threads per
+    block, blocks, resident blocks per SM, SMs, waves, local memory per
+    thread, registers, static shared memory, B5's sextets a check (0 where
+    none), whether an entry with a group kernel (B1 G2, B2, B4, B5) takes
+    its one-lane kernel instead, and the threads a lane (1, 3, 6 or 16).
+    Launches nothing."""
+    e = ENTRIES.index(entry)
+    v = int(check_subgroup) if e < 2 else n if values is None else values
+    out = (ctypes.c_int * 10)()
     with _build.on_device(dev):
-        err = _lib(dev).bls_launch_shape(ENTRIES.index(entry), n, n if values is None else values,
-                                         out)
+        k = (_kernel(kernel, _B1_KERNELS) if e == 1 else _kernel(kernel, _B4_KERNELS) if e == 5
+             else 0)
+        err = _lib(dev).bls_launch_shape(e, n, v, k, out)
     if err != 0:
         raise RuntimeError(f"bls launch shape failed: cudaError_t {err}")
-    threads, blocks, per_sm, sms, local_bytes, registers, shared, trios, lane = out
+    threads, blocks, per_sm, sms, local_bytes, registers, shared, trios, lane, group = out
     return {"threads_per_block": threads, "blocks": blocks, "blocks_per_sm": per_sm,
             "sms": sms, "waves": -(-blocks // max(1, per_sm * sms)), "local_bytes": local_bytes,
             "registers": registers, "shared_bytes": shared, "trios_per_check": trios,
-            "lane_kernel": lane}
+            "lane_kernel": lane, "group_threads": group}

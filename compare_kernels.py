@@ -46,15 +46,23 @@ clock between two synchronisations, their median and spread. The trees
 run the same harness in fresh processes, so a gap between them is the
 trees' code, not what ran before in the process.
 
---bls times, instead, the BLS kernels B2 (hash to G2) and B5 (product and
-final exponentiation) of each tree on the calls of chip_smoke.py's BLS
-cells: B2 on 1, 150 and 10,240 messages (hash_to_field of seeded
-messages), B5 on one check of 151 Miller values and one of 2 (the
+--bls times, instead, the BLS kernels of each tree on the calls of
+chip_smoke.py's BLS cells: B1 G2 (decompression) on 150 and 10,240
+signatures without the subgroup check (the aggregate checks) and on 256
+and 10,240 with it (the single-verify path), B2 (hash to G2) on 1, 150
+and 10,240 messages (hash_to_field of seeded messages), B3 G2 (a point
+sum with the subgroup check of the sum) on one group of 150 and one of
+10,240, B4 (the Miller loop) on 2, 151 and 20,480 pairs, B5 (product and
+final exponentiation) on one check of 151 Miller values and one of 2 (the
 aggregate checks) and on 10,240 checks of 2 (the single-verify path), on
-seeded Fp12 values; each call is held first against its tree's plain
-version by canonical value (B2 on its first 64 messages), then timed per
-launch (chip_smoke.time_kernel, the median of 20 launches between two
-CUDA events). It prints each tree's kernel registers and stack.
+seeded G2 points, G1 and G2 pairs and Fp12 values; each call is held first
+against its tree's plain version by canonical value (B1 G2 on its first
+64 lanes, B2 on its first 64 messages, B4 on its first 151 pairs), then
+timed per launch (chip_smoke.time_kernel, the median of 20 launches
+between two CUDA events). Where a tree's B1 G2 and B4 wrappers take a
+`kernel` argument, it also times each of their kernels, forced, on each
+side of the crossovers (BLS_CROSS_B1, BLS_CROSS_B4). It prints each tree's
+kernel registers and stack.
 
 --staging times, in this tree and this process only, the warm verify() of
 the ed25519 10k commit with a batch's staged arrays (the packed block and
@@ -107,6 +115,16 @@ BLS_B2_LANES = (1, 150, BLS_MSGS)
 BLS_B5_CALLS = (("one check of 151", 151, 1), ("one check of 2", 2, 1),
                 (f"{BLS_MSGS} checks of 2", 2 * BLS_MSGS, BLS_MSGS))
 BLS_HELD_MSGS = 64
+BLS_B1_CALLS = ((150, False), (10_240, False), (256, True), (10_240, True))
+BLS_B3_POINTS = (150, 10_240)
+BLS_B4_PAIRS = (2, 151, 2 * BLS_MSGS)
+BLS_HELD_PAIRS = 151
+# lane counts at which each kernel of B1 G2 (with the check) and of B4 is
+# timed, forced: around the crossovers (on 132 SMs, trio warps: 5,280 lanes
+# are one an SM sub-partition; half-warp warps: 198 pairs are three
+# quarters of one an SM; sextet warps: 990 pairs are one and a half an SM)
+BLS_CROSS_B1 = (2_640, 5_280, 6_600, 10_240)
+BLS_CROSS_B4 = (151, 200, 264, 330, 512, 660, 990, 1_320)
 
 
 def _bls_file() -> pathlib.Path:
@@ -115,6 +133,10 @@ def _bls_file() -> pathlib.Path:
     from cometbft_tpu_torch.crypto import bls12381
     from cometbft_tpu_torch.ops.bls12381 import htc
 
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+    from cometbft_tpu_torch.ops import bls_kernel as BK
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
     out = HERE / "build" / "bls_inputs.npz"
     out.parent.mkdir(exist_ok=True)
     msgs = [b"compare-bls-%d" % i for i in range(BLS_MSGS)]
@@ -122,12 +144,19 @@ def _bls_file() -> pathlib.Path:
     rng = np.random.default_rng(CS.SEED_BLS)
     f = rng.integers(0, 1 << 32, (144, 2 * BLS_MSGS), dtype=np.uint64).astype(np.uint32)
     f[11::12] &= 0x0FFFFFFF  # each value below p: words of a Montgomery value
-    np.savez(out, u=u, f=f.view(np.int32))
+    # 256 distinct G1 and G2 points, stepped from seeded multiples, repeated:
+    # the signatures' encodings, B3's points and B4's pairs
+    g1, g2 = CS._bls_points(1, 256, CS.SEED_BLS), CS._bls_points(2, 256, CS.SEED_BLS + 1)
+    rows = np.stack([np.frombuffer(O.bls_g2_compress(a), np.uint8) for a in g2])
+    x, sign = BK._x_planes(rows[np.arange(BLS_MSGS) % 256])
+    g2_planes = BL.planes_of_ints(CS._bls_coords(2, g2)).numpy()
+    g1_planes = BL.planes_of_ints(CS._bls_coords(1, g1)).numpy()
+    np.savez(out, u=u, f=f.view(np.int32), x=x, sign=sign, g1=g1_planes, g2=g2_planes)
     return out
 
 
 def _time_bls(device, bls_file: pathlib.Path) -> dict:
-    """B2 and B5 of the imported tree, held and timed (see the docstring)."""
+    """The imported tree's BLS kernels, held and timed (see the docstring)."""
     from cometbft_tpu_torch.ops import bls_launch as BL
 
     data = np.load(bls_file)
@@ -142,13 +171,13 @@ def _time_bls(device, bls_file: pathlib.Path) -> dict:
             if not same:
                 raise AssertionError(f"{name} differs from its plain version")
 
-    def shape(entry, n, values):
+    def shape(entry, n, values, **kw):
         try:
-            s = BL.launch_shape(entry, n, device, values)
-        except TypeError:  # a tree whose launch_shape takes no values
+            s = BL.launch_shape(entry, n, device, values, **kw)
+        except TypeError:  # a tree whose launch_shape takes no values or kernel
             s = BL.launch_shape(entry, n, device)
         return {k: s.get(k, 0) for k in ("blocks", "registers", "local_bytes", "shared_bytes",
-                                         "lane_kernel")}
+                                         "lane_kernel", "group_threads")}
 
     for n in BLS_B2_LANES:
         u = u_all[..., :n].contiguous()
@@ -157,6 +186,62 @@ def _time_bls(device, bls_file: pathlib.Path) -> dict:
         held(f"B2 at {k} messages", BL.hash_to_g2(uh), BL.hash_to_g2_plain(uh))
         out[f"b2 {n}"] = {"ms": CS.time_kernel(lambda: BL.hash_to_g2(u)),
                           **shape("bls_hash_to_g2", n, n)}
+    def tile(planes, n):
+        return planes[:, torch.arange(n, device=device) % planes.shape[-1]].contiguous()
+
+    def forced(fn, **kw):
+        """fn with kw, or None where this tree's wrapper takes no such
+        argument."""
+        try:
+            fn(**kw)
+        except TypeError:
+            return None
+        return functools.partial(fn, **kw)
+
+    x_all = torch.from_numpy(np.ascontiguousarray(data["x"])).to(device)
+    sign_all = torch.from_numpy(np.ascontiguousarray(data["sign"])).to(device)
+    g1 = torch.from_numpy(np.ascontiguousarray(data["g1"])).to(device)
+    g2 = torch.from_numpy(np.ascontiguousarray(data["g2"])).to(device)
+    for n, check in BLS_B1_CALLS:
+        x, sign = x_all[..., :n].contiguous(), sign_all[:n].contiguous()
+        k = min(n, BLS_HELD_MSGS)
+        xh, sh = x[..., :k].contiguous(), sign[:k].contiguous()
+        held(f"B1 G2 at {k} lanes", BL.decompress(2, xh, sh, check),
+             BL.decompress_plain(2, xh, sh, check))
+        out[f"b1 {n}{' check' if check else ''}"] = {
+            "ms": CS.time_kernel(lambda: BL.decompress(2, x, sign, check)),
+            **shape("bls_decompress_g2", n, None, check_subgroup=check)}
+    for n in BLS_B3_POINTS:
+        planes = tile(g2, n)
+        order = torch.arange(n, dtype=torch.int32, device=device)
+        starts = torch.tensor([0, n], dtype=torch.int32, device=device)
+        if n <= 256:
+            held(f"B3 G2 at {n} points", BL.point_sum(2, planes, order, starts, True),
+                 BL.point_sum_plain(2, planes, order, starts, True))
+        out[f"b3 {n}"] = {"ms": CS.time_kernel(lambda: BL.point_sum(2, planes, order, starts,
+                                                                     True)),
+                          **shape("bls_point_sum_g2", 1, None)}
+    for n in BLS_B4_PAIRS:
+        p, q = tile(g1, n), tile(g2, n)
+        k = min(n, BLS_HELD_PAIRS)
+        ph, qh = p[:, :k].contiguous(), q[:, :k].contiguous()
+        held(f"B4 at {k} pairs", (BL.miller(ph, qh),), (BL.miller_plain(ph, qh),))
+        out[f"b4 {n}"] = {"ms": CS.time_kernel(lambda: BL.miller(p, q)),
+                          **shape("bls_miller", n, None)}
+    for n in BLS_CROSS_B1:
+        x, sign = x_all[..., :n].contiguous(), sign_all[:n].contiguous()
+        for kernel in ("trio", "lane"):
+            fn = forced(functools.partial(BL.decompress, 2, x, sign, True), kernel=kernel)
+            if fn is not None:
+                out[f"b1 {n} check {kernel}"] = {"ms": CS.time_kernel(fn), **shape(
+                    "bls_decompress_g2", n, None, kernel=kernel)}
+    for n in BLS_CROSS_B4:
+        p, q = tile(g1, n), tile(g2, n)
+        for kernel in ("half", "sextet", "lane"):
+            fn = forced(functools.partial(BL.miller, p, q), kernel=kernel)
+            if fn is not None:
+                out[f"b4 {n} {kernel}"] = {"ms": CS.time_kernel(fn), **shape(
+                    "bls_miller", n, None, kernel=kernel)}
     for label, values, checks in BLS_B5_CALLS:
         f = f_all[:, :values].contiguous()
         lanes = torch.arange(values, dtype=torch.int32, device=device)
@@ -450,7 +535,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--e2e", action="store_true",
                     help="time each tree's warm verify() instead of the kernels")
     ap.add_argument("--bls", action="store_true",
-                    help="time each tree's BLS kernels B2 and B5 instead")
+                    help="time each tree's BLS kernels instead")
     ap.add_argument("--staging", action="store_true",
                     help="time this tree's 10k verify() with plain and pinned staging copies")
     # one tree's timing process: the tree and the encodings' file
@@ -496,11 +581,13 @@ def main(argv: list[str] | None = None) -> int:
                       f"{t['warm_ms']:.3f} ms (median of {E2E_REPS}, {t['warm_min_ms']:.3f}-"
                       f"{t['warm_max_ms']:.3f})", flush=True)
                 continue
-            if key.startswith(("b2 ", "b5 ")):
+            if key.startswith(("b1 ", "b2 ", "b3 ", "b4 ", "b5 ")):
                 print(f"[{card}] {label} tree, {key}: {t['ms']:.4f} ms per launch (median of "
                       f"20); {t['blocks']} blocks, {t['registers']} registers, "
                       f"{t['local_bytes']} B stack, {t['shared_bytes']} B shared"
-                      + (", one lane a thread" if t["lane_kernel"] else ""), flush=True)
+                      + (", one lane a thread" if t["lane_kernel"] else "")
+                      + (f", {t['group_threads']} threads a lane" if t.get("group_threads", 1) > 1
+                         else ""), flush=True)
                 continue
             unit = ("lanes and iterations" if key.startswith("k3 ") else
                     "lanes" if key.startswith(("k5 ", "k6 ")) else "keys")

@@ -1,10 +1,11 @@
-"""The formulas of the BLS kernels B2 and B5 on the host CPU, their thread
-groups included: csrc/curve381.cuh's group bodies over csrc/group381.cuh,
-built with the host C++ compiler (__host__, __device__ and __forceinline__
-defined away) into a shared library loaded with ctypes, each trio (B2) or
-sextet (B5) three or six host threads that exchange through slots and a
-barrier where the card's warp uses shared memory and __syncwarp (as
-tests/test_torch_fe32_host.py runs the verify kernels' quads).
+"""The formulas of the BLS kernels B1 G2, B2, B4 and B5 on the host CPU, their
+thread groups included: csrc/curve381.cuh's group bodies over
+csrc/group381.cuh, built with the host C++ compiler (__host__, __device__
+and __forceinline__ defined away) into a shared library loaded with ctypes,
+each trio (B1 G2, B2) or sextet (B4, B5) three or six host threads that
+exchange through slots and a barrier where the card's warp uses shared
+memory and __syncwarp (as tests/test_torch_fe32_host.py runs the verify
+kernels' quads).
 
 Held, by canonical value, against the oracle (crypto/bls12381_math.py), the
 one-lane formulas they replace and the plain versions (ops/bls_launch.py):
@@ -13,16 +14,26 @@ one-lane formulas they replace and the plain versions (ops/bls_launch.py):
   split over psi, in Jacobian coordinates) computes the oracle's [h2] =
   [#E'(Fp2) / r], not [h_eff], on twist points outside G2 and the
   identity, with the addition's doubling and inverse cases;
+- the G2 subgroup test psi(P) == [x]P (Scott 2021), on a trio and alone,
+  gives [r]P == O's verdict and the oracle's on G2 points, the identity,
+  SvdW outputs before cofactor clearing and points with a component of
+  order 13, 23 or 169, in projective coordinates with Z != 1;
+- B1 G2 on a trio and alone equals decompress_plain(2, ..., True) on the
+  edge lanes of chip_smoke.check_bls;
 - the cyclotomic square (one thread, and split over a sextet) equals
   f12_mul(a, a) on easy-part outputs and on a zero Miller value, and the
-  sextet's Fp12 product the plain one;
+  sextet's Fp12 product the plain one; the Miller step's Fp12 square
+  (sextet and alone) equals f12_mul(a, a), its product by the sparse line
+  f12_mul(f, l) with l's coefficients times xi^-1 by f2_mul, and xi^-1 by
+  additions f2_mul(., K_XI_INV);
 - the binary inverse and Legendre symbol and the root by the norm agree
   with the exponentiations they replace, on squares, non-squares and 0;
 - a check's product on T sextets (a stride each, then a tree) equals the
   serial product for 1, 2, 151 and 256 values;
-- B2 on trios and B5 on sextets equal hash_to_g2_plain and
-  final_exp_plain lane for lane. Exact everywhere. Skips only where no C++
-  compiler is found.
+- B2 on trios, B4 on sextets, half-warps and alone (1, 2 and 151 pairs, and
+  the loop's first steps, f = l on the first) and B5 on sextets equal
+  hash_to_g2_plain, miller_plain and final_exp_plain lane for lane. Exact
+  everywhere. Skips only where no C++ compiler is found.
 """
 
 from __future__ import annotations
@@ -39,8 +50,9 @@ import torch
 
 from cometbft_tpu_torch.crypto import bls12381 as bls
 from cometbft_tpu_torch.crypto import bls12381_math as o
+from cometbft_tpu_torch.ops import bls_kernel as BK
 from cometbft_tpu_torch.ops import bls_launch as BL
-from cometbft_tpu_torch.ops.bls12381 import fp, htc, tower
+from cometbft_tpu_torch.ops.bls12381 import fp, htc, pairing, tower
 
 CSRC = pathlib.Path(BL.__file__).resolve().parent.parent / "csrc"
 P = o.BLS_P
@@ -109,6 +121,29 @@ static void st_jac(uint32_t* out, int32_t* id, long long n, long long j, const j
   fp2 x, y;
   id[j] = jac_to_affine(x, y, h);
   aff_st(out, n, j, x, y);
+}
+
+// the Miller loop's first `steps` bits after |x|'s top one (f = l on the
+// first), conjugated as the whole loop ends, on a sextet (out) and alone
+// (solo)
+template <class G>
+static void miller_head_body(const uint32_t* p, const uint32_t* q, int L, long long j, int steps,
+                             uint32_t* out, G& g) {
+  fp px, py;
+  fp2 qx, qy;
+  aff_ld(px, py, p, L, j);
+  aff_ld(qx, qy, q, L, j);
+  proj<fp2> t;
+  pt_from_affine(t, qx, qy);
+  fp12 f;
+  f12_one(f);
+  for (int k = 0; k < steps; ++k) {
+    const int i = exp_nbits(E_X) - 2 - k;
+    miller_dbl(f, t, px, py, k == 0, g);
+    if (exp_bit(E_X, i)) miller_add(f, t, px, py, qx, qy, g);
+  }
+  f12_conj(f, f);
+  if (g.t == 0) f12_st(out, L, j, f);
 }
 
 extern "C" {
@@ -245,6 +280,125 @@ void hash_to_g2(const int32_t* u, int B, uint32_t* out, int32_t* is_id) {
     });
 }
 
+// projective twist points from affine ones (ident: the identity), scaled by
+// k = y + 1 so that Z != 1
+static void ld_scaled(proj<fp2>& p, const uint32_t* pts, const int32_t* ident, long long n,
+                      long long j) {
+  aff_ld(p.x, p.y, pts, n, j);
+  f2_one(p.z);
+  if (ident[j]) pt_identity(p);
+  fp2 k, one;
+  f2_one(one);
+  f2_add(k, p.y, one);
+  f2_mul(p.x, p.x, k);
+  f2_mul(p.y, p.y, k);
+  f2_mul(p.z, p.z, k);
+}
+
+// the G2 test psi(P) == [x]P on a trio (trio_ok) and alone (solo_ok), and
+// [r]P == O by r's ladder (ladder_ok)
+void in_g2(const uint32_t* pts, const int32_t* ident, int n, int32_t* trio_ok, int32_t* solo_ok,
+           int32_t* ladder_ok) {
+  for (int j = 0; j < n; ++j) {
+    proj<fp2> p, r;
+    ld_scaled(p, pts, ident, n, j);
+    run_groups<3>(1, nwords<fp>, [&](int, host_trio& g, host_group&) {
+      const bool k = pt_in_subgroup(p, g);
+      if (g.t == 0) trio_ok[j] = k;
+    });
+    solo_ok[j] = pt_in_subgroup(p);
+    pt_mul_const(r, p, E_R);
+    ladder_ok[j] = f_is_zero(r.z);
+  }
+}
+
+// B1 G2 on a trio a lane (out, ok) and one lane a thread (out1, ok1)
+void decompress_trio(const int32_t* x_raw, const int32_t* sign, int check, int B, uint32_t* out,
+                     int32_t* ok, uint32_t* out1, int32_t* ok1) {
+  for (int j = 0; j < B; ++j) {
+    run_groups<3>(1, nwords<fp>, [&](int, host_trio& g, host_group&) {
+      group_decompress<2>(x_raw, sign, check, B, j, out, ok, g);
+    });
+    lane_decompress<2>(x_raw, sign, check, B, j, out1, ok1);
+  }
+}
+
+// B4 on a sextet a pair (out), a half-warp a pair (out16) and one pair a
+// thread (solo)
+void miller(const uint32_t* p, const uint32_t* q, int L, uint32_t* out, uint32_t* out16,
+            uint32_t* solo) {
+  for (int j = 0; j < L; ++j) {
+    run_groups<6>(1, batch<host_sextet, MILLER_JOBS>::SLOT,
+                  [&](int, host_sextet& g, host_group&) { group_miller(p, q, L, j, out, g); });
+    run_groups<16>(1, batch<host_lanes<16>, MILLER_JOBS>::SLOT,
+                   [&](int, host_lanes<16>& g, host_group&) { group_miller(p, q, L, j, out16, g); });
+    lane_miller(p, q, L, j, solo);
+  }
+}
+
+void miller_head(const uint32_t* p, const uint32_t* q, int L, int steps, uint32_t* out,
+                 uint32_t* out16, uint32_t* solo) {
+  for (int j = 0; j < L; ++j) {
+    run_groups<6>(1, batch<host_sextet, MILLER_JOBS>::SLOT,
+                  [&](int, host_sextet& g, host_group&) {
+                    miller_head_body(p, q, L, j, steps, out, g);
+                  });
+    run_groups<16>(1, batch<host_lanes<16>, MILLER_JOBS>::SLOT,
+                   [&](int, host_lanes<16>& g, host_group&) {
+                     miller_head_body(p, q, L, j, steps, out16, g);
+                   });
+    bls::solo g;
+    miller_head_body(p, q, L, j, steps, solo, g);
+  }
+}
+
+// Fp12 values a (144, n) and line coefficients c (c0, c_vw, c_v2w: 72, n):
+// the Miller step's square on a sextet (sq6) and alone (sq1) beside
+// f12_mul(a, a) (sq_ref); its sparse line product (ln6, ln1) beside
+// f12_mul(a, l), l's last two coefficients times K_XI_INV by f2_mul
+// (ln_ref); and f2_mul_xi_inv(c_vw) (xi) beside f2_mul(c_vw, K_XI_INV)
+// (xi_ref)
+void sq_line(const uint32_t* a_in, const uint32_t* c, int n, uint32_t* sq6, uint32_t* sq1,
+             uint32_t* sq_ref, uint32_t* ln6, uint32_t* ln1, uint32_t* ln_ref, uint32_t* xi,
+             uint32_t* xi_ref) {
+  for (int j = 0; j < n; ++j) {
+    fp12 a, r, l;
+    fp2 c0, cvw, cv2w, k, b1, b2;
+    f12_ld(a, a_in, n, j);
+    f2_ld(c0, c, n, j);
+    f2_ld(cvw, c + 2 * NW * n, n, j);
+    f2_ld(cv2w, c + 4 * NW * n, n, j);
+    f12_mul(r, a, a);
+    f12_st(sq_ref, n, j, r);
+    f2_k(k, K_XI_INV);
+    f12_one(l);
+    l.d0.c0 = c0;
+    f2_mul(l.d1.c1, cvw, k);
+    f2_mul(l.d1.c2, cv2w, k);
+    f12_mul(r, a, l);
+    f12_st(ln_ref, n, j, r);
+    f2_st(xi_ref, n, j, l.d1.c1);
+    f2_mul_xi_inv(b1, cvw);
+    f2_mul_xi_inv(b2, cv2w);
+    f2_st(xi, n, j, b1);
+    bls::solo g1;
+    g12_sq(r, a, g1);
+    f12_st(sq1, n, j, r);
+    g12_mul_line(r, a, c0, b1, b2, g1);
+    f12_st(ln1, n, j, r);
+    run_groups<6>(1, batch<host_sextet, MILLER_JOBS>::SLOT,
+                  [&](int, host_sextet& g, host_group&) {
+                    fp12 s, m;
+                    g12_sq(s, a, g);
+                    g12_mul_line(m, a, c0, b1, b2, g);
+                    if (g.t == 0) {
+                      f12_st(sq6, n, j, s);
+                      f12_st(ln6, n, j, m);
+                    }
+                  });
+  }
+}
+
 // B5 on T sextets a check; returns the all-ok word
 int final_exp(const uint32_t* f, int L, const int32_t* lanes, const int32_t* starts, int C, int T,
               const int32_t* ga, const int32_t* gb, const int32_t* force, uint32_t* e,
@@ -296,6 +450,11 @@ def lib(tmp_path_factory):
     lib.hash_to_g2.argtypes = [vp, ci, vp, vp]
     lib.final_exp.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp]
     lib.final_exp.restype = ci
+    lib.in_g2.argtypes = [vp, vp, ci, vp, vp, vp]
+    lib.decompress_trio.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp]
+    lib.miller.argtypes = [vp, vp, ci, vp, vp, vp]
+    lib.miller_head.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+    lib.sq_line.argtypes = [vp, vp, ci] + [vp] * 8
     table = BL.constants_table()
     assert lib.set_constants(table.ctypes.data, table.size) == 0
     return lib
@@ -519,3 +678,157 @@ def test_final_exp_trios_match_plain(lib):
         assert ok.tolist() == want_ok.tolist()
         assert allok == int(want_all) == 0
         assert BL.values(e) == BL.values(want_e)
+
+
+def _small_order(ell, seed):
+    """A twist point of order ell, for ell = 13 or 23: ell^2 divides h2 and
+    that part of E'(Fp2) is Z/ell x Z/ell, so [r h2 / ell^2] of an SvdW
+    image has order ell or 1; the first that is not the identity."""
+    rng = random.Random(seed)
+    svdw = o._bls_setup()["svdw"]
+    while True:
+        a = o._svdw_map_fp2((rng.randrange(P), rng.randrange(P)), svdw)
+        s = _mul(o.BLS_R * H2 // (ell * ell), a)
+        if s is not None:
+            return s
+
+
+def _add(a, b):
+    F = o._Fp2Ops
+    return o._ec_affine(F, o._ec_add(F, o._ec_from_affine(a), o._ec_from_affine(b)))
+
+
+def test_g2_subgroup_by_psi_matches_ladder_and_oracle(lib):
+    """psi(P) == [x]P (Scott 2021) on a trio and alone, from projective
+    coordinates with Z != 1, against r's ladder and the oracle: G2 points,
+    -G2, the identity, SvdW outputs before cofactor clearing, points of
+    order 13, 23 and 299 (13^2 and 23^2 divide h2), G2 points plus such a
+    point, and an SvdW output's [r] (its order all in h2's part)."""
+    assert H2 % 169 == 0 and H2 % 529 == 0
+    g2 = [o.BLS_G2, _mul(12345, o.BLS_G2), (o.BLS_G2[0], o.f2_neg(o.BLS_G2[1]))]
+    off = _off_subgroup(4, 80)
+    s13, s23 = _small_order(13, 81), _small_order(23, 82)
+    assert _mul(13, s13) is None and _mul(23, s23) is None
+    s299 = _add(s13, s23)
+    mixed = [_add(g2[1], s13), _add(g2[0], s23), _add(g2[1], s299), _mul(o.BLS_R, off[0])]
+    affs = g2 + off + [s13, s23, s299] + mixed + [None]
+    want = [int(a is None or _mul(o.BLS_R, a) is None) for a in affs]
+    assert want == [1] * 3 + [0] * 11 + [1]
+    planes, ident = _g2_planes(affs)
+    n = len(affs)
+    out = [torch.empty(n, dtype=torch.int32) for _ in range(3)]
+    lib.in_g2(planes.data_ptr(), ident.data_ptr(), n, *(t.data_ptr() for t in out))
+    trio, solo, ladder = (t.tolist() for t in out)
+    assert trio == solo == ladder == want
+
+
+def _edge_g2_lanes():
+    """chip_smoke.check_bls's B1 G2 lanes: an x >= p (a host reject, staged
+    as the generator), an SvdW point outside G2, G2 points with both sign
+    bits, an x with no root; staged as bls_kernel stages them."""
+    g2 = [_mul(k, o.BLS_G2) for k in (3, 4, 5)]
+    g2.append((g2[0][0], o.f2_neg(g2[0][1])))
+    x_bad = P.to_bytes(48, "big")
+    encs = [bytes([x_bad[0] | 0x80]) + x_bad[1:] + bytes(48),
+            o.bls_g2_compress(o._svdw_map_fp2((3, 4), o._bls_setup()["svdw"]))]
+    encs += [o.bls_g2_compress(a) for a in g2]
+    rng = random.Random(84)
+    while True:  # below 2^376: the top byte carries the flags
+        x = (rng.getrandbits(376), rng.getrandbits(376))
+        if not o.f2_legendre_is_square(o.f2_add(o.f2_mul(o.f2_sq(x), x), o._B2)):
+            encs.append(bytes([0x80]) + x[1].to_bytes(48, "big")[1:] + x[0].to_bytes(48, "big"))
+            break
+    pre, _, rows = BK._structural_check([BK._G1_GEN_ENC] * len(encs), encs, len(encs))
+    assert not pre[0] and pre[1:].all()
+    x, sign = BK._x_planes(rows)
+    assert len(set(sign.tolist())) == 2
+    return torch.from_numpy(np.ascontiguousarray(x)), torch.from_numpy(sign)
+
+
+def test_decompress_g2_trio_and_lane_match_plain(lib):
+    x, sign = _edge_g2_lanes()
+    n = x.shape[-1]
+    for check in (True, False):
+        out, out1 = _empty(4, n), _empty(4, n)
+        ok, ok1 = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+        lib.decompress_trio(x.data_ptr(), sign.data_ptr(), int(check), n, out.data_ptr(),
+                            ok.data_ptr(), out1.data_ptr(), ok1.data_ptr())
+        want_ok, want = BL.decompress_plain(2, x, sign, check)
+        assert ok.tolist() == ok1.tolist() == want_ok.tolist()
+        assert want_ok.tolist() == [1, 0 if check else 1, 1, 1, 1, 1, 0]
+        assert BL.values(out) == BL.values(out1) == BL.values(want)
+
+
+def test_miller_square_line_and_xi_inverse(lib):
+    """The Miller step's Fp12 square and sparse line product, on a sextet
+    and alone, and xi^-1 by additions, against f12_mul and f2_mul."""
+    n = 4
+    a = BL.planes_of_ints(_rand_f12(n, 85))
+    rng = random.Random(86)
+    c = BL.planes_of_ints([[rng.randrange(P) for _ in range(n)] for _ in range(6)])
+    outs = [_empty(12, n) for _ in range(6)] + [_empty(2, n), _empty(2, n)]
+    lib.sq_line(a.data_ptr(), c.data_ptr(), n, *(t.data_ptr() for t in outs))
+    sq6, sq1, sq_ref, ln6, ln1, ln_ref, xi, xi_ref = (BL.values(t) for t in outs)
+    assert sq6 == sq1 == sq_ref
+    assert ln6 == ln1 == ln_ref
+    assert xi == xi_ref
+    cv = BL.values(c)
+    xi_inv = o._XI_INV
+    assert [(xi[0][j], xi[1][j]) for j in range(n)] == [
+        o.f2_mul((cv[2][j], cv[3][j]), xi_inv) for j in range(n)]
+    want = BL._to_words(tower.f12_mul(BL._from_words(a).reshape(2, 3, 2, fp.NLIMBS, n),
+                                      BL._from_words(a).reshape(2, 3, 2, fp.NLIMBS, n)))
+    assert sq_ref == BL.values(want)
+
+
+def _pairs(n, seed):
+    """n (P, Q) pairs: G1 and G2 points stepped from seeded multiples."""
+    F1, F2 = o._FpOps, o._Fp2Ops
+    g1, g2 = o._ec_from_affine(o.BLS_G1), o._ec_from_affine(o.BLS_G2)
+    a, b = o._ec_mul(F1, seed, g1), o._ec_mul(F2, seed + 1, g2)
+    ps, qs = [], []
+    for _ in range(n):
+        ps.append(o._ec_affine(F1, a))
+        qs.append(o._ec_affine(F2, b))
+        a, b = o._ec_add(F1, a, g1), o._ec_add(F2, b, g2)
+    pk = BL.planes_of_ints([[x[0] for x in ps], [x[1] for x in ps]])
+    qk = BL.planes_of_ints([[x[k][c] for x in qs] for k in (0, 1) for c in (0, 1)])
+    return pk, qk
+
+
+@pytest.fixture(scope="module")
+def pairs151():
+    """151 pair lanes (the 150 commit's aggregate check has 151) over 16
+    distinct pairs, lane k holding pair k mod 16, and the plain Miller
+    values of the 16 (the plain version takes ~0.2 s a lane on the CPU)."""
+    pk, qk = _pairs(16, 87)
+    want = BL.values(BL.miller_plain(pk, qk))
+    idx = torch.arange(151) % 16
+    return (pk[:, idx].contiguous(), qk[:, idx].contiguous(),
+            [[v[k] for k in idx.tolist()] for v in want])
+
+
+@pytest.mark.parametrize("L", [1, 2, 151])
+def test_miller_sextet_and_lane_match_plain(lib, pairs151, L):
+    """B4 on a sextet a pair, a half-warp a pair and one pair a thread, on
+    1, 2 and 151 pairs, equal miller_plain lane for lane (its projective
+    scalings, exactly)."""
+    pk, qk, want = pairs151
+    p, q = pk[:, :L].contiguous(), qk[:, :L].contiguous()
+    out, out16, solo = _empty(12, L), _empty(12, L), _empty(12, L)
+    lib.miller(p.data_ptr(), q.data_ptr(), L, out.data_ptr(), out16.data_ptr(), solo.data_ptr())
+    assert BL.values(out) == BL.values(out16) == BL.values(solo) == [v[:L] for v in want]
+
+
+@pytest.mark.parametrize("steps", [1, 2, 3])
+def test_miller_first_steps_match_plain_loop(lib, monkeypatch, steps):
+    """The loop's first steps from f = 1 (the first sets f = l, with no
+    square and no product; |x|'s second bit adds Q at once), on a sextet,
+    a half-warp and alone, against the plain loop cut to the same bits."""
+    pk, qk = _pairs(2, 88)
+    out, out16, solo = _empty(12, 2), _empty(12, 2), _empty(12, 2)
+    lib.miller_head(pk.data_ptr(), qk.data_ptr(), 2, steps, out.data_ptr(), out16.data_ptr(),
+                    solo.data_ptr())
+    monkeypatch.setattr(pairing, "X_BITS", pairing.X_BITS[:1 + steps])
+    want = BL.values(BL.miller_plain(pk, qk))
+    assert BL.values(out) == BL.values(out16) == BL.values(solo) == want

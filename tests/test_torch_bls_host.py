@@ -6,10 +6,12 @@ constant table filled from the oracle (ops/bls_launch.constants_table).
 
 Held by canonical value against the port's plain versions (B1-B5 of
 ops/bls_launch.py) and the oracle (crypto/bls12381_math.py): decompression
-with its sign rule, non-squares and points outside the subgroup,
-hash-to-G2, segmented sums with an identity sum, the Miller loop (whose
-projective scalings the kernel must reproduce exactly) and the final
-exponentiation. Exact everywhere. Skips only where no C++ compiler is found.
+with its sign rule, non-squares and points outside the subgroup (G2's by
+the psi test psi(P) == [x]P, against the plain version's [r]P == O, also on
+points with a component of order 13 or 23), hash-to-G2, segmented sums with
+an identity sum and G2 sums outside G2, the Miller loop (whose projective
+scalings the kernel must reproduce exactly) and the final exponentiation.
+Exact everywhere. Skips only where no C++ compiler is found.
 """
 
 from __future__ import annotations
@@ -334,3 +336,70 @@ def test_miller_and_final_exp_match_plain_and_oracle(host):
     flat = [c for d in want for cc in d for c in cc]
     assert [v[0] for v in vals] == flat
     assert [v[1] for v in vals] == [1] + [0] * 11
+
+
+def _small_order_g2(ell, seed):
+    """A twist point of order ell (13 or 23: ell^2 divides h2, that part of
+    E'(Fp2) is Z/ell x Z/ell): [r h2 / ell^2] of an SvdW image."""
+    rng = random.Random(seed)
+    h2 = o._bls_setup()["h2"]
+    F = o._Fp2Ops
+    while True:
+        a = _non_subgroup_g2(rng.randrange(1 << 30))
+        s = o._ec_affine(F, o._ec_mul(F, o.BLS_R * h2 // (ell * ell), o._ec_from_affine(a)))
+        if s is not None:
+            return s
+
+
+def _g2_add(a, b):
+    F = o._Fp2Ops
+    return o._ec_affine(F, o._ec_add(F, o._ec_from_affine(a), o._ec_from_affine(b)))
+
+
+def _in_g2(a):
+    F = o._Fp2Ops
+    return o._ec_affine(F, o._ec_mul(F, o.BLS_R, o._ec_from_affine(a))) is None
+
+
+def test_decompress_g2_psi_test_on_small_order_components(host):
+    """One lane a thread: G2 points plus a point of order 13 or 23, such
+    points alone and their sum, an SvdW image and a G2 point, decompressed
+    with and without the subgroup check; the psi test's verdicts equal the
+    plain version's [r]P == O and the oracle's."""
+    g = _g2_points(2, 51)
+    s13, s23 = _small_order_g2(13, 52), _small_order_g2(23, 53)
+    affs = [_g2_add(g[0], s13), _g2_add(g[1], s23), s13, s23, _g2_add(s13, s23),
+            _non_subgroup_g2(54), g[0]]
+    encs = [o.bls_g2_compress(a) for a in affs]
+    x1 = [int.from_bytes(bytes([e[0] & 0x1F]) + e[1:48], "big") for e in encs]
+    x0 = [int.from_bytes(e[48:], "big") for e in encs]
+    sign = torch.tensor([(e[0] >> 5) & 1 for e in encs], dtype=torch.int32)
+    x_raw = torch.stack([_raw(x0), _raw(x1)])
+    want_sub = [int(_in_g2(a)) for a in affs]
+    assert want_sub == [0, 0, 0, 0, 0, 0, 1]
+    for check, want in ((False, [1] * len(affs)), (True, want_sub)):
+        ok_k, xy_k = host.decompress(2, x_raw, sign, check)
+        ok_p, xy_p = BL.decompress_plain(2, x_raw, sign, check)
+        assert ok_k.tolist() == ok_p.tolist() == want
+        assert BL.values(xy_k) == BL.values(xy_p)
+
+
+def test_point_sum_g2_outside_g2(host):
+    """One thread's sum and subgroup check (B3 G2's tail, the psi test) on
+    groups whose sums lie in G2, outside it (an SvdW image plus a G2 point,
+    a G2 point plus a point of order 13), of order 13, and one where the
+    order-13 point and its negative cancel and the SvdW image stays,
+    against the plain version's [r] ladder."""
+    g = _g2_points(2, 55)
+    s13 = _small_order_g2(13, 56)
+    off = _non_subgroup_g2(57)
+    lanes = g + [off, s13, (s13[0], o.f2_neg(s13[1]))]  # lane 4 = -lane 3
+    groups = [[0, 1], [0, 2], [1, 3], [3], [2, 3, 4, 0]]
+    order = torch.tensor([j for grp in groups for j in grp], dtype=torch.int32)
+    starts = torch.tensor(np.cumsum([0] + [len(grp) for grp in groups]), dtype=torch.int32)
+    planes = BL.planes_of_ints([[a[k][c] for a in lanes] for k in (0, 1) for c in (0, 1)])
+    out_k, id_k, sub_k = host.point_sum(2, planes, order, starts, True)
+    out_p, id_p, sub_p = BL.point_sum_plain(2, planes, order, starts, True)
+    assert id_k.tolist() == id_p.tolist() == [0] * 5
+    assert sub_k.tolist() == sub_p.tolist() == [1, 0, 0, 0, 0]
+    assert BL.values(out_k) == BL.values(out_p)

@@ -801,6 +801,102 @@ def test_bls_decompress_matches_plain(cuda, g):
         assert BL.values(xy) == BL.values(xyp)
 
 
+def _bls_crossover(entry, cuda, past):
+    """The fewest lanes at which `entry` launches as past(launch_shape)
+    holds."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if past(BL.launch_shape(entry, mid, cuda)):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trio", "lane"])
+def test_bls_decompress_g2_trio_and_lane_match_plain(cuda, kernel):
+    """B1 G2 on its trio kernel and its one-lane kernel, forced: the edge
+    lanes (both signs, a point outside G2, no root), with and without the
+    subgroup check (psi(P) == [x]P against the plain [r]P == O), and the
+    same lanes repeated to the crossover's lane count."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops.bls12381 import fp
+
+    H, _, g2 = _bls_inputs()
+    encs = [H.o.bls_g2_compress(a) for a in g2]
+    nx = H.no_root_x(2)
+    x = torch.stack([torch.from_numpy(fp.ints_to_limbs(
+        [int.from_bytes(e[48:], "big") for e in encs] + [nx[0]])),
+        torch.from_numpy(fp.ints_to_limbs(
+            [int.from_bytes(bytes([e[0] & 0x1F]) + e[1:48], "big") for e in encs] + [nx[1]]))])
+    sign = torch.tensor([(e[0] >> 5) & 1 for e in encs] + [1], dtype=torch.int32)
+    x, sign = x.to(cuda).contiguous(), sign.to(cuda)
+    for check in (False, True):
+        ok, xy = BL.decompress(2, x, sign, check, kernel=kernel)
+        okp, xyp = BL.decompress_plain(2, x, sign, check)
+        assert ok.tolist() == okp.tolist() == [1, 1, 1, 1, int(not check), 0]
+        assert BL.values(xy) == BL.values(xyp)
+    n = _bls_crossover("bls_decompress_g2", cuda, lambda s: s["lane_kernel"])
+    assert BL.launch_shape("bls_decompress_g2", n - 1, cuda)["group_threads"] == 3
+    assert BL.launch_shape("bls_decompress_g2", n, cuda)["group_threads"] == 1
+    assert BL.launch_shape("bls_decompress_g2", 150, cuda, check_subgroup=False)["lane_kernel"]
+    idx = torch.arange(n, device=cuda) % x.shape[-1]
+    xs, ss = x[..., idx].contiguous(), sign[idx].contiguous()
+    before = dict(BL.LAUNCHES)
+    ok, xy = BL.decompress(2, xs, ss, True, kernel=kernel)
+    assert BL.LAUNCHES[f"bls_decompress_g2_{kernel}"] == before[f"bls_decompress_g2_{kernel}"] + 1
+    okp, xyp = BL.decompress_plain(2, xs, ss, True)
+    assert ok.tolist() == okp.tolist()
+    assert BL.values(xy) == BL.values(xyp)
+
+
+@pytest.mark.cuda
+def test_bls_miller_half_sextet_and_lane_match_plain(cuda):
+    """B4 on its half-warp, sextet and one-pair kernels, each forced and as
+    the crossovers pick them: 2 pairs, and the pair count of each crossover
+    (the same pairs repeated), against the plain version."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    H, g1, g2 = _bls_inputs()
+    p = BL.planes_of_ints([[a[0] for a in g1[:3]], [a[1] for a in g1[:3]]], cuda)
+    q = BL.planes_of_ints([[a[k][c] for a in g2[:3]] for k in (0, 1) for c in (0, 1)], cuda)
+    n_half = _bls_crossover("bls_miller", cuda, lambda s: s["group_threads"] != 16)
+    n = _bls_crossover("bls_miller", cuda, lambda s: s["lane_kernel"])
+    assert BL.launch_shape("bls_miller", n_half - 1, cuda)["group_threads"] == 16
+    assert BL.launch_shape("bls_miller", n_half, cuda)["group_threads"] == 6
+    assert BL.launch_shape("bls_miller", n - 1, cuda)["group_threads"] == 6
+    assert BL.launch_shape("bls_miller", n, cuda)["group_threads"] == 1
+    for L in (2, n_half, n):
+        idx = torch.arange(L, device=cuda) % 3
+        pl, ql = p[:, idx].contiguous(), q[:, idx].contiguous()
+        want = BL.values(BL.miller_plain(pl, ql))
+        for kernel in (None, "half", "sextet", "lane"):
+            assert BL.values(BL.miller(pl, ql, kernel=kernel)) == want
+
+
+@pytest.mark.cuda
+def test_bls_point_sum_g2_outside_g2(cuda):
+    """B3 G2 with the subgroup check (the psi test on the sum) on a group of
+    two G2 points and one of a G2 point and a twist point outside G2."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    H, _, g2 = _bls_inputs()
+    pts = g2[:2] + [g2[4]]  # two of G2, then the SvdW image outside it
+    coords = [[a[k][c] for a in pts] for k in (0, 1) for c in (0, 1)]
+    planes = BL.planes_of_ints(coords, cuda)
+    order = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 2, 4], dtype=torch.int32, device=cuda)
+    got = BL.point_sum(2, planes, order, starts, True)
+    want = BL.point_sum_plain(2, planes, order, starts, True)
+    assert got[1].tolist() == want[1].tolist() == [0, 0]
+    assert got[2].tolist() == want[2].tolist() == [1, 0]
+    assert BL.values(got[0]) == BL.values(want[0])
+
+
 @pytest.mark.cuda
 def test_bls_hash_sum_miller_final_exp_match_plain(cuda):
     """B2 on three messages (the empty one among them), B3 on three groups
