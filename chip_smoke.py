@@ -241,12 +241,17 @@ def _kernel_label(mangled: str) -> str | None:
     m = re.match(r"_Z\d+bls_(decompress|point_sum)_kernelILi(\d)E", mangled)
     if m:
         return f"bls_{m.group(1)}_g{m.group(2)}"
+    m = re.match(r"_Z\d+bls_point_sum_part_kernelILi(\d)E", mangled)
+    if m:
+        return f"bls_point_sum_g{m.group(1)}_part"
+    m = re.match(r"_Z\d+bls_decompress_trio_kernelILi(\d)E", mangled)
+    if m:
+        return f"bls_decompress_g{m.group(1)}_trio"
     m = re.match(r"_Z\d+bls_miller_group_kernelILi(\d+)E", mangled)
     if m:
         return {"6": "bls_miller_sextet", "16": "bls_miller_half"}.get(m.group(1))
     for kernel, label in (("bls_hash_to_g2_kernel", "bls_hash_to_g2"),
                           ("bls_hash_to_g2_lane_kernel", "bls_hash_to_g2_lane"),
-                          ("bls_decompress_g2_trio_kernel", "bls_decompress_g2_trio"),
                           ("bls_miller_kernel", "bls_miller"),
                           ("bls_final_exp_kernel", "bls_final_exp"),
                           ("bls_final_exp_lane_kernel", "bls_final_exp_lane"),
@@ -2213,6 +2218,7 @@ FP_MUL_IMADS = 590
 # kernel record name -> the XLA program it replaces
 BLS_RECORDS = {
     "bls_decompress_g1": "cometbft_tpu/ops/bls_kernel.py:180",
+    "bls_decompress_g1_trio": "cometbft_tpu/ops/bls_kernel.py:191",
     "bls_decompress_g2": "cometbft_tpu/ops/bls_kernel.py:180",
     "bls_decompress_g2_trio": "cometbft_tpu/ops/bls_kernel.py:198",
     "bls_hash_to_g2": "cometbft_tpu/ops/bls_kernel.py:205",
@@ -2225,9 +2231,11 @@ BLS_RECORDS = {
 }
 # the records of the entries with more than one kernel: (entry, the
 # wrapper's kernel argument that forces it, its launch count in
-# bls_launch.LAUNCHES); B1 G2's one-lane kernel and B4's one-pair kernel
+# bls_launch.LAUNCHES); B1's one-lane kernels and B4's one-pair kernel
 # keep the record names they had as the only kernels of their entries
 BLS_SPLIT = {
+    "bls_decompress_g1": ("bls_decompress_g1", "lane", "bls_decompress_g1_lane"),
+    "bls_decompress_g1_trio": ("bls_decompress_g1", "trio", "bls_decompress_g1_trio"),
     "bls_decompress_g2": ("bls_decompress_g2", "lane", "bls_decompress_g2_lane"),
     "bls_decompress_g2_trio": ("bls_decompress_g2", "trio", "bls_decompress_g2_trio"),
     "bls_miller": ("bls_miller", "lane", "bls_miller_lane"),
@@ -2284,20 +2292,24 @@ def bls_fp_products() -> dict:
     cyclotomic square 18 (three Fp4 squares of two Fp2 products); a G1
     doubling 8 and addition 12 products, G2 24 and 36 (RCB 2015); G2 in
     Jacobian coordinates (B2's cofactor, the G2 subgroup test) a doubling
-    16 and an addition 44, psi 6; a
+    16 and an addition 44, psi 6; G1 in Jacobian coordinates a doubling 7
+    and a mixed addition 11; a
     fixed exponent or scalar of n bits and weight w costs n squarings or
     doublings and w multiplications or additions, except fp_pow's 4-bit
     windows (_pow_w4_products); inverses and Legendre symbols are binary (no
     products; an inverse 1 to leave R^-1). Keys: g1/g2 decompression without
     the subgroup check (g2 a lane with a root: the root by the norm), sub1
-    the check [r]P == O, sub2 psi(P) == [x]P (psi, an |x| ladder, the
-    Jacobian compare), jac2 the move of a projective sum to Jacobian
-    coordinates before it (B3 G2), h2g (B2: two SvdW maps, the RCB
-    sum, the cofactor by Budroni-Pintore (two |x| ladders, three psi, five
-    additions) and [c], c = (3(x^2 - 1))^-1 mod r, by its base-x split over
-    psi (a joint ladder of four 64-bit digits), to affine), add1/add2 (a
-    point
-    sum's additions), aff1/aff2 (a sum to affine), miller, fexp (B5 per
+    the check sigma(P) == [-x^2]P on an affine P (an [x^2] ladder of mixed
+    additions, beta x, the Jacobian compare), sub2 psi(P) == [x]P (psi, an
+    |x| ladder, the Jacobian compare), jac1/jac2 the move of a projective
+    sum to Jacobian coordinates before it (B3), h2g (B2: two SvdW maps, the
+    RCB sum, the cofactor by Budroni-Pintore (two |x| ladders, three psi,
+    five additions) and [c], c = (3(x^2 - 1))^-1 mod r, by its base-x split
+    over psi (a joint ladder of four 64-bit digits), to affine), add1/add2
+    (a point sum's complete additions, RCB's algorithm 7) and
+    add1_aff/add2_aff (its mixed ones from an affine point, algorithm 8: B3
+    sums its lanes' points with these and its partials with the complete
+    ones, b3_products), aff1/aff2 (a sum to affine), miller, fexp (B5 per
     check, its lanes' products not included), mul12 (one more lane in a
     check). B2's trios and B5's sextets split these products:
     bls_chain_products counts one thread's chain."""
@@ -2321,9 +2333,11 @@ def bls_fp_products() -> dict:
     # check), the sign rule's two conversions
     root2 = 2 + _pow_w4_products((p + 1) // 4) + _pow_w4_products((p - 3) // 4) + 2 + 2
     x_ladder = ladder(16, 44, -O.BLS_X) - 16 - 44  # the top bit starts it
+    x2 = O.BLS_X ** 2
     c = {"g1": 1 + 2 + sqrt1 + 1, "g2": 2 + 3 + 2 + root2 + 2,
-         "sub1": ladder(8, 12, O.BLS_R), "sub2": 6 + x_ladder + 22, "jac2": 8,
-         "add1": 12, "add2": 36, "aff1": inv + 2, "aff2": f2_inv + 6}
+         "sub1": ladder(7, 11, x2) - 7 - 11 + 5, "sub2": 6 + x_ladder + 22, "jac1": 3,
+         "jac2": 8, "add1": 12, "add2": 36, "add1_aff": 11, "add2_aff": 33, "aff1": inv + 2,
+         "aff2": f2_inv + 6}
     bits, cols = _gls_columns(BL.gls_digits(BL.cofactor_c()))
     cofactor = (2 * x_ladder + 3 * 6 + 16 + 5 * 44
                 + 4 * 6 + 11 * 44 + (bits - 1) * 16 + (cols - 1) * 44 + 44)
@@ -2352,8 +2366,11 @@ def bls_chain_products() -> dict:
     then the psi test splits each Fp2 product or square three ways. B4
     (miller on a sextet, miller_half on a half-warp): each Miller step's
     batches deal their Fp products out six or sixteen ways, a thread taking
-    the ceiling of its share. The widest calls run one lane a thread
-    (bls_fp_products)."""
+    the ceiling of its share. B1 G1 (g1 + sub1): every thread of the trio
+    decompresses, then the sigma test's Jacobian steps run their Fp products
+    in rounds of at most three, one product a thread a round (a doubling
+    three rounds, a mixed addition five, the compare three). The widest
+    calls run one lane a thread (bls_fp_products)."""
     from cometbft_tpu_torch.crypto import bls12381_math as O
     from cometbft_tpu_torch.ops import bls_launch as BL
 
@@ -2372,7 +2389,10 @@ def bls_chain_products() -> dict:
             return -(-k // n)
         return (share(16) + share(24) + (xn - 2) * (share(52) + share(24) + share(42))
                 + (xw - 1) * (share(18) + share(22) + share(42)))
+    x2 = x * x
+    sigma_test = (x2.bit_length() - 1) * 3 + (bin(x2).count("1") - 1) * 5 + 3
     return {"h2g": 2 + svdw + 36 + 8 + rounds + 16, "fexp": fexp, "mul12": 9,
+            "g1": bls_fp_products()["g1"], "sub1": sigma_test,
             "g2": bls_fp_products()["g2"], "sub2": psi_test, "miller": miller(6),
             "miller_half": miller(16)}
 
@@ -2413,8 +2433,9 @@ def bls_least_products() -> dict:
     - G1 Jacobian doubling 7, mixed addition 11; G2 16, mixed 29, general 43;
       affine additions with a batched inversion 6 (G1) and 15 (G2), so a
       point sum stays affine.
-    - Subgroup checks by endomorphism: G1 phi(P) == [-x^2]P (Bowe 2019), G2
-      psi(P) == [x]P (Scott 2021).
+    - Subgroup checks by endomorphism: G1 sigma(P) == [-x^2]P (Bowe 2019;
+      the compare across Jacobian coordinates, beta x included, 5 products),
+      G2 psi(P) == [x]P (Scott 2021).
     - Hash to G2: two SvdW maps (RFC 9380 F.1 straight line), one affine
       addition, cofactor clearing, to affine. The cofactor is the oracle's
       h2 = #E'(Fp2) / r (crypto/bls12381_math.py _bls_setup), and RFC 9380's
@@ -2465,7 +2486,7 @@ def bls_least_products() -> dict:
     cofactor = min(bp + gls, windowed)
     n, w = x.bit_length(), bin(x).count("1")
     return {"g1": 2 + e_sqrt + 1, "g2": 5 + sqrt2,
-            "sub1": ladder(7, 11, x * x) + 1 + 5, "sub2": ladder(16, 29, x) + 6 + 11,
+            "sub1": ladder(7, 11, x * x) + 5, "sub2": ladder(16, 29, x) + 6 + 11,
             "add1": 6, "add2": 15, "aff1": 0, "aff2": 0,
             "h2g": 2 * svdw + 15 + cofactor + 18,
             "miller": (n - 1) * (25 + 39 + 36) - (36 + 39) + (w - 1) * (41 + 39),
@@ -2479,9 +2500,52 @@ def _sizes(starts: torch.Tensor) -> np.ndarray:
     return np.diff(starts.cpu().numpy().astype(np.int64))
 
 
-def bls_call_products(name: str, args: tuple, c: dict) -> int:
+SUM_THREADS = 64  # csrc/bls12381.cu: B3's threads a block
+
+
+def _b3_block(n: int) -> tuple[int, int, int]:
+    """One B3 block over n points or partials, a stride a thread, then a tree:
+    (additions in series on its longest thread, the tree's levels, the
+    additions made before the tree)."""
+    if n <= 0:
+        return 0, 0, 0
+    active = min(n, SUM_THREADS)
+    return -(-n // SUM_THREADS) - 1, (active - 1).bit_length(), n - active
+
+
+def b3_products(g: int, sizes, slices: int, check: bool, c: dict, chain: bool = False) -> int:
+    """B3's Fp products on a call of groups of `sizes` points with `slices`
+    slices a group (launch_shape's; 1: a block a group alone) under the
+    kernels' own counts c (bls_fp_products): each lane's point after a
+    thread's first by a mixed addition, the rest (trees, partials) by
+    complete ones, then the tail. With chain=True the longest group's
+    critical path instead: a block's longest thread, its tree, phase 2's,
+    and the tail, in which the sum's move to affine (warp 1) runs beside the
+    check (warp 0; G2's on a trio, bls_chain_products' sub2)."""
+    add, mixed = c[f"add{g}"], c[f"add{g}_aff"]
+    sub = (c[f"jac{g}"] + (bls_chain_products()["sub2"] if chain and g == 2 else c[f"sub{g}"])
+           if check else 0)
+    total = longest = 0
+    for n in (int(v) for v in sizes):
+        ns = [n * (k + 1) // slices - n * k // slices for k in range(slices)] if slices > 1 else [n]
+        blocks = [_b3_block(m) for m in ns]
+        path = max(serial * mixed + levels * add for serial, levels, _ in blocks)
+        work = sum(pre * mixed + max(min(m, SUM_THREADS) - 1, 0) * add
+                   for (_, _, pre), m in zip(blocks, ns))
+        if slices > 1:
+            serial, levels, _ = _b3_block(slices)
+            path += (serial + levels) * add
+            work += (slices - 1) * add
+        longest = max(longest, path + max(c[f"aff{g}"], sub))
+        total += work + c[f"aff{g}"] + sub
+    return longest if chain else total
+
+
+def bls_call_products(name: str, args: tuple, c: dict, slices: int | None = None) -> int:
     """Fp products of one call of the BLS entry `name` on `args` (its
-    wrapper's arguments) under the per-lane counts c."""
+    wrapper's arguments) under the per-lane counts c; for B3 with `slices`
+    (launch_shape's), the kernels' own way of summing (b3_products), else
+    every addition at c's add count."""
     if name.startswith("bls_decompress"):
         g, x_raw, _, check = args
         return x_raw.shape[-1] * (c[f"g{g}"] + int(check) * c[f"sub{g}"])
@@ -2490,6 +2554,8 @@ def bls_call_products(name: str, args: tuple, c: dict) -> int:
     if name.startswith("bls_point_sum"):
         g, _, _, starts, check = args
         sizes = _sizes(starts)
+        if slices is not None:
+            return b3_products(g, sizes, slices, bool(check), c)
         return int((np.maximum(sizes, 1) - 1).sum()) * c[f"add{g}"] + len(sizes) * (
             c[f"aff{g}"] + int(check) * (c[f"sub{g}"] + c.get(f"jac{g}", 0)))
     if name.startswith("bls_miller"):
@@ -2649,6 +2715,44 @@ def _bls_coords(g: int, affs: list) -> list[list[int]]:
     return [[a[k][j] for a in affs] for k in (0, 1) for j in (0, 1)]
 
 
+BLS_H1 = 0x396c8c005555e1568c00aaab0000aaab  # the G1 cofactor, 3 11^2 10177^2 859267^2 52437899^2
+
+
+def bls_g1_torsion(seed: int = SEED_BLS) -> list:
+    """Points of E(Fp) outside G1: (0, 2) of order 3; points of order 11,
+    10177 and 859267 ([h1 r / l^2]R of seeded random points R: l^2 divides
+    h1 and that part of E(Fp) has exponent l); [r]R (its order all in h1's
+    part); each of those plus a G1 point."""
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    p, F = O.BLS_P, O._FpOps
+    rng = np.random.default_rng(seed)
+
+    def mul(k, a):
+        return O._ec_affine(F, O._ec_mul(F, k, O._ec_from_affine(a)))
+
+    def curve_point():
+        while True:
+            x = int.from_bytes(rng.bytes(48), "big") % p
+            t = (x ** 3 + 4) % p
+            y = pow(t, (p + 1) // 4, p)
+            if y * y % p == t:
+                return x, y
+
+    tors = [(0, 2)]
+    for ell in (11, 10177, 859267):
+        while True:
+            t = mul(BLS_H1 * O.BLS_R // (ell * ell), curve_point())
+            if t is not None:
+                break
+        if mul(ell, t) is not None:
+            raise AssertionError(f"BLS checks: a point of order {ell} expected")
+        tors.append(t)
+    tors.append(mul(O.BLS_R, curve_point()))
+    gen = O._ec_from_affine(O.BLS_G1)
+    return tors + [O._ec_affine(F, O._ec_add(F, O._ec_from_affine(t), gen)) for t in tors]
+
+
 class BlsHeld:
     """Kernel against plain version on the same card tensors: values by
     canonical value, flags bit for bit; the largest difference kept per
@@ -2714,7 +2818,8 @@ class BlsRecorder:
             before = dict(BL.LAUNCHES)
             out = fn(*args)
             key = f"bls_{n}_g{args[0]}" if n in ("decompress", "point_sum") else f"bls_{n}"
-            for group_key in ("bls_decompress_g2_trio", "bls_miller_sextet", "bls_miller_half"):
+            for group_key in ("bls_decompress_g1_trio", "bls_decompress_g2_trio",
+                              "bls_miller_sextet", "bls_miller_half"):
                 if BL.LAUNCHES[group_key] > before[group_key]:
                     key = group_key
             outs = out if isinstance(out, tuple) else (out,)
@@ -2759,17 +2864,21 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
     """B1-B5 against their plain versions on the card, on inputs whose first
     lanes are edge cases: B1 (G1 and G2, with and without the subgroup
     check) on a key staged in place of an x >= p (the generator), an x with
-    no square root, points on the curves outside G1/G2 and both sign bits,
-    B1 G2 on its trio and its one-lane kernel each, on those lanes and on
-    the lane count where the crossover takes one lane a thread; B2 on 64
+    no square root, points on the curves outside G1/G2 (G1: components of
+    order 3, 11, 10177 and 859267 and [r]R, alone and plus a G1 point) and
+    both sign bits, each group on its trio and its one-lane kernel, on those
+    lanes and on the lane count where the crossover takes one lane a
+    thread; B2 on 64
     messages with the empty one, and on one message alone (one trio); B3
     (G1, and G2 with the subgroup check) on 1,024 points in 3 uneven groups,
-    a group summing to infinity and (G2) a group whose sum lies outside G2;
+    a group summing to infinity and (G2) a group whose sum lies outside G2,
+    and on one group of 10,240 of them (repeated, a duplicate pair and a
+    cancelling pair in blocks far apart) split over blocks and on one block;
     B4 and B5 on 64 pairs, 32 checks, half of them products equal to one, B4
     on its half-warp, sextet and one-pair kernels each, on those pairs and
     on the pair counts of its two crossovers; B5 on one check of 151 of those values
     (ten trios and their tree) and on checks whose product is zero or one,
-    forced or not. Prints the group kernels' launch shapes and
+    forced or not. Prints the launch shapes and the group kernels'
     crossovers."""
     from cometbft_tpu_torch.crypto import bls12381
     from cometbft_tpu_torch.crypto import bls12381_math as O
@@ -2784,7 +2893,8 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
     g2 = _bls_points(2, 6, 5)
     g2.append((g2[0][0], O.f2_neg(g2[0][1])))
     x_bad = p.to_bytes(48, "big")
-    e1 = [bytes([x_bad[0] | 0x80]) + x_bad[1:], O.bls_g1_compress((0, 2))]
+    tors = bls_g1_torsion()
+    e1 = [bytes([x_bad[0] | 0x80]) + x_bad[1:]] + [O.bls_g1_compress(a) for a in tors]
     e1 += [O.bls_g1_compress(a) for a in g1]
     e2 = [bytes([x_bad[0] | 0x80]) + x_bad[1:] + bytes(48),
           O.bls_g2_compress(O._svdw_map_fp2((3, 4), O._bls_setup()["svdw"]))]
@@ -2809,26 +2919,31 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
         if len(set(sign.tolist())) != 2:
             raise AssertionError("BLS checks: B1's lanes must carry both sign bits")
         for check in (True, False):
-            for kernel in ((None,) if g == 1 else (None, "trio", "lane")):
-                trios = BL.LAUNCHES["bls_decompress_g2_trio"]
+            for kernel in (None, "trio", "lane"):
+                trios = BL.LAUNCHES[f"bls_decompress_g{g}_trio"]
                 got = BL.decompress(g, x, sign, check, kernel=kernel)
                 key = f"bls_decompress_g{g}" + (
-                    "_trio" if BL.LAUNCHES["bls_decompress_g2_trio"] > trios else "")
+                    "_trio" if BL.LAUNCHES[f"bls_decompress_g{g}_trio"] > trios else "")
                 held.hold(key, got, lambda: BL.decompress_plain(g, x, sign, check))
                 want_ok = [1] * (len(rows) - 1) + [0]
-                if check:
-                    want_ok[1] = 0  # on the curve, outside the subgroup
+                if check:  # on the curve, outside the subgroup
+                    want_ok[1:1 + (len(tors) if g == 1 else 1)] = [0] * (len(tors) if g == 1
+                                                                         else 1)
                 if got[0].tolist() != want_ok:
                     raise AssertionError(f"B1 g{g} check={check} {kernel}: ok {got[0].tolist()}")
-    # B1 G2 at its crossover: the edge lanes repeated, both kernels
-    n1 = _bls_crossover("bls_decompress_g2", device, lambda s: s["lane_kernel"])
-    x, sign = _bls_x_planes([rows2[k % len(rows2)].tobytes() for k in range(n1)], device)
-    for kernel in (None, "trio"):
-        got = BL.decompress(2, x, sign, True, kernel=kernel)
-        held.hold("bls_decompress_g2" + ("_trio" if kernel else ""), got,
-                  lambda: BL.decompress_plain(2, x, sign, True))
-    print(f"  B1 G2 held on both kernels at {len(rows2)} lanes (a trio a lane) and at its "
-          f"crossover, {n1} lanes (one lane a thread)", flush=True)
+    # B1 at its crossovers: the edge lanes repeated, both kernels
+    cross = {}
+    for g, rows in ((1, rows1), (2, rows2)):
+        n1 = cross[g] = _bls_crossover(f"bls_decompress_g{g}", device,
+                                       lambda s: s["lane_kernel"])
+        x, sign = _bls_x_planes([rows[k % len(rows)].tobytes() for k in range(n1)], device)
+        for kernel in (None, "trio"):
+            got = BL.decompress(g, x, sign, True, kernel=kernel)
+            held.hold(f"bls_decompress_g{g}" + ("_trio" if kernel else ""), got,
+                      lambda: BL.decompress_plain(g, x, sign, True))
+        print(f"  B1 G{g} held on both kernels at {len(rows)} lanes and at its crossover, {n1} "
+              f"lanes (one lane a thread; a trio a lane below)", flush=True)
+    n1 = cross[2]
     # B2
     msgs = [b""] + [b"bls-check-%d" % i for i in range(BLS_CHECK_LANES - 1)]
     u = torch.from_numpy(np.stack(htc.hash_to_field_limbs(msgs, bls12381.DST))).to(device)
@@ -2864,6 +2979,29 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
                 [1, 1, 1, 1, 0] if g == 2 else [1, 1, 1, 1]):
             raise AssertionError(f"B3 g{g}: identity flags {got[1].tolist()}, subgroup "
                                  f"{got[2].tolist()}")
+        # one group of N_BIG points (the 10k commit's shape: phase 1 over
+        # many blocks) from 1,022 distinct ones repeated, a duplicate pair and
+        # a cancelling pair in blocks far apart; then the same group on one
+        # block alone
+        big = [k % (BLS_SUM_POINTS - 2) for k in range(N_BIG)]
+        big[5], big[N_BIG - 5] = 3, 3
+        big[7], big[N_BIG - 7] = 0, BLS_SUM_POINTS - 1  # P and -P
+        order_b = torch.tensor(big, dtype=torch.int32, device=device)
+        starts_b = torch.tensor([0, N_BIG], dtype=torch.int32, device=device)
+        want_b = BL.point_sum_plain(g, planes, order_b, starts_b, True)
+        for kernel in (None, "short"):
+            split = BL.LAUNCHES[f"bls_point_sum_g{g}_split"]
+            got = BL.point_sum(g, planes, order_b, starts_b, True, kernel=kernel)
+            if (BL.LAUNCHES[f"bls_point_sum_g{g}_split"] > split) != (kernel is None):
+                raise AssertionError(f"B3 g{g} on {N_BIG} points ({kernel}): phase 1 "
+                                     f"{'did not run' if kernel is None else 'ran'}")
+            held.hold(f"bls_point_sum_g{g}", got, lambda: want_b)
+            if got[1].tolist() != [0] or got[2].tolist() != [1]:
+                raise AssertionError(f"B3 g{g} on {N_BIG} points: identity flag "
+                                     f"{got[1].tolist()}, subgroup {got[2].tolist()}")
+    print(f"  B3 held on 1,000/19/3/2-point groups and on one group of {N_BIG} points split "
+          f"over {BL.launch_shape('bls_point_sum_g2', 1, device, N_BIG)['part_blocks']} "
+          f"blocks and on one block", flush=True)
     # B4/B5: checks c < 16 pair (P, Q) with (-P, Q): one; the others (P, Q)
     # with (P, Q'): not one
     n = BLS_CHECK_LANES
@@ -2924,6 +3062,14 @@ def check_bls(device, held: BlsHeld, card: str = "") -> None:
             ("256 lanes", "bls_decompress_g2", 256, None, True),
             (f"{n1} lanes", "bls_decompress_g2", n1, None, True),
             (f"{N_BIG} lanes", "bls_decompress_g2", N_BIG, None, True),
+            ("150 lanes", "bls_decompress_g1", 150, None, True),
+            ("256 lanes", "bls_decompress_g1", 256, None, True),
+            (f"{cross[1]} lanes", "bls_decompress_g1", cross[1], None, True),
+            (f"{N_BIG} lanes", "bls_decompress_g1", N_BIG, None, True),
+            ("150 groups of 1", "bls_point_sum_g1", 150, 150, False),
+            (f"one group of {N_BIG}", "bls_point_sum_g1", 1, N_BIG, False),
+            ("one group of 150", "bls_point_sum_g2", 1, 150, True),
+            (f"one group of {N_BIG}", "bls_point_sum_g2", 1, N_BIG, True),
             ("1 message", "bls_hash_to_g2", 1, 1, True),
             ("150 messages", "bls_hash_to_g2", 150, 150, True),
             (f"{N_BIG} messages", "bls_hash_to_g2", N_BIG, N_BIG, True),
@@ -2985,6 +3131,11 @@ def _bls_want(**kw) -> dict:
 
 _AGG = dict(bls_decompress_g2=1, bls_hash_to_g2=1, bls_point_sum_g1=1, bls_point_sum_g2=1,
             bls_miller=1, bls_final_exp=1)
+# B3 on the 150 commit's sums (150 groups of one key, one group of 150
+# signatures): a block a group alone; on the 10k commit's (one group each of
+# 10,240): split over blocks first
+_AGG_150 = dict(_AGG, bls_point_sum_g1_short=1, bls_point_sum_g2_short=1)
+_AGG_10K = dict(_AGG, bls_point_sum_g1_split=1, bls_point_sum_g2_split=1)
 _SINGLE = dict(bls_decompress_g1=1, bls_decompress_g2=1, bls_hash_to_g2=1, bls_miller=1,
                bls_final_exp=1, integrity_parts=1)
 
@@ -3073,8 +3224,8 @@ def bls_phase(device, card: str, report: str = "") -> dict:
 
     t_phase = time.perf_counter()
     for kernel, lines in ptxas_summary(report).items():
-        if kernel.startswith(("bls_decompress_g2", "bls_hash_to_g2", "bls_miller",
-                              "bls_final_exp")):
+        if kernel.startswith(("bls_decompress", "bls_hash_to_g2", "bls_point_sum",
+                              "bls_miller", "bls_final_exp")):
             print(f"  ptxas {kernel}: {'; '.join(lines)}", flush=True)
     held = BlsHeld()
     check_bls(device, held, card)
@@ -3094,9 +3245,10 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     h = commit.height
     call = lambda: V.verify_commit(CHAIN_ID, vals, bid, h, commit)  # noqa: E731
     cells["150 cold"] = bls_cell("verify_commit 150 cold", call, device,
-                                 _bls_want(**_AGG, bls_decompress_g1=1), totals, card=card)
+                                 _bls_want(**_AGG_150, bls_decompress_g1=1), totals, card=card)
     cells["150 warm"] = statistics.median(
-        bls_cell("verify_commit 150 warm", call, device, _bls_want(**_AGG), totals, card=card)
+        bls_cell("verify_commit 150 warm", call, device, _bls_want(**_AGG_150), totals,
+                 card=card)
         for _ in range(3))
     by_part = {"150 warm": bls_by_part("verify_commit 150 warm", call, card)}
     bad = with_bad_signature(commit, BLS_BAD_SMALL)
@@ -3104,8 +3256,8 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     lanes0 = sched.get().health()["lanes_total"]
     cells["150 tampered"] = bls_cell(
         "verify_commit 150 tampered", lambda: V.verify_commit(CHAIN_ID, vals, bid, h, bad),
-        device, _bls_want(**{k: _AGG.get(k, 0) + _SINGLE.get(k, 0)
-                             for k in set(_AGG) | set(_SINGLE)}), totals,
+        device, _bls_want(**{k: _AGG_150.get(k, 0) + _SINGLE.get(k, 0)
+                             for k in set(_AGG_150) | set(_SINGLE)}), totals,
         raises=f"wrong signature (#{BLS_BAD_SMALL})", card=card)
     if sched.get().health()["lanes_total"] - lanes0 != 256:
         raise AssertionError("BLS 150 tampered: the pinpoint did not run 256 lanes")
@@ -3117,8 +3269,8 @@ def bls_phase(device, card: str, report: str = "") -> dict:
             raise AssertionError("aggregate_verify_agg rejected the commit's aggregate")
     cells["150 aggregate_verify_agg"] = bls_cell(
         "aggregate_verify_agg 150", agg_call, device,
-        _bls_want(bls_decompress_g2=1, bls_hash_to_g2=1, bls_point_sum_g1=1, bls_miller=1,
-                  bls_final_exp=1), totals, card=card)
+        _bls_want(bls_decompress_g2=1, bls_hash_to_g2=1, bls_point_sum_g1=1,
+                  bls_point_sum_g1_short=1, bls_miller=1, bls_final_exp=1), totals, card=card)
 
     # 2. all-BLS 10,240, one shared timestamp
     t0 = time.perf_counter()
@@ -3128,9 +3280,10 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     hb = commit_b.height
     call_b = lambda: V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, commit_b)  # noqa: E731
     cells["10k cold"] = bls_cell("verify_commit 10k cold", call_b, device,
-                                 _bls_want(**_AGG, bls_decompress_g1=1), totals, card=card)
+                                 _bls_want(**_AGG_10K, bls_decompress_g1=1), totals, card=card)
     cells["10k warm"] = statistics.median(
-        bls_cell("verify_commit 10k warm", call_b, device, _bls_want(**_AGG), totals, card=card)
+        bls_cell("verify_commit 10k warm", call_b, device, _bls_want(**_AGG_10K), totals,
+                 card=card)
         for _ in range(3))
     by_part["10k warm"] = bls_by_part("verify_commit 10k warm", call_b, card)
     bad_b = with_bad_signature(commit_b, BLS_BAD_BIG)
@@ -3138,7 +3291,8 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     cells["10k tampered"] = bls_cell(
         "verify_commit 10k tampered",
         lambda: V.verify_commit(CHAIN_ID, vals_b, bid_b, hb, bad_b), device,
-        _bls_want(**{k: _AGG.get(k, 0) + _SINGLE.get(k, 0) for k in set(_AGG) | set(_SINGLE)}),
+        _bls_want(**{k: _AGG_10K.get(k, 0) + _SINGLE.get(k, 0)
+                     for k in set(_AGG_10K) | set(_SINGLE)}),
         totals, raises=f"wrong signature (#{BLS_BAD_BIG})", card=card)
 
     # 3. mixed 150: 50 ed25519 + 50 sr25519 + 50 bls12381
@@ -3222,16 +3376,20 @@ def bls_phase(device, card: str, report: str = "") -> dict:
           f"(sextet) a pair; B5 {least['fexp']} / "
           f"{design['fexp']} / {chain['fexp']} a check + {least['mul12']} / {design['mul12']} / "
           f"{chain['mul12']} a further Miller value (the widest calls: one lane a thread, the "
-          f"own counts)", flush=True)
-    # B1 G2, B2, B3 G2, B4 and B5 on each of their recorded calls: the
-    # aggregates' (the 150 commit's and the 10k commit's: 150 and 10,240
-    # signatures, one message or 150, 151 or 2 pairs, one check) and the
-    # single-verify path's (256 and 10,240 lanes, 20,480 pairs)
+          f"own counts); B1 G1 {least['g1']} + {least['sub1']} / {design['g1']} + "
+          f"{design['sub1']} / {chain['g1']} + {chain['sub1']} (a trio's rounds); B3 a point "
+          f"{least['add1']} / "
+          f"{design['add1_aff']} (mixed) or {design['add1']} (complete) in G1, {least['add2']} / "
+          f"{design['add2_aff']} or {design['add2']} in G2 (B3's chains: each record)",
+          flush=True)
+    # every kernel on each of its recorded calls: the aggregates' (the 150
+    # commit's and the 10k commit's: 150 keys in 150 groups or 10,240 in one,
+    # 150 and 10,240 signatures, one message or 150, 151 or 2 pairs, one
+    # check) and the single-verify path's (256 and 10,240 lanes, 20,480
+    # pairs)
     by_call: dict[str, dict[str, float]] = {}
     for c in held_calls:
-        if c["key"] in ("bls_decompress_g2", "bls_decompress_g2_trio", "bls_hash_to_g2",
-                        "bls_point_sum_g2", "bls_miller", "bls_miller_sextet",
-                        "bls_miller_half", "bls_final_exp"):
+        if c["key"] in BLS_RECORDS:
             label = _bls_call_shape(c["entry"], c["args"])
             if label not in by_call.setdefault(c["key"], {}):
                 args, fn = c["args"], getattr(BL, c["entry"])
@@ -3248,31 +3406,43 @@ def bls_phase(device, card: str, report: str = "") -> dict:
         args, fn = c["args"], functools.partial(getattr(BL, c["entry"]),
                                                 **({"kernel": kernel} if kernel else {}))
         ms = time_kernel(lambda: fn(*args), reps=3)
-        products = bls_call_products(name, args, least)
-        nbytes = sum(t.numel() * t.element_size() for t in args + c["outs"]
-                     if isinstance(t, torch.Tensor))
-        b = bls_bound(products, nbytes)
-        design_b = bls_bound(bls_call_products(name, args, design), nbytes)
         n = args[1].shape[-1] if c["entry"] in ("decompress", "point_sum") else args[0].shape[-1]
         units = (args[3].shape[0] - 1 if c["entry"] == "point_sum" else
                  args[2].shape[0] - 1 if c["entry"] == "final_exp" else n)
         shape = BL.launch_shape(entry, units, device,
-                                n if c["entry"] == "final_exp" else None,
+                                n if c["entry"] == "final_exp" else
+                                args[2].shape[0] if c["entry"] == "point_sum" else None,
                                 check_subgroup=c["entry"] != "decompress" or bool(args[3]),
                                 kernel=kernel)
+        products = bls_call_products(name, args, least)
+        nbytes = sum(t.numel() * t.element_size() for t in args + c["outs"]
+                     if isinstance(t, torch.Tensor))
+        b = bls_bound(products, nbytes)
+        slices = shape["slices"] if c["entry"] == "point_sum" else None
+        design_b = bls_bound(bls_call_products(name, args, design, slices), nbytes)
+        b3 = {}
+        if slices is not None:
+            b3 = {"chain_products": b3_products(args[0], _sizes(args[3]), slices, bool(args[4]),
+                                                design, chain=True),
+                  "slices": slices, "part_blocks": shape["part_blocks"],
+                  "part_registers": shape["part_registers"],
+                  "part_stack_bytes": shape["part_local_bytes"]}
         print(f"[{card}] {name}: {ms:.3f} ms on {_bls_call_shape(c['entry'], args)} (median "
               f"of 3), plain {c['plain_ms']:.1f} ms on the same call; bound {b[0]:.4f} ms "
               f"({b[1]}: {products} Fp products x {FP_MUL_IMADS} IMADs, {nbytes} B), "
               f"{b[0] / ms:.1%}; the kernel's own formulas {design_b[0]:.4f} ms; "
               f"{shape['registers']} registers, {shape['local_bytes']} B stack, "
-              f"{shape['blocks_per_sm']} blocks/SM", flush=True)
+              f"{shape['blocks_per_sm']} blocks/SM"
+              + (f"; {b3['slices']} slices a group ({b3['part_blocks']} phase-1 blocks, "
+                 f"{b3['part_registers']} registers, {b3['part_stack_bytes']} B stack), chain "
+                 f"{b3['chain_products']} Fp products" if b3 else ""), flush=True)
         records.append({
             "name": name, "route": "cuda", "source": "cometbft_tpu_torch/csrc/bls12381.cu",
             "replaces": BLS_RECORDS[name], "launches": totals[count],
             "max_abs_err": held.err[name], "ms": ms, "plain_ms": c["plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "lanes": n,
             "units": units, "fp_products": products, "design_bound_ms": design_b[0],
-            "registers": shape["registers"], "stack_bytes": shape["local_bytes"],
+            "registers": shape["registers"], "stack_bytes": shape["local_bytes"], **b3,
             **({"ms_by_call": by_call[name]} if name in by_call else {})})
     print(f"[{card}] BLS cells (wall ms): " + ", ".join(f"{k} {v:.3f}" for k, v in cells.items())
           + f"; BLS phase {time.perf_counter() - t_phase:.1f} s", flush=True)

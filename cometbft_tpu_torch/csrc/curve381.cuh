@@ -1,11 +1,12 @@
 // The BLS12-381 groups and the pairing over tower381.cuh and group381.cuh:
 // G1 over Fp (y^2 = x^3 + 4), G2 on the twist over Fp2 (y^2 = x^3 +
 // 4(1 + u)), complete projective formulas (Renes-Costello-Batina 2015,
-// algorithms 7 and 9 for a = 0), the fixed-scalar ladder of the subgroup
-// order r (G1's subgroup check), decompression, the SvdW hash-to-G2 map;
-// then the bodies that run on thread groups as well as one lane a thread:
-// G2 in Jacobian coordinates with its subgroup check psi(P) == [x]P (Scott
-// 2021), hash to G2 (its cofactor clearing by psi: Budroni-Pintore, then a
+// algorithms 7, 8 and 9 for a = 0), a fixed-scalar ladder, decompression,
+// the SvdW hash-to-G2 map; then the bodies that run on thread groups as
+// well as one lane a thread: both groups in Jacobian coordinates with their
+// subgroup checks, G1's sigma(P) == [-x^2]P (Bowe 2019) and G2's psi(P) ==
+// [x]P (Scott 2021), the two phases of the segmented point sum, hash to
+// G2 (its cofactor clearing by psi: Budroni-Pintore, then a
 // GLS split), the optimal-ate Miller loop on batches of products, and the
 // segmented product with the final exponentiation (cyclotomic squares).
 // Each is the plain version's function (ops/bls12381/points.py, htc.py,
@@ -27,12 +28,30 @@ __device__ __forceinline__ void f_sub(fp& o, const fp& a, const fp& b) { fp_sub(
 __device__ __forceinline__ void f_sub(fp2& o, const fp2& a, const fp2& b) { f2_sub(o, a, b); }
 __device__ __forceinline__ void f_mul(fp& o, const fp& a, const fp& b) { fp_mul(o, a, b); }
 __device__ __forceinline__ void f_mul(fp2& o, const fp2& a, const fp2& b) { f2_mul(o, a, b); }
+__device__ __forceinline__ void f_sq(fp& o, const fp& a) { fp_sq(o, a); }
+__device__ __forceinline__ void f_sq(fp2& o, const fp2& a) { f2_sq(o, a); }
 __device__ __forceinline__ void f_neg(fp& o, const fp& a) { fp_neg(o, a); }
 __device__ __forceinline__ void f_neg(fp2& o, const fp2& a) { f2_neg(o, a); }
 __device__ __forceinline__ void f_mul3(fp& o, const fp& a) { fp_mul3(o, a); }
 __device__ __forceinline__ void f_mul3(fp2& o, const fp2& a) { f2_mul3(o, a); }
 __device__ __forceinline__ bool f_is_zero(const fp& a) { return fp_is_zero(a); }
 __device__ __forceinline__ bool f_is_zero(const fp2& a) { return f2_is_zero(a); }
+__device__ __forceinline__ bool f_eq(const fp& a, const fp& b) { return fp_eq(a, b); }
+__device__ __forceinline__ bool f_eq(const fp2& a, const fp2& b) { return f2_eq(a, b); }
+__device__ __forceinline__ void f_dbl(fp& o, const fp& a) { fp_dbl(o, a); }
+__device__ __forceinline__ void f_dbl(fp2& o, const fp2& a) { f2_dbl(o, a); }
+__device__ __forceinline__ void f_ld(fp& o, const uint32_t* p, long long B, long long j) {
+  fp_ld(o, p, B, j);
+}
+__device__ __forceinline__ void f_ld(fp2& o, const uint32_t* p, long long B, long long j) {
+  f2_ld(o, p, B, j);
+}
+__device__ __forceinline__ void f_st(uint32_t* p, long long B, long long j, const fp& a) {
+  fp_st(p, B, j, a);
+}
+__device__ __forceinline__ void f_st(uint32_t* p, long long B, long long j, const fp2& a) {
+  f2_st(p, B, j, a);
+}
 __device__ __forceinline__ void f_zero(fp& o) { fp_zero(o); }
 __device__ __forceinline__ void f_zero(fp2& o) { f2_zero(o); }
 __device__ __forceinline__ void f_one(fp& o) { fp_one(o); }
@@ -110,6 +129,41 @@ __device__ BLS_NOINLINE void pt_add(proj<T>& o, const proj<T>& p, const proj<T>&
   f_add(o.z, p5, p6);
 }
 
+// RCB 2015 algorithm 8: P + Q for an affine Q = (qx, qy) (Z = 1, not the
+// identity), algorithm 7 with Q's Z = 1 in the same order of terms: 11
+// products for 12; complete for every P, the identity, Q and -Q included
+template <class T>
+__device__ BLS_NOINLINE void pt_add_aff(proj<T>& o, const proj<T>& p, const T& qx, const T& qy) {
+  T t0, t1, t3, t4, y3, x3, z3, s, u;
+  f_mul(t0, p.x, qx);
+  f_mul(t1, p.y, qy);
+  f_add(s, p.x, p.y);
+  f_add(u, qx, qy);
+  f_mul(t3, s, u);
+  f_add(s, t0, t1);
+  f_sub(t3, t3, s);  // mxy - (t0 + t1)
+  f_mul(t4, qy, p.z);
+  f_add(t4, t4, p.y);  // myz - (t1 + t2), t2 = Z
+  f_mul(y3, qx, p.z);
+  f_add(y3, y3, p.x);  // mxz - (t0 + t2)
+  f_mul3(x3, t0);
+  T t2b, t1b, y3b;
+  f_mul_b3(t2b, p.z);
+  f_add(z3, t1, t2b);
+  f_sub(t1b, t1, t2b);
+  f_mul_b3(y3b, y3);
+  T p1, p2, p3, p4, p5, p6;
+  f_mul(p1, t3, t1b);
+  f_mul(p2, t4, y3b);
+  f_mul(p3, y3b, x3);
+  f_mul(p4, t1b, z3);
+  f_mul(p5, z3, t4);
+  f_mul(p6, x3, t3);
+  f_sub(o.x, p1, p2);
+  f_add(o.y, p3, p4);
+  f_add(o.z, p5, p6);
+}
+
 // RCB 2015 algorithm 9
 template <class T>
 __device__ BLS_NOINLINE void pt_dbl(proj<T>& o, const proj<T>& p) {
@@ -136,7 +190,8 @@ __device__ BLS_NOINLINE void pt_dbl(proj<T>& o, const proj<T>& p) {
 }
 
 // [e]P for a fixed scalar of the table, MSB first (adds only where the
-// public bit is set)
+// public bit is set). No kernel runs it: the host tests hold the subgroup
+// tests against [r]P == O and the cofactor clearing against [h2]P by it.
 template <class T>
 __device__ BLS_NOINLINE void pt_mul_const(proj<T>& o, const proj<T>& p, int e) {
   proj<T> acc;
@@ -146,14 +201,6 @@ __device__ BLS_NOINLINE void pt_mul_const(proj<T>& o, const proj<T>& p, int e) {
     if (exp_bit(e, i)) pt_add(acc, acc, p);
   }
   o = acc;
-}
-
-// G1: [r]P == O; the identity counts as in the subgroup. (G2's test is
-// psi(P) == [x]P, below with the Jacobian code.)
-__device__ __forceinline__ bool pt_in_subgroup(const proj<fp>& p) {
-  proj<fp> r;
-  pt_mul_const(r, p, E_R);
-  return f_is_zero(r.z);
 }
 
 // (x, y) affine; the identity gives (0, 0) and true
@@ -247,99 +294,172 @@ __device__ BLS_NOINLINE void svdw_map(proj<fp2>& o, const fp2& u) {
   pt_from_affine(o, x, y);
 }
 
-// ------------------------------------------- G2 in Jacobian coordinates
+// ------------------------------------------- Jacobian coordinates
 // (x, y) = (X / Z^2, Y / Z^3), the identity Z = 0; the oracle's formulas
-// (crypto/bls12381_math.py _ec_dbl, _ec_add: dbl-2009-l, add-2007-bl), each
-// Fp2 product or square a group operation (group381.cuh). The branches read
-// values every thread of a group holds alike.
+// (crypto/bls12381_math.py _ec_dbl, _ec_add: dbl-2009-l, add-2007-bl), on G1
+// over Fp and on G2 over Fp2, each product or square a group operation: an
+// Fp2 one split over the group (group381.cuh), an Fp one on its thread (G1's
+// code runs one lane a thread). The branches read values every thread of a
+// group holds alike.
 
-struct jac {
-  fp2 x, y, z;
+template <class T>
+struct jacT {
+  T x, y, z;
 };
+using jac = jacT<fp2>;   // G2
+using jac1 = jacT<fp>;   // G1
 
-__device__ __forceinline__ void jac_identity(jac& o) {
-  f2_one(o.x);
-  f2_one(o.y);
-  f2_zero(o.z);
+template <class G>
+__device__ __forceinline__ void g_mul(fp& o, const fp& x, const fp& y, G&) {
+  static_assert(G::N == 1, "G1's Jacobian code runs one lane a thread");
+  fp_mul(o, x, y);
+}
+template <class G>
+__device__ __forceinline__ void g_mul(fp2& o, const fp2& x, const fp2& y, G& g) {
+  g2_mul(o, x, y, g);
+}
+template <class G>
+__device__ __forceinline__ void g_sq(fp& o, const fp& x, G&) {
+  static_assert(G::N == 1, "G1's Jacobian code runs one lane a thread");
+  fp_sq(o, x);
+}
+template <class G>
+__device__ __forceinline__ void g_sq(fp2& o, const fp2& x, G& g) {
+  g2_sq(o, x, g);
+}
+
+template <class T>
+__device__ __forceinline__ void jac_identity(jacT<T>& o) {
+  f_one(o.x);
+  f_one(o.y);
+  f_zero(o.z);
 }
 
 // 5 squares and 2 products; o may alias p
-template <class G>
-__device__ BLS_NOINLINE void jac_dbl(jac& o, const jac& p, G& g) {
-  fp2 a, b, c, d, e, f, t, x3, y3;
-  g2_sq(a, p.x, g);
-  g2_sq(b, p.y, g);
-  g2_sq(c, b, g);
-  f2_add(t, p.x, b);
-  g2_sq(d, t, g);
-  f2_sub(d, d, a);
-  f2_sub(d, d, c);
-  f2_dbl(d, d);
-  f2_mul3(e, a);
-  g2_sq(f, e, g);
-  f2_dbl(t, d);
-  f2_sub(x3, f, t);
-  f2_sub(t, d, x3);
-  g2_mul(y3, e, t, g);
-  f2_dbl(t, c);
-  f2_dbl(t, t);
-  f2_dbl(t, t);
-  f2_sub(y3, y3, t);
-  g2_mul(t, p.y, p.z, g);
-  f2_dbl(o.z, t);
+template <class T, class G>
+__device__ BLS_NOINLINE void jac_dbl(jacT<T>& o, const jacT<T>& p, G& g) {
+  T a, b, c, d, e, f, t, x3, y3;
+  g_sq(a, p.x, g);
+  g_sq(b, p.y, g);
+  g_sq(c, b, g);
+  f_add(t, p.x, b);
+  g_sq(d, t, g);
+  f_sub(d, d, a);
+  f_sub(d, d, c);
+  f_dbl(d, d);
+  f_mul3(e, a);
+  g_sq(f, e, g);
+  f_dbl(t, d);
+  f_sub(x3, f, t);
+  f_sub(t, d, x3);
+  g_mul(y3, e, t, g);
+  f_dbl(t, c);
+  f_dbl(t, t);
+  f_dbl(t, t);
+  f_sub(y3, y3, t);
+  g_mul(t, p.y, p.z, g);
+  f_dbl(o.z, t);
   o.x = x3;
   o.y = y3;
 }
 
 // 4 squares and 12 products; P == Q doubles, P == -Q gives the identity; o
 // may alias p or q
-template <class G>
-__device__ BLS_NOINLINE void jac_add(jac& o, const jac& p, const jac& q, G& g) {
-  if (f2_is_zero(p.z)) {
+template <class T, class G>
+__device__ BLS_NOINLINE void jac_add(jacT<T>& o, const jacT<T>& p, const jacT<T>& q, G& g) {
+  if (f_is_zero(p.z)) {
     o = q;
     return;
   }
-  if (f2_is_zero(q.z)) {
+  if (f_is_zero(q.z)) {
     o = p;
     return;
   }
-  fp2 z1z1, z2z2, u1, u2, s1, s2, t;
-  g2_sq(z1z1, p.z, g);
-  g2_sq(z2z2, q.z, g);
-  g2_mul(u1, p.x, z2z2, g);
-  g2_mul(u2, q.x, z1z1, g);
-  g2_mul(t, p.y, q.z, g);
-  g2_mul(s1, t, z2z2, g);
-  g2_mul(t, q.y, p.z, g);
-  g2_mul(s2, t, z1z1, g);
-  if (f2_eq(u1, u2)) {
-    if (f2_eq(s1, s2)) {
+  T z1z1, z2z2, u1, u2, s1, s2, t;
+  g_sq(z1z1, p.z, g);
+  g_sq(z2z2, q.z, g);
+  g_mul(u1, p.x, z2z2, g);
+  g_mul(u2, q.x, z1z1, g);
+  g_mul(t, p.y, q.z, g);
+  g_mul(s1, t, z2z2, g);
+  g_mul(t, q.y, p.z, g);
+  g_mul(s2, t, z1z1, g);
+  if (f_eq(u1, u2)) {
+    if (f_eq(s1, s2)) {
       jac_dbl(o, p, g);
     } else {
       jac_identity(o);
     }
     return;
   }
-  fp2 h, i, j, r, v, x3, y3, z3;
-  f2_sub(h, u2, u1);
-  f2_dbl(t, h);
-  g2_sq(i, t, g);
-  g2_mul(j, h, i, g);
-  f2_sub(r, s2, s1);
-  f2_dbl(r, r);
-  g2_mul(v, u1, i, g);
-  g2_sq(x3, r, g);
-  f2_sub(x3, x3, j);
-  f2_dbl(t, v);
-  f2_sub(x3, x3, t);
-  f2_sub(t, v, x3);
-  g2_mul(y3, r, t, g);
-  g2_mul(t, s1, j, g);
-  f2_dbl(t, t);
-  f2_sub(y3, y3, t);
-  g2_mul(z3, h, p.z, g);
-  g2_mul(z3, z3, q.z, g);
-  f2_dbl(o.z, z3);
+  T h, i, j, r, v, x3, y3, z3;
+  f_sub(h, u2, u1);
+  f_dbl(t, h);
+  g_sq(i, t, g);
+  g_mul(j, h, i, g);
+  f_sub(r, s2, s1);
+  f_dbl(r, r);
+  g_mul(v, u1, i, g);
+  g_sq(x3, r, g);
+  f_sub(x3, x3, j);
+  f_dbl(t, v);
+  f_sub(x3, x3, t);
+  f_sub(t, v, x3);
+  g_mul(y3, r, t, g);
+  g_mul(t, s1, j, g);
+  f_dbl(t, t);
+  f_sub(y3, y3, t);
+  g_mul(z3, h, p.z, g);
+  g_mul(z3, z3, q.z, g);
+  f_dbl(o.z, z3);
+  o.x = x3;
+  o.y = y3;
+}
+
+// P + Q for an affine Q (Z = 1, not the identity): jac_add with Q's Z = 1,
+// 3 squares and 8 products; the same doubling and inverse cases; o may
+// alias p
+template <class T, class G>
+__device__ BLS_NOINLINE void jac_add_aff(jacT<T>& o, const jacT<T>& p, const T& qx, const T& qy,
+                                         G& g) {
+  if (f_is_zero(p.z)) {
+    o.x = qx;
+    o.y = qy;
+    f_one(o.z);
+    return;
+  }
+  T z1z1, u2, s2, t;
+  g_sq(z1z1, p.z, g);
+  g_mul(u2, qx, z1z1, g);
+  g_mul(t, qy, p.z, g);
+  g_mul(s2, t, z1z1, g);
+  if (f_eq(p.x, u2)) {
+    if (f_eq(p.y, s2)) {
+      jac_dbl(o, p, g);
+    } else {
+      jac_identity(o);
+    }
+    return;
+  }
+  T h, i, j, r, v, x3, y3, z3;
+  f_sub(h, u2, p.x);
+  f_dbl(t, h);
+  g_sq(i, t, g);
+  g_mul(j, h, i, g);
+  f_sub(r, s2, p.y);
+  f_dbl(r, r);
+  g_mul(v, p.x, i, g);
+  g_sq(x3, r, g);
+  f_sub(x3, x3, j);
+  f_dbl(t, v);
+  f_sub(x3, x3, t);
+  f_sub(t, v, x3);
+  g_mul(y3, r, t, g);
+  g_mul(t, p.y, j, g);
+  f_dbl(t, t);
+  f_sub(y3, y3, t);
+  g_mul(z3, h, p.z, g);
+  f_dbl(o.z, z3);
   o.x = x3;
   o.y = y3;
 }
@@ -437,11 +557,12 @@ __device__ BLS_NOINLINE void jac_clear_cofactor(jac& o, const jac& p, G& g) {
 }
 
 // RCB projective (x = X / Z) -> Jacobian
-__device__ __forceinline__ void jac_from_proj(jac& o, const proj<fp2>& p) {
-  fp2 zz;
-  f2_mul(o.x, p.x, p.z);
-  f2_sq(zz, p.z);
-  f2_mul(o.y, p.y, zz);
+template <class T>
+__device__ __forceinline__ void jac_from_proj(jacT<T>& o, const proj<T>& p) {
+  T zz;
+  f_mul(o.x, p.x, p.z);
+  f_sq(zz, p.z);
+  f_mul(o.y, p.y, zz);
   o.z = p.z;
 }
 
@@ -494,6 +615,166 @@ __device__ __forceinline__ bool pt_in_subgroup(const proj<fp2>& p, G& g) {
 __device__ __forceinline__ bool pt_in_subgroup(const proj<fp2>& p) {
   solo g;
   return pt_in_subgroup(p, g);
+}
+
+// [x^2]P (x^2 of the table, 128 bits of weight 17): 127 doublings and 16
+// additions, mixed ones (jac_add_aff) where P is affine (Z = 1); the
+// additions' doubling and inverse cases occur on points with a component of
+// small order (a prefix k of x^2 with [k]P = +-P)
+__device__ BLS_NOINLINE void jac_mul_x2(jac1& o, const jac1& p) {
+  solo g;
+  const bool aff = fp_eq_k(p.z, K_ONE);
+  jac1 acc = p;
+  for (int i = x2_nbits() - 2; i >= 0; --i) {
+    jac_dbl(acc, acc, g);
+    if (x2_bit(i)) {
+      if (aff) {
+        jac_add_aff(acc, acc, p.x, p.y, g);
+      } else {
+        jac_add(acc, acc, p, g);
+      }
+    }
+  }
+  o = acc;
+}
+
+// P in G1 iff sigma(P) == [-x^2]P, sigma(x, y) = (beta x, y) with the table's
+// cube root of unity beta, for every point P of E(Fp) (Bowe, "Faster
+// subgroup checks for BLS12-381", ePrint 2019/814; Scott, ePrint 2021/1130,
+// section 3: sigma acts as [-x^2] on G1 and as no such map on the rest of
+// E(Fp)): one [x^2] ladder (127 doublings, 16 mixed additions) instead of
+// r's 255-bit ladder. Tested as [x^2]P == -sigma(P) = (beta X, -Y, Z),
+// across Jacobian coordinates; the identity counts as in G1 on both sides
+// (sigma(P) is the identity only for P = O).
+__device__ BLS_NOINLINE bool jac_in_g1(const jac1& p) {
+  if (fp_is_zero(p.z)) return true;
+  jac1 q;
+  jac_mul_x2(q, p);
+  if (fp_is_zero(q.z)) return false;
+  const bool aff = fp_eq_k(p.z, K_ONE);
+  fp bx, ny, qz2, qz3, z2, z3, l, r;
+  fp_k(bx, K_BETA);
+  fp_mul(bx, bx, p.x);
+  fp_neg(ny, p.y);
+  fp_sq(qz2, q.z);
+  l = q.x;
+  if (!aff) {
+    fp_sq(z2, p.z);
+    fp_mul(l, q.x, z2);
+  }
+  fp_mul(r, bx, qz2);
+  if (!fp_eq(l, r)) return false;
+  fp_mul(qz3, qz2, q.z);
+  l = q.y;
+  if (!aff) {
+    fp_mul(z3, z2, p.z);
+    fp_mul(l, q.y, z3);
+  }
+  fp_mul(r, ny, qz3);
+  return fp_eq(l, r);
+}
+
+// G1: the one membership test of the port (B1 G1 and B3 G1)
+__device__ __forceinline__ bool pt_in_subgroup(const proj<fp>& p) {
+  jac1 q;
+  jac_from_proj(q, p);
+  return jac_in_g1(q);
+}
+
+// G1's Jacobian steps on a trio, their Fp products in rounds of at most
+// three (fp_round). The doubling in three rounds (8 products for
+// jac_dbl's 7): X^2, Y^2, Y Z; B^2, (X + B)^2, A^2; E D, A^3, with F = E^2
+// = 9 A^2 and E F = 27 A^3 by additions, so Y3 = E (D - X3) - 8C = 3 E D -
+// 27 A^3 - 8 C. o may alias p.
+template <class G>
+__device__ BLS_NOINLINE void jac1_dbl_trio(jac1& o, const jac1& p, G& g) {
+  fp a, b, yz, c, s, a2, t, d, e, f, x3, ed, a3, y3;
+  fp_round(a, b, yz, p.x, p.x, p.y, p.y, p.y, p.z, 3, g);
+  fp_add(t, p.x, b);
+  fp_round(c, s, a2, b, b, t, t, a, a, 3, g);
+  fp_sub(d, s, a);
+  fp_sub(d, d, c);
+  fp_dbl(d, d);  // D = 2((X + B)^2 - A - C)
+  fp_mul3(e, a);
+  fp_mul3(f, a2);
+  fp_mul3(f, f);  // F = 9 A^2
+  fp_dbl(t, d);
+  fp_sub(x3, f, t);
+  fp_round(ed, a3, a3, e, d, a, a2, a, a2, 2, g);
+  fp_mul3(y3, ed);
+  fp_mul3(t, a3);
+  fp_mul3(t, t);
+  fp_mul3(t, t);  // 27 A^3
+  fp_sub(y3, y3, t);
+  fp_dbl(t, c);
+  fp_dbl(t, t);
+  fp_dbl(t, t);
+  fp_sub(y3, y3, t);
+  fp_dbl(o.z, yz);
+  o.x = x3;
+  o.y = y3;
+}
+
+// jac_add_aff on a trio, its 11 products in five rounds: Z1^2, Y2 Z1; U2,
+// S2; (2H)^2, r^2, H Z1; J, V; r (V - X3), Y1 J. The same doubling and
+// inverse cases; o may alias p.
+template <class G>
+__device__ BLS_NOINLINE void jac1_add_aff_trio(jac1& o, const jac1& p, const fp& qx,
+                                               const fp& qy, G& g) {
+  if (fp_is_zero(p.z)) {
+    o.x = qx;
+    o.y = qy;
+    fp_one(o.z);
+    return;
+  }
+  fp z1z1, t, u2, s2, h, r, w, i, r2, hz, j, v, x3, rv, yj;
+  fp_round(z1z1, t, t, p.z, p.z, qy, p.z, qy, p.z, 2, g);
+  fp_round(u2, s2, s2, qx, z1z1, t, z1z1, t, z1z1, 2, g);
+  if (fp_eq(p.x, u2)) {
+    if (fp_eq(p.y, s2)) {
+      jac1_dbl_trio(o, p, g);
+    } else {
+      jac_identity(o);
+    }
+    return;
+  }
+  fp_sub(h, u2, p.x);
+  fp_sub(r, s2, p.y);
+  fp_dbl(r, r);
+  fp_dbl(w, h);
+  fp_round(i, r2, hz, w, w, r, r, h, p.z, 3, g);
+  fp_round(j, v, v, h, i, p.x, i, p.x, i, 2, g);
+  fp_sub(x3, r2, j);
+  fp_dbl(w, v);
+  fp_sub(x3, x3, w);
+  fp_sub(w, v, x3);
+  fp_round(rv, yj, yj, r, w, p.y, j, p.y, j, 2, g);
+  fp_dbl(yj, yj);
+  fp_sub(o.y, rv, yj);
+  fp_dbl(o.z, hz);
+  o.x = x3;
+}
+
+// sigma(P) == [-x^2]P (jac_in_g1) for an affine P = (x, y) on a trio: the
+// [x^2] ladder's steps in rounds (127 doublings of three, 16 additions of
+// five), then the compare in three
+template <class G>
+__device__ BLS_NOINLINE bool g1_in_subgroup_trio(const fp& x, const fp& y, G& g) {
+  jac1 q{x, y, {}};
+  fp_one(q.z);
+  for (int i = x2_nbits() - 2; i >= 0; --i) {
+    jac1_dbl_trio(q, q, g);
+    if (x2_bit(i)) jac1_add_aff_trio(q, q, x, y, g);
+  }
+  if (fp_is_zero(q.z)) return false;
+  fp beta, bx, qz2, qz3, l, ny;
+  fp_k(beta, K_BETA);
+  fp_round(bx, qz2, qz2, beta, x, q.z, q.z, q.z, q.z, 2, g);
+  fp_round(l, qz3, qz3, bx, qz2, qz2, q.z, qz2, q.z, 2, g);
+  if (!fp_eq(q.x, l)) return false;
+  fp_neg(ny, y);
+  fp_round(l, l, l, ny, qz3, ny, qz3, ny, qz3, 1, g);
+  return fp_eq(q.y, l);
 }
 
 // ------------------------------------------------------------------ pairing
@@ -711,7 +992,8 @@ __device__ __forceinline__ void aff_st(uint32_t* p, long long B, long long j, co
 // apart) and the sign flag -> affine (x, y) and ok (the root exists, and
 // with check_sub the point is in G1 or G2). Every thread of a group
 // decompresses (the roots are exponentiations in Fp, not split); on a trio
-// G2's subgroup test splits its Fp2 products three ways. Thread 0 stores.
+// G2's subgroup test splits its Fp2 products three ways and G1's its
+// Jacobian steps' rounds of Fp products. Thread 0 stores.
 template <int GRP, class G>
 __device__ __forceinline__ void group_decompress(const int32_t* x_raw, const int32_t* sign,
                                                  int check_sub, long long B, long long j,
@@ -722,11 +1004,15 @@ __device__ __forceinline__ void group_decompress(const int32_t* x_raw, const int
     fp_from_limbs11(x, x_raw + j, B);
     k = g1_decompress(y, x, sign[j] != 0);
     if (check_sub && k) {
-      proj<fp> p;
-      pt_from_affine(p, x, y);
-      k = pt_in_subgroup(p);
+      if constexpr (G::N == 1) {
+        jac1 p{x, y, {}};
+        fp_one(p.z);
+        k = jac_in_g1(p);
+      } else {
+        k = g1_in_subgroup_trio(x, y, g);
+      }
     }
-    aff_st(out, B, j, x, y);
+    if (g.t == 0) aff_st(out, B, j, x, y);
   } else {
     fp2 x, y;
     fp_from_limbs11(x.a, x_raw + j, B);
@@ -751,30 +1037,94 @@ __device__ __forceinline__ void lane_decompress(const int32_t* x_raw, const int3
   group_decompress<GRP>(x_raw, sign, check_sub, B, j, out, ok, g);
 }
 
-// B3: one group's sum over lanes order[a..b) (stepping by `step` from a),
-// from affine points, into acc
+// B3, the segmented sum, in two phases where groups are wide: phase 1
+// cuts each group's lanes into S slices, one block a slice, each thread
+// summing a stride of its slice's lanes from their affine points
+// (sum_lanes: the first point, then mixed additions), the block's threads'
+// partials meeting in a tree (sum_tree_level) and the block's sum stored as
+// a projective partial (proj_st); phase 2, one block a group, sums the
+// group's S partials the same way (sum_parts, complete additions), then the
+// tail: the sum to affine with its identity flag (sum_affine) and, with the
+// check, whether it is in the subgroup. Narrow groups (S = 1) take phase 2
+// alone, on their lanes. Every addition is complete (RCB), so repeated
+// points, a point and its negative and identity partials need no branch;
+// the affine sum is unique, whatever the order. bls12381.cu launches these
+// pieces; a host build runs them thread by thread.
+
 template <class T>
-__device__ __forceinline__ void lane_partial_sum(proj<T>& acc, const uint32_t* pts, long long N,
-                                                 const int32_t* order, int a, int b, int step) {
+__device__ __forceinline__ void proj_ld(proj<T>& o, const uint32_t* p, long long B, long long j) {
+  constexpr int W = nwords<T>;
+  f_ld(o.x, p, B, j);
+  f_ld(o.y, p + W * B, B, j);
+  f_ld(o.z, p + 2 * W * B, B, j);
+}
+
+template <class T>
+__device__ __forceinline__ void proj_st(uint32_t* p, long long B, long long j, const proj<T>& a) {
+  constexpr int W = nwords<T>;
+  f_st(p, B, j, a.x);
+  f_st(p + W * B, B, j, a.y);
+  f_st(p + 2 * W * B, B, j, a.z);
+}
+
+// slice s of S of the lanes [a, b): [lo, hi)
+__device__ __forceinline__ void sum_slice(long long& lo, long long& hi, long long a, long long b,
+                                          int s, int S) {
+  lo = a + (b - a) * s / S;
+  hi = a + (b - a) * (s + 1) / S;
+}
+
+// thread t of nt: the sum of the affine points of lanes order[lo + t],
+// order[lo + t + nt], ... below hi (the identity where it has none)
+template <class T>
+__device__ __forceinline__ void sum_lanes(proj<T>& acc, const uint32_t* pts, long long N,
+                                          const int32_t* order, long long lo, long long hi, int t,
+                                          int nt) {
   pt_identity(acc);
-  for (int k = a; k < b; k += step) {
+  for (long long k = lo + t; k < hi; k += nt) {
     T x, y;
     aff_ld(x, y, pts, N, order[k]);
-    proj<T> p;
-    pt_from_affine(p, x, y);
-    pt_add(acc, acc, p);
+    if (k == lo + t) {
+      pt_from_affine(acc, x, y);
+    } else {
+      pt_add_aff(acc, acc, x, y);
+    }
   }
 }
 
-// B3's last step: the sum to affine, its identity flag and, with check_sub,
-// whether it is in the subgroup
+// thread t of nt: the sum of the partials in columns base + t, base + t +
+// nt, ... below base + count of the (3 W, cols) partial planes
 template <class T>
-__device__ __forceinline__ void lane_sum_out(const proj<T>& s, int check_sub, long long G,
-                                             long long g, uint32_t* out, int32_t* is_id,
-                                             int32_t* sub_ok) {
+__device__ __forceinline__ void sum_parts(proj<T>& acc, const uint32_t* parts, long long cols,
+                                          long long base, int count, int t, int nt) {
+  pt_identity(acc);
+  for (int k = t; k < count; k += nt) {
+    proj<T> q;
+    proj_ld(q, parts, cols, base + k);
+    if (k == t) {
+      acc = q;
+    } else {
+      pt_add(acc, acc, q);
+    }
+  }
+}
+
+// one level of the tree over the m partials part[0..m): thread t < m - h
+// adds part[t + h] into part[t], h = ceil(m / 2); returns h, the partials
+// left. A level's writes (below m - h) and reads (from h) never meet.
+template <class T>
+__device__ __forceinline__ int sum_tree_level(proj<T>* part, int t, int m) {
+  const int h = (m + 1) / 2;
+  if (t < m - h) pt_add(part[t], part[t], part[t + h]);
+  return h;
+}
+
+// B3's tail: group g's sum to affine and its identity flag
+template <class T>
+__device__ __forceinline__ void sum_affine(const proj<T>& s, long long G, long long g,
+                                           uint32_t* out, int32_t* is_id) {
   T x, y;
   is_id[g] = pt_to_affine(x, y, s);
-  sub_ok[g] = check_sub ? pt_in_subgroup(s) : 1;
   aff_st(out, G, g, x, y);
 }
 

@@ -71,7 +71,9 @@ constexpr int K_R3 = 645;       // R^3 mod p (raw): the binary inverse back to M
 constexpr int K_GLS = 657;      // c = (3(x^2 - 1))^-1 mod r as sum d_i x^i, 0 <= d_i < |x|:
 constexpr int GLS_DIGITS = 5;   //   d_0 .. d_4, two words each
 constexpr int K_PSI = K_GLS + 2 * GLS_DIGITS;  // Fp2 xi^-((p-1)/3), xi^-((p-1)/2): psi on the twist
-constexpr int NK = K_PSI + 4 * NW;
+constexpr int K_BETA = K_PSI + 4 * NW;  // beta: sigma(x, y) = (beta x, y) acts as [-x^2] on G1
+constexpr int K_X2 = K_BETA + NW;       // x^2 (raw, 4 words), then its bit length (one word)
+constexpr int NK = K_X2 + 5;
 
 enum Exp { E_PM2 = 0, E_SQRT, E_SQRT2, E_LEG, E_R, E_H2, E_X };
 
@@ -91,6 +93,10 @@ __device__ __forceinline__ int exp_bit(int e, int i) {
 }
 
 __device__ __forceinline__ int exp_nbits(int e) { return (int)c_k[K_NBITS + e]; }
+
+// bit i of x^2 and its bit length (G1's subgroup test)
+__device__ __forceinline__ int x2_bit(int i) { return (c_k[K_X2 + (i >> 5)] >> (i & 31)) & 1; }
+__device__ __forceinline__ int x2_nbits() { return (int)c_k[K_X2 + 4]; }
 
 // -------------------------------------------------------------------- Fp
 

@@ -1,4 +1,4 @@
-// Thread groups for the BLS kernels B1 G2, B2, B4 and B5 (bls12381.cu), over
+// Thread groups for the BLS kernels B1, B2, B4 and B5 (bls12381.cu), over
 // tower381.cuh: the Fp2 and Fp12 operations of one lane split across a few
 // threads of a warp, as the verify kernels split a point operation across a
 // quad (quad25519.cuh).
@@ -6,7 +6,9 @@
 // Every thread of a group holds the lane's whole state and does most of its
 // additions itself; the products are split, each thread computing one part
 // and publishing it to the others. B1 G2 and B2 run trios (N = 3): an Fp2
-// product (Karatsuba) is three Fp products, one a thread. B5 runs sextets
+// product (Karatsuba) is three Fp products, one a thread; B1 G1's trios
+// take a round of up to three independent Fp products of a Jacobian step
+// (fp_round). B5 runs sextets
 // (N = 6): an Fp12 product (Karatsuba over Fp6 over Fp2) is 18 Fp2
 // products, three a thread; a cyclotomic square (Granger and Scott 2010)
 // six Fp2 products, one a thread. B4 runs half-warps (N = 16) or sextets
@@ -111,6 +113,26 @@ __device__ BLS_NOINLINE void g2_mul(fp2& o, const fp2& x, const fp2& y, G& g) {
     fp_sub(p2, p2, p0);
     fp_sub(o.b, p2, p1);
   }
+}
+
+// up to three independent Fp products o_j = a_j b_j (j < n) on a trio:
+// thread j computes product j and every thread takes all n (G1's Jacobian
+// steps, whose products come in rounds of at most three). Outputs past n
+// are left alone; the operands of an unused product are read, not used. An
+// output may alias an operand.
+template <class G>
+__device__ BLS_NOINLINE void fp_round(fp& o0, fp& o1, fp& o2, const fp& a0, const fp& b0,
+                                      const fp& a1, const fp& b1, const fp& a2, const fp& b2,
+                                      int n, G& g) {
+  static_assert(G::N == 3, "a round of Fp products splits over three lanes");
+  fp x, y, p;
+  fp_sel(x, g.t == 0, a0, g.t == 1 ? a1 : a2);
+  fp_sel(y, g.t == 0, b0, g.t == 1 ? b1 : b2);
+  fp_mul(p, x, y);
+  tr_put(g, p.v, NW);
+  from_words(o0, g.at(0));
+  if (n > 1) from_words(o1, g.at(1));
+  if (n > 2) from_words(o2, g.at(2));
 }
 
 // o = x^2 in Fp2: thread 0 computes (a + b)(a - b), threads 1 and 2 a b

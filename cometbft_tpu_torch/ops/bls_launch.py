@@ -3,9 +3,10 @@ their plain PyTorch versions.
 
   decompress   B1  x -> (ok, affine x, y): y = sqrt(x^3 + b) with the sign
                    rule, ok = the root exists, and with check_subgroup the
-                   point is in the subgroup (the kernel tests G2 by psi(P)
-                   == [x]P, the plain version by [r]P == O: the same
-                   verdict on every twist point). Replaces the XLA programs
+                   point is in the subgroup (the kernel tests G1 by
+                   sigma(P) == [-x^2]P and G2 by psi(P) == [x]P, the plain
+                   version by [r]P == O: the same verdict on every point
+                   of either curve). Replaces the XLA programs
                    cometbft_tpu/ops/bls_kernel.py:180 _jit_decompress, :191
                    _jit_subgroup_g1 and :198 _jit_subgroup_g2.
   hash_to_g2   B2  the raw hash_to_field planes -> affine H(m) and its
@@ -13,8 +14,10 @@ their plain PyTorch versions.
                    twist cofactor. Replaces :205 _jit_hash_msgs.
   point_sum    B3  a segmented sum of affine points by group, to affine, with
                    identity flags and (check_subgroup) the subgroup check of
-                   each sum. Replaces points.sum_tree in _aggregate_device
-                   (:546-571) and the sum's _jit_subgroup_g2.
+                   each sum; wide groups split over many blocks (phase 1),
+                   then a block a group (phase 2). Replaces points.sum_tree
+                   in _aggregate_device (:546-571) and the sum's
+                   _jit_subgroup_g2.
   miller       B4  f_{|x|,Q}(P) conjugated, one pair a lane. Replaces :221
                    _jit_miller.
   final_exp    B5  the segmented product of Miller values, the final
@@ -37,11 +40,13 @@ how a kernel is held against its plain version.
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; there is no other route. The plain
 versions (`*_plain`) run on any device. ``LAUNCHES`` counts kernel launches
-per entry. B1 G2 with the subgroup check has two kernels, a trio of
+per entry. B1 with the subgroup check has two kernels, a trio of
 threads a lane and one lane a thread, and B4 three, a half-warp or a
 sextet of threads a pair and one pair a thread: the narrower calls take the
 larger groups, past measured crossovers (``launch_shape`` says which a call
-takes). Their wrappers' ``kernel`` argument forces one ("trio" or "lane";
+takes). B3 runs one block a group alone on narrow groups ("short") and
+splits wide ones over many blocks first ("split"). Their wrappers'
+``kernel`` argument forces one ("trio" or "lane"; "short" or "split";
 "half", "sextet" or "lane"), for holding each against the plain version on
 both sides of each crossover.
 """
@@ -62,8 +67,10 @@ from cometbft_tpu_torch.ops.bls12381 import points as pts
 ENTRIES = ("bls_decompress_g1", "bls_decompress_g2", "bls_hash_to_g2", "bls_point_sum_g1",
            "bls_point_sum_g2", "bls_miller", "bls_final_exp")
 # an entry's launches, and those of each kernel of the entries with more than one
-KERNEL_COUNTS = ("bls_decompress_g2_trio", "bls_decompress_g2_lane", "bls_miller_half",
-                 "bls_miller_sextet", "bls_miller_lane")
+KERNEL_COUNTS = ("bls_decompress_g1_trio", "bls_decompress_g1_lane", "bls_decompress_g2_trio",
+                 "bls_decompress_g2_lane", "bls_point_sum_g1_short",
+                 "bls_point_sum_g1_split", "bls_point_sum_g2_short", "bls_point_sum_g2_split",
+                 "bls_miller_half", "bls_miller_sextet", "bls_miller_lane")
 LAUNCHES = dict.fromkeys(ENTRIES + KERNEL_COUNTS, 0)
 
 P = oracle.BLS_P
@@ -146,9 +153,9 @@ def _to_words(limbs: torch.Tensor) -> torch.Tensor:
 # fp381.cuh's K_* layout
 _LAYOUT = ("P", "ONE", "R2", "HALF", "N0", "B1", "MINUS1", "B2", "NEG_G1", "XI_INV", "SVDW",
            "FROB1", "FROB2", "E_PM2", "E_SQRT", "E_SQRT2", "E_LEG", "E_R", "E_H2", "E_X",
-           "NBITS", "R3", "GLS", "PSI")
+           "NBITS", "R3", "GLS", "PSI", "BETA", "X2")
 GLS_DIGITS = 5
-NK = 657 + 2 * GLS_DIGITS + 48
+NK = 657 + 2 * GLS_DIGITS + 48 + 12 + 5
 
 
 def gls_digits(k: int) -> list[int]:
@@ -188,11 +195,29 @@ def psi_constants() -> tuple:
     return cx, cy
 
 
+def g1_beta() -> int:
+    """beta, the primitive cube root of unity in Fp for which sigma(x, y) =
+    (beta x, y) acts on G1 as [-x^2] (the other root gives [x^2 - 1]; both
+    are roots of l^2 + l + 1 mod r = x^4 - x^2 + 1). Checked on the
+    generator."""
+    s = pow(-3 % P, (P + 1) // 4, P)
+    assert s * s % P == P - 3
+    F, g = oracle._FpOps, oracle.BLS_G1
+    x2g = oracle._ec_affine(F, oracle._ec_mul(F, oracle.BLS_X ** 2, oracle._ec_from_affine(g)))
+    minus = (x2g[0], P - x2g[1])
+    half = pow(2, -1, P)
+    beta = next(b for b in ((s - 1) * half % P, (-s - 1) * half % P)
+                if (b * g[0] % P, g[1]) == minus)
+    assert pow(beta, 3, P) == 1 != beta
+    return beta
+
+
 def constants_table() -> np.ndarray:
     """The kernels' constant table (csrc/fp381.cuh K_*), every value from
     the oracle: field constants in Montgomery form, exponents and scalars as
     raw little-endian words, the exponents' bit lengths, R^3, the base-x
-    digits of cofactor_c() and the psi constants."""
+    digits of cofactor_c(), the psi constants, g1_beta() and x^2 with its
+    bit length."""
     setup = oracle._bls_setup()
 
     def m(x):  # Montgomery words
@@ -231,6 +256,9 @@ def constants_table() -> np.ndarray:
         t += [d & 0xFFFFFFFF, d >> 32]
     for k in psi_constants():                        # K_PSI = 667
         t += m2(k)
+    t += m(g1_beta())                                # K_BETA = 715
+    x2 = oracle.BLS_X ** 2                           # K_X2 = 727
+    t += [(x2 >> (32 * i)) & 0xFFFFFFFF for i in range(4)] + [x2.bit_length()]
     assert len(t) == NK
     return np.asarray(t, dtype=np.uint32)
 
@@ -374,13 +402,14 @@ def _lib(dev: torch.device) -> ctypes.CDLL:
             pi = ctypes.POINTER(ci)
             lib.bls_decompress.argtypes = [ci, vp, vp, ci, ci, vp, vp, vp, ci, pi]
             lib.bls_hash_to_g2.argtypes = [vp, ci, vp, vp, vp]
-            lib.bls_point_sum.argtypes = [ci, vp, ll, vp, vp, ci, ci, vp, vp, vp, vp]
+            lib.bls_point_sum.argtypes = [ci, vp, ll, vp, vp, ci, ci, vp, vp, vp, vp, ci, vp, pi]
+            lib.bls_point_sum_slices.argtypes = [ll, ci, ci]
             lib.bls_miller.argtypes = [vp, vp, ci, vp, vp, ci, pi]
             lib.bls_final_exp.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
             lib.bls_launch_shape.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
             for fn in (lib.bls_set_constants, lib.bls_decompress, lib.bls_hash_to_g2,
-                       lib.bls_point_sum, lib.bls_miller, lib.bls_final_exp,
-                       lib.bls_launch_shape):
+                       lib.bls_point_sum, lib.bls_point_sum_slices, lib.bls_miller,
+                       lib.bls_final_exp, lib.bls_launch_shape):
                 fn.restype = ci
             _lib_cache.append(lib)
         lib = _lib_cache[0]
@@ -434,6 +463,7 @@ def _ptr(t):
 
 # the entries' kernel argument by name
 _B1_KERNELS = {None: 0, "trio": 1, "lane": 2}
+_B3_KERNELS = {None: 0, "short": 1, "split": 2}
 _B4_KERNELS = {None: 0, "sextet": 1, "lane": 2, "half": 3}
 
 
@@ -447,8 +477,8 @@ def decompress(g: int, x_raw: torch.Tensor, sign: torch.Tensor, check_subgroup: 
                kernel: str | None = None):
     """B1: g = 1, x_raw (35, B); g = 2, x_raw (2, 35, B) [c0, c1]; sign (B,)
     int32 -> (ok (B,) int32, affine planes (2 g rows, B)). kernel: None (the
-    crossover's), "trio" (G2's trio kernel) or "lane" (one lane a thread;
-    G1 has no other)."""
+    crossover's), "trio" (a trio of threads a lane) or "lane" (one lane a
+    thread)."""
     mode = _kernel(kernel, _B1_KERNELS)
     if not _route(x_raw):
         return decompress_plain(g, x_raw, sign, check_subgroup)
@@ -458,12 +488,11 @@ def decompress(g: int, x_raw: torch.Tensor, sign: torch.Tensor, check_subgroup: 
     _check("sign", sign, dev, (b,))
     ok = torch.empty(b, dtype=torch.int32, device=dev)
     out = torch.empty(2 * g * NW, b, dtype=torch.int32, device=dev)
-    def call(lib, s, lane=None):
+    def call(lib, s, lane):
         return lib.bls_decompress(g, x_raw.data_ptr(), sign.data_ptr(), int(check_subgroup), b,
-                                  out.data_ptr(), ok.data_ptr(), s, mode,
-                                  ctypes.byref(ctypes.c_int()) if lane is None else lane)
+                                  out.data_ptr(), ok.data_ptr(), s, mode, lane)
     _launch(ENTRIES[g - 1], dev, call,
-            {0: "bls_decompress_g2_trio", 1: "bls_decompress_g2_lane"} if g == 2 else None)
+            {0: f"bls_decompress_g{g}_trio", 1: f"bls_decompress_g{g}_lane"})
     return ok, out
 
 
@@ -483,11 +512,14 @@ def hash_to_g2(u: torch.Tensor):
 
 
 def point_sum(g: int, planes: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
-              check_subgroup: bool):
+              check_subgroup: bool, kernel: str | None = None):
     """B3: affine planes (2 g rows, N), order (M,) int32 lane indices with
     each group's lanes together, starts (G + 1,) int32 group bounds in order
     -> (affine planes of the G sums, is_identity (G,) int32, subgroup ok
-    (G,) int32)."""
+    (G,) int32). kernel: None (the crossover's: wide groups split over
+    blocks, then a block a group), "short" (a block a group alone) or
+    "split" (both phases)."""
+    mode = _kernel(kernel, _B3_KERNELS)
     if not _route(planes):
         return point_sum_plain(g, planes, order, starts, check_subgroup)
     dev = planes.device
@@ -501,9 +533,16 @@ def point_sum(g: int, planes: torch.Tensor, order: torch.Tensor, starts: torch.T
     out = torch.empty(2 * g * NW, ngroups, dtype=torch.int32, device=dev)
     ident = torch.empty(ngroups, dtype=torch.int32, device=dev)
     sub = torch.empty(ngroups, dtype=torch.int32, device=dev)
-    _launch(ENTRIES[2 + g], dev, lambda lib, s: lib.bls_point_sum(
+    with _build.on_device(dev):
+        slices = _lib(dev).bls_point_sum_slices(order.shape[0], ngroups, mode)
+    # phase 1's partials, projective (x, y, z), one column a slice
+    parts = (torch.empty(3 * g * NW, ngroups * slices, dtype=torch.int32, device=dev)
+             if slices > 1 else None)
+    _launch(ENTRIES[2 + g], dev, lambda lib, s, split: lib.bls_point_sum(
         g, planes.data_ptr(), n, order.data_ptr(), starts.data_ptr(), ngroups,
-        int(check_subgroup), out.data_ptr(), ident.data_ptr(), sub.data_ptr(), s))
+        int(check_subgroup), out.data_ptr(), ident.data_ptr(), sub.data_ptr(), s, slices,
+        _ptr(parts), split),
+        {0: f"bls_point_sum_g{g}_short", 1: f"bls_point_sum_g{g}_split"})
     return out, ident, sub
 
 
@@ -556,25 +595,31 @@ def final_exp(f_planes: torch.Tensor, lanes: torch.Tensor, starts: torch.Tensor,
 
 def launch_shape(entry: str, n: int, dev: torch.device, values: int | None = None,
                  check_subgroup: bool = True, kernel: str | None = None) -> dict[str, int]:
-    """How `entry` launches over n lanes (groups for B3, checks for B5, with
-    `values` Miller values in all, n by default; B1 with `check_subgroup`)
-    on CUDA device `dev`, with `kernel` as B1 G2 and B4 take it: threads per
-    block, blocks, resident blocks per SM, SMs, waves, local memory per
-    thread, registers, static shared memory, B5's sextets a check (0 where
-    none), whether an entry with a group kernel (B1 G2, B2, B4, B5) takes
-    its one-lane kernel instead, and the threads a lane (1, 3, 6 or 16).
+    """How `entry` launches over n lanes (groups for B3, with `values` points
+    in all, checks for B5, with `values` Miller values in all; n by default;
+    B1 with `check_subgroup`) on CUDA device `dev`, with `kernel` as B1, B3
+    and B4 take it: threads per block, blocks, resident blocks per SM,
+    SMs, waves, local memory per thread, registers, static shared memory,
+    B5's sextets a check (0 where none), whether an entry with a group
+    kernel (B1, B2, B4, B5) takes its one-lane kernel instead, the
+    threads a lane (1, 3, 6 or 16); for B3 its slices a group (1: a block a
+    group alone) and phase 1's blocks, registers and local memory a thread
+    (0 without phase 1; the fields before are the block-a-group kernel's).
     Launches nothing."""
     e = ENTRIES.index(entry)
     v = int(check_subgroup) if e < 2 else n if values is None else values
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 14)()
     with _build.on_device(dev):
-        k = (_kernel(kernel, _B1_KERNELS) if e == 1 else _kernel(kernel, _B4_KERNELS) if e == 5
-             else 0)
+        k = _kernel(kernel, {0: _B1_KERNELS, 1: _B1_KERNELS, 3: _B3_KERNELS, 4: _B3_KERNELS,
+                             5: _B4_KERNELS}.get(e, {None: 0}))
         err = _lib(dev).bls_launch_shape(e, n, v, k, out)
     if err != 0:
         raise RuntimeError(f"bls launch shape failed: cudaError_t {err}")
-    threads, blocks, per_sm, sms, local_bytes, registers, shared, trios, lane, group = out
+    (threads, blocks, per_sm, sms, local_bytes, registers, shared, trios, lane, group, slices,
+     part_blocks, part_registers, part_local) = out
     return {"threads_per_block": threads, "blocks": blocks, "blocks_per_sm": per_sm,
             "sms": sms, "waves": -(-blocks // max(1, per_sm * sms)), "local_bytes": local_bytes,
             "registers": registers, "shared_bytes": shared, "trios_per_check": trios,
-            "lane_kernel": lane, "group_threads": group}
+            "lane_kernel": lane, "group_threads": group, "slices": slices,
+            "part_blocks": part_blocks, "part_registers": part_registers,
+            "part_local_bytes": part_local}

@@ -49,9 +49,11 @@ trees' code, not what ran before in the process.
 --bls times, instead, the BLS kernels of each tree on the calls of
 chip_smoke.py's BLS cells: B1 G2 (decompression) on 150 and 10,240
 signatures without the subgroup check (the aggregate checks) and on 256
-and 10,240 with it (the single-verify path), B2 (hash to G2) on 1, 150
+and 10,240 with it (the single-verify path), B1 G1 (the keys, with the
+check) on 150, 256 and 10,240, B2 (hash to G2) on 1, 150
 and 10,240 messages (hash_to_field of seeded messages), B3 G2 (a point
 sum with the subgroup check of the sum) on one group of 150 and one of
+10,240, B3 G1 (without it) on 150 groups of one point and one group of
 10,240, B4 (the Miller loop) on 2, 151 and 20,480 pairs, B5 (product and
 final exponentiation) on one check of 151 Miller values and one of 2 (the
 aggregate checks) and on 10,240 checks of 2 (the single-verify path), on
@@ -59,10 +61,11 @@ seeded G2 points, G1 and G2 pairs and Fp12 values; each call is held first
 against its tree's plain version by canonical value (B1 G2 on its first
 64 lanes, B2 on its first 64 messages, B4 on its first 151 pairs), then
 timed per launch (chip_smoke.time_kernel, the median of 20 launches
-between two CUDA events). Where a tree's B1 G2 and B4 wrappers take a
+between two CUDA events). Where a tree's B1, B3 and B4 wrappers take a
 `kernel` argument, it also times each of their kernels, forced, on each
-side of the crossovers (BLS_CROSS_B1, BLS_CROSS_B4). It prints each tree's
-kernel registers and stack.
+side of the crossovers (BLS_CROSS_B1, BLS_CROSS_B1G1, BLS_CROSS_B3,
+BLS_CROSS_B4). It
+prints each tree's kernel registers and stack.
 
 --staging times, in this tree and this process only, the warm verify() of
 the ed25519 10k commit with a batch's staged arrays (the packed block and
@@ -116,7 +119,11 @@ BLS_B5_CALLS = (("one check of 151", 151, 1), ("one check of 2", 2, 1),
                 (f"{BLS_MSGS} checks of 2", 2 * BLS_MSGS, BLS_MSGS))
 BLS_HELD_MSGS = 64
 BLS_B1_CALLS = ((150, False), (10_240, False), (256, True), (10_240, True))
+BLS_B1G1_LANES = (150, 256, 10_240)
 BLS_B3_POINTS = (150, 10_240)
+# B3's points in one group at which each of its kernels (a block a group
+# alone, or split over blocks first) is timed, forced, G1 and G2
+BLS_CROSS_B3 = (150, 256, 512, 1_024, 10_240)
 BLS_B4_PAIRS = (2, 151, 2 * BLS_MSGS)
 BLS_HELD_PAIRS = 151
 # lane counts at which each kernel of B1 G2 (with the check) and of B4 is
@@ -124,6 +131,9 @@ BLS_HELD_PAIRS = 151
 # are one an SM sub-partition; half-warp warps: 198 pairs are three
 # quarters of one an SM; sextet warps: 990 pairs are one and a half an SM)
 BLS_CROSS_B1 = (2_640, 5_280, 6_600, 10_240)
+# B1 G1's kernels (a trio a lane, one lane a thread) forced, where a tree has
+# both
+BLS_CROSS_B1G1 = (256, 1_320, 2_640, 5_280, 6_600, 10_240)
 BLS_CROSS_B4 = (151, 200, 264, 330, 512, 660, 990, 1_320)
 
 
@@ -149,9 +159,12 @@ def _bls_file() -> pathlib.Path:
     g1, g2 = CS._bls_points(1, 256, CS.SEED_BLS), CS._bls_points(2, 256, CS.SEED_BLS + 1)
     rows = np.stack([np.frombuffer(O.bls_g2_compress(a), np.uint8) for a in g2])
     x, sign = BK._x_planes(rows[np.arange(BLS_MSGS) % 256])
+    rows1 = np.stack([np.frombuffer(O.bls_g1_compress(a), np.uint8) for a in g1])
+    x1, sign1 = BK._x_planes(rows1[np.arange(BLS_MSGS) % 256])
     g2_planes = BL.planes_of_ints(CS._bls_coords(2, g2)).numpy()
     g1_planes = BL.planes_of_ints(CS._bls_coords(1, g1)).numpy()
-    np.savez(out, u=u, f=f.view(np.int32), x=x, sign=sign, g1=g1_planes, g2=g2_planes)
+    np.savez(out, u=u, f=f.view(np.int32), x=x, sign=sign, x1=x1, sign1=sign1, g1=g1_planes,
+             g2=g2_planes)
     return out
 
 
@@ -177,7 +190,8 @@ def _time_bls(device, bls_file: pathlib.Path) -> dict:
         except TypeError:  # a tree whose launch_shape takes no values or kernel
             s = BL.launch_shape(entry, n, device)
         return {k: s.get(k, 0) for k in ("blocks", "registers", "local_bytes", "shared_bytes",
-                                         "lane_kernel", "group_threads")}
+                                         "lane_kernel", "group_threads", "slices",
+                                         "part_blocks", "part_registers", "part_local_bytes")}
 
     for n in BLS_B2_LANES:
         u = u_all[..., :n].contiguous()
@@ -211,16 +225,47 @@ def _time_bls(device, bls_file: pathlib.Path) -> dict:
         out[f"b1 {n}{' check' if check else ''}"] = {
             "ms": CS.time_kernel(lambda: BL.decompress(2, x, sign, check)),
             **shape("bls_decompress_g2", n, None, check_subgroup=check)}
-    for n in BLS_B3_POINTS:
-        planes = tile(g2, n)
-        order = torch.arange(n, dtype=torch.int32, device=device)
-        starts = torch.tensor([0, n], dtype=torch.int32, device=device)
-        if n <= 256:
-            held(f"B3 G2 at {n} points", BL.point_sum(2, planes, order, starts, True),
-                 BL.point_sum_plain(2, planes, order, starts, True))
-        out[f"b3 {n}"] = {"ms": CS.time_kernel(lambda: BL.point_sum(2, planes, order, starts,
-                                                                     True)),
-                          **shape("bls_point_sum_g2", 1, None)}
+    x1_all = torch.from_numpy(np.ascontiguousarray(data["x1"])).to(device)
+    sign1_all = torch.from_numpy(np.ascontiguousarray(data["sign1"])).to(device)
+    for n in BLS_B1G1_LANES:
+        x, sign = x1_all[..., :n].contiguous(), sign1_all[:n].contiguous()
+        k = min(n, BLS_HELD_MSGS)
+        xh, sh = x[..., :k].contiguous(), sign[:k].contiguous()
+        held(f"B1 G1 at {k} lanes", BL.decompress(1, xh, sh, True),
+             BL.decompress_plain(1, xh, sh, True))
+        out[f"b1g1 {n} check"] = {"ms": CS.time_kernel(lambda: BL.decompress(1, x, sign, True)),
+                                  **shape("bls_decompress_g1", n, None, check_subgroup=True)}
+    for n in BLS_CROSS_B1G1 if "bls_decompress_g1_trio" in BL.LAUNCHES else ():
+        x, sign = x1_all[..., :n].contiguous(), sign1_all[:n].contiguous()
+        for kernel in ("trio", "lane"):
+            fn = functools.partial(BL.decompress, 1, x, sign, True, kernel=kernel)
+            out[f"b1g1 {n} check {kernel}"] = {"ms": CS.time_kernel(fn), **shape(
+                "bls_decompress_g1", n, None, kernel=kernel)}
+    for g, pts in ((2, g2), (1, g1)):
+        name = "b3" if g == 2 else "b3g1"
+        for n, groups in ([(n, 1) for n in BLS_B3_POINTS]
+                          + ([(150, 150)] if g == 1 else [])):
+            planes = tile(pts, n)
+            order = torch.arange(n, dtype=torch.int32, device=device)
+            starts = torch.linspace(0, n, groups + 1, device=device).round().to(torch.int32)
+            check = g == 2
+            if n <= 256:
+                held(f"B3 G{g} at {n} points", BL.point_sum(g, planes, order, starts, check),
+                     BL.point_sum_plain(g, planes, order, starts, check))
+            label = f"{name} {n}" + (f" in {groups} groups" if groups > 1 else "")
+            out[label] = {"ms": CS.time_kernel(lambda: BL.point_sum(g, planes, order, starts,
+                                                                     check)),
+                          **shape(f"bls_point_sum_g{g}", groups, n)}
+        for n in BLS_CROSS_B3:
+            planes = tile(pts, n)
+            order = torch.arange(n, dtype=torch.int32, device=device)
+            starts = torch.tensor([0, n], dtype=torch.int32, device=device)
+            for kernel in ("short", "split"):
+                fn = forced(functools.partial(BL.point_sum, g, planes, order, starts, g == 2),
+                            kernel=kernel)
+                if fn is not None:
+                    out[f"{name} {n} {kernel}"] = {"ms": CS.time_kernel(fn), **shape(
+                        f"bls_point_sum_g{g}", 1, n, kernel=kernel)}
     for n in BLS_B4_PAIRS:
         p, q = tile(g1, n), tile(g2, n)
         k = min(n, BLS_HELD_PAIRS)
@@ -581,13 +626,16 @@ def main(argv: list[str] | None = None) -> int:
                       f"{t['warm_ms']:.3f} ms (median of {E2E_REPS}, {t['warm_min_ms']:.3f}-"
                       f"{t['warm_max_ms']:.3f})", flush=True)
                 continue
-            if key.startswith(("b1 ", "b2 ", "b3 ", "b4 ", "b5 ")):
+            if key.startswith(("b1 ", "b1g1 ", "b2 ", "b3 ", "b3g1 ", "b4 ", "b5 ")):
                 print(f"[{card}] {label} tree, {key}: {t['ms']:.4f} ms per launch (median of "
                       f"20); {t['blocks']} blocks, {t['registers']} registers, "
                       f"{t['local_bytes']} B stack, {t['shared_bytes']} B shared"
                       + (", one lane a thread" if t["lane_kernel"] else "")
                       + (f", {t['group_threads']} threads a lane" if t.get("group_threads", 1) > 1
-                         else ""), flush=True)
+                         else "")
+                      + (f"; phase 1: {t['slices']} slices a group, {t['part_blocks']} blocks, "
+                         f"{t['part_registers']} registers, {t['part_local_bytes']} B stack"
+                         if t.get("slices", 0) > 1 else ""), flush=True)
                 continue
             unit = ("lanes and iterations" if key.startswith("k3 ") else
                     "lanes" if key.startswith(("k5 ", "k6 ")) else "keys")

@@ -323,6 +323,47 @@ void decompress_trio(const int32_t* x_raw, const int32_t* sign, int check, int B
   }
 }
 
+// B1 G1 on a trio a lane (out, ok) and one lane a thread (out1, ok1)
+void decompress_g1_trio(const int32_t* x_raw, const int32_t* sign, int check, int B,
+                        uint32_t* out, int32_t* ok, uint32_t* out1, int32_t* ok1) {
+  for (int j = 0; j < B; ++j) {
+    run_groups<3>(1, nwords<fp>, [&](int, host_trio& g, host_group&) {
+      group_decompress<1>(x_raw, sign, check, B, j, out, ok, g);
+    });
+    lane_decompress<1>(x_raw, sign, check, B, j, out1, ok1);
+  }
+}
+
+// G1 in Jacobian coordinates on a trio: P + Q (Q affine) and 2P, from P
+// (pid: the identity), affine out
+void jac1_trio_ops(const uint32_t* p, const int32_t* pid, const uint32_t* q, int n,
+                   uint32_t* sum, int32_t* sid, uint32_t* dbl, int32_t* did) {
+  for (int j = 0; j < n; ++j)
+    run_groups<3>(1, nwords<fp>, [&](int, host_trio& g, host_group&) {
+      jac1 a, s, d;
+      aff_ld(a.x, a.y, p, n, j);
+      fp_one(a.z);
+      if (pid[j]) jac_identity(a);
+      fp qx, qy;
+      aff_ld(qx, qy, q, n, j);
+      jac1_add_aff_trio(s, a, qx, qy, g);
+      jac1_dbl_trio(d, a, g);
+      if (g.t == 0) {
+        fp zi, zi2, zi3, x, y;
+        for (int k = 0; k < 2; ++k) {
+          const jac1& r = k ? d : s;
+          fp_inv(zi, r.z);
+          fp_sq(zi2, zi);
+          fp_mul(zi3, zi2, zi);
+          fp_mul(x, r.x, zi2);
+          fp_mul(y, r.y, zi3);
+          (k ? did : sid)[j] = fp_is_zero(r.z);
+          aff_st(k ? dbl : sum, n, j, x, y);
+        }
+      }
+    });
+}
+
 // B4 on a sextet a pair (out), a half-warp a pair (out16) and one pair a
 // thread (solo)
 void miller(const uint32_t* p, const uint32_t* q, int L, uint32_t* out, uint32_t* out16,
@@ -452,6 +493,8 @@ def lib(tmp_path_factory):
     lib.final_exp.restype = ci
     lib.in_g2.argtypes = [vp, vp, ci, vp, vp, vp]
     lib.decompress_trio.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp]
+    lib.decompress_g1_trio.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp]
+    lib.jac1_trio_ops.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp]
     lib.miller.argtypes = [vp, vp, ci, vp, vp, vp]
     lib.miller_head.argtypes = [vp, vp, ci, ci, vp, vp, vp]
     lib.sq_line.argtypes = [vp, vp, ci] + [vp] * 8
@@ -832,3 +875,84 @@ def test_miller_first_steps_match_plain_loop(lib, monkeypatch, steps):
     monkeypatch.setattr(pairing, "X_BITS", pairing.X_BITS[:1 + steps])
     want = BL.values(BL.miller_plain(pk, qk))
     assert BL.values(out) == BL.values(out16) == BL.values(solo) == want
+
+
+def _g1_mul(k, a):
+    return o._ec_affine(o._FpOps, o._ec_mul(o._FpOps, k, o._ec_from_affine(a)))
+
+
+def _g1_torsion_lanes():
+    """Compressed G1 encodings: (0, 2) of order 3, points of order 11 and
+    10177 ([h1 r / l^2]R of random points R), [r]R, each plus a G1 point,
+    then two G1 points (the last lanes)."""
+    h1 = 0x396c8c005555e1568c00aaab0000aaab
+    rng = random.Random(95)
+
+    def curve_point():
+        while True:
+            x = rng.randrange(P)
+            t = (x ** 3 + 4) % P
+            y = pow(t, (P + 1) // 4, P)
+            if y * y % P == t:
+                return x, y
+
+    tors = [(0, 2)]
+    for ell in (11, 10177):
+        t = None
+        while t is None:
+            t = _g1_mul(h1 * o.BLS_R // (ell * ell), curve_point())
+        tors.append(t)
+    tors.append(_g1_mul(o.BLS_R, curve_point()))
+    g = [_g1_mul(5, o.BLS_G1), o.BLS_G1]
+    F = o._FpOps
+    affs = tors + [o._ec_affine(F, o._ec_add(F, o._ec_from_affine(t),
+                                             o._ec_from_affine(g[0]))) for t in tors] + g
+    encs = [o.bls_g1_compress(a) for a in affs]
+    x = torch.from_numpy(fp.ints_to_limbs(
+        [int.from_bytes(bytes([e[0] & 0x1F]) + e[1:], "big") for e in encs]))
+    sign = torch.tensor([(e[0] >> 5) & 1 for e in encs], dtype=torch.int32)
+    return affs, x, sign
+
+
+def test_decompress_g1_trio_and_lane_match_plain(lib):
+    """B1 G1 on a trio a lane (the sigma test's Jacobian steps in rounds of
+    three Fp products) and one lane a thread, with and without the check,
+    on points with components of order 3, 11 and 10177, [r]R, those plus a
+    G1 point and G1 points, against decompress_plain(1, ...) ([r]P == O)."""
+    affs, x, sign = _g1_torsion_lanes()
+    n = len(affs)
+    for check in (True, False):
+        out, out1 = _empty(2, n), _empty(2, n)
+        ok, ok1 = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+        lib.decompress_g1_trio(x.data_ptr(), sign.data_ptr(), int(check), n, out.data_ptr(),
+                               ok.data_ptr(), out1.data_ptr(), ok1.data_ptr())
+        want_ok, want = BL.decompress_plain(1, x, sign, check)
+        assert ok.tolist() == ok1.tolist() == want_ok.tolist()
+        assert want_ok.tolist() == ([0] * (n - 2) + [1, 1] if check else [1] * n)
+        assert BL.values(out) == BL.values(out1) == BL.values(want)
+
+
+def test_g1_jacobian_steps_on_a_trio(lib):
+    """The trio's G1 doubling and mixed addition: P + Q, P + P (doubles), P +
+    (-P) (the identity), O + Q, and 2P of a point, of the identity and of a
+    point of order 3, against the oracle."""
+    a, b = _g1_mul(5, o.BLS_G1), _g1_mul(7, o.BLS_G1)
+    t = (0, 2)
+    ps = [a, a, a, None, t, t]
+    qs = [b, a, (a[0], P - a[1]), b, t, (0, P - 2)]
+    pts = [p if p is not None else (0, 0) for p in ps]
+    pp = BL.planes_of_ints([[v[0] for v in pts], [v[1] for v in pts]])
+    qp = BL.planes_of_ints([[v[0] for v in qs], [v[1] for v in qs]])
+    pid = _i32([p is None for p in ps])
+    n = len(ps)
+    s, d = _empty(2, n), _empty(2, n)
+    sid, did = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+    lib.jac1_trio_ops(pp.data_ptr(), pid.data_ptr(), qp.data_ptr(), n, s.data_ptr(),
+                      sid.data_ptr(), d.data_ptr(), did.data_ptr())
+    F = o._FpOps
+    for out, ident, want in (
+            (s, sid, [o._ec_affine(F, o._ec_add(F, o._ec_from_affine(p), o._ec_from_affine(q)))
+                      for p, q in zip(ps, qs)]),
+            (d, did, [o._ec_affine(F, o._ec_dbl(F, o._ec_from_affine(p))) for p in ps])):
+        v = BL.values(out)
+        assert [None if ident[j] else (v[0][j], v[1][j]) for j in range(n)] == want

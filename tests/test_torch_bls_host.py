@@ -8,10 +8,16 @@ Held by canonical value against the port's plain versions (B1-B5 of
 ops/bls_launch.py) and the oracle (crypto/bls12381_math.py): decompression
 with its sign rule, non-squares and points outside the subgroup (G2's by
 the psi test psi(P) == [x]P, against the plain version's [r]P == O, also on
-points with a component of order 13 or 23), hash-to-G2, segmented sums with
-an identity sum and G2 sums outside G2, the Miller loop (whose projective
-scalings the kernel must reproduce exactly) and the final exponentiation.
-Exact everywhere. Skips only where no C++ compiler is found.
+points with a component of order 13 or 23; G1's by the sigma test
+sigma(P) == [-x^2]P, on points with components of order 3, 11, 10177 and
+859267 and [r]R, alone and plus a G1 point, also against the JAX package's
+in_subgroup, with beta pinned: the other cube root rejects the
+generator), hash-to-G2, segmented sums run as the kernels run them (phase 1
+over many small blocks, phase 2, the tail) with an identity sum, repeated
+points and cancellations within and across blocks and sums outside the
+subgroup, the Miller loop (whose projective scalings the kernel must
+reproduce exactly) and the final exponentiation. Exact everywhere. Skips
+only where no C++ compiler is found.
 """
 
 from __future__ import annotations
@@ -35,9 +41,115 @@ CSRC = pathlib.Path(BL.__file__).resolve().parent.parent / "csrc"
 P = o.BLS_P
 
 _WRAPPER = r"""
+#include <algorithm>
 #include <cstring>
+#include <vector>
 #include "curve381.cuh"
 using namespace bls;
+
+// a block's tree over m partials, its nt threads level by level
+template <class T>
+static void block_tree(std::vector<proj<T>>& part, long long m, int nt) {
+  for (int k = (int)std::min<long long>(m, nt); k > 1;) {
+    int h = k;
+    for (int t = 0; t < nt; ++t) h = sum_tree_level(part.data(), t, k);
+    k = h;
+  }
+}
+
+// B3 in the kernels' order, with S slices a group and blocks of nt
+// threads: phase 1 (S > 1) block by block into the partials, then a block
+// a group (phase 2 on the partials, or on the lanes where S = 1) and the
+// tail
+template <class T>
+static void point_sum_blocks(const uint32_t* pts, long long N, const int32_t* order,
+                             const int32_t* starts, int G, int check_sub, int S, int nt,
+                             uint32_t* out, int32_t* is_id, int32_t* sub_ok) {
+  const long long cols = (long long)G * S;
+  std::vector<uint32_t> parts((size_t)3 * nwords<T> * cols);
+  std::vector<proj<T>> part(nt);
+  for (long long b = 0; S > 1 && b < cols; ++b) {
+    long long lo, hi;
+    sum_slice(lo, hi, starts[b / S], starts[b / S + 1], (int)(b % S), S);
+    for (int t = 0; t < nt; ++t) sum_lanes(part[t], pts, N, order, lo, hi, t, nt);
+    block_tree(part, hi - lo, nt);
+    proj_st(parts.data(), cols, b, part[0]);
+  }
+  for (int g = 0; g < G; ++g) {
+    for (int t = 0; t < nt; ++t) {
+      if (S > 1) sum_parts(part[t], parts.data(), cols, (long long)g * S, S, t, nt);
+      else sum_lanes(part[t], pts, N, order, starts[g], starts[g + 1], t, nt);
+    }
+    block_tree(part, S > 1 ? S : starts[g + 1] - starts[g], nt);
+    sum_affine(part[0], G, g, out, is_id);
+    sub_ok[g] = check_sub ? pt_in_subgroup(part[0]) : 1;
+  }
+}
+
+// the G1 test sigma(P) == [-x^2]P on affine points (ident: the identity),
+// from Jacobian coordinates with Z = 1 (aff_ok: mixed additions) and with
+// Z = y + 1 (jac_ok), and [r]P == O by r's ladder (ladder_ok)
+extern "C" void in_g1(const uint32_t* pts, const int32_t* ident, int n, int32_t* aff_ok,
+                      int32_t* jac_ok, int32_t* ladder_ok) {
+  for (int j = 0; j < n; ++j) {
+    proj<fp> p, r;
+    aff_ld(p.x, p.y, pts, n, j);
+    f_one(p.z);
+    if (ident[j]) pt_identity(p);
+    jac1 a;
+    jac_from_proj(a, p);
+    aff_ok[j] = jac_in_g1(a);
+    fp k, one;
+    fp_one(one);
+    fp_add(k, p.y, one);
+    fp_mul(p.x, p.x, k);
+    fp_mul(p.y, p.y, k);
+    fp_mul(p.z, p.z, k);
+    jac_ok[j] = pt_in_subgroup(p);
+    pt_mul_const(r, p, E_R);
+    ladder_ok[j] = f_is_zero(r.z);
+  }
+}
+
+// G1 in Jacobian coordinates: P + Q by the mixed addition (Q affine) and by
+// the general one (Q scaled by Z = y + 1), from P (ident: the identity),
+// affine out
+extern "C" void jac1_adds(const uint32_t* p, const int32_t* pid, const uint32_t* q, int n,
+                          uint32_t* mixed, int32_t* mid, uint32_t* full, int32_t* fid) {
+  solo g;
+  for (int j = 0; j < n; ++j) {
+    jac1 a, b, s;
+    aff_ld(a.x, a.y, p, n, j);
+    fp_one(a.z);
+    if (pid[j]) jac_identity(a);
+    fp qx, qy, zi, zi2, zi3, x, y;
+    aff_ld(qx, qy, q, n, j);
+    jac_add_aff(s, a, qx, qy, g);
+    fp_inv(zi, s.z);
+    fp_sq(zi2, zi);
+    fp_mul(zi3, zi2, zi);
+    fp_mul(x, s.x, zi2);
+    fp_mul(y, s.y, zi3);
+    mid[j] = fp_is_zero(s.z);
+    aff_st(mixed, n, j, x, y);
+    fp k, one;
+    fp_one(one);
+    fp_add(k, qy, one);
+    fp_sq(zi2, k);
+    fp_mul(b.x, qx, zi2);
+    fp_mul(zi3, zi2, k);
+    fp_mul(b.y, qy, zi3);
+    b.z = k;
+    jac_add(s, a, b, g);
+    fp_inv(zi, s.z);
+    fp_sq(zi2, zi);
+    fp_mul(zi3, zi2, zi);
+    fp_mul(x, s.x, zi2);
+    fp_mul(y, s.y, zi3);
+    fid[j] = fp_is_zero(s.z);
+    aff_st(full, n, j, x, y);
+  }
+}
 
 extern "C" {
 int set_constants(const uint32_t* k, int n) {
@@ -56,19 +168,10 @@ void hash_to_g2(const int32_t* u, int B, uint32_t* out, int32_t* is_id) {
   for (int j = 0; j < B; ++j) lane_hash_to_g2(u, B, j, out, is_id);
 }
 void point_sum(int g, const uint32_t* pts, long long N, const int32_t* order,
-               const int32_t* starts, int G, int check_sub, uint32_t* out, int32_t* is_id,
-               int32_t* sub_ok) {
-  for (int k = 0; k < G; ++k) {
-    if (g == 1) {
-      proj<fp> acc;
-      lane_partial_sum(acc, pts, N, order, starts[k], starts[k + 1], 1);
-      lane_sum_out(acc, check_sub, G, k, out, is_id, sub_ok);
-    } else {
-      proj<fp2> acc;
-      lane_partial_sum(acc, pts, N, order, starts[k], starts[k + 1], 1);
-      lane_sum_out(acc, check_sub, G, k, out, is_id, sub_ok);
-    }
-  }
+               const int32_t* starts, int G, int check_sub, int S, int nt, uint32_t* out,
+               int32_t* is_id, int32_t* sub_ok) {
+  if (g == 1) point_sum_blocks<fp>(pts, N, order, starts, G, check_sub, S, nt, out, is_id, sub_ok);
+  else point_sum_blocks<fp2>(pts, N, order, starts, G, check_sub, S, nt, out, is_id, sub_ok);
 }
 void miller(const uint32_t* p, const uint32_t* q, int L, uint32_t* f) {
   for (int j = 0; j < L; ++j) lane_miller(p, q, L, j, f);
@@ -108,15 +211,23 @@ class Host:
         self.lib.hash_to_g2(u.data_ptr(), b, out.data_ptr(), ident.data_ptr())
         return out, ident
 
-    def point_sum(self, g, planes, order, starts, check):
+    def point_sum(self, g, planes, order, starts, check, slices=1, threads=64):
+        """B3 as the kernels run it, with `slices` phase-1 blocks a group
+        (1: a block a group alone) of `threads` threads."""
         ng = starts.shape[0] - 1
         out = torch.empty(2 * g * BL.NW, ng, dtype=torch.int32)
         ident = torch.empty(ng, dtype=torch.int32)
         sub = torch.empty(ng, dtype=torch.int32)
         self.lib.point_sum(g, planes.data_ptr(), planes.shape[-1], order.data_ptr(),
-                           starts.data_ptr(), ng, int(check), out.data_ptr(), ident.data_ptr(),
-                           sub.data_ptr())
+                           starts.data_ptr(), ng, int(check), slices, threads, out.data_ptr(),
+                           ident.data_ptr(), sub.data_ptr())
         return out, ident, sub
+
+    def in_g1(self, planes, ident):
+        n = planes.shape[-1]
+        out = [torch.empty(n, dtype=torch.int32) for _ in range(3)]
+        self.lib.in_g1(planes.data_ptr(), ident.data_ptr(), n, *(t.data_ptr() for t in out))
+        return [t.tolist() for t in out]
 
     def miller(self, p, q):
         f = torch.empty(12 * BL.NW, p.shape[-1], dtype=torch.int32)
@@ -159,7 +270,9 @@ def host(tmp_path_factory):
     lib.set_constants.argtypes = [vp, ci]
     lib.decompress.argtypes = [ci, vp, vp, ci, ci, vp, vp]
     lib.hash_to_g2.argtypes = [vp, ci, vp, vp]
-    lib.point_sum.argtypes = [ci, vp, ll, vp, vp, ci, ci, vp, vp, vp]
+    lib.point_sum.argtypes = [ci, vp, ll, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    lib.in_g1.argtypes = [vp, vp, ci, vp, vp, vp]
+    lib.jac1_adds.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp]
     lib.miller.argtypes = [vp, vp, ci, vp]
     lib.final_exp.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp]
     table = BL.constants_table()
@@ -403,3 +516,254 @@ def test_point_sum_g2_outside_g2(host):
     assert id_k.tolist() == id_p.tolist() == [0] * 5
     assert sub_k.tolist() == sub_p.tolist() == [1, 0, 0, 0, 0]
     assert BL.values(out_k) == BL.values(out_p)
+
+
+# ------------------------------------------------ G1 membership by sigma
+
+H1 = 0x396c8c005555e1568c00aaab0000aaab  # the G1 cofactor, 3 11^2 10177^2 859267^2 52437899^2
+K_BETA = 715  # csrc/fp381.cuh
+
+
+def _curve_g1(rng):
+    """A random point of E(Fp): y^2 = x^3 + 4."""
+    while True:
+        x = rng.randrange(P)
+        t = (x ** 3 + 4) % P
+        y = pow(t, (P + 1) // 4, P)
+        if y * y % P == t:
+            return x, y
+
+
+def _g1_mul(k, a):
+    return o._ec_affine(o._FpOps, o._ec_mul(o._FpOps, k, o._ec_from_affine(a)))
+
+
+def _g1_add(a, b):
+    F = o._FpOps
+    return o._ec_affine(F, o._ec_add(F, o._ec_from_affine(a), o._ec_from_affine(b)))
+
+
+def _g1_torsion(ell, seed):
+    """A point of order ell (ell^2 divides h1; that part of E(Fp) has exponent
+    ell): [h1 r / ell^2]R of a seeded random point R, the first that is not
+    the identity."""
+    rng = random.Random(seed)
+    while True:
+        s = _g1_mul(H1 * o.BLS_R // (ell * ell), _curve_g1(rng))
+        if s is not None:
+            assert _g1_mul(ell, s) is None
+            return s
+
+
+@pytest.fixture(scope="module")
+def g1_cases():
+    """G1 points, then points outside G1: (0, 2) of order 3, points of order
+    11, 10177 and 859267, [r]R of a random R (its order all in h1's part),
+    each of those plus a G1 point; then the identity (None). With the
+    oracle's verdicts [r]P == O."""
+    assert H1 * o.BLS_R == P + 1 - (o.BLS_X + 1)  # #E(Fp) = p + 1 - t, t = x + 1
+    g = [o.BLS_G1, _g1_mul(12345, o.BLS_G1), (o.BLS_G1[0], P - o.BLS_G1[1])]
+    rr = _g1_mul(o.BLS_R, _curve_g1(random.Random(90)))
+    tors = [(0, 2)] + [_g1_torsion(ell, 91 + i) for i, ell in enumerate((11, 10177, 859267))]
+    tors.append(rr)
+    affs = g + tors + [_g1_add(g[k % 3], t) for k, t in enumerate(tors)] + [None]
+    want = [int(a is None or _g1_mul(o.BLS_R, a) is None) for a in affs]
+    assert want == [1] * 3 + [0] * 10 + [1]
+    return affs, want
+
+
+def _g1_planes(affs):
+    pts = [a if a is not None else (0, 0) for a in affs]
+    planes = BL.planes_of_ints([[a[0] for a in pts], [a[1] for a in pts]])
+    return planes, torch.tensor([a is None for a in affs], dtype=torch.int32)
+
+
+def _g1_proj(affs):
+    """Projective (x k, y k, k), k = y + 1 (Z != 1; the identity (0, k, 0)), as
+    plain limbs."""
+    ks = [(a[1] + 1) % P if a is not None else 2 for a in affs]
+    xs = [a[0] * k % P if a is not None else 0 for a, k in zip(affs, ks)]
+    ys = [a[1] * k % P if a is not None else k for a, k in zip(affs, ks)]
+    zs = [k if a is not None else 0 for a, k in zip(affs, ks)]
+    return fp.from_ints(xs), fp.from_ints(ys), fp.from_ints(zs)
+
+
+def test_g1_subgroup_by_sigma_matches_ladder_plain_and_oracle(host, g1_cases):
+    """sigma(P) == [-x^2]P (Bowe 2019) from Jacobian coordinates with Z = 1
+    (the mixed additions B1 G1 runs) and Z != 1, against r's ladder in the
+    same build, the plain version's [r]P == O on projective points with Z
+    != 1 and the oracle."""
+    from cometbft_tpu_torch.ops.bls12381 import points as pts
+
+    affs, want = g1_cases
+    aff_ok, jac_ok, ladder_ok = host.in_g1(*_g1_planes(affs))
+    assert aff_ok == jac_ok == ladder_ok == want
+    plain = pts.in_subgroup(pts.G1Field, pts.Point(*_g1_proj(affs)))
+    assert plain.to(torch.int32).tolist() == want
+
+
+def test_g1_subgroup_verdicts_match_jax_reference(host, g1_cases):
+    """The JAX package's in_subgroup(G1Field, ...) ([r]P == O, one batched
+    call on 8 of the points, projective with Z != 1) gives the same verdicts
+    as the sigma test."""
+    import jax
+    import jax.numpy as jnp
+
+    from cometbft_tpu.ops.bls12381 import points as jpts
+
+    affs, want = g1_cases
+    pick = [0, 2, 3, 4, 8, 10, 12, 13]  # G1 twice, orders 3 and 11, [r]R, mixed, the identity
+    sub = [affs[k] for k in pick]
+    p = jpts.Point(*(jnp.asarray(c.numpy()) for c in _g1_proj(sub)))
+    got = jax.jit(lambda q: jpts.in_subgroup(jpts.G1Field, q))(p)
+    assert [int(v) for v in np.asarray(got)] == [want[k] for k in pick]
+    assert host.in_g1(*_g1_planes(sub))[1] == [want[k] for k in pick]
+
+
+def test_g1_beta_is_pinned(host):
+    """beta is the cube root of unity for which sigma acts as [-x^2] on G1:
+    with the other root (sigma then acts as [x^2 - 1]) the test rejects the
+    generator."""
+    beta = BL.g1_beta()
+    other = P - 1 - beta
+    assert pow(other, 3, P) == 1 and other != beta
+    gx, gy = o.BLS_G1
+    assert (beta * gx % P, gy) == (lambda a: (a[0], P - a[1]))(_g1_mul(o.BLS_X ** 2, o.BLS_G1))
+    assert (other * gx % P, gy) == _g1_mul(o.BLS_X ** 2 - 1, o.BLS_G1)
+    table = BL.constants_table()
+    assert table[K_BETA:K_BETA + 12].tolist() == BL._words(beta * BL.R32 % P)
+    planes, ident = _g1_planes([o.BLS_G1])
+    wrong = table.copy()
+    wrong[K_BETA:K_BETA + 12] = BL._words(other * BL.R32 % P)
+    try:
+        assert host.lib.set_constants(wrong.ctypes.data, wrong.size) == 0
+        assert host.in_g1(planes, ident)[:2] == [[0], [0]]
+    finally:
+        assert host.lib.set_constants(table.ctypes.data, table.size) == 0
+    assert host.in_g1(planes, ident)[:2] == [[1], [1]]
+
+
+def test_g1_jacobian_additions_cases(host):
+    """The G1 ladder's additions, mixed (Q affine) and general (Q with Z !=
+    1): P + Q, P + P (doubles), P + (-P) (the identity), O + Q, on G1 points
+    and on a point of order 3, against the oracle."""
+    a, b = _g1_mul(5, o.BLS_G1), _g1_mul(7, o.BLS_G1)
+    t = (0, 2)
+    ps = [a, a, a, None, t, t]
+    qs = [b, a, (a[0], P - a[1]), b, t, (0, P - 2)]
+    pp, pid = _g1_planes(ps)
+    qp, _ = _g1_planes(qs)
+    n = len(ps)
+    mixed, full = torch.empty(2 * BL.NW, n, dtype=torch.int32), torch.empty(2 * BL.NW, n,
+                                                                           dtype=torch.int32)
+    mid, fid = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+    host.lib.jac1_adds(pp.data_ptr(), pid.data_ptr(), qp.data_ptr(), n, mixed.data_ptr(),
+                       mid.data_ptr(), full.data_ptr(), fid.data_ptr())
+    want = [_g1_add(p_, q_) for p_, q_ in zip(ps, qs)]
+    assert want[2] is None and want[5] is None and want[4] == _g1_mul(2, t)
+    for out, ident in ((mixed, mid), (full, fid)):
+        v = BL.values(out)
+        assert [None if ident[j] else (v[0][j], v[1][j]) for j in range(n)] == want
+
+
+def test_decompress_g1_sigma_on_torsion_lanes(host, g1_cases):
+    """B1 G1 one lane a thread, with and without the subgroup check, on the
+    points above (the identity left out: its encoding is a host reject),
+    against decompress_plain(1, ..., True)'s [r]P == O and the oracle."""
+    affs, want = g1_cases
+    affs, want = affs[:-1], want[:-1]
+    encs = [o.bls_g1_compress(a) for a in affs]
+    xs = [int.from_bytes(bytes([e[0] & 0x1F]) + e[1:], "big") for e in encs]
+    sign = torch.tensor([(e[0] >> 5) & 1 for e in encs], dtype=torch.int32)
+    x_raw = _raw(xs)
+    for check, w in ((False, [1] * len(affs)), (True, want)):
+        ok_k, xy_k = host.decompress(1, x_raw, sign, check)
+        ok_p, xy_p = BL.decompress_plain(1, x_raw, sign, check)
+        assert ok_k.tolist() == ok_p.tolist() == w
+        assert BL.values(xy_k) == BL.values(xy_p)
+    got = BL.values(xy_k)
+    assert [(got[0][j], got[1][j]) for j in range(len(affs))] == affs
+
+
+# ------------------------------------------------ B3 split over blocks
+
+def _stepped(g, n, seed):
+    """n affine points of G1 or G2, stepped from [seed] of the generator."""
+    F = o._FpOps if g == 1 else o._Fp2Ops
+    gen = o._ec_from_affine(o.BLS_G1 if g == 1 else o.BLS_G2)
+    pt = o._ec_mul(F, seed, gen)
+    out = []
+    for i in range(n):
+        if i:
+            pt = o._ec_add(F, pt, gen)
+        out.append(o._ec_affine(F, pt))
+    return out
+
+
+def _neg(g, a):
+    return (a[0], P - a[1]) if g == 1 else (a[0], o.f2_neg(a[1]))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_point_sum_split_over_blocks(host, g):
+    """B3 in the kernels' order with a forced small chunk (4 threads a
+    block, 16 slices: a group of 1,000 spans 16 phase-1 blocks), and as one
+    block a group (4 and 64 threads), against point_sum_plain and the
+    oracle. Group 0 holds 1,000 lanes with P + P on one thread (a mixed
+    addition doubles), on two threads of a block (the tree doubles) and in
+    two blocks (phase 2 doubles), P and -P on one thread and in two blocks,
+    and a slice whose partial is the identity; then groups of 1 and a group
+    whose sum lies outside the subgroup (G1: plus a point of order 3; G2: an
+    SvdW image), with the check."""
+    S, NT, L = 16, 4, 1000
+    base = _stepped(g, L, 7 + g)
+    lanes = list(base)
+
+    def lane(a):
+        lanes.append(a)
+        return len(lanes) - 1
+
+    grp = list(range(L))  # group 0: lane i at position i, then the cases below
+    lo3, hi3 = (L * 3) // S, (L * 4) // S  # slice 3: sums to the identity
+    k = (hi3 - lo3 - 3) // 2
+    qs = base[400:400 + k]
+    r = base[500]
+    two_r_neg = _neg(g, _stepped_sum(g, [r, r]))
+    grp[lo3:hi3] = ([lane(q) for q in qs] + [lane(_neg(g, q)) for q in qs]
+                    + [lane(r), lane(r), lane(two_r_neg)])
+    assert (hi3 - lo3) == 2 * k + 3
+    grp[0] = grp[4] = 10          # P + P on thread 0 of slice 0
+    grp[1], grp[2] = 11, 11       # P + P on threads 1 and 2 of slice 0
+    grp[5], grp[9] = 12, lane(_neg(g, base[12]))  # P and -P on thread 1
+    grp[100], grp[900] = 13, 13   # P + P in slices 1 and 14
+    grp[150], grp[850] = 14, lane(_neg(g, base[14]))  # P and -P in slices 2 and 13
+    off = (0, 2) if g == 1 else o._svdw_map_fp2((3, 4), o._bls_setup()["svdw"])
+    groups = [grp, [20], [21], [22, lane(off)]]
+    order = torch.tensor([j for gr in groups for j in gr], dtype=torch.int32)
+    starts = torch.tensor(np.cumsum([0] + [len(gr) for gr in groups]), dtype=torch.int32)
+    coords = ([[a[0] for a in lanes], [a[1] for a in lanes]] if g == 1 else
+              [[a[k][c] for a in lanes] for k in (0, 1) for c in (0, 1)])
+    planes = BL.planes_of_ints(coords)
+    want_p = BL.point_sum_plain(g, planes, order, starts, True)
+    assert want_p[1].tolist() == [0, 0, 0, 0]
+    assert want_p[2].tolist() == [1, 1, 1, 0]
+    want = [_stepped_sum(g, [lanes[j] for j in gr]) for gr in groups]
+    got_v = BL.values(want_p[0])
+    for gi, w in enumerate(want):
+        if g == 1:
+            assert (got_v[0][gi], got_v[1][gi]) == w
+        else:
+            assert ((got_v[0][gi], got_v[1][gi]), (got_v[2][gi], got_v[3][gi])) == w
+    for slices, threads in ((S, NT), (1, NT), (1, 64)):
+        out, ident, sub = host.point_sum(g, planes, order, starts, True, slices, threads)
+        assert ident.tolist() == want_p[1].tolist()
+        assert sub.tolist() == want_p[2].tolist()
+        assert BL.values(out) == got_v
+
+
+def _stepped_sum(g, affs):
+    F = o._FpOps if g == 1 else o._Fp2Ops
+    acc = None
+    for a in affs:
+        acc = o._ec_add(F, acc, o._ec_from_affine(a))
+    return o._ec_affine(F, acc)

@@ -897,6 +897,119 @@ def test_bls_point_sum_g2_outside_g2(cuda):
     assert BL.values(got[0]) == BL.values(want[0])
 
 
+def _g1_torsion(H):
+    """Points of E(Fp) outside G1: (0, 2) of order 3, points of order 11,
+    10177 and 859267 ([h1 r / l^2]R of random points R), [r]R, and each of
+    those plus a G1 point; then two G1 points."""
+    o, P = H.o, H.P
+    F = o._FpOps
+    h1 = 0x396c8c005555e1568c00aaab0000aaab
+
+    def mul(k, a):
+        return o._ec_affine(F, o._ec_mul(F, k, o._ec_from_affine(a)))
+
+    def curve_point():
+        while True:
+            x = H.rng.randrange(P)
+            t = (x ** 3 + 4) % P
+            y = pow(t, (P + 1) // 4, P)
+            if y * y % P == t:
+                return x, y
+
+    tors = [(0, 2)]
+    for ell in (11, 10177, 859267):
+        t = None
+        while t is None:
+            t = mul(h1 * o.BLS_R // (ell * ell), curve_point())
+        assert mul(ell, t) is None
+        tors.append(t)
+    tors.append(mul(o.BLS_R, curve_point()))
+    g1 = H.points(1, 2)
+    mixed = [o._ec_affine(F, o._ec_add(F, o._ec_from_affine(t), o._ec_from_affine(g1[0])))
+             for t in tors]
+    return tors + mixed + g1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 0, 10_240])
+def test_bls_decompress_g1_sigma_on_torsion_lanes(cuda, n):
+    """B1 G1 with the subgroup check (sigma(P) == [-x^2]P) on its trio
+    kernel and its one-lane kernel, forced and as the crossover picks, on
+    points with components of order 3, 11, 10177 and 859267, [r]R, those
+    plus a G1 point, and G1 points, repeated to n lanes (0: the crossover's
+    lane count), against the plain version's [r]P == O."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops.bls12381 import fp
+
+    if n == 0:
+        n = _bls_crossover("bls_decompress_g1", cuda, lambda s: s["lane_kernel"])
+        assert BL.launch_shape("bls_decompress_g1", n - 1, cuda)["group_threads"] == 3
+        assert BL.launch_shape("bls_decompress_g1", n, cuda)["group_threads"] == 1
+    H = _BlsData()
+    affs = _g1_torsion(H)
+    encs = [H.o.bls_g1_compress(a) for a in affs]
+    idx = [k % len(encs) for k in range(n)]
+    x = torch.from_numpy(fp.ints_to_limbs(
+        [int.from_bytes(bytes([encs[k][0] & 0x1F]) + encs[k][1:], "big") for k in idx]))
+    sign = torch.tensor([(encs[k][0] >> 5) & 1 for k in idx], dtype=torch.int32)
+    x, sign = x.to(cuda).contiguous(), sign.to(cuda)
+    okp, xyp = BL.decompress_plain(1, x, sign, True)
+    want = [0] * (len(affs) - 2) + [1, 1]
+    assert okp.tolist() == [want[k] for k in idx]
+    for kernel in (None, "trio", "lane"):
+        before = dict(BL.LAUNCHES)
+        ok, xy = BL.decompress(1, x, sign, True, kernel=kernel)
+        if kernel:
+            key = f"bls_decompress_g1_{kernel}"
+            assert BL.LAUNCHES[key] == before[key] + 1
+        assert ok.tolist() == okp.tolist()
+        assert BL.values(xy) == BL.values(xyp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2])
+def test_bls_point_sum_one_group_split_matches_plain(cuda, g):
+    """B3 on one group of 10,240 points (64 distinct ones repeated, so pairs
+    P + P within a block and across blocks, a point and its negative in
+    blocks far apart), split over blocks (phase 1 then phase 2) and forced
+    to one block; and on small groups forced through both phases (slices
+    with no point give identity partials); against the plain version."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    H = _BlsData()
+    o, P = H.o, H.P
+    affs = H.points(g, 64)
+    neg = (affs[0][0], P - affs[0][1]) if g == 1 else (affs[0][0], o.f2_neg(affs[0][1]))
+    affs.append(neg)
+    coords = ([[a[0] for a in affs], [a[1] for a in affs]] if g == 1 else
+              [[a[k][c] for a in affs] for k in (0, 1) for c in (0, 1)])
+    planes = BL.planes_of_ints(coords, cuda)
+    n = 10_240
+    big = [k % 64 for k in range(n)]
+    big[n - 3] = 64  # -affs[0]: cancels big[0]
+    order = torch.tensor(big, dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, n], dtype=torch.int32, device=cuda)
+    shape = BL.launch_shape(f"bls_point_sum_g{g}", 1, cuda, n)
+    assert shape["slices"] > 1 and shape["part_blocks"] == shape["slices"]
+    want = BL.point_sum_plain(g, planes, order, starts, True)
+    assert want[1].tolist() == [0] and want[2].tolist() == [1]
+    for kernel in (None, "short"):
+        before = dict(BL.LAUNCHES)
+        got = BL.point_sum(g, planes, order, starts, True, kernel=kernel)
+        split = BL.LAUNCHES[f"bls_point_sum_g{g}_split"] - before[f"bls_point_sum_g{g}_split"]
+        assert split == (kernel is None)
+        assert got[1].tolist() == want[1].tolist() and got[2].tolist() == want[2].tolist()
+        assert BL.values(got[0]) == BL.values(want[0])
+    order = torch.tensor([0, 64, 1, 1, 2, 3, 4], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 2, 4, 5, 7], dtype=torch.int32, device=cuda)
+    want = BL.point_sum_plain(g, planes, order, starts, True)
+    assert want[1].tolist() == [1, 0, 0, 0]
+    for kernel in ("split", "short", None):
+        got = BL.point_sum(g, planes, order, starts, True, kernel=kernel)
+        assert got[1].tolist() == want[1].tolist() and got[2].tolist() == want[2].tolist()
+        assert BL.values(got[0]) == BL.values(want[0])
+
+
 @pytest.mark.cuda
 def test_bls_hash_sum_miller_final_exp_match_plain(cuda):
     """B2 on three messages (the empty one among them), B3 on three groups
