@@ -61,6 +61,18 @@ pinpointed per lane through the scheduler, aggregate_verify_agg) and at
 at full width), and a mixed 50 ed25519 + 50 sr25519 + 50 bls12381 commit,
 every run's launches and errors asserted, each kernel timed at the main
 path's largest shape beside its bound from its Fp-product count.
+Then the mesh phase (mesh_phase): the fault-domain VerifyMesh
+(parallel/mesh.py) of four domains on the one card, each with its own
+stream, key tables, supervisor and breaker, routed through by the
+scheduler: the 10,240 commit's rows (8 tampered) spread as 5 shards of
+2,048 lanes, the 150 commit pinned to one domain, the mixed commit's
+sr25519 rows and all its rows spread, a BLS 150 batch through the BLS shard
+and the mixed 50 + 50 + 50 commit, a domain killed by a chaos site and
+readmitted (its tables, and only its, dropped), every domain killed (the
+single-card path), and the SPMD plane (K1 once a domain on its lane slice,
+held against one unsharded launch and a slice against the plain version);
+every run's shards, lanes, launches and launch streams asserted, the
+spread flush timed with the mesh on and off.
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -3449,6 +3461,406 @@ def bls_phase(device, card: str, report: str = "") -> dict:
     return {"records": records, "cells": cells, "launches": totals, "by_part": by_part}
 
 
+# ------------------------------------------------------------------ mesh
+
+N_DOMAINS = 4  # fault domains of the card in the mesh phase
+MESH_COOLDOWN = 0.25  # s: a killed domain's breaker re-probes after this
+MESH_BAD = (3, 1_000, 2_027, 2_029, 5_000, 7_777, 9_000, 10_100)  # the spread flush's tampered rows
+SPMD_BAD = (5, 2_559, 2_560, 7_800, 10_239)  # the SPMD batch's tampered lanes (slice edges)
+
+
+class StreamRecorder:
+    """While entered, the CUDA stream of every launch of K1/K2 and the
+    decoders (verify_kernel._count), K5 (challenge.derive) and K6
+    (integrity.integrity_parts), by entry: {entry: [stream handle, ...]}.
+    The launches count as before."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.ops import challenge as CH
+        from cometbft_tpu_torch.ops import integrity as IN
+        from cometbft_tpu_torch.ops import verify_kernel as VK
+
+        self.seen: dict[str, list[int]] = {}
+        self._saved = (VK._count, CH.derive, IN.integrity_parts)
+        count, derive, parts = self._saved
+
+        def rec(name):
+            s = torch.cuda.current_stream().cuda_stream if torch.cuda.is_available() else 0
+            self.seen.setdefault(name, []).append(s)
+
+        def counted_launch(entry, lanes):
+            rec(entry)
+            count(entry, lanes)
+
+        def derived(*a, **k):
+            out = derive(*a, **k)
+            rec("challenge_derive")
+            return out
+
+        def parted(*a, **k):
+            out = parts(*a, **k)
+            rec("integrity_parts")
+            return out
+
+        VK._count, CH.derive, IN.integrity_parts = counted_launch, derived, parted
+        return self
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.ops import challenge as CH
+        from cometbft_tpu_torch.ops import integrity as IN
+        from cometbft_tpu_torch.ops import verify_kernel as VK
+
+        VK._count, CH.derive, IN.integrity_parts = self._saved
+        return False
+
+    def by_stream(self, entry: str, names: dict) -> dict[str, int]:
+        """Launches of `entry` by the name of their stream (names: handle
+        -> name; "other" for any stream not named)."""
+        out: dict[str, int] = {}
+        for s in self.seen.get(entry, []):
+            out[names.get(s, "other")] = out.get(names.get(s, "other"), 0) + 1
+        return out
+
+
+def mesh_phase(device, card: str) -> dict:
+    """The mesh phase, after the BLS phase: the fault-domain VerifyMesh (parallel/mesh.py) of
+    N_DOMAINS domains on the one card, installed as the process's mesh, so
+    the scheduler routes through it. A 10,240-validator ed25519 commit's
+    rows (8 tampered) as a SYNC flush spread over the domains (5 shards of
+    2,048 lanes), the 150 commit pinned to one domain under CONSENSUS, the
+    mixed commit's sr25519 rows and all its rows spread, a BLS 150 batch
+    through the BLS shard and the mixed 50 + 50 + 50 commit; a domain
+    killed (chaos, "ed25519.dispatch.dev1" permanent) and readmitted, every
+    domain killed (the single-card path); the SPMD plane at 10,240 lanes.
+    Every run's shards and lanes per domain, launches, the stream each
+    launch went to and the masks are asserted; the spread flush is timed
+    with the mesh on and off. Returns the launches of the first spread flush
+    (K2's of the sr25519 flush) and the times."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.libs import chaos
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.ops import dispatch as D
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.ops import residency
+    from cometbft_tpu_torch.ops import verify_kernel as VK
+    from cometbft_tpu_torch.parallel import mesh as M
+    from cometbft_tpu_torch.types import validation as V
+
+    t_phase = time.perf_counter()
+    crypto_batch.set_backend("gpu")
+    sched.reset()
+    chaos.reset()
+    D.reset_supervision()
+    D.configure(retry_base=0.0, retry_cap=0.0, cooldown=30.0)
+    dom_dev = (torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda"
+               else device)
+    vm = M.VerifyMesh([dom_dev] * N_DOMAINS)
+    M._set_for_testing(vm)
+    doms = [f"dev{i}" for i in range(N_DOMAINS)]
+    names = {}
+    if dom_dev.type == "cuda":
+        names = {D.stream(dom_dev, d).cuda_stream: d for d in doms}
+        names[D.stream(dom_dev, "").cuda_stream] = "single-card"
+        if len(names) != N_DOMAINS + 1:
+            raise AssertionError("mesh: the domains do not have streams of their own")
+    out: dict = {}
+
+    def health_diff(h0, h1):
+        return {d: (h1["chips"][d]["shards_total"] - h0["chips"][d]["shards_total"],
+                    h1["chips"][d]["lanes_total"] - h0["chips"][d]["lanes_total"])
+                for d in h1["chips"]}
+
+    def flush(cols, klass):
+        return sched.get().verify_many([cols], klass)[0]
+
+    def planned(m, klass):
+        """(shards, lanes) by domain of the next batch of m rows: the
+        mesh's own plan at the present loads."""
+        by = {str(c.index): (0, 0) for c in vm.chips}
+        for c, lo, hi in vm._plan(m, klass, vm.live_chips()):
+            s_, l_ = by[str(c.index)]
+            by[str(c.index)] = (s_ + 1, l_ + K.bucket_size(hi - lo))
+        return by
+
+    def run(label, call, want_mask=None):
+        """call() counted, its launches' streams recorded: (mask, ms,
+        launches, lanes, per-domain (shards, lanes), recorder, health)."""
+        h0 = vm.health()
+        got = []
+        with StreamRecorder() as rec:
+            ms, launches, lanes, _ = counted(lambda: got.append(call()), device)
+        h1 = vm.health()
+        per = health_diff(h0, h1)
+        mask = got[0]
+        if want_mask is not None and np.asarray(mask).tolist() != list(want_mask):
+            raise AssertionError(f"mesh {label}: wrong mask, rejected "
+                                 f"{np.flatnonzero(~np.asarray(mask)).tolist()[:20]}")
+        return mask, ms, launches, lanes, per, rec, h1
+
+    def expect_streams(label, rec, per, entries):
+        """Each entry launched once a shard, on its shard's domain stream."""
+        if not names:
+            return
+        want = {f"dev{d}": s for d, (s, _) in per.items() if s}
+        for e in entries:
+            got = rec.by_stream(e, names)
+            if got != want:
+                raise AssertionError(f"mesh {label}: {e} by stream {got}, shards by domain "
+                                     f"{want}")
+
+    try:
+        # the rows: the commit phase's 10,240 set, 8 rows tampered
+        vals, secrets = make_set(N_BIG, SEED_COMMIT, "ed25519")
+        commit, bid = sign_commit(vals, secrets, 1_000, SEED_COMMIT, commit_flags(N_BIG))
+        pubs, msgs, sigs = (list(x) for x in commit_rows_of(vals, commit))
+        n = len(sigs)
+        tamper(pubs, msgs, sigs, list(MESH_BAD))
+        cols = sched.RowColumns.of(list(zip(pubs, msgs, sigs)))
+        want = [i not in MESH_BAD for i in range(n)]
+        # the single-card path's mask on the same rows, mesh off
+        M.configure(enabled=False)
+        single = flush(cols, sched.SYNC)
+        M.configure(enabled=True)
+        if single.tolist() != want:
+            raise AssertionError("mesh: the single-card path's mask is wrong")
+        shards = len(vm._plan(n, sched.SYNC, vm.chips))
+        if n > 4 * 2048 and shards != 5:  # the 10,240 commit: 5 shards of 2,048 lanes
+            raise AssertionError(f"mesh spread: {shards} shards planned")
+
+        # 1. spread: the shards over the domains, cold then warm
+        spread = []
+        for j in range(2):
+            plan = planned(n, sched.SYNC)
+            mask, ms, launches, lanes, per, rec, h = run(f"spread {j}",
+                                                         lambda: flush(cols, sched.SYNC), want)
+            if per != plan or sum(s for s, _ in per.values()) != shards or \
+                    sum(1 for s, _ in per.values() if s) != min(shards, N_DOMAINS):
+                raise AssertionError(f"mesh spread: (shards, lanes) by domain {per}, planned "
+                                     f"{plan}")
+            expect(f"mesh spread {j}", launches, {"ed25519_verify": shards,
+                                                  "challenge_derive": shards,
+                                                  "integrity_parts": shards})
+            if lanes["ed25519_verify"] != sum(l for _, l in per.values()):
+                raise AssertionError(f"mesh spread: K1 lanes {lanes}")
+            expect_streams("spread", rec, per, ("ed25519_verify", "challenge_derive",
+                                                "integrity_parts"))
+            spread.append((ms, per, launches))
+        out["launches"] = dict(spread[0][2])
+        print(f"mesh phase spread: {n} ed25519 rows ({len(MESH_BAD)} tampered) as a SYNC flush "
+              f"over {N_DOMAINS} domains of {dom_dev}: {shards} shards, "
+              f"(shards, lanes) by domain {spread[0][1]} then {spread[1][1]}; one K5, K1 and K6 "
+              f"a shard, each on its domain's stream; mask == the single-card path's "
+              f"({spread[0][0]:.3f} / {spread[1][0]:.3f} ms)", flush=True)
+
+        # the spread flush, warm median of 5, mesh on and off
+        on = time_wall(lambda: flush(cols, sched.SYNC), 5, device)
+        M.configure(enabled=False)
+        try:
+            off = time_wall(lambda: flush(cols, sched.SYNC), 5, device)
+        finally:
+            M.configure(enabled=True)
+        out["spread_ms"] = {"mesh": on, "single_card": off}
+        print(f"[{card}] mesh phase: the {n}-row SYNC flush ({len(MESH_BAD)} tampered, "
+              f"rechecked), warm median of 5: mesh of {N_DOMAINS} domains on the card "
+              f"{on:.3f} ms, mesh off (single-card path) {off:.3f} ms", flush=True)
+
+        # 2. pinned: the 150 commit under CONSENSUS, one shard on one domain
+        vals_c, secrets_c = make_set(N_SMALL, SEED_COMMIT + 3, "ed25519")
+        commit_c, bid_c = sign_commit(vals_c, secrets_c, 1_003, SEED_COMMIT + 3)
+        for j in range(2):
+            plan = planned(N_SMALL, sched.CONSENSUS)
+            _, ms, launches, lanes, per, rec, _ = run(
+                "pinned", lambda: V.verify_commit(CHAIN_ID, vals_c, bid_c, 1_003, commit_c))
+            if per != plan or sorted(s for s, _ in per.values()) != [0] * (N_DOMAINS - 1) + [1] \
+                    or lanes["ed25519_verify"] != K.bucket_size(N_SMALL):
+                raise AssertionError(f"mesh pinned: by domain {per}, lanes {lanes}")
+            expect(f"mesh pinned {j}", launches, {"ed25519_verify": 1, "challenge_derive": 1,
+                                                   "integrity_parts": 1})
+            expect_streams("pinned", rec, per, ("ed25519_verify", "integrity_parts"))
+        print(f"mesh phase pinned: the {N_SMALL} commit under CONSENSUS on one domain {per}, one "
+              f"K5, K1 at {K.bucket_size(N_SMALL)} lanes and K6 on its stream ({ms:.3f} ms)",
+              flush=True)
+
+        # 3. sr25519 and mixed rows, spread
+        vals_m, secrets_m = make_set(N_BIG, SEED_COMMIT + 2, "mixed")
+        commit_m, _ = sign_commit(vals_m, secrets_m, 1_002, SEED_COMMIT + 2, commit_flags(N_BIG))
+        rows_m = list(zip(*commit_rows_of(vals_m, commit_m)))
+        rows_sr = [r for r in rows_m if r[0].type_() == "sr25519"]
+        n_ed = len(rows_m) - len(rows_sr)
+        for label, rows, ed_rows in (("sr25519", rows_sr, 0), ("mixed", rows_m, n_ed)):
+            c = sched.RowColumns.of(rows)
+            sr_shards = len(vm._plan(len(rows_sr), sched.SYNC, vm.chips))
+            ed_shards = len(vm._plan(ed_rows, sched.SYNC, vm.chips)) if ed_rows else 0
+            _, ms, launches, lanes, per, rec, _ = run(label, lambda: flush(c, sched.SYNC),
+                                                      [True] * len(rows))
+            if sum(s for s, _ in per.values()) != sr_shards + ed_shards or \
+                    min(s for s, _ in per.values()) < 1:
+                raise AssertionError(f"mesh {label}: by domain {per}")
+            expect(f"mesh {label}", launches, {"sr25519_verify": sr_shards,
+                                               "ed25519_verify": ed_shards,
+                                               "challenge_derive": ed_shards,
+                                               "integrity_parts": sr_shards + ed_shards})
+            expect_streams(label, rec, per, ("integrity_parts",))
+            if label == "sr25519":
+                out["launches"]["sr25519_verify"] = launches["sr25519_verify"]
+            print(f"mesh phase {label}: {len(rows)} rows ({len(rows_sr)} sr25519) spread, "
+                  f"{sr_shards} K2 + {ed_shards} K1 shards, (shards, lanes) by domain {per}, "
+                  f"each K6 on its domain's stream ({ms:.3f} ms)", flush=True)
+
+        # 4. BLS: a 150 batch through the BLS shard, the mixed 50 + 50 + 50 commit
+        vals_b, secrets_b = bls_set(N_SMALL, SEED_BLS)
+        commit_b, _ = bls_commit(vals_b, secrets_b, 2_000, SEED_BLS, shared_ts=False)
+        pb, mb, sb = commit_rows_of(vals_b, commit_b)
+        pb = [p.bytes_() for p in pb]
+        BL.reset_launches()
+        _, ms, launches, _, per, rec, _ = run(
+            "BLS 150", lambda: vm.verify("bls12381", pb, mb, sb, klass=sched.CONSENSUS),
+            [True] * len(sb))
+        bls = {k: BL.LAUNCHES[k] for k in BL.ENTRIES if BL.LAUNCHES[k]}
+        if sorted(s for s, _ in per.values()) != [0] * (N_DOMAINS - 1) + [1] or \
+                launches["integrity_parts"] != 1 \
+                or bls != {"bls_decompress_g1": 1, "bls_decompress_g2": 1, "bls_hash_to_g2": 1,
+                           "bls_miller": 1, "bls_final_exp": 1}:
+            raise AssertionError(f"mesh BLS 150: by domain {per}, BLS launches {bls}")
+        expect_streams("BLS 150", rec, per, ("integrity_parts",))
+        es_vals, es_secrets = make_set(100, SEED_BLS + 2, "mixed")
+        vals_x, secrets_x = bls_set(50, SEED_BLS + 3, extra=es_vals.validators)
+        commit_x, bid_x = bls_commit(vals_x, secrets_x, 2_002, SEED_BLS + 3, shared_ts=False,
+                                     ed_sr_secrets=es_secrets)
+        BL.reset_launches()
+        _, ms_x, launches, _, per_x, rec, _ = run(
+            "mixed 150", lambda: V.verify_commit(CHAIN_ID, vals_x, bid_x, 2_002, commit_x))
+        if sum(s for s, _ in per_x.values()) != 3 or BL.LAUNCHES["bls_final_exp"] != 1:
+            raise AssertionError(f"mesh mixed 150: by domain {per_x}, BLS {BL.LAUNCHES}")
+        expect("mesh mixed 150", launches, {"ed25519_verify": 1, "sr25519_verify": 1,
+                                            "integrity_parts": 3})
+        expect_streams("mixed 150", rec, per_x, ("integrity_parts",))
+        print(f"mesh phase BLS: a {len(sb)}-row BLS batch through the BLS shard on one domain {per} "
+              f"(B1 G1, B1 G2, B2, B4, B5 and K6 once; {ms:.3f} ms); verify_commit of the mixed "
+              f"50 + 50 + 50 commit, one shard a scheme, by domain {per_x} ({ms_x:.3f} ms)",
+              flush=True)
+
+        # 5. kill dev1 in a flush, then readmit it; every invalidate_device
+        # call recorded
+        cache = K.default_cache(dom_dev)
+        others = ("dev0", "dev2", "dev3")
+        kept = {d: residency._tables[cache][d] for d in others}
+        dropped: list[int] = []
+        real_invalidate = residency.invalidate_device
+
+        def invalidate(index):
+            dropped.append(index)
+            return real_invalidate(index)
+
+        residency.invalidate_device = invalidate
+        try:
+            h0 = vm.health()
+            chaos.arm("ed25519.dispatch.dev1", "permanent")
+            futs = sched.get().submit(cols, klass=sched.SYNC)
+            sched.get().flush()
+            if [f.result(timeout=120) for f in futs] != want:
+                raise AssertionError("mesh kill: a future resolved wrong")
+            h1 = vm.health()
+            if (h1["evictions"] - h0["evictions"], h1["live"], h1["chips"]["1"]["state"],
+                    h1["fallbacks"] - h0["fallbacks"]) != (1, N_DOMAINS - 1, D.OPEN, 0) or \
+                    h1["redispatched_batches"] <= h0["redispatched_batches"] or dropped != [1]:
+                raise AssertionError(f"mesh kill: health {h1}, invalidated {dropped}")
+            if "dev1" in residency._tables.get(cache, {}):
+                raise AssertionError("mesh kill: dev1's key table outlived its eviction")
+            chaos.disarm("ed25519.dispatch.dev1")
+            D.configure(cooldown=MESH_COOLDOWN)
+            time.sleep(1.5 * MESH_COOLDOWN)
+            _, _, _, _, _, _, h2 = run("readmit", lambda: flush(cols, sched.SYNC), want)
+        finally:
+            residency.invalidate_device = real_invalidate
+        if (h2["readmissions"] - h1["readmissions"], h2["live"], h2["chips"]["1"]["state"]) != \
+                (1, N_DOMAINS, D.CLOSED) or dropped != [1, 1]:
+            raise AssertionError(f"mesh readmit: health {h2}, invalidated {dropped}")
+        tables = residency._tables.get(cache, {})
+        if any(tables.get(d) is not kept[d] for d in others):
+            raise AssertionError("mesh readmit: another domain's table was dropped")
+        deltas = {d: tables[d].counters["delta_updates"] for d in others}
+        _, _, _, _, per_n, _, _ = run("after readmission", lambda: flush(cols, sched.SYNC), want)
+        tables = residency._tables.get(cache, {})
+        resident = {d: tables[d].counters["delta_updates"] - deltas[d] for d in deltas}
+        if any(resident.values()) or ("dev1" in tables) != (per_n["1"][0] > 0):
+            raise AssertionError(f"mesh after readmission: delta uploads {resident}, dev1 "
+                                 f"shards {per_n['1']}")
+        print(f"mesh phase kill: dev1 armed permanent in a SYNC flush: evicted (live "
+              f"{h1['live']}), its shard redispatched "
+              f"({h1['redispatched_batches'] - h0['redispatched_batches']} redispatches), every "
+              f"future right, its tables dropped; disarmed, after the {MESH_COOLDOWN} s cooldown "
+              f"the next flush readmitted it (readmissions {h2['readmissions']}), "
+              f"invalidate_device(1) dropped dev1's tables only; the next flush: dev0/dev2/dev3 "
+              f"resident (delta uploads {resident}), dev1 shards {per_n['1']}", flush=True)
+
+        # 6. every domain dead: the single-card path
+        D.configure(cooldown=30.0)
+        for d in range(N_DOMAINS):
+            chaos.arm(f"ed25519.dispatch.dev{d}", "permanent")
+        h0 = vm.health()
+        _, ms, launches, lanes, _, rec, h1 = run("all dead", lambda: flush(cols, sched.SYNC),
+                                                 want)
+        if h1["fallbacks"] - h0["fallbacks"] != 1 or h1["live"] != 0:
+            raise AssertionError(f"mesh all dead: health {h1}")
+        expect("mesh all dead", launches, {"ed25519_verify": 1, "challenge_derive": 1,
+                                           "integrity_parts": 1})
+        if lanes["ed25519_verify"] != K.bucket_size(n) or (
+                names and rec.by_stream("ed25519_verify", names) != {"single-card": 1}):
+            raise AssertionError(f"mesh all dead: K1 lanes {lanes}, streams "
+                                 f"{rec.by_stream('ed25519_verify', names)}")
+        chaos.reset()
+        print(f"mesh phase all dead: every domain armed permanent: fallbacks 1, the rows on the "
+              f"single-card path (one K5, K1 at {lanes['ed25519_verify']} lanes and K6 on its "
+              f"stream), mask right ({ms:.3f} ms)", flush=True)
+
+        # 7. the SPMD plane: one batch, K1 once a domain on its lane slice
+        ed = _paths()["ed25519"]
+        pubs_s, msgs_s, sigs_s = ed.make_commit(N_BIG, SEED_BIG)
+        tamper(pubs_s, msgs_s, sigs_s, list(SPMD_BAD))
+        domains = M.batch_mesh([dom_dev] * N_DOMAINS)
+        want_s = [i not in SPMD_BAD for i in range(N_BIG)]
+        (ok_s, mask_s), ms_s, launches, lanes, _, rec, _ = run(
+            "SPMD", lambda: M.sharded_verify_batch(pubs_s, msgs_s, sigs_s, mesh=domains))
+        if mask_s != want_s or ok_s:
+            raise AssertionError("mesh SPMD: wrong mask")
+        expect("mesh SPMD", launches, {"ed25519_verify": N_DOMAINS})
+        if lanes["ed25519_verify"] != N_BIG or (names and rec.by_stream(
+                "ed25519_verify", names) != {d: 1 for d in doms}):
+            raise AssertionError(f"mesh SPMD: K1 lanes {lanes}, streams "
+                                 f"{rec.by_stream('ed25519_verify', names)}")
+        planes = staged(ed, pubs_s, msgs_s, sigs_s, device)
+        joined = M.shard_verify_kernel(domains)(*planes)
+        whole = VK.verify_ok_raw(*planes)[0]
+        err_join = _max_err([joined], [whole])
+        w = N_BIG // N_DOMAINS
+        sl = [t[:, w:2 * w].contiguous() for t in planes]
+        k1 = VK.verify_ok_raw(*sl)
+        plain = VK.verify_math_ok(*sl)
+        err_slice = _max_err([k1[0] != 0, k1[1][0] != 0], [plain[0], plain[1]])
+        if err_join or err_slice or ((whole != 0).cpu().numpy()[:N_BIG].tolist() != want_s):
+            raise AssertionError(f"mesh SPMD: joined vs one launch {err_join}, dev1's slice vs "
+                                 f"plain {err_slice}")
+        out["spmd"] = {"ms": ms_s, "err_join": err_join, "err_slice": err_slice}
+        print(f"mesh phase SPMD: sharded_verify_batch of {N_BIG} lanes over {N_DOMAINS} domains, "
+              f"K1 once a domain on {w} lanes, each on its stream, mask right ({ms_s:.3f} ms); "
+              f"the joined mask == one unsharded K1 launch (difference {err_join}); dev1's slice "
+              f"[{w}, {2 * w}) == K1's plain version on the card (difference {err_slice})",
+              flush=True)
+        print(f"mesh phase: {vm.health()['batches']} mesh batches, "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    finally:
+        chaos.reset()
+        sched.reset()
+        M.reset()
+        M.configure(enabled=True)
+        D.reset_supervision()
+        D.configure(retry_base=0.05, retry_cap=1.0, cooldown=30.0)
+    return out
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -3516,6 +3928,7 @@ def main() -> int:
     # the top of the main path, timed before the microbench and probe phases
     commit = commit_phase(device, card, held)
     bls = bls_phase(device, card, builds["bls12381"][1])
+    mesh = mesh_phase(device, card)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -3593,7 +4006,8 @@ def main() -> int:
             _record(f"{name}_verify", "cometbft_tpu/ops/pallas_verify.py:198",
                     run["launches"][f"{name}_verify"], err[f"{name}_verify"],
                     t[N_BIG]["verify"], t[N_BIG]["verify_plain"], b[N_BIG]["verify"],
-                    launches_verify_commit=on_commit[f"{name}_verify"]),
+                    launches_verify_commit=on_commit[f"{name}_verify"],
+                    launches_mesh=mesh["launches"].get(f"{name}_verify", 0)),
             _record(f"{name}_decompress", f"cometbft_tpu/ops/{replaces}",
                     run["launches"][f"{name}_decompress"], err[f"{name}_decompress"],
                     d[N_BIG]["ms"], d[N_BIG]["plain_ms"], d[N_BIG]["bound"],
@@ -3610,6 +4024,7 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"], "lanes": N_BIG,
             "ms_back_to_back": r["ms_back_to_back"], "host_ms": r["host_ms"],
             "launches_verify_commit": on_commit[name],
+            "launches_mesh": mesh["launches"][name],
             **({"hash_only_ms": r["hash_only"]["ms"]} if name == "challenge_derive" else
                {"behind_k1_ms": r["behind_k1"]})})
     for name, r in mb_times.items():

@@ -12,7 +12,10 @@ Package map:
   types/      sign bytes, commits, validator sets, and commit verification
               (validation.verify_commit*, the staged blocksync windows)
   sched/      the node-wide verify scheduler: continuous batching of all
-              signature work on one card
+              signature work on one card, or over the fault-domain mesh
+  parallel/   the fault-domain verify mesh (VerifyMesh: per-domain streams,
+              key tables, supervisors and breakers, redispatch) and the
+              SPMD plane (sharded_verify_batch)
   crypto/     key types, the ZIP-215 host oracle, the batch-verifier registry
               and the scheduler's client, Merkle trees, tmhash
   ops/        limb packing, field/curve arithmetic (plain torch), the kernel
@@ -21,7 +24,8 @@ Package map:
   csrc/       CUDA C++ kernel sources, built for sm_90a at first use
   native/     C host hash rungs (SIMD SHA-512/Keccak/mod L, STROBE), built
               with cc at first use
-  libs/       shared-prefix message rows (prefixrows.py)
+  libs/       shared-prefix message rows (prefixrows.py), device-fault
+              injection sites (chaos.py)
   utils/      the protobuf codec and canonical time
 
 Entry points take an explicit ``device`` and default to ``cuda``; they

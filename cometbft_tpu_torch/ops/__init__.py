@@ -14,7 +14,9 @@
                       verify_rows is the two for one batch: the
                       device-challenge and classic paths, pubkey cache, key
                       staging, header, recheck with per-group budgets)
-  dispatch.py         the dispatch stream and lock
+  dispatch.py         the dispatch streams (one a fault domain) and lock, and
+                      the supervision layer: failure classes, circuit
+                      breakers, supervisors, the in-flight gate
   sr25519_kernel.py   sr25519 host staging (Merlin challenges), its scheme
   hashvec.py          host hash rungs (native, numpy, serial): Keccak,
                       SHA-512, mod L, prefixed-row reassembly

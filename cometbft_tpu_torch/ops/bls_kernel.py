@@ -44,9 +44,12 @@ rejects and padding lanes carry the generators' encodings.
 
 There is no fallback: a kernel or staging error raises. The exact host
 oracle runs only where the reference rechecks rejected lanes (at most
-ed25519_kernel.RECHECK_MAX a group). Left out of the reference: the mesh
-shard seam (mesh_shard_verify), the chaos sites, trace spans, link-model and
-residency accounting.
+ed25519_kernel.RECHECK_MAX a group).
+
+mesh_shard_verify is one mesh fault domain's shard (parallel/mesh.py): the
+same pipeline on the domain's stream, its header and payload checked as
+the reference checks them, with one fresh retry. Left out of the
+reference: trace spans, link-model and residency accounting.
 """
 
 from __future__ import annotations
@@ -177,10 +180,12 @@ def _i32(a, dev: torch.device) -> torch.Tensor:
 
 
 def verify_batch_async(pubs, msgs, sigs, device=None,
-                       recheck_groups: list[tuple[int, int]] | None = None) -> EK.BatchThunk:
+                       recheck_groups: list[tuple[int, int]] | None = None,
+                       domain: str = "") -> EK.BatchThunk:
     """Stage and launch a batch of single verifies on `device` (default
     cuda; "cpu" runs the plain versions) under the dispatch lock, on the
-    dispatch stream: B1 (keys), B1 (signatures), B2, B4, B5, then K6. Returns
+    dispatch stream of fault domain `domain` ("" the single-card path):
+    B1 (keys), B1 (signatures), B2, B4, B5, then K6. Returns
     the thunk that ed25519_kernel.resolve_batches fetches; every lane that
     passed the structural checks may be rechecked on the oracle, as in the
     reference. Host and device time go to the parts pack, verify, header."""
@@ -188,11 +193,12 @@ def verify_batch_async(pubs, msgs, sigs, device=None,
     if len(pubs) != n or len(msgs) != n:
         raise ValueError("pubs, msgs and sigs differ in length")
     dev = resolve_device(device)
-    thunk = EK.BatchThunk(BLS, dev, n, (list(pubs), list(msgs), list(sigs)), recheck_groups)
+    thunk = EK.BatchThunk(BLS, dev, n, (list(pubs), list(msgs), list(sigs)), recheck_groups,
+                          domain)
     if n == 0:
         return thunk
     b = EK.bucket_size(n)
-    with dispatch.launching(dev):
+    with dispatch.launching(dev, domain):
         part = EK._Parts(dev)
         with part("pack"):
             pre_ok, block, flags = stage_batch_bls(pubs, msgs, sigs, b)
@@ -220,6 +226,29 @@ def verify_batch(pubs, msgs, sigs, device=None) -> tuple[bool, list[bool]]:
         return True, []
     mask = EK.resolve_batches([verify_batch_async(pubs, msgs, sigs, device)])[0]
     return bool(mask.all()), mask.tolist()
+
+
+def mesh_shard_verify(device, pubs, msgs, sigs, domain: str):
+    """One mesh fault domain's BLS shard (the counterpart of the
+    reference's mesh_shard_verify): B1 -> B2 -> B4 -> B5 -> K6 on the
+    domain's stream through verify_batch_async, the header and payload
+    decoded by resolve_batches with no host recheck (the mesh rechecks the
+    whole batch). A staging checksum or echo mismatch gets one fresh run;
+    a second raises DeviceOpFailed, and the mesh redispatches the shard.
+    Returns (mask (n,), eligible (n,)); fires the chaos site
+    "bls12381.dispatch"."""
+    from cometbft_tpu_torch.libs import chaos
+
+    chaos.fire(f"{SCHEME}.dispatch")
+    for _attempt in range(2):
+        thunk = verify_batch_async(pubs, msgs, sigs, device=device, recheck_groups=[],
+                                   domain=domain)
+        try:
+            mask = EK.resolve_batches([thunk])[0]
+        except EK.TransferIntegrityError:
+            continue
+        return mask, thunk.eligible
+    raise dispatch.DeviceOpFailed("bls12381 mesh shard transfer integrity check failed twice")
 
 
 # ------------------------------------------------------------ aggregate path

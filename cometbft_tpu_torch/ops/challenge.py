@@ -246,6 +246,16 @@ def table(put_key: str = "", device=None) -> PrefixTable:
         return t
 
 
+def drop_tables(put_key: str) -> int:
+    """Forget the prefix tables of `put_key` on every device (a mesh
+    domain's, residency.invalidate_device). Returns how many."""
+    with _tables_lock:
+        keys = [k for k in _tables if k[0] == put_key]
+        for k in keys:
+            del _tables[k]
+    return len(keys)
+
+
 def reset() -> None:
     """Forget every table and counter (tests)."""
     with _tables_lock:

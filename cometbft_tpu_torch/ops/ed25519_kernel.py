@@ -420,6 +420,13 @@ def _stage_gather(cache: PubKeyCache, pubs: list[bytes], bucket: int, put_key: s
     need_pad = bucket > len(pubs)
     bu = bucket_size(len(uniq) + 1 if need_pad else len(uniq))
     ok_u, dev_u, enc_u = cache.stage(uniq, bu)
+    if cache.device.type == "cuda":
+        # the cache serves every fault domain of its card: an entry that
+        # another stream made, or that a later batch evicts, must not be
+        # handed to a new allocation before this stream's gathers ran
+        cur = torch.cuda.current_stream(cache.device)
+        for t in (*dev_u, enc_u):
+            t.record_stream(cur)
     pos = {p: i for i, p in enumerate(uniq)}
     idx = np.full(bucket, len(uniq), dtype=np.int32)  # padding -> identity
     idx[:len(pubs)] = [pos[p] for p in pubs]
@@ -444,6 +451,12 @@ def _stage_gather(cache: PubKeyCache, pubs: list[bytes], bucket: int, put_key: s
 OK_MAGIC = integrity.OK_MAGIC
 _BAD_MAGIC = integrity.BAD_MAGIC
 _host_checksum = integrity.host_checksum
+
+
+class TransferIntegrityError(RuntimeError):
+    """A reduced-fetch header or payload failed its staging checksum or its
+    echo: the device saw other bytes than were sent, or the fetch was
+    corrupted."""
 
 
 def decode_header(header: np.ndarray, expected) -> str:
@@ -542,8 +555,8 @@ def decode_payload(payload: np.ndarray, n: int, pre_ok: np.ndarray, ok_a: np.nda
     nothing and has no host-oracle rung."""
     mask, chk_ok, echo_ok = integrity.decode_mask(payload)
     if not (chk_ok and echo_ok):
-        raise RuntimeError(f"device transfer integrity check failed: staging checksum "
-                           f"ok {chk_ok}, mask echo ok {echo_ok}")
+        raise TransferIntegrityError(f"device transfer integrity check failed: staging "
+                                     f"checksum ok {chk_ok}, mask echo ok {echo_ok}")
     eligible = pre_ok & ok_a
     return apply_recheck(mask[:n] & eligible, eligible, rows, verify_one, groups)
 
@@ -617,19 +630,21 @@ def _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev):
 
 class BatchThunk:
     """One staged and launched batch (verify_batch_async): what
-    resolve_batches needs to decode it, and every device tensor its kernels
+    resolve_batches needs to decode it (the fault domain whose stream
+    launched it among them), and every device tensor its kernels
     read or write, held until the fetch so that the caching allocator cannot
     hand their memory to a later batch while the card still uses it.
     Calling it resolves it alone. After resolution `mask` holds the (N,)
     verdicts, `flipped` the lanes the host recheck flipped to valid and
     `flips` their number."""
 
-    __slots__ = ("scheme", "device", "n", "pre_ok", "ok_a", "rows", "groups", "expected",
-                 "header", "payload", "keep", "mask", "flipped", "flips")
+    __slots__ = ("scheme", "device", "domain", "n", "pre_ok", "ok_a", "rows", "groups",
+                 "expected", "header", "payload", "keep", "mask", "flipped", "flips")
 
     def __init__(self, scheme: Scheme, device: torch.device, n: int, rows: tuple,
-                 groups: list[tuple[int, int]] | None):
+                 groups: list[tuple[int, int]] | None, domain: str = ""):
         self.scheme, self.device, self.n, self.rows, self.groups = scheme, device, n, rows, groups
+        self.domain = domain
         self.pre_ok = self.ok_a = self.expected = self.header = self.payload = None
         self.keep: tuple = ()
         self.mask: np.ndarray | None = np.zeros(0, dtype=bool) if n == 0 else None
@@ -658,10 +673,13 @@ def _cache_for(scheme: Scheme, cache: PubKeyCache | None, device) -> PubKeyCache
 
 def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes],
                        cache: PubKeyCache | None = None, device=None,
-                       recheck_groups: list[tuple[int, int]] | None = None) -> BatchThunk:
+                       recheck_groups: list[tuple[int, int]] | None = None,
+                       domain: str = "") -> BatchThunk:
     """Stage and launch a batch under `scheme` without waiting for the card:
-    K5 (device challenges) -> K1/K2 -> K6 on the dispatch stream
-    (ops/dispatch.py), under the dispatch lock. Returns the BatchThunk that
+    K5 (device challenges) -> K1/K2 -> K6 on the dispatch stream of fault
+    domain `domain` (ops/dispatch.py; "" is the single-card path, "devN" a
+    mesh domain, parallel/mesh.py, whose key and prefix tables are its
+    own), under the dispatch lock. Returns the BatchThunk that
     resolve_batches fetches.
     Runs on the cache's device when a cache is given, else on `device`
     (default cuda). msgs may hold factored rows (libs/prefixrows.PrefixedMsg):
@@ -673,15 +691,15 @@ def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list
         raise ValueError("pubs, msgs and sigs differ in length")
     cache = _cache_for(scheme, cache, device)
     dev = cache.device
-    thunk = BatchThunk(scheme, dev, n, (None, msgs, sigs), recheck_groups)
+    thunk = BatchThunk(scheme, dev, n, (None, msgs, sigs), recheck_groups, domain)
     if n == 0:
         return thunk
     b = bucket_size(n)
-    with dispatch.launching(dev):
+    with dispatch.launching(dev, domain):
         part = _Parts(dev)
         with part("plan"):
             pre_ok, safe_pubs, sig_rows, pub_rows = scheme.structural(pubs, sigs)
-            plan = (challenge.plan_batch(msgs, pre_ok, device=dev)
+            plan = (challenge.plan_batch(msgs, pre_ok, put_key=domain, device=dev)
                     if scheme.device_challenge else None)
         with part("pack"):
             if plan is None:  # classic: k on the host
@@ -692,7 +710,8 @@ def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list
                 host = np.empty(challenge.block_words(b, plan.var), dtype=np.uint32)
                 _pack_device_block(sig_rows, b, plan, host)
         with part("keys"):
-            staged = _stage_gather(cache, safe_pubs, b, want_enc=scheme.device_challenge)
+            staged = _stage_gather(cache, safe_pubs, b, put_key=domain,
+                                   want_enc=scheme.device_challenge)
             if scheme.device_challenge:
                 ok_a, a_dev, enc_dev, path, key_bytes = staged
             else:
@@ -732,10 +751,11 @@ def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list
     return thunk
 
 
-def _fetch(dev: torch.device, tensors: list[torch.Tensor]) -> np.ndarray:
+def _fetch(dev: torch.device, tensors: list[torch.Tensor], domain: str = "") -> np.ndarray:
     """One device->host copy of the tensors, concatenated on the device
-    (no concatenation for one), on the dispatch stream."""
-    with dispatch.on_stream(dev):
+    (no concatenation for one), on the dispatch stream of `domain`, which
+    launched them: the copy waits for their kernels."""
+    with dispatch.on_stream(dev, domain):
         t = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
         return t.cpu().numpy()
 
@@ -745,26 +765,28 @@ def resolve_batches(thunks: list[BatchThunk]) -> list[np.ndarray]:
     every batch's 8-byte header in one device->host copy, then the per-lane
     payloads, again in one copy, only for batches whose header is not
     happy. Thunks may mix schemes (a mixed commit's ed25519 and sr25519
-    batches): each carries its own oracle for the recheck. One fetch is
-    counted per call (fetch_stats), happy when no payload crossed. A
-    header or payload that fails its checksum or echo raises."""
+    batches): each carries its own oracle for the recheck. Thunks of several
+    devices or fault domains are fetched a (device, domain) at a time, each
+    on the stream that launched them. One fetch is counted per call
+    (fetch_stats), happy when no payload crossed. A header or payload that
+    fails its checksum or echo raises."""
     todo = [t for t in thunks if t.mask is None]
-    by_dev: dict[torch.device, list[BatchThunk]] = {}
+    by_dev: dict[tuple[torch.device, str], list[BatchThunk]] = {}
     for t in todo:
-        by_dev.setdefault(t.device, []).append(t)
-    for dev, ts in by_dev.items():
+        by_dev.setdefault((t.device, t.domain), []).append(t)
+    for (dev, domain), ts in by_dev.items():
         part = _Parts(dev)
         with part("fetch"):
-            headers = _fetch(dev, [t.header for t in ts]).view(np.uint32)
+            headers = _fetch(dev, [t.header for t in ts], domain).view(np.uint32)
             full = []
             for i, t in enumerate(ts):
                 verdict = decode_header(headers[2 * i:2 * i + 2], t.expected)
                 if verdict == "full":
                     full.append(t)
                 elif verdict != "happy":
-                    raise RuntimeError(f"reduced-fetch header of a {t.scheme.name} batch: "
-                                       f"{verdict}")
-            payloads = _fetch(dev, [t.payload for t in full]) if full else None
+                    raise TransferIntegrityError(
+                        f"reduced-fetch header of a {t.scheme.name} batch: {verdict}")
+            payloads = _fetch(dev, [t.payload for t in full], domain) if full else None
             _count_fetch(not full, headers.nbytes + (payloads.nbytes if full else 0))
         with part("recheck"):
             off = 0

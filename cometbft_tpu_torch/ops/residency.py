@@ -40,8 +40,11 @@ JAX's scatter is functional; here the tables update in place, and stream
 order gives the same snapshot: a batch's gathers are enqueued under the
 table lock, before any later batch's scatter can be.
 
-The reference's invalidate_device (the mesh) and its config knob that turns
-the indexed path off are not ported yet (ROADMAP Queue 1).
+Placement keys: a table is keyed by its cache and a put_key. The single-card
+path uses "", a mesh fault domain "devN" (parallel/mesh.py), so each domain
+of a card holds its own tables; invalidate_device(N) drops domain N's, and
+only its, when the mesh readmits it. The reference's config knob that turns
+the indexed path off is not ported yet (ROADMAP Queue 1).
 
 Send accounting: every host->device staging transfer is recorded under its
 path, "indexed" (index vector + staged words), "delta" (row uploads) or
@@ -452,6 +455,23 @@ def stage(cache, pubs: list[bytes], bucket: int, put_key: str = "", want_enc: bo
         return tbl.stage(pubs, bucket, want_enc=want_enc, announced=announced, version=version)
     except _NoRoom:
         return None
+
+
+def invalidate_device(index: int) -> int:
+    """Drop every table of mesh fault domain `index` (put_key "devN"): its
+    key tables over every cache and its device-challenge prefix tables
+    (ops/challenge.py). The mesh calls it when it readmits the domain, so a
+    healed domain serves no table staged before its fault; the other
+    domains' tables stay. Returns the number of tables dropped."""
+    from cometbft_tpu_torch.ops import challenge
+
+    key = f"dev{index}"
+    dropped = 0
+    with _reg_lock:
+        for per in _tables.values():
+            if per.pop(key, None) is not None:
+                dropped += 1
+    return dropped + challenge.drop_tables(key)
 
 
 def reset() -> None:

@@ -26,6 +26,14 @@ queue coalesces them, the way an inference server batches requests:
              ops/dispatch.py), then resolves every scheme's batch with one
              resolve_batches: one header fetch. Each producer group is a recheck group with its own
              budget. A failing batch fails its groups' futures and raises.
+  mesh       on the "gpu" backend with an active fault-domain mesh
+             (parallel/mesh.py: two or more domains installed or visible),
+             each scheme's rows go to mesh.verify_async instead, with the
+             batch's highest class as its placement class (consensus pins
+             to one domain, the others spread); every mesh batch is joined,
+             even after one raised. A flush may then coalesce max_lanes
+             times the live domains. With one card and no mesh installed
+             the mesh is inactive and nothing changes.
   rechecks   an inline drain rechecks only its own groups' rejected lanes
              on the host oracle before it returns; its riders' rechecks run
              on the deadline worker, which then resolves their futures. A
@@ -35,14 +43,15 @@ queue coalesces them, the way an inference server batches requests:
              Queue 3).
 
 Left out of the reference: the "sched.flush" chaos site and its
-fragmented fallback, the multi-card mesh routing, trace spans and
-Prometheus metrics, and the host-oracle rung for schemes
-without a kernel (every scheme the port has runs on a kernel; the "cpu"
-backend runs the same batches on the kernels' plain versions).
+fragmented fallback, trace spans and Prometheus metrics, and the
+host-oracle rung for schemes without a kernel (every scheme the port has
+runs on a kernel; the "cpu" backend runs the same batches on the kernels'
+plain versions).
 
 Threads: the core is lock-guarded. Inline drains run on the caller's
 thread; one daemon worker, started by the first submit(), serves
-deadlines. Both dispatch through the one dispatch stream and lock.
+deadlines. Both dispatch through the dispatch lock, on the single-card
+path's stream or, through the mesh, on its domains' streams.
 """
 
 from __future__ import annotations
@@ -256,6 +265,24 @@ class VerifyScheduler:
             m += EK._POW2_CAP
         return out
 
+    @staticmethod
+    def _mesh(build: bool = False):
+        """The active fault-domain mesh, or None. Only the dispatch path
+        builds it (build=True); health and the lane budget peek."""
+        from cometbft_tpu_torch.parallel import mesh as mesh_mod
+
+        return mesh_mod.active() if build else mesh_mod.peek_active()
+
+    def _effective_max_lanes(self) -> int:
+        """The lanes one flush may coalesce: max_lanes a domain times the
+        live domains of the mesh (max_lanes without a mesh)."""
+        mesh = self._mesh()
+        if mesh is None:
+            return self.max_lanes
+        from cometbft_tpu_torch.ops import ed25519_kernel as EK
+
+        return min(self.max_lanes * max(1, mesh.live_size_hint()), 1 << EK.MAX_BUCKET_LOG2)
+
     def _next_unit(self) -> int:
         with self._cond:
             self._unit_seq += 1
@@ -365,7 +392,7 @@ class VerifyScheduler:
             queued = sum(self._depth.values())
             if queued == 0:
                 return []
-            target = self.bucket_lanes(min(n_own + queued, self.max_lanes))
+            target = self.bucket_lanes(min(n_own + queued, self._effective_max_lanes()))
             space = target - n_own
             out: list[_Group] = []
             now = self._clock()
@@ -388,18 +415,19 @@ class VerifyScheduler:
     # ----------------------------------------------------------- dispatch
 
     def _dispatch(self, groups: list[_Group]) -> None:
-        """Form and run batches for the groups (chunks of at most max_lanes
-        rows, a group never split; a group larger than that runs alone) and
-        resolve every mask and future. A failing chunk fails its own
-        futures; the later chunks still run, then the first error is
-        raised."""
+        """Form and run batches for the groups (chunks of at most
+        _effective_max_lanes() rows, a group never split; a group larger
+        than that runs alone) and resolve every mask and future. A failing
+        chunk fails its own futures; the later chunks still run, then the
+        first error is raised."""
         if not groups:
             return
         chunks: list[list[_Group]] = []
         chunk: list[_Group] = []
         chunk_rows = 0
+        budget = self._effective_max_lanes()
         for g in groups:
-            if chunk and chunk_rows + len(g.rows) > self.max_lanes:
+            if chunk and chunk_rows + len(g.rows) > budget:
                 chunks.append(chunk)
                 chunk, chunk_rows = [], 0
             chunk.append(g)
@@ -464,14 +492,16 @@ class VerifyScheduler:
         rows as one batch (each group's rows one recheck group; a rider's
         not rechecked here), resolve them all with one fetch, and put the
         masks (and the recheck's flips) back into the groups. A rider with a
-        rejected lane the oracle would recheck gets `pending`. Host time:
-        "sched" (concatenating and slicing) in the parts of
-        ed25519_kernel.timed_parts."""
+        rejected lane the oracle would recheck gets `pending`. With an
+        active mesh on the "gpu" backend each scheme's rows go to the mesh
+        instead (its batches joined one by one, every one even after one
+        raised). Host time: "sched" (concatenating and slicing) in the parts
+        of ed25519_kernel.timed_parts."""
         from cometbft_tpu_torch import crypto
         from cometbft_tpu_torch.crypto import batch as crypto_batch
         from cometbft_tpu_torch.ops import ed25519_kernel as EK
 
-        device = crypto_batch.backend_device()
+        mesh = self._mesh(build=True) if crypto_batch.get_backend() == "gpu" else None
         schemes = _schemes()
         # key type -> (pubs, msgs, sigs, spans [(group index, a, b)])
         per: dict[str, tuple[list, list, list, list]] = {}
@@ -488,11 +518,28 @@ class VerifyScheduler:
                     d[1].extend(msgs)
                     d[2].extend(sigs)
                     d[3].append((gi, a, a + len(sigs)))
-        thunks = [schemes[kt](pubs, msgs, sigs, device=device,
-                              recheck_groups=[(a, b) for gi, a, b in spans
-                                              if not groups[gi].rider])
-                  for kt, (pubs, msgs, sigs, spans) in per.items()]
-        resolved = EK.resolve_batches(thunks)
+        if mesh is None:
+            device = crypto_batch.backend_device()
+            thunks = [schemes[kt](pubs, msgs, sigs, device=device,
+                                  recheck_groups=[(a, b) for gi, a, b in spans
+                                                  if not groups[gi].rider])
+                      for kt, (pubs, msgs, sigs, spans) in per.items()]
+            resolved = EK.resolve_batches(thunks)
+        else:
+            # the batch's placement class: its highest member's
+            klass = next(k for k in CLASSES if any(g.klass == k for g in groups))
+            thunks = [mesh.verify_async(kt, pubs, msgs, sigs, klass=klass,
+                                        recheck_groups=[(a, b) for gi, a, b in spans
+                                                        if not groups[gi].rider])
+                      for kt, (pubs, msgs, sigs, spans) in per.items()]
+            resolved, err = [], None
+            for t in thunks:
+                try:
+                    resolved.append(t())
+                except Exception as exc:  # noqa: BLE001 - raised once all are joined
+                    err = err or exc
+            if err is not None:
+                raise err
         with EK.host_part("sched"):
             out = [np.zeros(len(g.rows), dtype=bool) for g in groups]
             for (kt, (_, _, _, spans)), mask, thunk in zip(per.items(), resolved, thunks):
@@ -652,5 +699,15 @@ class VerifyScheduler:
             "recheck_flips": self.recheck_flips,
             "deferred_rechecks": self.deferred_rechecks,
             "max_lanes": self.max_lanes,
+            "effective_max_lanes": self._effective_max_lanes(),
+            "mesh": self._mesh_view(),
             "deadlines": dict(self.class_deadline),
         }
+
+    def _mesh_view(self) -> dict:
+        """The topology the scheduler fills lanes against."""
+        mesh = self._mesh()
+        if mesh is None:
+            return {"active": False}
+        return {"active": True, "devices": len(mesh.chips), "live": mesh.live_size(),
+                "placement": mesh.placement}

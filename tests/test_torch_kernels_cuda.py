@@ -1121,3 +1121,108 @@ def test_bls_verify_and_aggregate_on_the_card_match_oracle(cuda):
     assert BK.aggregate_verify(ps, ms, ss, device=cuda)
     assert not BK.aggregate_verify(ps, ms, [ss[0], sigs[1]], device=cuda)
     assert BK.aggregate_verify_agg(ps, ms, BK.aggregate_signatures(ss), device=cuda)
+
+
+# ------------------------------------------------------- mesh fault domains
+
+
+@pytest.mark.cuda
+def test_domains_launch_and_fetch_on_their_own_streams(cuda):
+    """Each fault domain of a card has its own dispatch stream; a batch of
+    domain "dev1" stages, launches K5/K1/K6 and fetches on it."""
+    from cometbft_tpu_torch.ops import dispatch as D
+
+    streams = [D.stream(cuda, d) for d in ("", "dev0", "dev1", "dev2")]
+    assert len({s.cuda_stream for s in streams}) == 4
+    assert D.stream(cuda, "dev1") is streams[2]
+    seen = []
+    real = VK.verify_ok_raw
+
+    def spy(*planes):
+        seen.append(torch.cuda.current_stream(cuda).cuda_stream)
+        return real(*planes)
+
+    scheme = TK.ED25519._replace(verify_raw=spy)
+    pubs, msgs, sigs = _batch(40)
+    thunk = TK.verify_batch_async(scheme, pubs, msgs, sigs, device=cuda, domain="dev1")
+    assert thunk.domain == "dev1"
+    mask = TK.resolve_batches([thunk])[0]
+    want, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, device="cpu")
+    assert mask.tolist() == want.tolist()
+    assert seen == [streams[2].cuda_stream]
+
+
+@pytest.mark.cuda
+def test_a_shards_fetch_waits_for_its_own_k6(cuda):
+    """The domain's stream is held up before the batch launches: its header
+    fetch, on the same stream, must wait for K6 and read the right header
+    (a fetch on another stream would read an unwritten one)."""
+    from cometbft_tpu_torch.ops import dispatch as D
+
+    pubs, msgs, sigs = _batch(64)
+    want, _ = TK.verify_rows(TK.ED25519, pubs, msgs, sigs, device="cpu")
+    for domain in ("dev1", "dev2"):
+        with torch.cuda.stream(D.stream(cuda, domain)):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+        thunk = TK.verify_batch_async(TK.ED25519, pubs, msgs, sigs, device=cuda,
+                                      domain=domain)
+        assert TK.resolve_batches([thunk])[0].tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_k1_on_a_lane_slice_and_over_domains_matches_plain(cuda):
+    """K1 on a non-zero contiguous lane slice against its plain version on
+    the same card tensors, and the SPMD plane over four domains of the card
+    against one unsharded K1 launch."""
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    n = 256
+    pubs, msgs, sigs = _batch(n)
+    _, safe, r, s, k = TK.stage_batch(pubs, msgs, sigs, n)
+    enc = np.frombuffer(b"".join(safe), dtype=np.uint8).reshape(n, 32)
+    _, coords = TK.decompress_points(enc, cuda)
+    planes = TK.staged_from_numpy(*TK.pad_coords_batch_minor(coords, n), r, s, k, device=cuda)
+    part = [t[:, 128:256].contiguous() for t in planes]
+    got, allok = VK.verify_ok_raw(*part)
+    want, want_ok = VK.verify_math_ok(*part)
+    assert (got != 0).tolist() == want.tolist()
+    assert bool(allok[0] != 0) == bool(want_ok)
+    whole = VK.verify_ok_raw(*planes)[0]
+    sharded = M.shard_verify_kernel(M.batch_mesh([cuda] * 4))(*planes)
+    assert sharded.tolist() == whole.tolist()
+    assert (whole[128:] != 0).tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_invalidate_device_drops_one_domains_card_tables(cuda):
+    """Two domains' key and prefix tables on the card; invalidate_device(1)
+    drops domain 1's only: its next batch uploads its keys again, domain
+    0's stay resident."""
+    from cometbft_tpu_torch.libs.prefixrows import SharedPrefixRows
+
+    TR.reset()
+    CH.reset()
+    try:
+        privs = [ted.gen_priv_key_from_secret(b"card-%d" % i) for i in range(32)]
+        rows = SharedPrefixRows(b"\x08\x02\x11" + bytes(95), [b"%04d" % i for i in range(32)])
+        msgs = rows.rows_for(range(32))
+        pubs = [p.pub_key().bytes_() for p in privs]
+        sigs = [p.sign(bytes(m)) for p, m in zip(privs, msgs)]
+
+        def run(domain):
+            TR.reset_send_stats()
+            t = TK.verify_batch_async(TK.ED25519, pubs, msgs, sigs, device=cuda, domain=domain)
+            assert TK.resolve_batches([t])[0].all()
+            return TR.send_stats()["delta"]["sends"]
+
+        assert run("dev0") > 0 and run("dev1") > 0
+        assert run("dev0") == 0 and run("dev1") == 0  # resident
+        cache = TK.default_cache(cuda)
+        t0 = TR.table_for(cache, "dev0")
+        assert TR.invalidate_device(1) == 2  # dev1's key table and prefix table
+        assert TR.table_for(cache, "dev0") is t0
+        assert run("dev0") == 0
+        assert run("dev1") == 2  # its keys and its prefix row, uploaded again
+    finally:
+        TR.reset()
+        CH.reset()
