@@ -73,6 +73,22 @@ single-card path), and the SPMD plane (K1 once a domain on its lane slice,
 held against one unsharded launch and a slice against the plain version);
 every run's shards, lanes, launches and launch streams asserted, the
 spread flush timed with the mesh on and off.
+Then the consumers phase (consumers_phase), the mesh off: VoteSet's
+batch-first flush (types/vote_set.py) at 10,000 ed25519 validators (8
+tampered votes, one valid equivocation raised as ErrVoteConflictingVotes
+after the tally, one K5, K1 and K6 a flush, cold and 5 warm; make_commit
+through verify_commit; the equivocation as DuplicateVoteEvidence through
+verify_evidence, and with vote B tampered), at 150 with auto_flush (the
+batch-size and 2/3 boundaries), with vote extensions (the second batch's
+rows) and mixed ed25519 + sr25519 (K1 and K2); the light client's
+bisection over BASELINE config 4 (100,000 heights x 500 validators, 8
+versions of the set, a lazy provider, one witness, LightStore(MemDB())),
+every non-adjacent hop one prefetch of two groups, a forged target and a
+witness serving conflicting headers, whose LightClientAttackEvidence
+verify_light_client_attack accepts against a stub block store; commit
+certificates at 150 BLS validators (each hop decided by B1-B5, a flipped
+signer bit and a forged aggregate falling back to the classic verdict);
+and a commit with a secp256k1 validator on the serial path, no launch.
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -1103,18 +1119,20 @@ def commit_flags(n: int) -> tuple[set, set, set]:
             {11, 2_500, 5_003, 7_777, 9_001, n - 5})
 
 
-def sign_commit(vals, secrets, height: int, seed: int, flags=(set(), set(), set())):
-    """A Commit of `vals` at `height` for block `seed`, every non-absent
-    validator signing its vote_sign_bytes (a NIL vote its NIL sign bytes, an
-    off-length timestamp its own row). Returns (commit, block id)."""
+def sign_commit(vals, secrets, height: int, seed: int, flags=(set(), set(), set()), bid=None):
+    """A Commit of `vals` at `height` for block `seed` (or for the block ID
+    `bid`), every non-absent validator signing its vote_sign_bytes (a NIL
+    vote its NIL sign bytes, an off-length timestamp its own row). Returns
+    (commit, block id)."""
     from cometbft_tpu_torch.crypto import ed25519_math as O
     from cometbft_tpu_torch.crypto import sr25519_math as srm
     from cometbft_tpu_torch.types import BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader
     from cometbft_tpu_torch.utils.cmttime import Timestamp
 
     absent, nil, off_len = flags
-    block_hash = hashlib.sha256(b"commit-%d-%d" % (seed, height)).digest()
-    bid = BlockID(block_hash, PartSetHeader(1, hashlib.sha256(block_hash).digest()))
+    if bid is None:
+        block_hash = hashlib.sha256(b"commit-%d-%d" % (seed, height)).digest()
+        bid = BlockID(block_hash, PartSetHeader(1, hashlib.sha256(block_hash).digest()))
     sigs = []
     for i, v in enumerate(vals.validators):
         if i in absent:
@@ -2652,9 +2670,10 @@ def bls_set(n: int, seed: int, extra: list | None = None):
 
 
 def bls_commit(vals, bls_secrets, height: int, seed: int, shared_ts: bool,
-               ed_sr_secrets: dict | None = None):
-    """A Commit of `vals`: the ed25519/sr25519 validators sign as
-    sign_commit does, the bls12381 validators with their secrets. With
+               ed_sr_secrets: dict | None = None, bid=None):
+    """A Commit of `vals` (for block `seed`, or for the block ID `bid`): the
+    ed25519/sr25519 validators sign as sign_commit does, the bls12381
+    validators with their secrets. With
     shared_ts every vote carries one timestamp, so the sign-bytes are one
     message (D = 1); otherwise each its own (D = n), signed on every core
     and cached under build/. With shared_ts the signatures are stepped:
@@ -2665,10 +2684,11 @@ def bls_commit(vals, bls_secrets, height: int, seed: int, shared_ts: bool,
     from cometbft_tpu_torch.utils.cmttime import Timestamp
 
     if ed_sr_secrets:
-        commit, bid = sign_commit(vals, ed_sr_secrets, height, seed)
+        commit, bid = sign_commit(vals, ed_sr_secrets, height, seed, bid=bid)
     else:
-        block_hash = hashlib.sha256(b"commit-%d-%d" % (seed, height)).digest()
-        bid = BlockID(block_hash, PartSetHeader(1, hashlib.sha256(block_hash).digest()))
+        if bid is None:
+            block_hash = hashlib.sha256(b"commit-%d-%d" % (seed, height)).digest()
+            bid = BlockID(block_hash, PartSetHeader(1, hashlib.sha256(block_hash).digest()))
         commit = Commit(height, 0, bid, [
             CommitSig(BlockIDFlag.COMMIT, v.address,
                       Timestamp(1_700_000_000 + height, 0 if shared_ts else (1 << 28) + 1_000 * i))
@@ -3861,6 +3881,750 @@ def mesh_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- consumers phase
+#
+# The consumers of the verify path: types/vote_set.VoteSet's batch-first
+# flush (vote extensions included), the light client's bisection
+# (light/verifier, light/client), commit certificates (cert/) and evidence
+# verification (evidence/verify), on the card through the scheduler with the
+# mesh off. Keys and nonces stepped as in the commit phase; every vote signs
+# the port's own sign bytes.
+
+SEED_CONSUMERS = 15_000  # the consumers phase's keys (seen nowhere else)
+N_VOTES = 10_000  # types/basic.MAX_VOTES_COUNT
+VOTE_H = 3_000  # the vote sets' height
+VOTE_ABSENT = 17  # the validator of the 10,000 set that sends no vote
+VOTE_BAD = (5, 1_234, 2_500, 4_999, 5_001, 7_777, 9_000, 9_998)  # tampered votes
+VOTE_EQUIVOCATOR = 4_321  # also signs a valid vote for another block
+N_LIGHT, LC_HEIGHT, LC_VERSIONS = 500, 100_000, 8  # BASELINE config 4
+LC_FORK = 99_000  # the lying witness's first conflicting height
+N_CERT, CERT_HEIGHTS = 150, 4  # the certificate chain: 150 BLS validators, 4 heights
+BASE_S = 1_700_000_000  # headers at BASE_S + height seconds
+NOW_S = BASE_S + LC_HEIGHT + 1_000  # the light clients' now
+PERIOD_NS = 10**18  # a trusting period no run reaches
+
+
+def _consumer_reset() -> None:
+    """Every launch count, the BLS kernels' too, set to 0."""
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    _reset_counts()
+    BL.reset_launches()
+
+
+def _consumer_launches() -> dict[str, int]:
+    from cometbft_tpu_torch.ops import bls_launch as BL
+
+    return {**_launches(), **BL.LAUNCHES}
+
+
+def consumer_counted(fn, device):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, wall ms, launches)."""
+    _consumer_reset()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3, _consumer_launches()
+
+
+def _flip(sig: bytes, byte: int = 40) -> bytes:
+    s = bytearray(sig)
+    s[byte] ^= 1
+    return bytes(s)
+
+
+def _bid(tag: bytes):
+    from cometbft_tpu_torch.types import BlockID, PartSetHeader
+
+    h = hashlib.sha256(b"consumers-" + tag).digest()
+    return BlockID(h, PartSetHeader(1, hashlib.sha256(h).digest()))
+
+
+def make_votes(vals, height: int, bid, idxs, nil=()):
+    """Unsigned precommits of the validators at `idxs` for `bid` (nil for
+    those in `nil`), each its own timestamp."""
+    from cometbft_tpu_torch.types import BlockID, SignedMsgType, Vote
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    return [Vote(SignedMsgType.PRECOMMIT, height, 0, BlockID() if i in nil else bid,
+                 Timestamp(BASE_S + height, (1 << 28) + 1_000 * i),
+                 vals.validators[i].address, i) for i in idxs]
+
+
+def sign_votes(votes, secrets, extension: bool = False) -> None:
+    """Each vote's signature (with `extension`, its extension signature)
+    from make_set's stepped secrets: s = r + k a mod L, one hash a
+    signature; the sr25519 challenges in one batch transcript."""
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.crypto import sr25519_math as srm
+
+    sr = []
+    for v in votes:
+        kind, a, r, renc, pub = secrets[v.validator_address]
+        msg = v.extension_sign_bytes(CHAIN_ID) if extension else v.sign_bytes(CHAIN_ID)
+        if kind == "ed25519":
+            sig = renc + ((r + O.sha512_mod_l(renc, pub, msg) * a) % O.L).to_bytes(32, "little")
+            setattr(v, "extension_signature" if extension else "signature", sig)
+        else:
+            sr.append((v, a, r, renc, pub, msg))
+    if sr:
+        kw = srm.batch_challenge_words([x[4] for x in sr], [x[3] for x in sr],
+                                       [x[5] for x in sr])
+        for (v, a, r, renc, _, _), k in zip(sr, kw):
+            s = bytearray(((r + int.from_bytes(k.tobytes(), "little") * a) % srm.L)
+                          .to_bytes(32, "little"))
+            s[31] |= 0x80
+            v.signature = renc + bytes(s)
+
+
+def _flush(vs):
+    """flush_pending: (results, the ErrVoteConflictingVotes it raised or
+    None)."""
+    from cometbft_tpu_torch.types import vote_set as VS
+
+    try:
+        return vs.flush_pending(), None
+    except VS.ErrVoteConflictingVotes as e:
+        return e.results, e
+
+
+def _statuses(results) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for _, s in results:
+        out[s] = out.get(s, 0) + 1
+    return out
+
+
+def vote_set_cells(device, card: str) -> dict:
+    """VoteSet on the card: 10,000 ed25519 validators staged through
+    add_pending (8 tampered votes, one valid equivocation) and one
+    flush_pending, cold then 5 warm; 150 validators with auto_flush (the
+    batch-size and 2/3 boundaries); 150 with vote extensions; a mixed
+    ed25519 + sr25519 150. Returns launches and times."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.evidence import verify as EV
+    from cometbft_tpu_torch.ops import ed25519_kernel as K
+    from cometbft_tpu_torch.state import State
+    from cometbft_tpu_torch.types import SignedMsgType, Validator, ValidatorSet, VoteSet
+    from cometbft_tpu_torch.types import commit as C
+    from cometbft_tpu_torch.types import evidence as E
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types import vote_set as VS
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    PRE = SignedMsgType.PRECOMMIT
+    out: dict = {}
+    t0 = time.perf_counter()
+    vals, secrets = make_set(N_VOTES, SEED_CONSUMERS, "ed25519")
+    bid_a, bid_b = _bid(b"vote-a"), _bid(b"vote-b")
+    votes = make_votes(vals, VOTE_H, bid_a, [i for i in range(N_VOTES) if i != VOTE_ABSENT])
+    conflicting = make_votes(vals, VOTE_H, bid_b, [VOTE_EQUIVOCATOR])
+    sign_votes(votes + conflicting, secrets)
+    for v in votes:
+        if v.validator_index in VOTE_BAD:
+            v.signature = _flip(v.signature)
+    staged = votes + conflicting  # the equivocation last: its first vote is folded first
+    print(f"consumers: {N_VOTES:,}-vote set built and signed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def flush_10k():
+        vs = VoteSet(CHAIN_ID, VOTE_H, 0, PRE, vals, auto_flush=False)
+        for v in staged:
+            if not vs.add_pending(v):
+                raise AssertionError("VoteSet 10k: a vote was not staged")
+        (results, err), ms, launches = consumer_counted(lambda: _flush(vs), device)
+        want = [VS.FLUSH_INVALID if v.validator_index in VOTE_BAD else VS.FLUSH_ADDED
+                for v in votes] + [VS.FLUSH_CONFLICT]
+        if [s for _, s in results] != want or [v for v, _ in results] != staged:
+            raise AssertionError(f"VoteSet 10k: statuses {_statuses(results)}")
+        if err is None or len(err.conflicts) != 1 or err.conflicts[0].vote_b is not conflicting[0]:
+            raise AssertionError(f"VoteSet 10k: the equivocation raised {err!r}")
+        return vs, err, ms, launches
+
+    one = {"ed25519_verify": 1, "challenge_derive": 1, "integrity_parts": 1,
+           "sr25519_verify": 0, "sr25519_decompress": 0}
+    vs, err, cold_ms, cold = flush_10k()
+    expect("VoteSet 10k flush cold", cold, one)
+    if cold["ed25519_decompress"] < 1:
+        raise AssertionError(f"VoteSet 10k: the cold flush decoded no key {cold}")
+    warm = []
+    for _ in range(5):
+        vs, err, ms, flush_launches = flush_10k()
+        expect("VoteSet 10k flush warm", flush_launches, dict(one, ed25519_decompress=0))
+        warm.append(ms)
+    sends = {k: v["sigs"] for k, v in crypto_batch.path_stats()["sends"].items()
+             if isinstance(v, dict)}
+    added = N_VOTES - 1 - len(VOTE_BAD)
+    maj, ok = vs.two_thirds_majority()
+    if not ok or maj != bid_a or vs.sum != added * 10:
+        raise AssertionError(f"VoteSet 10k: 2/3 majority {maj} {ok}, tally {vs.sum}")
+    commit = vs.make_commit()
+    _, ms_c, launches = consumer_counted(
+        lambda: V.verify_commit(CHAIN_ID, vals, bid_a, VOTE_H, commit), device)
+    expect("VoteSet 10k make_commit -> verify_commit", launches, one)
+    out["flush_10k"] = {"cold_ms": cold_ms, "warm_ms": statistics.median(warm)}
+    out["launches_vote_flush"] = dict(flush_launches)
+    print(f"[{card}] VoteSet {N_VOTES:,} ed25519: add_pending x {len(staged):,} then one "
+          f"flush_pending: {added:,} added, {len(VOTE_BAD)} invalid (the tampered votes), 1 "
+          f"conflict raised as ErrVoteConflictingVotes after the tally; launches K5 1, K1 1 "
+          f"({K.bucket_size(len(staged))} lanes), K6 1 a flush; 2/3 majority for the block; "
+          f"make_commit "
+          f"({sum(cs.for_block() for cs in commit.signatures):,} signatures) verified by "
+          f"verify_commit on the card ({ms_c:.3f} ms); flush_pending cold {cold_ms:.3f} ms, "
+          f"warm {statistics.median(warm):.3f} ms (median of 5; a warm flush's key sends by "
+          f"path, signatures: {sends})", flush=True)
+
+    # the equivocation as evidence: a valid pair under SYNC (2 rows: the
+    # host derives k below MIN_LANES, K1 and K6 once), then vote B tampered
+    ev = E.DuplicateVoteEvidence.new(err.conflicts[0].vote_a, err.conflicts[0].vote_b,
+                                     Timestamp(BASE_S + VOTE_H, 0), vals)
+    state = State(chain_id=CHAIN_ID, initial_height=1, last_block_height=VOTE_H + 1,
+                  last_block_time=Timestamp(BASE_S + VOTE_H + 1, 0), validators=vals,
+                  next_validators=vals, last_validators=vals)
+    _, _, launches = consumer_counted(
+        lambda: EV.verify_evidence(ev, state, lambda h: vals if h == VOTE_H else None), device)
+    expect("evidence duplicate vote", launches,
+           {"ed25519_verify": 1, "integrity_parts": 1, "challenge_derive": 0})
+    bad = E.DuplicateVoteEvidence.from_proto(ev.to_proto())
+    bad.vote_b.signature = _flip(bad.vote_b.signature)
+    try:
+        EV.verify_duplicate_vote(bad, CHAIN_ID, vals)
+        raise AssertionError("evidence: a tampered vote B verified")
+    except EV.ErrInvalidEvidence as e:
+        if str(e) != "invalid signature on vote B":
+            raise AssertionError(f"evidence: vote B tampered gave {e}") from e
+    out["launches_evidence_duplicate_vote"] = dict(launches)
+    print(f"consumers evidence: verify_evidence of the equivocation's DuplicateVoteEvidence "
+          f"(under SYNC) passes with K1 1, K6 1 (2 rows: k on the host); vote B tampered: "
+          f"ErrInvalidEvidence naming B", flush=True)
+
+    # 150 validators, auto_flush: 128 of power 10 staged first (a flush at
+    # batch_flush_size 128, their 1,280 short of the 2,321 quorum), then 22
+    # of power 100 (the 2/3 boundary after 11 of them), the last 11 by hand
+    base, secrets_s = make_set(N_SMALL, SEED_CONSUMERS + 1, "ed25519")
+    light = {v.address for v in base.validators[:128]}
+    vals_s = ValidatorSet([Validator.new(v.pub_key, 10 if v.address in light else 100)
+                           for v in base.validators])
+    order = sorted(range(N_SMALL), key=lambda i: vals_s.validators[i].address not in light)
+    votes_s = make_votes(vals_s, VOTE_H, bid_a, order)
+    sign_votes(votes_s, secrets_s)
+
+    def auto():
+        vs = VoteSet(CHAIN_ID, VOTE_H, 0, PRE, vals_s)
+        rows, boundaries = [], []
+        for j, v in enumerate(votes_s):
+            before = len(vs._pending)
+            vs.add_pending(v)
+            if not vs._pending:
+                rows.append(before + 1)
+                boundaries.append((j + 1, vs.has_two_thirds_majority()))
+        rows.append(len(vs._pending))
+        results, _ = _flush(vs)
+        return rows, boundaries, results
+
+    (rows, boundaries, results), _, launches = consumer_counted(auto, device)
+    if rows != [128, 11, 11] or boundaries != [(128, False), (139, True)]:
+        raise AssertionError(f"VoteSet 150 auto_flush: flush rows {rows}, boundaries {boundaries}")
+    if _statuses(results) != {VS.FLUSH_ADDED: 11}:
+        raise AssertionError(f"VoteSet 150 auto_flush: last flush {_statuses(results)}")
+    expect("VoteSet 150 auto_flush", launches,
+           {"ed25519_verify": 3, "challenge_derive": 3, "integrity_parts": 3})
+    print(f"consumers VoteSet 150 auto_flush: flushes of {rows} rows (batch_flush_size at vote "
+          f"128, the 2/3 boundary at vote 139, the rest by hand), K1/K5/K6 3 each", flush=True)
+
+    # 150 equal validators: the flush timed; then extensions on: 142 for the
+    # block with extensions (one extension signature bad, one 63 bytes), 8
+    # nil; the second batch takes the 141 that passed, are not nil and not short
+    vals_e, secrets_e = make_set(N_SMALL, SEED_CONSUMERS + 2, "ed25519")
+    nil = {3, 20, 41, 62, 83, 104, 125, 146}
+    plain = make_votes(vals_e, VOTE_H, bid_a, range(N_SMALL), nil)
+    sign_votes(plain, secrets_e)
+
+    def flush_150():
+        vs = VoteSet(CHAIN_ID, VOTE_H, 0, PRE, vals_e, auto_flush=False)
+        for v in plain:
+            vs.add_pending(v)
+        (results, _), ms, launches = consumer_counted(lambda: _flush(vs), device)
+        if _statuses(results) != {VS.FLUSH_ADDED: N_SMALL}:
+            raise AssertionError(f"VoteSet 150: {_statuses(results)}")
+        return ms, launches
+
+    flush_150()
+    runs = [flush_150() for _ in range(5)]
+    for _, launches in runs:
+        expect("VoteSet 150 flush", launches,
+               {"ed25519_verify": 1, "challenge_derive": 1, "integrity_parts": 1})
+    out["flush_150"] = {"warm_ms": statistics.median(ms for ms, _ in runs)}
+    ext = make_votes(vals_e, VOTE_H, bid_a, range(N_SMALL), nil)
+    for v in ext:
+        if v.validator_index not in nil:
+            v.extension = b"ext-%04d" % v.validator_index
+    sign_votes(ext, secrets_e)
+    sign_votes([v for v in ext if v.extension], secrets_e, extension=True)
+    ext[50].extension_signature = _flip(ext[50].extension_signature)
+    ext[60].extension_signature = ext[60].extension_signature[:63]
+    batches: list[int] = []
+    create = crypto_batch.create_batch_verifier
+
+    def counting(pub_key):
+        bv = create(pub_key)
+        verify = bv.verify
+
+        def counted_verify():
+            batches.append(bv.count())
+            return verify()
+        bv.verify = counted_verify
+        return bv
+
+    vs = VoteSet(CHAIN_ID, VOTE_H, 0, PRE, vals_e, extensions_enabled=True, auto_flush=False)
+    for v in ext:
+        vs.add_pending(v)
+    crypto_batch.create_batch_verifier = counting
+    try:
+        (results, err), _, launches = consumer_counted(lambda: _flush(vs), device)
+    finally:
+        crypto_batch.create_batch_verifier = create
+    want = [VS.FLUSH_INVALID if v.validator_index in (50, 60) else VS.FLUSH_ADDED for v in ext]
+    if err is not None or [s for _, s in results] != want or \
+            batches != [N_SMALL, N_SMALL - len(nil) - 1]:
+        raise AssertionError(f"VoteSet 150 extensions: {_statuses(results)}, batches {batches}")
+    expect("VoteSet 150 extensions", launches,
+           {"ed25519_verify": 2, "challenge_derive": 2, "integrity_parts": 2})
+    ec = vs.make_extended_commit()
+    if C.ExtendedCommit.from_proto(ec.to_proto()).to_proto() != ec.to_proto() or \
+            ec.extended_signatures[0].extension != b"ext-0000":
+        raise AssertionError("VoteSet 150 extensions: make_extended_commit does not round-trip")
+    ec.ensure_extensions(True)
+    print(f"consumers VoteSet 150 extensions: batches of {batches} rows (the second without the "
+          f"8 nil votes and the 63-byte extension signature), 148 added, 2 invalid (the bad "
+          f"and the short extension signature); launches K1 {launches['ed25519_verify']}, K5 "
+          f"{launches['challenge_derive']}, K6 {launches['integrity_parts']}; "
+          f"make_extended_commit round-trips through its proto ({len(ec.to_proto())} B); "
+          f"150-vote flush_pending {out['flush_150']['warm_ms']:.3f} ms (warm, median of 5)",
+          flush=True)
+
+    # a mixed set: 75 ed25519 + 75 sr25519, one of each tampered: one drain,
+    # one batch a scheme
+    vals_m, secrets_m = make_set(N_SMALL, SEED_CONSUMERS + 3, "mixed")
+    votes_m = make_votes(vals_m, VOTE_H, bid_a, range(N_SMALL))
+    sign_votes(votes_m, secrets_m)
+    kinds = [secrets_m[v.validator_address][0] for v in votes_m]
+    bad_m = (kinds.index("ed25519"), kinds.index("sr25519"))
+    for i in bad_m:
+        votes_m[i].signature = _flip(votes_m[i].signature)
+    for _ in range(2):  # cold, then warm
+        vs = VoteSet(CHAIN_ID, VOTE_H, 0, PRE, vals_m, auto_flush=False)
+        for v in votes_m:
+            vs.add_pending(v)
+        (results, _), ms_m, launches = consumer_counted(lambda: _flush(vs), device)
+    want = [VS.FLUSH_INVALID if i in bad_m else VS.FLUSH_ADDED for i in range(N_SMALL)]
+    if [s for _, s in results] != want or not vs.has_two_thirds_majority():
+        raise AssertionError(f"VoteSet mixed 150: {_statuses(results)}")
+    expect("VoteSet mixed 150", launches, {"ed25519_verify": 1, "sr25519_verify": 1,
+                                           "challenge_derive": 1, "integrity_parts": 2})
+    print(f"consumers VoteSet mixed 150 (75 ed25519 + 75 sr25519, one drain): K1 1, K2 1, K5 1, "
+          f"K6 2; 148 added, the 2 tampered invalid ({ms_m:.3f} ms warm)", flush=True)
+    sched.reset()
+    return out
+
+
+def light_chain(n_vals: int, height: int, versions: int, seed: int):
+    """BASELINE config 4's chain, built lazily: heights 1..height, version v
+    = h // (height / versions) of the validator set is keys [v n/2, v n/2 +
+    n) of a pool of n * versions stepped keys (each version replaces half
+    the last, bench.py's shape), every validator signing each commit. A
+    light.Provider; fork(lie_from) gives a witness serving conflicting
+    headers (another app hash, the same keys) from that height on."""
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.types import BlockID, Header, PartSetHeader, Validator, ValidatorSet
+    from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    pool, secrets = [], {}
+    for a, r, A, R in _stepped_points(n_vals * versions, np.random.default_rng(seed)):
+        pub, renc = O.point_compress(A), O.point_compress(R)
+        key = ed25519.PubKey(pub)
+        pool.append(key)
+        secrets[key.address()] = ("ed25519", a, r, renc, pub)
+    churn = max(height // versions, 1)
+    sets: dict[int, object] = {}
+
+    def vals_at(h: int):
+        v = h // churn
+        if v not in sets:
+            start = (v * (n_vals // 2)) % (len(pool) - n_vals)
+            sets[v] = ValidatorSet([Validator.new(k, 10) for k in pool[start:start + n_vals]])
+        return sets[v]
+
+    class Chain(light.Provider):
+        def __init__(self, lie_from: int | None = None, blocks: dict | None = None):
+            self.lie_from, self.blocks = lie_from, dict(blocks or {})
+            self.evidence: list = []
+            self.gen_s = 0.0  # block generation (the harness's signing, not client work)
+
+        def block(self, h: int):
+            lb = self.blocks.get(h)
+            if lb is None:
+                t0 = time.perf_counter()
+                vals = vals_at(h)
+                lie = self.lie_from is not None and h >= self.lie_from
+                header = Header(
+                    chain_id=CHAIN_ID, height=h, time=Timestamp(BASE_S + h, 0),
+                    last_block_id=BlockID(b"\x07" * 32, PartSetHeader(1, b"\x08" * 32)),
+                    validators_hash=vals.hash(), next_validators_hash=vals_at(h + 1).hash(),
+                    consensus_hash=b"\x01" * 32, app_hash=(b"\xee" if lie else b"\x02") * 32,
+                    last_results_hash=b"\x03" * 32, data_hash=b"\x04" * 32,
+                    last_commit_hash=b"\x05" * 32, evidence_hash=b"\x06" * 32,
+                    proposer_address=vals.validators[0].address)
+                bid = BlockID(header.hash(), PartSetHeader(1, b"\x09" * 32))
+                commit, _ = sign_commit(vals, secrets, h, 0, bid=bid)
+                lb = self.blocks[h] = LightBlock(SignedHeader(header, commit), vals)
+                self.gen_s += time.perf_counter() - t0
+            return lb
+
+        async def light_block(self, h: int):
+            return self.block(h or height)
+
+        async def report_evidence(self, ev) -> None:
+            self.evidence.append(ev)
+
+        def id_(self) -> str:
+            return "light-chain" if self.lie_from is None else f"lying-from-{self.lie_from}"
+
+        def fork(self, lie_from: int | None = None, blocks: dict | None = None):
+            keep = {h: b for h, b in self.blocks.items() if lie_from is None or h < lie_from}
+            return Chain(lie_from, {**keep, **(blocks or {})})
+
+    return Chain(), vals_at
+
+
+class _Prefetches:
+    """While entered, every prefetch_staged of the light verifier is
+    recorded: its unresolved groups and its wall time."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.light import verifier
+
+        self.groups: list[int] = []
+        self.s = 0.0
+        self._orig = orig = verifier.prefetch_staged
+
+        def spy(staged, klass=None):
+            self.groups.append(sum(1 for s in staged if not s._passed and s._mask is None))
+            t0 = time.perf_counter()
+            try:
+                return orig(staged, klass=klass)
+            finally:
+                self.s += time.perf_counter() - t0
+        verifier.prefetch_staged = spy
+        return self
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.light import verifier
+
+        verifier.prefetch_staged = self._orig
+        return False
+
+
+def _client(primary, witnesses, root):
+    import asyncio
+
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch.store import MemDB
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    c = light.Client(CHAIN_ID, light.TrustOptions(PERIOD_NS, root.height, root.hash()), primary,
+                     witnesses, light.LightStore(MemDB()))
+    asyncio.run(c.initialize(Timestamp(NOW_S, 0)))
+    return c
+
+
+def _verify_at(client, h: int):
+    """client.verify_light_block_at_height(h): the block, or the exception."""
+    import asyncio
+
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    try:
+        return asyncio.run(client.verify_light_block_at_height(h, Timestamp(NOW_S, 0)))
+    except Exception as e:  # noqa: BLE001 - the caller asserts which
+        return e
+
+
+def light_cells(device, card: str) -> dict:
+    """The light client on the card, BASELINE config 4: a bisection over
+    100,000 heights of 500 ed25519 validators (8 versions of the set, half
+    replaced at each) with one witness and LightStore(MemDB()); every
+    non-adjacent hop one prefetch of two groups (one K5, K1, K6); a target
+    whose commit carries one tampered signature (ErrInvalidHeader); a
+    witness serving conflicting headers (LightClientAttackEvidence through
+    make_attack_evidence), whose evidence verify_light_client_attack then
+    accepts against a stub block store. Returns launches and times."""
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch.evidence import verify as EV
+    from cometbft_tpu_torch.state import State
+    from cometbft_tpu_torch.types import evidence as E
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    out: dict = {}
+    primary, vals_at = light_chain(N_LIGHT, LC_HEIGHT, LC_VERSIONS, SEED_CONSUMERS + 4)
+    witness = primary.fork()
+    root = primary.block(1)
+    client = _client(primary, [witness], root)
+    gen0 = primary.gen_s + witness.gen_s
+    with _Prefetches() as pf:
+        got, ms, launches = consumer_counted(lambda: _verify_at(client, LC_HEIGHT), device)
+    gen_s = primary.gen_s + witness.gen_s - gen0
+    if not isinstance(got, LightBlock) or got.hash() != primary.block(LC_HEIGHT).hash():
+        raise AssertionError(f"light bisection: {got!r}")
+    hops = len(pf.groups)
+    heights = list(client.store._heights)
+    if client.store.size() != hops + 1 or set(pf.groups) != {2}:
+        raise AssertionError(f"light bisection: store {heights}, prefetches {pf.groups}")
+    expect("light bisection", launches, {"ed25519_verify": hops, "challenge_derive": hops,
+                                         "integrity_parts": hops, "sr25519_verify": 0})
+    per_hop = {"block_generation": gen_s / hops * 1e3, "device_prefetch": pf.s / hops * 1e3,
+               "rest": (ms / 1e3 - gen_s - pf.s) / hops * 1e3}
+    out["bisection"] = {"wall_ms": ms, "hops": hops, "heights": heights, "per_hop_ms": per_hop}
+    # a hop's launches: K5, K1, K6 and (each version brings new keys) the decoder
+    out["launches_light_hop"] = {
+        k: launches[k] // hops if launches[k] % hops == 0 else launches[k] / hops
+        for k in ("ed25519_verify", "challenge_derive", "integrity_parts", "ed25519_decompress")}
+    print(f"[{card}] light bisection, BASELINE config 4 ({LC_HEIGHT:,} heights x {N_LIGHT} "
+          f"validators, {LC_VERSIONS} versions, half replaced at each): {ms / 1e3:.3f} s wall, "
+          f"{hops} hops (stored heights {heights}), each one prefetch_staged of 2 groups: "
+          f"K5/K1/K6 {hops} each, decoders {launches['ed25519_decompress']} (cold keys); per hop "
+          f"(ms): block generation {per_hop['block_generation']:.3f}, device prefetch "
+          f"{per_hop['device_prefetch']:.3f}, the rest {per_hop['rest']:.3f}", flush=True)
+
+    # a target whose commit carries one tampered signature, in the +2/3
+    # rows of the last hop and not in its trusting rows: ErrInvalidHeader
+    target = primary.block(LC_HEIGHT)
+    trusted_vals = vals_at(heights[-2])
+    tv = target.validator_set
+    trust = set(V._commit_rows(CHAIN_ID, trusted_vals, target.commit,
+                               trusted_vals.total_voting_power() // 3, V._ignore_not_commit,
+                               V._count_all, False, False)[3])
+    rows = V._commit_rows(CHAIN_ID, tv, target.commit, tv.total_voting_power() * 2 // 3,
+                          V._ignore_not_commit, V._count_all, False, True)[3]
+    bad_i = next(i for i in rows if i not in trust)
+    sigs = [type(cs)(cs.block_id_flag, cs.validator_address, cs.timestamp, cs.signature)
+            for cs in target.commit.signatures]
+    sigs[bad_i].signature = _flip(sigs[bad_i].signature)
+    forged = LightBlock(SignedHeader(target.header, type(target.commit)(
+        target.commit.height, target.commit.round_, target.commit.block_id, sigs)), tv)
+    liar = primary.fork(blocks={LC_HEIGHT: forged})
+    client_f = _client(liar, [witness], root)
+    got, _, _ = consumer_counted(lambda: _verify_at(client_f, LC_HEIGHT), device)
+    if not (isinstance(got, light.ErrVerificationFailed)
+            and isinstance(got.cause, light.ErrInvalidHeader)
+            and f"wrong signature (#{bad_i})" in str(got)):
+        raise AssertionError(f"light forged target: {got!r}")
+    print(f"consumers light: the target with signature #{bad_i} tampered raises "
+          f"ErrVerificationFailed({type(got.cause).__name__}: wrong signature (#{bad_i}))",
+          flush=True)
+
+    # a witness serving conflicting headers from LC_FORK on
+    lying = witness.fork(lie_from=LC_FORK)
+    client_a = _client(primary.fork(), [lying], root)
+    got, ms_a, launches_a = consumer_counted(lambda: _verify_at(client_a, LC_HEIGHT), device)
+    to_primary = client_a.primary.evidence
+    if not isinstance(got, light.ErrLightClientAttack) or len(to_primary) != 1 or \
+            len(lying.evidence) != 1 or not all(
+                isinstance(e, E.LightClientAttackEvidence) for e in to_primary + lying.evidence):
+        raise AssertionError(f"light attack: {got!r}, evidence {to_primary} {lying.evidence}")
+    ev = to_primary[0]
+    if ev.conflicting_block.header.app_hash != b"\xee" * 32:
+        raise AssertionError("light attack: the evidence does not hold the witness's block")
+    data = ev.to_proto()
+    if E.LightClientAttackEvidence.from_proto(data).to_proto() != data:
+        raise AssertionError("light attack: the evidence does not round-trip")
+    store = SimpleNamespace(
+        load_block_meta=lambda h: (SimpleNamespace(header=primary.block(h).header)
+                                   if 0 < h <= LC_HEIGHT else None),
+        load_block_commit=lambda h: primary.block(h).commit if 0 < h <= LC_HEIGHT else None,
+        height=lambda: LC_HEIGHT)
+    state = State(chain_id=CHAIN_ID, initial_height=1, last_block_height=LC_HEIGHT,
+                  last_block_time=Timestamp(BASE_S + LC_HEIGHT, 0), validators=tv,
+                  next_validators=tv, last_validators=tv)
+    common = vals_at(ev.common_height)
+    _, ms_e, launches_e = consumer_counted(
+        lambda: EV.verify_light_client_attack(ev, state, common, store), device)
+    expect("evidence light-client attack", launches_e,
+           {"ed25519_verify": 2, "challenge_derive": 2, "integrity_parts": 2})
+    print(f"consumers light attack: the witness lying from {LC_FORK:,} on: ErrLightClientAttack, "
+          f"one LightClientAttackEvidence each way (make_attack_evidence; common height "
+          f"{ev.common_height:,}, conflicting height {ev.conflicting_block.height:,}, "
+          f"{len(ev.byzantine_validators)} byzantine validators, {len(data):,} B) in "
+          f"{ms_a / 1e3:.3f} s (K1 {launches_a['ed25519_verify']}); verify_light_client_attack "
+          f"accepts the witness's evidence against the honest block store: K1/K5/K6 2 each "
+          f"({ms_e:.3f} ms)", flush=True)
+    return out
+
+
+def cert_cells(device, card: str) -> dict:
+    """Commit certificates on the card: a chain of 4 heights of 150 BLS
+    validators (one timestamp a commit) whose provider serves
+    commit_certificate; a client bisects 1 -> 3 -> 4, each hop decided by
+    the certificate (one aggregate_verify_agg: B1, B3, B2, B4, B5); a
+    certificate with a flipped signer bit and one with a forged aggregate
+    fall back to the classic path with the classic verdict; a rebuilt
+    certificate encodes equal. Returns launches and times."""
+    import dataclasses
+
+    from cometbft_tpu_torch import cert, light
+    from cometbft_tpu_torch.libs.bits import BitArray
+    from cometbft_tpu_torch.light import verifier
+    from cometbft_tpu_torch.types import BlockID, Header, PartSetHeader
+    from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
+    from cometbft_tpu_torch.utils.cmttime import Timestamp
+
+    out: dict = {}
+    vals, secrets = bls_set(N_CERT, SEED_CONSUMERS + 5)
+    blocks, certs = {}, {}
+    for h in range(1, CERT_HEIGHTS + 1):
+        header = Header(chain_id=CHAIN_ID, height=h, time=Timestamp(BASE_S + h, 0),
+                        validators_hash=vals.hash(), next_validators_hash=vals.hash(),
+                        consensus_hash=b"\x01" * 32, app_hash=b"\x02" * 32,
+                        proposer_address=vals.validators[0].address)
+        bid = BlockID(header.hash(), PartSetHeader(1, b"\x09" * 32))
+        commit, _ = bls_commit(vals, secrets, h, SEED_CONSUMERS + 5, shared_ts=True, bid=bid)
+        blocks[h] = LightBlock(SignedHeader(header, commit), vals)
+        certs[h] = cert.build_certificate(CHAIN_ID, vals, commit)
+        if certs[h] is None or cert.build_certificate(
+                CHAIN_ID, vals, commit).encode() != certs[h].encode() or \
+                cert.CommitCertificate.decode(certs[h].encode()).encode() != certs[h].encode():
+            raise AssertionError(f"certificate {h}: not built, or a rebuild encodes otherwise")
+
+    class Certified(light.MemProvider):
+        def __init__(self, served: dict):
+            super().__init__(CHAIN_ID, blocks, "certified")
+            self.certs = served
+
+    def run(served, label):
+        client = _client(Certified(served), [light.MemProvider(CHAIN_ID, blocks, "w")],
+                         blocks[1])
+        if served is None:
+            client.cert_source = None
+        hops = []
+        for h in (3, CERT_HEIGHTS):
+            got, ms, launches = consumer_counted(lambda: _verify_at(client, h), device)
+            if not isinstance(got, LightBlock) or got.hash() != blocks[h].hash():
+                raise AssertionError(f"certificates {label}: height {h} gave {got!r}")
+            hops.append((ms, launches))
+        return client, hops
+
+    client, hops = run(certs, "served")
+    if (client.cert_hits, client.cert_fallbacks) != (2, 0):
+        raise AssertionError(f"certificates: hits {client.cert_hits}, fallbacks "
+                             f"{client.cert_fallbacks}")
+    for ms, launches in hops:
+        expect("certificate hop", launches, {"bls_hash_to_g2": 1, "bls_miller": 1,
+                                             "bls_final_exp": 1, "bls_decompress_g2": 1,
+                                             "bls_point_sum_g2": 0, "ed25519_verify": 0})
+    classic, hops_c = run(None, "classic")
+    flipped = {h: dataclasses.replace(c, signers=BitArray.from_bools(
+        [b != (i == 1) for i, b in enumerate(c.signers)])) for h, c in certs.items()}
+    forged = {h: dataclasses.replace(c, agg_sig=certs[h % CERT_HEIGHTS + 1].agg_sig)
+              for h, c in certs.items()}
+    for served, label in ((flipped, "flipped signer bit"), (forged, "forged aggregate")):
+        c, hops_x = run(served, label)
+        if (c.cert_hits, c.cert_fallbacks) != (0, 2) or c.store._heights != classic.store._heights:
+            raise AssertionError(f"certificates {label}: hits {c.cert_hits}, fallbacks "
+                                 f"{c.cert_fallbacks}, stored {c.store._heights}")
+        for (_, launches), (_, want) in zip(hops_x, hops_c):
+            expect(f"certificates {label}", launches,
+                   {k: want[k] for k in ("bls_point_sum_g2", "bls_miller", "bls_final_exp")})
+    sh3, sh4 = blocks[3].signed_header, blocks[4].signed_header
+    now = Timestamp(NOW_S, 0)
+
+    def hop():
+        if not verifier.verify_with_certificate(sh3, vals, sh4, vals, PERIOD_NS, now,
+                                                10 * 10**9, verifier.DEFAULT_TRUST_LEVEL,
+                                                certs[4]):
+            raise AssertionError("certificate hop: not accepted")
+    hop()
+    hop_ms = time_wall(hop, 5, device)
+    out["hop_ms"] = hop_ms
+    out["launches_cert_hop"] = dict(hops[1][1])
+    print(f"[{card}] certificates ({N_CERT} BLS validators): hops 1 -> 3 and 3 -> 4 each decided "
+          f"by the certificate (cert_hits 2): B1 G2 1, B3 G1 {hops[1][1]['bls_point_sum_g1']}, "
+          f"B2 1, B4 1, B5 1 a hop, no per-vote sum; a flipped signer bit and a forged aggregate "
+          f"fall back (cert_fallbacks 2 each) to the classic path's verdict and launches (B3 G2 "
+          f"{hops_c[1][1]['bls_point_sum_g2']} a hop); a rebuilt certificate encodes equal "
+          f"({len(certs[4].encode())} B); one certificate hop (verify_with_certificate, warm, "
+          f"median of 5): {hop_ms:.3f} ms", flush=True)
+    return out
+
+
+def secp_cell(device) -> None:
+    """A 4-validator commit with one secp256k1 validator (its key carried
+    through the validator set's proto): verify_commit takes the serial path
+    and launches nothing."""
+    from cometbft_tpu_torch.crypto import secp256k1
+    from cometbft_tpu_torch.types import Validator, ValidatorSet
+    from cometbft_tpu_torch.types import validation as V
+
+    ed_vals, secrets = make_set(3, SEED_CONSUMERS + 6, "ed25519")
+    priv = secp256k1.gen_priv_key_from_secret(b"consumers-secp256k1")
+    vals = ValidatorSet.from_proto(ValidatorSet(
+        ed_vals.validators + [Validator.new(priv.pub_key(), 10)]).to_proto())
+    commit, bid = sign_commit(vals, secrets, VOTE_H, SEED_CONSUMERS + 6)
+    i = next(j for j, v in enumerate(vals.validators) if v.pub_key.type_() == "secp256k1")
+    commit.signatures[i].signature = priv.sign(commit.vote_sign_bytes(CHAIN_ID, i))
+    _, ms, launches = consumer_counted(
+        lambda: V.verify_commit(CHAIN_ID, vals, bid, VOTE_H, commit), device)
+    if any(launches.values()):
+        raise AssertionError(f"secp256k1 commit: launches {launches}")
+    bad = with_bad_signature(commit, i)
+    try:
+        V.verify_commit(CHAIN_ID, vals, bid, VOTE_H, bad)
+        raise AssertionError("secp256k1 commit: a tampered signature verified")
+    except V.ErrInvalidCommitSignature as e:
+        if f"wrong signature (#{i})" not in str(e):
+            raise AssertionError(f"secp256k1 commit: {e}") from e
+    print(f"consumers secp256k1: a commit of 3 ed25519 + 1 secp256k1 validators verified on the "
+          f"serial path, no launch ({ms:.3f} ms); its secp256k1 signature tampered: "
+          f"ErrInvalidCommitSignature (#{i})", flush=True)
+
+
+def consumers_phase(device, card: str) -> dict:
+    """The consumers phase, after the mesh phase (the mesh off): VoteSet
+    (vote_set_cells), the light client and light-client attack evidence
+    (light_cells), commit certificates (cert_cells), secp256k1
+    (secp_cell). Returns each path's launches and the times."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    crypto_batch.set_backend("gpu")
+    M.reset()
+    sched.reset()
+    out = {"votes": vote_set_cells(device, card)}
+    out["light"] = light_cells(device, card)
+    out["cert"] = cert_cells(device, card)
+    secp_cell(device)
+    sched.reset()
+    v, lc = out["votes"], out["light"]["bisection"]
+    print(f"[{card}] consumers (measurements, not claims): VoteSet {N_VOTES:,} flush_pending "
+          f"{v['flush_10k']['warm_ms']:.3f} ms (warm, median of 5), 150-vote flush "
+          f"{v['flush_150']['warm_ms']:.3f} ms; light bisection {LC_HEIGHT:,} x {N_LIGHT} "
+          f"{lc['wall_ms'] / 1e3:.3f} s in {lc['hops']} hops; certificate hop "
+          f"{out['cert']['hop_ms']:.3f} ms; consumers phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -3929,6 +4693,7 @@ def main() -> int:
     commit = commit_phase(device, card, held)
     bls = bls_phase(device, card, builds["bls12381"][1])
     mesh = mesh_phase(device, card)
+    consumers = consumers_phase(device, card)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -4038,6 +4803,15 @@ def main() -> int:
             "ms_back_to_back": r["ms_back_to_back"],
             "us_per_iter": mb["per"][(r["body"], MB_RECORD_LANES)]})
     kernels["kernels"] += bls["records"]
+    # each kernel's launches on the consumers' paths: one warm 10,000-vote
+    # flush, one light hop, one certificate hop
+    on_consumers = {"vote_flush_10k": consumers["votes"]["launches_vote_flush"],
+                    "light_hop": consumers["light"]["launches_light_hop"],
+                    "cert_hop": consumers["cert"]["launches_cert_hop"]}
+    for r in kernels["kernels"]:
+        count = BLS_SPLIT.get(r["name"], (None, None, r["name"]))[2]
+        for path, launches in on_consumers.items():
+            r[f"launches_{path}"] = launches.get(count, 0)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s since the kernel build began",
           flush=True)
     print(json.dumps(kernels), flush=True)

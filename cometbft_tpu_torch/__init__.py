@@ -9,15 +9,23 @@ kernels (``csrc/``), with plain PyTorch versions of the same arithmetic
 beside each kernel for the CPU tests.
 
 Package map:
-  types/      sign bytes, commits, validator sets, and commit verification
-              (validation.verify_commit*, the staged blocksync windows)
+  types/      sign bytes, votes and vote extensions, commits, validator
+              sets, commit verification (validation.verify_commit*, the
+              staged blocksync windows), VoteSet's batch-first tally,
+              blocks, part sets, evidence, light blocks, params, genesis
+  light/      the light client: verifier, bisecting Client, store, providers
+  cert/       commit certificates (one pairing-product check a height)
+  evidence/   evidence verification (duplicate votes, light-client attacks)
+  state/      State, the committed-chain snapshot evidence checks read
+  store/      the key-value interface and the in-memory store
   sched/      the node-wide verify scheduler: continuous batching of all
               signature work on one card, or over the fault-domain mesh
   parallel/   the fault-domain verify mesh (VerifyMesh: per-domain streams,
               key tables, supervisors and breakers, redispatch) and the
               SPMD plane (sharded_verify_batch)
-  crypto/     key types, the ZIP-215 host oracle, the batch-verifier registry
-              and the scheduler's client, Merkle trees, tmhash
+  crypto/     key types (ed25519, sr25519, BLS12-381, secp256k1), the
+              ZIP-215 host oracle, the batch-verifier registry and the
+              scheduler's client, Merkle trees and proofs, tmhash
   ops/        limb packing, field/curve arithmetic (plain torch), the kernel
               wrappers and their nvcc build, host staging, the key tables,
               device challenges and the integrity header
@@ -25,7 +33,8 @@ Package map:
   native/     C host hash rungs (SIMD SHA-512/Keccak/mod L, STROBE), built
               with cc at first use
   libs/       shared-prefix message rows (prefixrows.py), device-fault
-              injection sites (chaos.py)
+              injection sites (chaos.py), bit arrays (bits.py), async
+              single-flight (singleflight.py)
   utils/      the protobuf codec and canonical time
 
 Entry points take an explicit ``device`` and default to ``cuda``; they

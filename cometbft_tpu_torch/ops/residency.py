@@ -179,28 +179,29 @@ class KeyTable:
 
     # ---------------------------------------------------------- eviction
 
-    def _evict_one(self, protect: frozenset = frozenset()) -> int:
-        """Free the least-recently-used unpinned row outside `protect` (the
-        batch's own resident keys). Raises _NoRoom when nothing is
-        evictable."""
-        for key in self._rows:  # dict order: oldest first
-            if self._pin_count.get(key, 0) == 0 and key not in protect:
-                row = self._rows.pop(key)
-                self._ok.pop(key, None)
-                self.counters["evictions"] += 1
-                return row
-        raise _NoRoom("every resident row is pinned or staged by this batch")
-
     def _alloc_rows(self, n: int, protect: frozenset = frozenset()) -> list[int]:
-        """Take n free rows, evicting as needed; on _NoRoom the rows taken
-        so far go back to the free list."""
-        out: list[int] = []
-        try:
-            while len(out) < n:
-                out.append(self._free.pop() if self._free else self._evict_one(protect))
-        except _NoRoom:
+        """Take n free rows, then evict for the rest the least-recently-used
+        unpinned rows outside `protect` (the batch's own resident keys), in
+        one pass over the LRU order: the rows that evicting one at a time
+        from the oldest would take (the reference restarts its scan at each
+        eviction, which is quadratic when many old rows are pinned). When
+        too few rows are evictable, the evictable ones are evicted, every row
+        taken goes back to the free list and _NoRoom is raised."""
+        out = [self._free.pop() for _ in range(min(n, len(self._free)))]
+        victims: list[bytes] = []
+        if len(out) < n:
+            for key in self._rows:  # dict order: oldest first
+                if self._pin_count.get(key, 0) == 0 and key not in protect:
+                    victims.append(key)
+                    if len(out) + len(victims) == n:
+                        break
+        for key in victims:
+            out.append(self._rows.pop(key))
+            self._ok.pop(key, None)
+        self.counters["evictions"] += len(victims)
+        if len(out) < n:
             self._free.extend(out)
-            raise
+            raise _NoRoom("every resident row is pinned or staged by this batch")
         return out
 
     # ------------------------------------------------------------ deltas

@@ -13,8 +13,8 @@ marshaller:
   - timestamp: ALWAYS emitted (gogoproto non-nullable stdtime)
   - chain_id: omitted when empty
 
-The port's copy of cometbft_tpu/types/canonical.py's vote sign bytes
-(proposals and vote extensions are not ported yet).
+The port's copy of cometbft_tpu/types/canonical.py's vote and vote-extension
+sign bytes (proposals come with the node).
 """
 
 from __future__ import annotations
@@ -55,4 +55,17 @@ def vote_sign_bytes(
     w.message(4, canonical_block_id_bytes(block_id))
     w.message(5, _timestamp(timestamp), always=True)
     w.string(6, chain_id)
+    return pb.marshal_delimited(w.output())
+
+
+def vote_extension_sign_bytes(
+    chain_id: str, height: int, round_: int, extension: bytes
+) -> bytes:
+    """CanonicalVoteExtension (types/vote.go VoteExtensionSignBytes,
+    canonical.proto:41-46)."""
+    w = pb.Writer()
+    w.bytes(1, extension)
+    w.sfixed64(2, height)
+    w.sfixed64(3, round_)
+    w.string(4, chain_id)
     return pb.marshal_delimited(w.output())

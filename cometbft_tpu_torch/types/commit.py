@@ -5,9 +5,11 @@ LastCommit; each CommitSig records one validator's precommit (or absence).
 Commit.vote_sign_bytes reconstructs the exact canonical bytes each validator
 signed — the input rows of the device verification batch.
 
-The port's copy of cometbft_tpu/types/commit.py. ExtendedCommit and
-ExtendedCommitSig (vote extensions) are not ported yet: nothing in the port
-builds or stores them before the node wiring.
+The port's copy of cometbft_tpu/types/commit.py. ExtendedCommit's proto
+form (to_proto / from_proto) is the encoding the reference's block store
+gives it (cometbft_tpu/store/blockstore.py _extended_to_proto /
+_extended_from_proto): the port has no block store yet, and the two
+functions sit with the type.
 """
 
 from __future__ import annotations
@@ -248,3 +250,106 @@ class Commit:
             else:
                 r.skip(w)
         return c
+
+
+@dataclass
+class ExtendedCommitSig:
+    """CommitSig + vote-extension data (types/block.go:741-800, ABCI 2.0)."""
+
+    commit_sig: CommitSig
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def validate_basic(self) -> None:
+        self.commit_sig.validate_basic()
+        if self.commit_sig.block_id_flag == BlockIDFlag.COMMIT:
+            return
+        if self.extension:
+            raise ValueError("vote extension is present for non-commit CommitSig")
+        if self.extension_signature:
+            raise ValueError("vote extension signature is present for non-commit CommitSig")
+
+
+@dataclass
+class ExtendedCommit:
+    """types/block.go:708-856: a commit carrying vote extensions, stored for
+    the latest height to rebuild LastCommit precommits (for PrepareProposal)."""
+
+    height: int
+    round_: int
+    block_id: BlockID
+    extended_signatures: list[ExtendedCommitSig]
+
+    def to_commit(self) -> Commit:
+        return Commit(
+            height=self.height,
+            round_=self.round_,
+            block_id=self.block_id,
+            signatures=[e.commit_sig for e in self.extended_signatures],
+        )
+
+    def size(self) -> int:
+        return len(self.extended_signatures)
+
+    def get_extended_vote(self, val_idx: int) -> Vote:
+        e = self.extended_signatures[val_idx]
+        v = self.to_commit().get_vote(val_idx)
+        v.extension = e.extension
+        v.extension_signature = e.extension_signature
+        return v
+
+    def ensure_extensions(self, required: bool) -> None:
+        """types/block.go:765-785."""
+        for e in self.extended_signatures:
+            cs = e.commit_sig
+            if required and cs.block_id_flag == BlockIDFlag.COMMIT and not e.extension_signature:
+                raise ValueError("vote extension signature is missing")
+            if cs.block_id_flag != BlockIDFlag.COMMIT and (e.extension or e.extension_signature):
+                raise ValueError("non-commit vote carries extension data")
+
+    def to_proto(self) -> bytes:
+        w = pb.Writer()
+        w.varint_i64(1, self.height)
+        w.varint_i64(2, self.round_)
+        w.message(3, self.block_id.to_proto(), always=True)
+        for es in self.extended_signatures:
+            sw = pb.Writer()
+            sw.message(1, es.commit_sig.to_proto(), always=True)
+            sw.bytes(2, es.extension)
+            sw.bytes(3, es.extension_signature)
+            w.message(4, sw.output(), always=True)
+        return w.output()
+
+    @classmethod
+    def from_proto(cls, data: bytes) -> "ExtendedCommit":
+        r = pb.Reader(data)
+        height = round_ = 0
+        block_id = BlockID()
+        esigs: list[ExtendedCommitSig] = []
+        while not r.at_end():
+            f, w = r.read_tag()
+            if f == 1:
+                height = r.read_varint_i64()
+            elif f == 2:
+                round_ = r.read_varint_i64()
+            elif f == 3:
+                block_id = BlockID.from_proto(r.read_bytes())
+            elif f == 4:
+                sr = r.read_message()
+                cs, ext, extsig = CommitSig.absent(), b"", b""
+                while not sr.at_end():
+                    sf, sw = sr.read_tag()
+                    if sf == 1:
+                        cs = CommitSig.from_proto(sr.read_bytes())
+                    elif sf == 2:
+                        ext = sr.read_bytes()
+                    elif sf == 3:
+                        extsig = sr.read_bytes()
+                    else:
+                        sr.skip(sw)
+                esigs.append(ExtendedCommitSig(commit_sig=cs, extension=ext,
+                                               extension_signature=extsig))
+            else:
+                r.skip(w)
+        return cls(height=height, round_=round_, block_id=block_id,
+                   extended_signatures=esigs)

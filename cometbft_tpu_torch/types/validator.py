@@ -9,8 +9,8 @@ reference exactly — including int64 clipping semantics
 clamps.
 
 The port's copy of cometbft_tpu/types/validator.py. pub_key_from_proto
-decodes the key types the port has (ed25519, sr25519); secp256k1 and
-bls12381 keys raise crypto.ErrInvalidKey until their slices land.
+decodes every key type of the reference: ed25519, secp256k1, sr25519 and
+bls12381.
 """
 
 from __future__ import annotations
@@ -134,10 +134,9 @@ def pub_key_to_proto(pub_key: crypto.PubKey) -> bytes:
 
 
 def pub_key_from_proto(data: bytes) -> crypto.PubKey:
-    """crypto.PublicKey oneof -> the port's key: ed25519 (field 1), sr25519
-    (field 3) or bls12381 (field 4). secp256k1 (2) raises ErrInvalidKey: the
-    port has no such keys."""
-    from cometbft_tpu_torch.crypto import bls12381, ed25519, sr25519
+    """crypto.PublicKey oneof -> the port's key: ed25519 (field 1),
+    secp256k1 (field 2), sr25519 (field 3) or bls12381 (field 4)."""
+    from cometbft_tpu_torch.crypto import bls12381, ed25519, secp256k1, sr25519
 
     r = pb.Reader(data)
     while not r.at_end():
@@ -149,7 +148,7 @@ def pub_key_from_proto(data: bytes) -> crypto.PubKey:
         if f == 4:
             return bls12381.PubKey(r.read_bytes())
         if f == 2:
-            raise crypto.ErrInvalidKey("secp256k1 keys are not supported by the port")
+            return secp256k1.PubKey(r.read_bytes())
         r.skip(w)
     raise ValueError("empty/unsupported PublicKey proto")
 

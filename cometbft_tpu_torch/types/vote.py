@@ -4,8 +4,7 @@ Sign-bytes are the canonical encoding (canonical.py); wire encoding is the
 tendermint.types.Vote proto (types.proto:83-103) used by the WAL, p2p
 envelopes, and the privval protocol.
 
-The port's copy of cometbft_tpu/types/vote.py (its vote-extension signing
-helpers wait for the node wiring).
+The port's copy of cometbft_tpu/types/vote.py.
 """
 
 from __future__ import annotations
@@ -43,12 +42,40 @@ class Vote:
             chain_id, self.type_, self.height, self.round_, self.block_id, self.timestamp
         )
 
+    def extension_sign_bytes(self, chain_id: str) -> bytes:
+        return canonical.vote_extension_sign_bytes(
+            chain_id, self.height, self.round_, self.extension
+        )
+
     def verify(self, chain_id: str, pub_key: crypto.PubKey) -> bool:
         """Serial-path verification (reference types/vote.go:224). The batch
         path goes through VoteSet/validation instead."""
         if pub_key.address() != self.validator_address:
             return False
         return pub_key.verify_signature(self.sign_bytes(chain_id), self.signature)
+
+    def verify_extension(self, chain_id: str, pub_key: crypto.PubKey) -> bool:
+        """Only the extension signature (types/vote.go:247 VerifyExtension)
+        — the gate before the app sees the payload; the vote's own
+        signature verifies separately (serial add or device-batch flush)."""
+        if self.type_ != SignedMsgType.PRECOMMIT or self.block_id.is_nil():
+            return True
+        if not self.extension_signature:
+            return False
+        return pub_key.verify_signature(
+            self.extension_sign_bytes(chain_id), self.extension_signature
+        )
+
+    def verify_vote_and_extension(self, chain_id: str, pub_key: crypto.PubKey) -> bool:
+        if not self.verify(chain_id, pub_key):
+            return False
+        if self.type_ == SignedMsgType.PRECOMMIT and not self.block_id.is_nil():
+            if not self.extension_signature:
+                return False
+            return pub_key.verify_signature(
+                self.extension_sign_bytes(chain_id), self.extension_signature
+            )
+        return True
 
     def validate_basic(self) -> None:
         """types/vote.go ValidateBasic."""
@@ -136,3 +163,25 @@ class Vote:
             f"Vote{{{self.validator_index}:{self.validator_address.hex()[:12]} "
             f"{self.height}/{self.round_} {kind} {self.block_id}}}"
         )
+
+
+def sign_rows(chain_id: str, votes: list[Vote]) -> list:
+    """The votes' sign bytes in factored form (libs/prefixrows.PrefixedMsg),
+    row by row byte-identical to vote.sign_bytes(chain_id): a canonical
+    vote row splits before its timestamp field, and the votes that share
+    the head (length, type, height, round, block ID) share one prefix
+    object. A VoteSet flush so takes the device-challenge path (K5) as a
+    commit's rows do (Commit.vote_sign_bytes_all); the reference stages
+    the plain rows."""
+    from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
+
+    tail = len(pb.Writer().string(6, chain_id).output())
+    heads: dict[bytes, bytes] = {}
+    out = []
+    for v in votes:
+        row = v.sign_bytes(chain_id)
+        ts = len(pb.timestamp_bytes(v.timestamp.seconds, v.timestamp.nanos))
+        cut = len(row) - tail - ts - len(pb.encode_uvarint(ts)) - 1  # 1: the field's tag
+        head = heads.setdefault(row[:cut], row[:cut])
+        out.append(PrefixedMsg(head, row[cut:]))
+    return out

@@ -173,6 +173,9 @@ class Reader:
         self.pos += n
         return bytes(v)
 
+    def read_string(self) -> str:
+        return self.read_bytes().decode("utf-8")
+
     def read_message(self) -> "Reader":
         body = self.read_bytes()
         return Reader(body)

@@ -64,3 +64,32 @@ def test_guard_sees_every_form_of_import():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_no_jax(path):
     assert forbidden_imports(path.read_text()) == []
+
+
+CONSUMER_PACKAGES = ("light", "cert", "evidence", "state", "store")
+
+
+@pytest.mark.parametrize("package", CONSUMER_PACKAGES)
+def test_consumer_package_is_read_by_the_guard(package):
+    """Every file of the consumers' packages is in PORT_FILES, so the
+    static check above reads each import of it."""
+    files = sorted((REPO / "cometbft_tpu_torch" / package).glob("*.py"))
+    assert files and set(files) <= set(PORT_FILES)
+
+
+def test_consumer_packages_import_no_jax():
+    """The consumers' packages, imported in a fresh interpreter, import
+    neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, importlib\n"
+        f"for p in {CONSUMER_PACKAGES!r}:\n"
+        "    importlib.import_module('cometbft_tpu_torch.' + p)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -219,3 +219,27 @@ def test_announce_validator_set_stamps_the_object(keys):
     TR.stage(cache, keys[:1], 8)
     assert TR.table_for(cache).pinned() == {}
     TR.reset()
+
+
+@pytest.mark.parametrize("n,free", [(3, 5), (9, 2), (12, 0), (13, 0)])
+def test_alloc_rows_takes_the_reference_rows(tables, n, free):
+    """_alloc_rows takes, in one pass, the rows the reference takes by
+    evicting one at a time from the oldest: the free rows first, then the
+    least-recently-used rows neither pinned nor protected; when too few are
+    evictable both evict what they can, give every row back and raise."""
+    t, j = tables
+    for tab in (t, j):
+        tab._rows = {bytes([i]) * 32: i for i in range(ROWS - 1 - free)}
+        tab._ok = dict.fromkeys(tab._rows, True)
+        tab._free = list(range(ROWS - 1 - free, ROWS - 1))
+        tab._pin_count = {bytes([i]) * 32: 1 for i in (0, 1, 4, 5)}
+    protect = frozenset({bytes([2]) * 32, bytes([7]) * 32})
+    got, want = [], []
+    for tab, out in ((t, got), (j, want)):
+        try:
+            out.append(tab._alloc_rows(n, protect=protect))
+        except (TR._NoRoom, JR._NoRoom) as e:
+            out.append(type(e).__name__)
+    assert got == want
+    assert list(t._rows) == list(j._rows) and t._free == j._free
+    assert t.counters["evictions"] == j.counters["evictions"]

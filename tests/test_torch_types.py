@@ -228,17 +228,18 @@ def test_pub_key_proto_round_trip(kind):
     assert back == pub and back.type_() == kind
 
 
-@pytest.mark.parametrize("field,size", [(2, 33), (4, 48)])
-def test_pub_key_from_proto_refuses_key_types_the_port_lacks(field, size):
-    """secp256k1 (field 2) is refused; bls12381 (field 4) decodes to the
-    port's bls12381 key, as in the reference."""
+@pytest.mark.parametrize("field,size,kind", [(2, 33, "secp256k1"), (4, 48, "bls12381")])
+def test_pub_key_from_proto_decodes_secp256k1_and_bls12381(field, size, kind):
+    """secp256k1 (field 2) and bls12381 (field 4) decode to the port's keys
+    of those types, as in the reference; a key of the wrong size raises
+    ErrInvalidKey."""
     data = tpb.Writer().bytes(field, b"\x02" * size, always=True).output()
-    if field == 4:
-        key = tvalidator.pub_key_from_proto(data)
-        assert key.type_() == "bls12381" and key.bytes_() == b"\x02" * size
-        return
+    key = tvalidator.pub_key_from_proto(data)
+    assert key.type_() == kind and key.bytes_() == b"\x02" * size
+    assert jvalidator.pub_key_from_proto(data).address() == key.address()
     with pytest.raises(tcrypto.ErrInvalidKey):
-        tvalidator.pub_key_from_proto(data)
+        tvalidator.pub_key_from_proto(tpb.Writer().bytes(field, b"\x02" * (size - 1),
+                                                         always=True).output())
 
 
 def test_get_by_address_follows_changes_to_the_set():
