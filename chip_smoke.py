@@ -89,6 +89,18 @@ verify_light_client_attack accepts against a stub block store; commit
 certificates at 150 BLS validators (each hop decided by B1-B5, a flipped
 signer bit and a forged aggregate falling back to the classic verdict);
 and a commit with a secp256k1 validator on the serial path, no launch.
+Then the consensus phase (consensus_phase), the mesh off: the port's
+ConsensusState, BlockExecutor, kvstore app over its local ABCI client,
+signature-checked mempool, stores and FilePV as in-process validator nets
+(tests/torch_net_harness.py): 4 ed25519 validators for 10 heights with 64
+signed txs (2 forged) through check_tx, the same net with vote extensions
+from height 2, a mixed net (2 ed25519, 1 sr25519, 1 BLS12-381) for 3
+heights, and one real node among 150 validators (149 stubs, one tampered
+prevote, one equivocation committed as evidence) for 5 heights; every
+batched vote flush and every validate_block must launch K1, K5 and K6 (the
+mixed net K2 and B1, B2, B4, B5), no plain version may run, and the
+per-height times, heightline phases and the 150-validator height's split
+are printed.
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -109,6 +121,7 @@ result.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import functools
 import gc
@@ -4625,6 +4638,445 @@ def consumers_phase(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- consensus phase
+
+SEED_CONSENSUS = 16  # the consensus phase's keys (torch_net_harness seeds, seen nowhere else)
+NET_HEIGHTS, EXT_HEIGHTS, MIXED_HEIGHTS = 10, 5, 3
+N_TXS, BAD_TXS = 64, (17, 45)  # signed txs through check_tx; the two forged
+N_HUB, HUB_HEIGHTS = 150, 5  # BASELINE config 2: one real node among 150 validators
+HUB_TAMPER = (2, 7)  # (height, validator index): the stub that signs one tampered prevote
+HUB_EQUIVOCATE = (2, 11)  # (height, validator index): the stub that equivocates once
+HUB_SIGNERS = 8  # processes signing the stubs' votes
+NET_TIMEOUT_S = 120  # a cell's heights must commit within this
+# the plain versions the consensus path must never take on the card
+PLAIN_ON_PATH = (("verify_kernel", "verify_math_ok"), ("verify_kernel", "verify_math_sr_ok"),
+                 ("verify_kernel", "decompress_math"), ("verify_kernel", "decompress_sr_math"),
+                 ("challenge", "derive_plain"), ("integrity", "parts_plain"))
+
+
+def _harness():
+    """tests/torch_net_harness.py, as bench.py puts tests/ on the path."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if os.path.join(here, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_net_harness
+
+    return torch_net_harness
+
+
+class ConsensusProbe:
+    """While entered: every ConsensusState vote flush, BlockExecutor
+    validate_block and apply_block is timed (host clock; each ends on a
+    fetch of its verdicts) with the launches made during it and the
+    challenge planner's counters (ops/challenge.stats: a batch whose rows
+    the planner declines, e.g. fewer than challenge.MIN_LANES rows of one
+    geometry, takes host k and no K5, by design), and every call of a
+    kernel's plain version is counted (the path must make none)."""
+
+    def __init__(self):
+        self.flushes, self.validates, self.applies = [], [], []
+        self.plain = 0
+
+    def __enter__(self):
+        import importlib
+
+        from cometbft_tpu_torch.consensus.state import ConsensusState
+        from cometbft_tpu_torch.ops import challenge as CH
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+
+        probe = self
+        self._saved = [(ConsensusState, "_flush_vote_set", ConsensusState._flush_vote_set),
+                       (BlockExecutor, "validate_block", BlockExecutor.validate_block),
+                       (BlockExecutor, "apply_block", BlockExecutor.apply_block)]
+        flush, validate, apply = (f for _, _, f in self._saved)
+        self._nested = 0.0
+
+        async def flush_probe(cs, vs):
+            rows, ext = len(vs._pending), vs.extensions_enabled
+            before, plan, t0 = _consumer_launches(), CH.stats(), time.perf_counter()
+            await flush(cs, vs)
+            probe.flushes.append(dict(node=id(cs), height=vs.height, rows=rows, ext=ext,
+                                      kind=int(vs.signed_msg_type),
+                                      ms=(time.perf_counter() - t0) * 1e3,
+                                      launches=_delta(before, _consumer_launches()),
+                                      plan=_delta(plan, CH.stats())))
+
+        def validate_probe(ex, state, block, last_commit_verified=False):
+            before, plan, t0 = _consumer_launches(), CH.stats(), time.perf_counter()
+            validate(ex, state, block, last_commit_verified)
+            ms = (time.perf_counter() - t0) * 1e3
+            probe._nested += ms
+            lc = block.last_commit
+            probe.validates.append(dict(
+                node=id(ex), height=block.header.height, ms=ms,
+                sigs=sum(1 for s in lc.signatures if s.signature) if lc else 0,
+                launches=_delta(before, _consumer_launches()), plan=_delta(plan, CH.stats())))
+
+        async def apply_probe(ex, state, block_id, block, **kw):
+            nested0, t0 = probe._nested, time.perf_counter()
+            out = await apply(ex, state, block_id, block, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            probe.applies.append(dict(node=id(ex), height=block.header.height,
+                                      ms=ms - (probe._nested - nested0)))
+            return out
+
+        ConsensusState._flush_vote_set = flush_probe
+        BlockExecutor.validate_block = validate_probe
+        BlockExecutor.apply_block = apply_probe
+        self._plain = []
+        for mod, name in PLAIN_ON_PATH:
+            m = importlib.import_module(f"cometbft_tpu_torch.ops.{mod}")
+            fn = getattr(m, name)
+            self._plain.append((m, name, fn))
+
+            def counted(*a, _fn=fn, **k):
+                probe.plain += 1
+                return _fn(*a, **k)
+
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved + self._plain:
+            setattr(owner, name, fn)
+        return False
+
+    def calls(self) -> list[dict]:
+        """The batched calls: flushes of >= 2 votes, validate_block with a
+        LastCommit."""
+        return [f for f in self.flushes if f["rows"] >= 2] + \
+            [v for v in self.validates if v["sigs"] >= 1]
+
+    def check_launched(self, label: str) -> dict:
+        """Every batched call launched K1 and K6 (riders and the deadline
+        worker may add launches; none may be missing) and K5 unless the
+        challenge planner declined its rows (a plan_* counter moved), and no
+        plain version ran. Returns the calls with K5 and the planner's
+        reasons for the others."""
+        if self.plain:
+            raise AssertionError(f"{label}: {self.plain} calls of a plain version")
+        calls = self.calls()
+
+        def host_k(c):
+            return any(k.startswith("plan_") for k in c["plan"])
+
+        bad = [c for c in calls
+               if c["launches"].get("ed25519_verify", 0) < 1
+               or c["launches"].get("integrity_parts", 0) < 1
+               or (c["launches"].get("challenge_derive", 0) < 1 and not host_k(c))]
+        if not calls or bad:
+            raise AssertionError(f"{label}: {len(bad)} of {len(calls)} flushes and "
+                                 f"validate_block calls without K1/K6, or without K5 and "
+                                 f"no plan declined: {bad[:3]}")
+        reasons = collections.Counter(k for c in calls if not c["launches"].get(
+            "challenge_derive") for k in c["plan"] if k.startswith("plan_"))
+        return {"calls": len(calls), "k5": sum(1 for c in calls
+                                               if c["launches"].get("challenge_derive")),
+                "host_k": dict(reasons)}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+
+
+def _heightline(nodes) -> dict:
+    from cometbft_tpu_torch.consensus import timeline as TL
+
+    docs = [{"node_id": n.name, "heights": n.cs.timeline.snapshot(), "skew": {}} for n in nodes]
+    return TL.aggregate(docs).get("summary") or {}
+
+
+def _net_config(**kw):
+    from cometbft_tpu_torch.consensus.config import test_consensus_config
+
+    cfg = test_consensus_config()
+    cfg.batch_vote_verification = True
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+async def _net_cell(label: str, heights: int, device, card: str, txs: bool = False, **net_kw):
+    """A 4-validator in-process net on the card until every node holds
+    `heights` blocks: per-height gaps (bench.py:1213's stamps), the
+    heightline, and with `txs` N_TXS signed txs through check_tx."""
+    import asyncio
+
+    H = _harness()
+    from cometbft_tpu_torch.mempool.mempool import ErrTxBadSignature, MempoolConfig
+
+    net_kw.setdefault("config", _net_config())
+    if txs:
+        net_kw.update(app_factory=H.SignedKVStoreApplication,
+                      mempool_config=MempoolConfig(tx_verify="ed25519"))
+    net = await H.make_net(4, chain_id=f"consensus-{label}", device=device,
+                           seed=SEED_CONSENSUS, **net_kw)
+    for n in net.nodes:
+        n.cs.timeline.node = n.name
+    keys = [H.gen_priv("ed25519", 100 + i, SEED_CONSENSUS) for i in range(4)]
+    tx_out: list = []
+
+    admit_ms: list[float] = []
+
+    async def submit(i: int):
+        tx = H.signed_tx(keys[i % 4], b"tx%d=%d" % (i, i), forge=i in BAD_TXS)
+        t = time.perf_counter()
+        try:
+            res = await net.nodes[i % 4].mempool.check_tx(tx)
+            tx_out.append((i, "ok" if res.is_ok() else f"code {res.code}"))
+        except ErrTxBadSignature:
+            tx_out.append((i, "bad signature"))
+        admit_ms.append((time.perf_counter() - t) * 1e3)
+
+    stamps, t0 = {}, time.perf_counter()
+    await net.start()
+    try:
+        last, wave = 0, 0
+        while last < heights:
+            h = net.min_height()
+            if h > last:
+                stamps[h] = time.perf_counter()
+                last = h
+                if txs and wave < 4 and h >= 1:
+                    # 16 txs a height from height 1 on, spread over the nodes
+                    await asyncio.gather(*(submit(i) for i in range(16 * wave, 16 * wave + 16)))
+                    wave += 1
+            if net.failed():
+                raise AssertionError(f"{label}: consensus failure on {net.failed()}")
+            if time.perf_counter() - t0 > NET_TIMEOUT_S:
+                raise AssertionError(f"{label}: {net.min_height()} of {heights} heights in "
+                                     f"{NET_TIMEOUT_S} s")
+            await asyncio.sleep(0.002)
+    finally:
+        await net.stop()
+    wall = time.perf_counter() - t0
+    hashes = [{n.block_store.load_block(h).hash() for n in net.nodes} for h in range(1, heights + 1)]
+    if any(len(s) != 1 for s in hashes):
+        raise AssertionError(f"{label}: the nodes' blocks differ: {hashes}")
+    gaps = sorted(stamps[h + 1] - stamps[h] for h in stamps if h + 1 in stamps)
+    return net, dict(wall_s=wall, gaps_ms=[g * 1e3 for g in gaps],
+                     p50_ms=gaps[len(gaps) // 2] * 1e3 if gaps else None,
+                     heightline=_heightline(net.nodes), txs=sorted(tx_out),
+                     admit_ms=sorted(admit_ms))
+
+
+def net4_cell(device, card: str) -> dict:
+    """bench.py:1213's shape: 4 validators, NET_HEIGHTS heights, N_TXS signed
+    txs (BAD_TXS forged) admitted through the scheduler's MEMPOOL class,
+    riding the vote flushes or the deadline worker's batches."""
+    import asyncio
+
+    from cometbft_tpu_torch import sched
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        net, r = asyncio.run(_net_cell("net4", NET_HEIGHTS, device, card, txs=True))
+        launches = _consumer_launches()
+    k5 = probe.check_launched("net4")
+    # the mempool class's deadline misses (dispatched later than 10 ms + 5 ms
+    # after submit) are measured, not asserted: the event loop that runs the
+    # four nodes also holds the GIL the deadline worker needs (PERF.md §6)
+    health = sched.get().health()
+    if health["recheck_flips"]:
+        raise AssertionError(f"net4: scheduler health {health}")
+    good = sorted(set(range(N_TXS)) - set(BAD_TXS))
+    want = [(i, "bad signature" if i in BAD_TXS else "ok") for i in range(N_TXS)]
+    if r["txs"] != want:
+        raise AssertionError(f"net4: check_tx outcomes {r['txs']}")
+    for n in net.nodes:
+        held = sorted(int(k[2:]) for k in n.app.state if k.startswith("tx"))
+        if held != good:
+            raise AssertionError(f"net4: {n.name}'s app holds txs {held}")
+    _print_net(card, "net4", r, probe, launches, k5)
+    adm = r["admit_ms"]
+    print(f"[{card}] consensus net4 mempool: {len(adm)} check_tx, admission (check_tx call "
+          f"to return) p50 {adm[len(adm) // 2]:.3f} ms, max {adm[-1]:.3f} ms; scheduler "
+          f"deadline misses {health['deadline_miss_by_class']}, worker flushes "
+          f"{health['worker_flushes']}, class rows {health['class_rows']}, recheck flips "
+          f"{health['recheck_flips']}", flush=True)
+    return dict(r, launches=launches, k5=k5, flushes=len(probe.flushes),
+                validates=len(probe.validates), class_rows=health["class_rows"],
+                deadline_misses=health["deadline_miss_by_class"])
+
+
+def ext_cell(device, card: str) -> dict:
+    """net4 with vote extensions from height 2: a precommit flush's
+    extension batch is a second K1 launch."""
+    import asyncio
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        net, r = asyncio.run(_net_cell("net4-ext", EXT_HEIGHTS, device, card,
+                                       ext_enable_height=2))
+        launches = _consumer_launches()
+    k5 = probe.check_launched("net4-ext")
+    ext = [f for f in probe.flushes if f["ext"] and f["rows"] >= 2 and f["height"] >= 2]
+    if not ext or any(f["launches"].get("ed25519_verify", 0) < 2 for f in ext):
+        raise AssertionError(f"net4-ext: extension flushes {ext[:3]}")
+    if any(net.nodes[0].block_store.load_block_extended_commit(h) is None
+           for h in range(2, EXT_HEIGHTS)):
+        raise AssertionError("net4-ext: no extended commit stored")
+    _print_net(card, "net4-ext", r, probe, launches, k5)
+    return dict(r, launches=launches, k5=k5, ext_flushes=len(ext))
+
+
+def mixed_cell(device, card: str) -> dict:
+    """2 ed25519, 1 sr25519 and 1 BLS12-381 validator: K2 and the BLS
+    kernels on the consensus path."""
+    import asyncio
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        net, r = asyncio.run(_net_cell(
+            "net4-mixed", MIXED_HEIGHTS, device, card,
+            key_schemes=["ed25519", "ed25519", "sr25519", "bls12381"],
+            config=_net_config(timeout_propose=3.0, timeout_prevote=1.0,
+                               timeout_precommit=1.0)))
+        launches = _consumer_launches()
+    if probe.plain:
+        raise AssertionError(f"net4-mixed: {probe.plain} calls of a plain version")
+    for k in ("sr25519_verify", "ed25519_verify", "bls_decompress_g1", "bls_decompress_g2",
+              "bls_hash_to_g2", "bls_miller", "bls_final_exp"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"net4-mixed: {k} never launched: {launches}")
+    _print_net(card, "net4-mixed", r, probe, launches, {})
+    return dict(r, launches=launches)
+
+
+def hub_cell(device, card: str) -> dict:
+    import asyncio
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import ed25519_math
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(HUB_SIGNERS, mp_context=ctx) as pool, \
+            ConsensusProbe() as probe:
+        # the signers start (a fresh interpreter each) before the run
+        list(pool.map(ed25519_math.sign, [bytes(32)] * HUB_SIGNERS, [b""] * HUB_SIGNERS))
+        out = asyncio.run(_hub_cell(device, card, pool, probe))
+    out["k5"] = probe.check_launched("hub150")
+    print(f"[{card}] consensus hub150: batched calls with K5 / host k (planner's reasons): "
+          f"{out['k5']}", flush=True)
+    return out
+
+
+def consensus_phase(device, card: str) -> dict:
+    """The consensus phase, after the consumers phase (the mesh off): the
+    port's ConsensusState, BlockExecutor, kvstore over its local ABCI
+    client, mempool, stores and FilePV as in-process validator nets
+    (tests/torch_net_harness.py) on the card: net4 (bench.py:1213's shape,
+    N_TXS signed txs), net4-ext (vote extensions from height 2), net4-mixed
+    (ed25519, sr25519 and BLS12-381 validators) and hub150 (one real node
+    among BASELINE config 2's 150 validators, 149 of them stubs). Every
+    cell starts from a fresh scheduler and key tables. Returns each cell's
+    launches and times."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.consensus import timeline as TL
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import residency
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    crypto_batch.set_backend("gpu")
+    M.reset()
+    TL.configure(enabled=True)
+    out = {}
+    try:
+        for label, cell in (("net4", net4_cell), ("net4-ext", ext_cell),
+                            ("net4-mixed", mixed_cell), ("hub150", hub_cell)):
+            sched.reset()
+            residency.reset()
+            out[label] = cell(device, card)
+    finally:
+        TL.reset()
+        sched.reset()
+        residency.reset()
+    print(f"[{card}] consensus phase (measurements, not claims): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def _print_net(card: str, label: str, r: dict, probe: ConsensusProbe, launches: dict,
+               k5: dict) -> None:
+    hl = r["heightline"]
+    flush_ms = [f["ms"] for f in probe.flushes if f["rows"] >= 2]
+    val_ms = [v["ms"] for v in probe.validates if v["sigs"]]
+    print(f"[{card}] consensus {label}: {len(r['gaps_ms']) + 1} heights in {r['wall_s']:.3f} s, "
+          f"per-height p50 {r['p50_ms']:.3f} ms (gaps {[round(g, 3) for g in r['gaps_ms']]}); "
+          f"heightline phase_ms {hl.get('phase_ms')}, total {hl.get('phase_total_ms')}; "
+          f"{len(flush_ms)} batched flushes (median {statistics.median(flush_ms):.3f} ms), "
+          f"{len(val_ms)} validate_block with a LastCommit (median "
+          f"{statistics.median(val_ms):.3f} ms); batched calls with K5 / host k (planner's "
+          f"reasons): {k5}; launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+
+
+async def _hub_cell(device, card: str, pool, probe: ConsensusProbe) -> dict:
+    import asyncio
+
+    H = _harness()
+    from cometbft_tpu_torch.consensus import timeline as TL
+
+    cfg = _net_config(timeout_propose=5.0, timeout_prevote=3.0, timeout_precommit=3.0)
+    hub = await H.make_hub(N_HUB, real=0, config=cfg, device=device, seed=SEED_CONSENSUS,
+                           tamper=HUB_TAMPER, equivocate=HUB_EQUIVOCATE, sign_pool=pool)
+    hub.node.cs.timeline.node = "real"
+    _consumer_reset()
+    t0 = time.perf_counter()
+    await hub.start()
+    try:
+        await hub.wait_for_height(HUB_HEIGHTS, timeout=NET_TIMEOUT_S)
+    finally:
+        await hub.stop()
+    wall = time.perf_counter() - t0
+    launches = _consumer_launches()
+    bs = hub.node.block_store
+    if hub.misbehavior != [(hub.stub_name(HUB_TAMPER[1]), "invalid-vote-signature")]:
+        raise AssertionError(f"hub150: misbehavior {hub.misbehavior}")
+    ev_heights = [h for h in range(1, bs.height() + 1) if bs.load_block(h).evidence.evidence]
+    if len(ev_heights) != 1 or hub.equivocated != [HUB_EQUIVOCATE]:
+        raise AssertionError(f"hub150: evidence in blocks {ev_heights}, {hub.equivocated}")
+    ev = bs.load_block(ev_heights[0]).evidence.evidence[0]
+    if (ev.height(), ev.vote_a.validator_index) != HUB_EQUIVOCATE:
+        raise AssertionError(f"hub150: evidence {ev.string()}")
+    stub_blocks = {h for idx, hs in hub.proposed.items() for h in hs}
+    full = [v["sigs"] for v in probe.validates if v["height"] in stub_blocks and v["height"] > 1]
+    if not full or any(s != N_HUB for s in full):
+        raise AssertionError(f"hub150: validated LastCommits of {full} signatures")
+    widest = max(f["rows"] for f in probe.flushes)
+    # per height: proposal received -> apply done, split into flushes,
+    # validate_block, apply_block (without its validate_block) and the rest
+    rows = []
+    for rec in hub.node.cs.timeline.snapshot():
+        h, ev_marks = rec["height"], rec["events"]
+        if h > HUB_HEIGHTS or TL.PROPOSAL_RECEIVED not in ev_marks or \
+                TL.APPLY_DONE not in ev_marks:
+            continue
+        total = (ev_marks[TL.APPLY_DONE]["mono_ns"] -
+                 ev_marks[TL.PROPOSAL_RECEIVED]["mono_ns"]) / 1e6
+        fl = sum(f["ms"] for f in probe.flushes if f["height"] == h)
+        va = sum(v["ms"] for v in probe.validates if v["height"] == h)
+        ap = sum(a["ms"] for a in probe.applies if a["height"] == h)
+        rows.append(dict(height=h, total_ms=total, flush_ms=fl, validate_ms=va, apply_ms=ap,
+                         rest_ms=total - fl - va - ap,
+                         flush_rows=[f["rows"] for f in probe.flushes if f["height"] == h]))
+    for row in rows:
+        print(f"[{card}] consensus hub150 height {row['height']}: proposal -> commit "
+              f"{row['total_ms']:.3f} ms = flushes {row['flush_ms']:.3f} (rows "
+              f"{row['flush_rows']}) + validate_block {row['validate_ms']:.3f} + apply_block "
+              f"{row['apply_ms']:.3f} + rest {row['rest_ms']:.3f}", flush=True)
+    print(f"[{card}] consensus hub150: {bs.height()} heights in {wall:.3f} s, widest flush "
+          f"{widest} rows, LastCommits validated at {sorted(set(full))} signatures, evidence "
+          f"committed at height {ev_heights[0]}, stubs' signing {hub.sign_s:.3f} s on "
+          f"{HUB_SIGNERS} processes; launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    return dict(wall_s=wall, launches=launches, per_height=rows, widest_flush=widest,
+                evidence_height=ev_heights[0], sign_s=hub.sign_s)
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -4694,6 +5146,7 @@ def main() -> int:
     bls = bls_phase(device, card, builds["bls12381"][1])
     mesh = mesh_phase(device, card)
     consumers = consumers_phase(device, card)
+    consensus = consensus_phase(device, card)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -4805,9 +5258,12 @@ def main() -> int:
     kernels["kernels"] += bls["records"]
     # each kernel's launches on the consumers' paths: one warm 10,000-vote
     # flush, one light hop, one certificate hop
+    # and on the consensus cells: each whole run (all its nodes and heights)
     on_consumers = {"vote_flush_10k": consumers["votes"]["launches_vote_flush"],
                     "light_hop": consumers["light"]["launches_light_hop"],
-                    "cert_hop": consumers["cert"]["launches_cert_hop"]}
+                    "cert_hop": consumers["cert"]["launches_cert_hop"],
+                    **{f"consensus_{label.replace('-', '_')}": cell["launches"]
+                       for label, cell in consensus.items()}}
     for r in kernels["kernels"]:
         count = BLS_SPLIT.get(r["name"], (None, None, r["name"]))[2]
         for path, launches in on_consumers.items():

@@ -1,6 +1,7 @@
-"""Evidence verification (reference: evidence/verify.go). The port's copy
-of cometbft_tpu/evidence/verify.py's entry points; the pool (pool.py) and
-the gossip reactor (reactor.py) of the reference come with the node.
+"""Evidence (reference: evidence/). The port's copies of
+cometbft_tpu/evidence/verify.py and pool.py: verification, and the pool
+that the consensus engine's equivocations fill and proposals reap. The
+gossip reactor comes with the node.
 """
 
 from cometbft_tpu_torch.evidence.verify import (  # noqa: F401
@@ -9,3 +10,4 @@ from cometbft_tpu_torch.evidence.verify import (  # noqa: F401
     verify_evidence,
     verify_light_client_attack,
 )
+from cometbft_tpu_torch.evidence.pool import EvidencePool  # noqa: F401

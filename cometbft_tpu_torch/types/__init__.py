@@ -3,7 +3,7 @@ commits and extended commits, validator sets, the commit verification that
 feeds the batch verifier (validation.py), VoteSet's batch-first tally
 (vote_set.py), blocks, part sets, evidence, light blocks, consensus params
 and the genesis document. The port's copies of the matching modules of
-cometbft_tpu/types/ (proposals and the event bus come with the node).
+cometbft_tpu/types/, with proposals (the event bus comes with the node).
 """
 
 from cometbft_tpu_torch.types.basic import (  # noqa: F401
@@ -21,6 +21,7 @@ from cometbft_tpu_torch.types.commit import (  # noqa: F401
 )
 from cometbft_tpu_torch.types.validator import Validator, ValidatorSet  # noqa: F401
 from cometbft_tpu_torch.types.vote import Vote  # noqa: F401
+from cometbft_tpu_torch.types.proposal import Proposal  # noqa: F401
 from cometbft_tpu_torch.types.validation import (  # noqa: F401
     verify_commit,
     verify_commit_light,

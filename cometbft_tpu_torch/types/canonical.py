@@ -13,8 +13,8 @@ marshaller:
   - timestamp: ALWAYS emitted (gogoproto non-nullable stdtime)
   - chain_id: omitted when empty
 
-The port's copy of cometbft_tpu/types/canonical.py's vote and vote-extension
-sign bytes (proposals come with the node).
+The port's copy of cometbft_tpu/types/canonical.py: vote, proposal and
+vote-extension sign bytes.
 """
 
 from __future__ import annotations
@@ -68,4 +68,25 @@ def vote_extension_sign_bytes(
     w.sfixed64(2, height)
     w.sfixed64(3, round_)
     w.string(4, chain_id)
+    return pb.marshal_delimited(w.output())
+
+
+def proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round_: int,
+    pol_round: int,
+    block_id: BlockID,
+    timestamp: cmttime.Timestamp,
+) -> bytes:
+    """CanonicalProposal (types/proposal.go ProposalSignBytes,
+    canonical.proto:20-28). pol_round is plain varint int64; -1 when no POL."""
+    w = pb.Writer()
+    w.uvarint(1, int(SignedMsgType.PROPOSAL))
+    w.sfixed64(2, height)
+    w.sfixed64(3, round_)
+    w.varint_i64(4, pol_round)
+    w.message(5, canonical_block_id_bytes(block_id))
+    w.message(6, _timestamp(timestamp), always=True)
+    w.string(7, chain_id)
     return pb.marshal_delimited(w.output())

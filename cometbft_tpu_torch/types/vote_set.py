@@ -25,7 +25,9 @@ it is a ScheduledBatchVerifier, which takes rows of every scheme, so a mixed
 ed25519 + sr25519 set flushes as one drain (one batch a scheme). What
 differs: the flush stages its sign bytes factored (vote.sign_rows: the
 same bytes, one shared prefix a block ID), so it takes the device-challenge
-path (K5); the extension rows stay plain bytes.
+path (K5); the extension rows stay plain bytes. add_pending takes a
+signature of its validator's key type's length (96 bytes for BLS12-381, 64
+for the others), where the reference stages 64-byte signatures only.
 """
 
 from __future__ import annotations
@@ -161,7 +163,8 @@ class VoteSet:
         only; consensus-visible state untouched. Returns True if staged
         (auto-flushes at quorum boundaries / batch size; see flush_pending)."""
         val, _ = self._check_structure(vote)
-        if len(vote.signature) != 64:
+        want = crypto_batch.ScheduledBatchVerifier.SIGNATURE_SIZES.get(val.pub_key.type_(), 64)
+        if len(vote.signature) != want:
             raise ErrVoteInvalidSignature(f"bad signature length {len(vote.signature)}")
         key = (vote.validator_index, vote.block_id.key())
         staged = self._pending_by_key.get(key)

@@ -6,8 +6,8 @@ timestamps as (seconds, nanos) pairs — protobuf Timestamp semantics — becaus
 Python datetimes cannot represent nanoseconds.
 
 The port's copy of cometbft_tpu/utils/cmttime.py: Timestamp, the clock
-reading now() and RFC 3339 formatting (the millisecond vote clock
-canonical_now_ms comes with the node).
+reading now(), the millisecond vote clock canonical_now_ms() and RFC 3339
+formatting.
 """
 
 from __future__ import annotations
@@ -46,6 +46,9 @@ class Timestamp:
     def unix_ns(self) -> int:
         return self.seconds * 1_000_000_000 + self.nanos
 
+    def add_seconds(self, s: float) -> "Timestamp":
+        return self.add_ns(int(s * 1e9))
+
     def add_ns(self, ns: int) -> "Timestamp":
         return Timestamp(0, self.unix_ns() + ns)
 
@@ -64,3 +67,10 @@ class Timestamp:
 
 def now() -> Timestamp:
     return Timestamp.now()
+
+
+def canonical_now_ms() -> Timestamp:
+    """Millisecond-truncated now — vote timestamps in tests."""
+    ns = _time.time_ns()
+    ms = ns // 1_000_000
+    return Timestamp(ms // 1000, (ms % 1000) * 1_000_000)

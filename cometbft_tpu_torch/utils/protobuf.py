@@ -11,7 +11,7 @@ gogoproto's always-emit semantics for non-nullable embedded messages.
 Wire types: 0=varint, 1=fixed64, 2=length-delimited, 5=fixed32.
 
 The port's copy of the parts of cometbft_tpu/utils/protobuf.py that the
-types' sign bytes and protos use.
+types' sign bytes and protos and the signer's state use.
 """
 
 from __future__ import annotations
@@ -138,6 +138,13 @@ def marshal_delimited(body: bytes) -> bytes:
     """Varint length-prefix, matching libs/protoio MarshalDelimited
     (reference: libs/protoio/writer.go:93) used for all sign-bytes."""
     return encode_uvarint(len(body)) + body
+
+
+def unmarshal_delimited(data: bytes, pos: int = 0) -> tuple[bytes, int]:
+    n, pos = decode_uvarint(data, pos)
+    if pos + n > len(data):
+        raise ValueError("truncated delimited message")
+    return data[pos:pos + n], pos + n
 
 
 class Reader:

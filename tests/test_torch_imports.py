@@ -1,6 +1,7 @@
 """Static import guard of the port: no file of cometbft_tpu_torch/, not
-chip_smoke.py and not compare_kernels.py imports JAX or anything of the
-JAX package cometbft_tpu — at module level or inside a function, by an
+chip_smoke.py, not compare_kernels.py and not tests/torch_net_harness.py
+(which chip_smoke.py imports) imports JAX or anything of the JAX package
+cometbft_tpu — at module level or inside a function, by an
 import statement or by importlib/__import__ with a literal name. The
 subprocess check in tests/test_torch_verify.py sees only what importing
 the modules imports; this one reads every import in the source.
@@ -15,7 +16,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cometbft_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
+    REPO / "chip_smoke.py", REPO / "compare_kernels.py", REPO / "tests" / "torch_net_harness.py"]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "cometbft_tpu")
 
 
@@ -87,6 +88,38 @@ def test_consumer_packages_import_no_jax():
         "import sys, importlib\n"
         f"for p in {CONSUMER_PACKAGES!r}:\n"
         "    importlib.import_module('cometbft_tpu_torch.' + p)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+NODE_PACKAGES = ("libs", "abci", "proxy", "mempool", "privval", "consensus", "state", "store",
+                 "evidence")
+
+
+@pytest.mark.parametrize("package", NODE_PACKAGES)
+def test_node_package_is_read_by_the_guard(package):
+    """Every file of the node's packages (the consensus slice) is in
+    PORT_FILES, so the static check reads each import of it."""
+    files = sorted((REPO / "cometbft_tpu_torch" / package).glob("*.py"))
+    assert files and set(files) <= set(PORT_FILES)
+
+
+def test_node_packages_and_net_harness_import_no_jax():
+    """The node's packages and the port's net harness, imported in a fresh
+    interpreter, import neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, importlib\n"
+        f"for p in {NODE_PACKAGES!r}:\n"
+        "    importlib.import_module('cometbft_tpu_torch.' + p)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_net_harness\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -1226,3 +1226,70 @@ def test_invalidate_device_drops_one_domains_card_tables(cuda):
     finally:
         TR.reset()
         CH.reset()
+
+
+@pytest.mark.cuda
+def test_four_validator_net_commits_with_k1_on_every_flush(cuda):
+    """A 4-validator port net (tests/torch_net_harness.py) on the card's
+    backend commits 3 heights; every batched vote flush of >= 2 votes
+    launches K1 and K6, and K5 unless the challenge planner declined its
+    rows (fewer than challenge.MIN_LANES of one geometry: host k), and no
+    flush runs a plain version."""
+    import asyncio
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_net_harness as H
+
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.consensus.config import test_consensus_config
+    from cometbft_tpu_torch.consensus.state import ConsensusState
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    flushes = []
+    orig = ConsensusState._flush_vote_set
+
+    def plan_declines() -> int:
+        return sum(v for k, v in CH.stats().items() if k.startswith("plan_"))
+
+    async def counted(self, vs):
+        n = len(vs._pending)
+        before = (VK.LAUNCHES["ed25519_verify"], CH.LAUNCHES["challenge_derive"],
+                  IN.LAUNCHES["integrity_parts"], plan_declines())
+        await orig(self, vs)
+        after = (VK.LAUNCHES["ed25519_verify"], CH.LAUNCHES["challenge_derive"],
+                 IN.LAUNCHES["integrity_parts"], plan_declines())
+        flushes.append((n, [a - b for a, b in zip(after, before)]))
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the consensus path")
+
+    saved = (VK.verify_math_ok, CH.derive_plain, IN.parts_plain)
+    ConsensusState._flush_vote_set = counted
+    VK.verify_math_ok = CH.derive_plain = IN.parts_plain = plain
+    sched.reset()
+
+    async def run():
+        cfg = test_consensus_config()
+        cfg.batch_vote_verification = True
+        cfg.timeout_propose, cfg.timeout_prevote, cfg.timeout_precommit = 2.0, 1.0, 1.0
+        net = await H.make_net(4, config=cfg, chain_id="card-net", device=cuda)
+        await net.start()
+        try:
+            await net.wait_for_height(3, timeout=120.0)
+        finally:
+            await net.stop()
+        return [[n.block_store.load_block(h).hash() for n in net.nodes] for h in (1, 2, 3)]
+
+    try:
+        hashes = asyncio.run(run())
+    finally:
+        ConsensusState._flush_vote_set = orig
+        VK.verify_math_ok, CH.derive_plain, IN.parts_plain = saved
+        sched.reset()
+        crypto_batch.set_backend("gpu")
+    assert all(len(set(h)) == 1 for h in hashes)
+    batched = [d for n, d in flushes if n >= 2]
+    assert batched and all(d[0] >= 1 and d[2] >= 1 and (d[1] >= 1 or d[3] >= 1)
+                           for d in batched), flushes
