@@ -5077,6 +5077,282 @@ async def _hub_cell(device, card: str, pool, probe: ConsensusProbe) -> dict:
                 evidence_height=ev_heights[0], sign_s=hub.sign_s)
 
 
+# ------------------------------------------------------------------ the wire
+
+SEED_WIRE = 17  # the wire phase's keys (torch_tcp_harness seeds, seen nowhere else)
+WIRE_HEIGHTS = 10  # tcp4's heights (more if the gossiped txs are not all committed by then)
+N_SYNC, SYNC_VALS, SYNC_WINDOW = 1_000, 150, 32  # BASELINE config 3, its depth cut from 10,000
+SYNC_BAD = 77  # the signature the lying peer flips in every LastCommit it serves
+SYNC_TIMEOUT_S = 240  # the sync must reach the tip within this
+
+
+def _tcp_harness():
+    """tests/torch_tcp_harness.py (tests/ on the path, as for _harness)."""
+    _harness()
+    import torch_tcp_harness
+
+    return torch_tcp_harness
+
+
+def _mconn_bytes(nodes) -> tuple[int, int]:
+    """Bytes sent and received over every node's peer connections
+    (MConnection.status(): wire bytes of the encoded packets)."""
+    sent = recv = 0
+    for n in nodes:
+        for p in n.switch.peers.values():
+            st = p.status()
+            sent += st["send"]["bytes_total"]
+            recv += st["recv"]["bytes_total"]
+    return sent, recv
+
+
+async def _tcp4(device, card: str) -> dict:
+    import asyncio
+
+    H, T = _harness(), _tcp_harness()
+    from cometbft_tpu_torch.mempool.mempool import ErrTxBadSignature, MempoolConfig
+
+    net = await T.make_tcp_net(4, config=_net_config(), chain_id="wire-tcp4", device=device,
+                               app_factory=H.SignedKVStoreApplication,
+                               mempool_config=MempoolConfig(tx_verify="ed25519"),
+                               seed=SEED_WIRE)
+    for n in net.nodes:
+        n.cs.timeline.node = n.name
+    key = H.gen_priv("ed25519", 100, SEED_WIRE)
+    txs = [H.signed_tx(key, b"tx%d=%d" % (i, i), forge=i in BAD_TXS) for i in range(N_TXS)]
+    good = sorted(set(range(N_TXS)) - set(BAD_TXS))
+
+    def committed_everywhere() -> bool:
+        return all(sum(k.startswith("tx") for k in n.node.app.state) == len(good)
+                   for n in net.nodes)
+
+    async def submit_all():
+        # all 64 to one node: the mempool reactor gossips the good ones,
+        # each receiver admits them as MEMPOOL rows of its own
+        for i, tx in enumerate(txs):
+            try:
+                res = await net.nodes[0].mempool.check_tx(tx)
+                outcomes.append((i, "ok" if res.is_ok() else f"code {res.code}"))
+            except ErrTxBadSignature:
+                outcomes.append((i, "bad signature"))
+
+    stamps, outcomes, submit, t0 = {}, [], None, time.perf_counter()
+    await net.start()
+    try:
+        last = 0
+        while last < WIRE_HEIGHTS or not committed_everywhere():
+            h = min(n.block_store.height() for n in net.nodes)
+            if h > last:
+                stamps[h] = time.perf_counter()
+                if submit is None:  # a task of its own: the stamps go on
+                    submit = asyncio.get_running_loop().create_task(submit_all())
+                last = h
+            if net.failed():
+                raise AssertionError(f"tcp4: consensus failure on {net.failed()}")
+            if time.perf_counter() - t0 > NET_TIMEOUT_S:
+                raise AssertionError(f"tcp4: {h} heights in {NET_TIMEOUT_S} s, txs committed "
+                                     f"everywhere: {committed_everywhere()}")
+            await asyncio.sleep(0.002)
+        await submit
+        sent, recv = _mconn_bytes(net.nodes)
+    finally:
+        if submit is not None and not submit.done():
+            submit.cancel()
+        await net.stop()
+    wall = time.perf_counter() - t0
+    heights = min(n.block_store.height() for n in net.nodes)
+    for h in range(1, heights + 1):
+        if len({n.block_store.load_block(h).hash() for n in net.nodes}) != 1:
+            raise AssertionError(f"tcp4: the nodes' blocks differ at height {h}")
+    want = [(i, "bad signature" if i in BAD_TXS else "ok") for i in range(N_TXS)]
+    if outcomes != want:
+        raise AssertionError(f"tcp4: check_tx outcomes {outcomes}")
+    committed = [tx for h in range(1, heights + 1)
+                 for tx in net.nodes[0].block_store.load_block(h).data.txs]
+    if any(txs[i] in committed for i in BAD_TXS):
+        raise AssertionError("tcp4: a forged tx is in a block")
+    for n in net.nodes:
+        held = sorted(int(k[2:]) for k in n.node.app.state if k.startswith("tx"))
+        if held != good:
+            raise AssertionError(f"tcp4: {n.name}'s app holds txs {held}")
+    gaps = sorted(stamps[h + 1] - stamps[h] for h in stamps if h + 1 in stamps)
+    return dict(wall_s=wall, heights=heights, gaps_ms=[g * 1e3 for g in gaps],
+                p50_ms=gaps[len(gaps) // 2] * 1e3, heightline=_heightline(net.nodes),
+                sent=sent, recv=recv)
+
+
+def tcp4_cell(device, card: str) -> dict:
+    """4 ed25519 validators over loopback TCP (SecretConnection, MConnection,
+    Switch; the consensus, mempool and evidence reactors), WIRE_HEIGHTS
+    heights, N_TXS signed txs (BAD_TXS forged) handed to one node."""
+    import asyncio
+
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.p2p.conn import secret_connection as SC
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_tcp4(device, card))
+        launches = _consumer_launches()
+    k5 = probe.check_launched("tcp4")
+    health = sched.get().health()
+    # node 0 admits all N_TXS; the others admit what the mempool reactor
+    # gossips them, as MEMPOOL-class rows of their own
+    if health["class_rows"].get("mempool", 0) <= N_TXS:
+        raise AssertionError(f"tcp4: scheduler class rows {health['class_rows']}")
+    n_h = r["heights"]
+    per_h = {k: round(launches.get(k, 0) / n_h, 3)
+             for k in ("challenge_derive", "ed25519_verify", "integrity_parts")}
+    hl = r["heightline"]
+    print(f"[{card}] wire tcp4: {n_h} heights over loopback TCP in {r['wall_s']:.3f} s, "
+          f"per-height gap ({len(r['gaps_ms'])} gaps) p50 {r['p50_ms']:.3f} ms, min "
+          f"{r['gaps_ms'][0]:.3f}, max "
+          f"{r['gaps_ms'][-1]:.3f} (PR 16's in-process net4: 224.8-237.7 ms p50); heightline "
+          f"phase_ms {hl.get('phase_ms')}, total {hl.get('phase_total_ms')}; K5/K1/K6 launches "
+          f"a height {per_h}; MConnection bytes a height sent {r['sent'] / n_h:.0f}, "
+          f"received {r['recv'] / n_h:.0f} (all nodes); AEAD rung {SC.AEAD_RUNG}; "
+          f"scheduler class rows {health['class_rows']}; batched calls with K5 / host k "
+          f"{k5}; launches {({k: v for k, v in launches.items() if v})}", flush=True)
+    return dict(r, launches=launches, k5=k5, per_height=per_h, aead=SC.AEAD_RUNG,
+                class_rows=health["class_rows"])
+
+
+async def _sync150(device, card: str) -> dict:
+    import asyncio
+    import re
+
+    H, T = _harness(), _tcp_harness()
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    H.use_device(device)
+    vals, secrets = make_set(SYNC_VALS, SEED_WIRE, "ed25519")
+    gdoc = GenesisDoc(genesis_time=H.GENESIS_TIME, chain_id=CHAIN_ID, validators=[
+        GenesisValidator(address=v.address, pub_key=v.pub_key, power=v.voting_power)
+        for v in vals.validators])
+    gdoc.validate_and_complete()
+
+    def sign(address: bytes, msg: bytes) -> bytes:
+        _, a, r, renc, pub = secrets[address]
+        return renc + ((r + O.sha512_mod_l(renc, pub, msg) * a) % O.L).to_bytes(32, "little")
+
+    t0 = time.perf_counter()
+    chain = await T.build_chain(gdoc, N_SYNC, sign)
+    build_s = time.perf_counter() - t0
+    hkey, htr, hsw = T.serve_node("honest", gdoc, chain.block_store, SEED_WIRE)
+    liar = T.LyingStore(chain.block_store, SYNC_BAD)
+    lkey, ltr, lsw = T.serve_node("liar", gdoc, liar, SEED_WIRE)
+    node = await T.sync_node(gdoc, SYNC_WINDOW, seed=SEED_WIRE)
+    haddr, laddr = await htr.listen("127.0.0.1:0"), await ltr.listen("127.0.0.1:0")
+    await node.transport.listen("127.0.0.1:0")
+    for sw in (hsw, lsw, node.switch):
+        await sw.start()
+    top = N_SYNC - 1  # the tip waits for its successor's commit
+    t0 = time.perf_counter()
+    try:
+        # the liar first, so that it is asked for blocks before the honest
+        # peer is there to take them
+        await node.switch.dial_peers_async([f"{lkey.id()}@{laddr}"])
+        while liar.served == 0:
+            if time.perf_counter() - t0 > SYNC_TIMEOUT_S:
+                raise AssertionError("sync150: the lying peer served no block")
+            await asyncio.sleep(0.005)
+        await node.switch.dial_peers_async([f"{hkey.id()}@{haddr}"], persistent=True)
+        while node.block_store.height() < top or node.reactor.active:
+            if time.perf_counter() - t0 > SYNC_TIMEOUT_S:
+                raise AssertionError(f"sync150: {node.block_store.height()} of {top} blocks in "
+                                     f"{SYNC_TIMEOUT_S} s")
+            await asyncio.sleep(0.01)
+        wall = time.perf_counter() - t0
+        await asyncio.sleep(0.05)  # the handed-over consensus enters its height
+        rs_height = node.cs.rs.height
+    finally:
+        for sw in (node.switch, hsw, lsw):
+            await sw.stop()
+        await node.conns.stop()
+    log = node.log.getvalue()
+    caught = re.findall(r"invalid block in sync height=(\d+) err=\"[^\"]*#(\d+)\)", log)
+    if not caught or any(int(i) != SYNC_BAD for _, i in caught):
+        raise AssertionError(f"sync150: the tampered signature was not pinpointed: {log[-1500:]}")
+    lid = lkey.id()
+    if lid in node.switch.peers or lid not in node.switch.scorer.snapshot():
+        raise AssertionError("sync150: the lying peer was not stopped for its blocks")
+    for h in range(1, top + 1):
+        mine, honest = node.block_store.load_block(h), chain.block_store.load_block(h)
+        if mine.hash() != honest.hash() or mine.last_commit.hash() != honest.last_commit.hash():
+            raise AssertionError(f"sync150: block {h} is not the honest chain's")
+    state = node.state_store.load()
+    if state.to_bytes() != chain.states[top] or \
+            state.app_hash != chain.block_store.load_block(N_SYNC).header.app_hash:
+        raise AssertionError("sync150: the synced State is not the honest chain's")
+    if node.cons_reactor.wait_sync or rs_height != N_SYNC:
+        raise AssertionError(f"sync150: consensus at height {rs_height}, not {N_SYNC}")
+    bcr = node.reactor
+    return dict(build_s=build_s, sign_s=chain.sign_s, wall_s=wall, blocks=top,
+                sigs=top * SYNC_VALS, windows=bcr.windows, stage_s=bcr.stage_s,
+                device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s, redone=len(caught),
+                liar_served=liar.served)
+
+
+def sync150_cell(device, card: str) -> dict:
+    """BASELINE config 3 (cut to N_SYNC blocks): a fresh node syncs a
+    150-validator chain from an honest peer and a lying one through
+    BlocksyncReactor's SYNC windows, then switches to consensus."""
+    import asyncio
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_sync150(device, card))
+        launches = _consumer_launches()
+    if probe.plain:
+        raise AssertionError(f"sync150: {probe.plain} calls of a plain version")
+    if launches.get("ed25519_verify", 0) < r["windows"]:
+        raise AssertionError(f"sync150: {launches} for {r['windows']} windows")
+    w = max(r["windows"], 1)
+    print(f"[{card}] wire sync150: {r['blocks']} blocks x {SYNC_VALS} validators in "
+          f"{r['wall_s']:.3f} s = {r['blocks'] / r['wall_s']:.1f} blocks/s, "
+          f"{r['sigs'] / r['wall_s']:.0f} signatures/s; {r['windows']} windows of up to "
+          f"{SYNC_WINDOW}: stage {r['stage_s'] / w * 1e3:.3f} ms, prefetch (device wait) "
+          f"{r['device_busy_s'] / w * 1e3:.3f} ms, finish + validate + apply "
+          f"{r['apply_s'] / w * 1e3:.3f} ms a window; device_busy_s {r['device_busy_s']:.3f}; "
+          f"K1 launches a window {launches.get('ed25519_verify', 0) / w:.3f}; the liar served "
+          f"{r['liar_served']} blocks, {r['redone']} windows redone; chain build "
+          f"{r['build_s']:.3f} s ({r['sign_s']:.3f} s signing); launches "
+          f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    return dict(r, launches=launches)
+
+
+def wire_phase(device, card: str) -> dict:
+    """The wire phase, after the consensus phase: the port's p2p
+    (SecretConnection, MConnection, Switch) with the consensus, mempool and
+    evidence reactors as a 4-validator net over loopback TCP (tcp4), and
+    BlocksyncReactor syncing BASELINE config 3's 150-validator chain from
+    an honest and a lying peer through SYNC windows (sync150)."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.consensus import timeline as TL
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import residency
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    crypto_batch.set_backend("gpu")
+    M.reset()
+    TL.configure(enabled=True)
+    out = {}
+    try:
+        for label, cell in (("tcp4", tcp4_cell), ("sync150", sync150_cell)):
+            sched.reset()
+            residency.reset()
+            out[label] = cell(device, card)
+    finally:
+        TL.reset()
+        sched.reset()
+        residency.reset()
+    print(f"[{card}] wire phase (measurements, not claims): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -5147,6 +5423,7 @@ def main() -> int:
     mesh = mesh_phase(device, card)
     consumers = consumers_phase(device, card)
     consensus = consensus_phase(device, card)
+    wire = wire_phase(device, card)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -5263,7 +5540,8 @@ def main() -> int:
                     "light_hop": consumers["light"]["launches_light_hop"],
                     "cert_hop": consumers["cert"]["launches_cert_hop"],
                     **{f"consensus_{label.replace('-', '_')}": cell["launches"]
-                       for label, cell in consensus.items()}}
+                       for label, cell in consensus.items()},
+                    **{f"wire_{label}": cell["launches"] for label, cell in wire.items()}}
     for r in kernels["kernels"]:
         count = BLS_SPLIT.get(r["name"], (None, None, r["name"]))[2]
         for path, launches in on_consumers.items():

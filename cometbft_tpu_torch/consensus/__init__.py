@@ -1,8 +1,9 @@
 """Consensus core, the Tendermint state machine (reference: consensus/).
 The port's copy of the in-process part of cometbft_tpu/consensus/: one
 asyncio task a node serialises every transition, and peer votes reach the
-card through VoteSet's batched flush. The WAL and replay, the reactor and
-its codec come with the node.
+card through VoteSet's batched flush. The reactor, its wire codec and the
+peer state (consensus/reactor.py) carry it between nodes; the WAL and
+replay come with the node.
 """
 
 from cometbft_tpu_torch.consensus.config import ConsensusConfig  # noqa: F401

@@ -1,7 +1,7 @@
 """Evidence (reference: evidence/). The port's copies of
 cometbft_tpu/evidence/verify.py and pool.py: verification, and the pool
 that the consensus engine's equivocations fill and proposals reap. The
-gossip reactor comes with the node.
+gossip reactor is evidence/reactor.py.
 """
 
 from cometbft_tpu_torch.evidence.verify import (  # noqa: F401

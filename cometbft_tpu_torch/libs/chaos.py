@@ -13,8 +13,11 @@ A site is a seam where a device operation can fail. The port fires these:
   dispatch.doublebuf the per-domain two-slot in-flight gate
                      (ops/dispatch.DoubleBuffer): a fault there degrades the
                      domain to one batch in flight until its breaker closes
+  net.dial / net.accept / net.handshake
+                     the p2p transport's dial, accept and upgrade
+                     (p2p/transport.py)
 
-The other names of SITES (fetch, challenge, pallas, mixed, sched, net and
+The other names of SITES (fetch, challenge, pallas, mixed, sched and
 light sites) are the reference's; the port accepts them in a schedule so
 that one schedule string serves both packages, and fires none of them yet.
 

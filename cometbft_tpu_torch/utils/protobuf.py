@@ -11,7 +11,9 @@ gogoproto's always-emit semantics for non-nullable embedded messages.
 Wire types: 0=varint, 1=fixed64, 2=length-delimited, 5=fixed32.
 
 The port's copy of the parts of cometbft_tpu/utils/protobuf.py that the
-types' sign bytes and protos and the signer's state use.
+types' sign bytes and protos and the signer's state use, and of
+read_delimited_async from cometbft_tpu/abci/proto_codec.py, which the p2p
+secret connection reads its handshake with.
 """
 
 from __future__ import annotations
@@ -90,6 +92,9 @@ class Writer:
             self._tag(field, 0)
             self.buf += encode_uvarint(v)
         return self
+
+    def bool(self, field: int, v: bool, always: bool = False) -> "Writer":
+        return self.uvarint(field, 1 if v else 0, always)
 
     def varint_i64(self, field: int, v: int, always: bool = False) -> "Writer":
         if v or always:
@@ -223,3 +228,32 @@ def timestamp_bytes(seconds: int, nanos: int) -> bytes:
     w.varint_i64(1, seconds)
     w.varint_i64(2, nanos)
     return w.output()
+
+
+MAX_DELIMITED_SIZE = 64 * 1024 * 1024  # reference: abci/types/messages.go limits
+
+
+async def read_delimited_async(reader, first_byte: bytes = b"",
+                               max_size: int = MAX_DELIMITED_SIZE) -> bytes:
+    """Read one varint-length-delimited message from any object with an
+    async readexactly() (libs/protoio/reader.go semantics). first_byte: a
+    prefix byte the caller already consumed."""
+    n = 0
+    shift = 0
+    pre = first_byte
+    while True:
+        if pre:
+            b, pre = pre, b""
+        else:
+            b = await reader.readexactly(1)
+        if shift == 63 and b[0] > 1:
+            raise ValueError("varint length prefix overflows uint64")
+        n |= (b[0] & 0x7F) << shift
+        if not b[0] & 0x80:
+            break
+        shift += 7
+        if shift > 63:
+            raise ValueError("varint length prefix too long")
+    if n > max_size:
+        raise ValueError(f"message of {n} bytes exceeds {max_size}")
+    return await reader.readexactly(n)

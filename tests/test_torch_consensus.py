@@ -236,10 +236,23 @@ async def _run_single(side: str, heights: int):
                                                  _jax_priv(0, seed=3), _config(JConfig))
     for i in range(3):
         await mempool.check_tx(b"solo%d=%d" % (i, i))
+    # The State is taken as update_to_state receives the one of height
+    # `heights`: the block store saves a height before apply_block's awaits
+    # end, so a poll of bs.height() alone can stop the node in between, and
+    # a poll of cs.state can let it move on to the next height.
+    at_height: list[bytes] = []
+    update_to_state = cs.update_to_state
+
+    def capture(state):
+        if state.last_block_height == heights and not at_height:
+            at_height.append(state.to_bytes())
+        update_to_state(state)
+
+    cs.update_to_state = capture
     await cs.start()
     try:
         async def poll():
-            while bs.height() < heights:
+            while not at_height or bs.height() < heights:
                 assert not cs.failed
                 await asyncio.sleep(0.01)
 
@@ -249,7 +262,7 @@ async def _run_single(side: str, heights: int):
         await conns.stop()
     return ([bs.load_block(h).hash() for h in range(1, heights + 1)],
             [bs.load_seen_commit(h).to_proto() for h in range(1, heights + 1)],
-            cs.state.to_bytes())
+            at_height[0])
 
 
 def test_single_validator_chain_is_bit_equal_to_the_reference_s():

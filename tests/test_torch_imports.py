@@ -1,6 +1,6 @@
 """Static import guard of the port: no file of cometbft_tpu_torch/, not
-chip_smoke.py, not compare_kernels.py and not tests/torch_net_harness.py
-(which chip_smoke.py imports) imports JAX or anything of the JAX package
+chip_smoke.py, not compare_kernels.py and not tests/torch_net_harness.py or
+tests/torch_tcp_harness.py (which chip_smoke.py imports) imports JAX or anything of the JAX package
 cometbft_tpu — at module level or inside a function, by an
 import statement or by importlib/__import__ with a literal name. The
 subprocess check in tests/test_torch_verify.py sees only what importing
@@ -16,7 +16,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cometbft_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "compare_kernels.py", REPO / "tests" / "torch_net_harness.py"]
+    REPO / "chip_smoke.py", REPO / "compare_kernels.py", REPO / "tests" / "torch_net_harness.py",
+    REPO / "tests" / "torch_tcp_harness.py"]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "cometbft_tpu")
 
 
@@ -120,6 +121,45 @@ def test_node_packages_and_net_harness_import_no_jax():
         "    importlib.import_module('cometbft_tpu_torch.' + p)\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_net_harness\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+# the wire slice: the p2p layer, its support in libs/ and crypto/, the
+# reactors and block sync
+WIRE_MODULES = (
+    "libs.flowrate", "libs.linkmodel", "crypto.fallback", "crypto._libcrypto", "p2p.key",
+    "p2p.node_info", "p2p.base_reactor", "p2p.conn.secret_connection", "p2p.conn.connection",
+    "p2p.netchaos", "p2p.peer", "p2p.transport", "p2p.switch", "consensus.reactor_codec",
+    "consensus.peer_state", "consensus.reactor", "mempool.reactor", "evidence.reactor",
+    "blocksync.messages", "blocksync.pool", "blocksync.reactor")
+
+
+@pytest.mark.parametrize("module", WIRE_MODULES)
+def test_wire_module_is_read_by_the_guard(module):
+    """Each module of the wire slice is a file of the port that the static
+    check reads, with a counterpart of the same path in the JAX package."""
+    rel = pathlib.Path(*module.split(".")).with_suffix(".py")
+    assert REPO / "cometbft_tpu_torch" / rel in PORT_FILES
+    assert (REPO / "cometbft_tpu" / rel).is_file()
+
+
+def test_wire_modules_and_tcp_harness_import_no_jax():
+    """The wire slice's modules and the port's TCP harness, imported in a
+    fresh interpreter, import neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, importlib\n"
+        f"for m in {WIRE_MODULES!r}:\n"
+        "    importlib.import_module('cometbft_tpu_torch.' + m)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_tcp_harness\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
         "assert not bad, bad\n"
     )
