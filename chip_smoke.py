@@ -4710,7 +4710,7 @@ class ConsensusProbe:
             probe._nested += ms
             lc = block.last_commit
             probe.validates.append(dict(
-                node=id(ex), height=block.header.height, ms=ms,
+                node=id(ex), height=block.header.height, ms=ms, lcv=last_commit_verified,
                 sigs=sum(1 for s in lc.signatures if s.signature) if lc else 0,
                 launches=_delta(before, _consumer_launches()), plan=_delta(plan, CH.stats())))
 
@@ -4745,9 +4745,9 @@ class ConsensusProbe:
 
     def calls(self) -> list[dict]:
         """The batched calls: flushes of >= 2 votes, validate_block with a
-        LastCommit."""
+        LastCommit that block sync has not already verified."""
         return [f for f in self.flushes if f["rows"] >= 2] + \
-            [v for v in self.validates if v["sigs"] >= 1]
+            [v for v in self.validates if v["sigs"] >= 1 and not v["lcv"]]
 
     def check_launched(self, label: str) -> dict:
         """Every batched call launched K1 and K6 (riders and the deadline
@@ -5291,7 +5291,7 @@ async def _sync150(device, card: str) -> dict:
     return dict(build_s=build_s, sign_s=chain.sign_s, wall_s=wall, blocks=top,
                 sigs=top * SYNC_VALS, windows=bcr.windows, stage_s=bcr.stage_s,
                 device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s, redone=len(caught),
-                liar_served=liar.served)
+                liar_served=liar.served, chain=chain)
 
 
 def sync150_cell(device, card: str) -> dict:
@@ -5349,6 +5349,463 @@ def wire_phase(device, card: str) -> dict:
         sched.reset()
         residency.reset()
     print(f"[{card}] wire phase (measurements, not claims): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ the node
+
+NODE_HEIGHTS = 20  # node4's heights at the least
+NODE_TXS = 40  # kvstore txs handed to one node of node4
+NODE_RESTART_LAG = 3  # heights the others commit while node4's stopped node is down
+NODE_PROC_HEIGHT = 5  # the four `start` processes' common chain at the least
+NODE_TIMEOUT_S = 180  # a node cell must reach its heights within this
+PROC_STOP_S = 30  # a `start` process must exit this long after SIGTERM
+
+
+def _node_root() -> str:
+    """build/node_phase in the checkout (build/ is not committed): the
+    node homes of the phase, removed when it ends."""
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "node_phase")
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _testnet_homes(root: str, n: int, chain_id: str) -> list[str]:
+    """`testnet --v n` homes under `root` on the "gpu" backend that
+    `testnet` writes, set as the port's node runs today: RPC, PEX and
+    certificates off, free loopback ports wired as persistent peers, log
+    level error, and the consensus timeouts of the harness nets
+    (_net_config), so that node4 compares with tcp4. Stores (sqlite), the
+    WAL, the kv indexer and metrics keep the reference's defaults."""
+    import os
+
+    from cometbft_tpu_torch.cmd import main as cli
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.p2p.key import NodeKey
+
+    if cli(["testnet", "--v", str(n), "--o", root, "--chain-id", chain_id]) != 0:
+        raise AssertionError(f"testnet --v {n} failed")
+    homes = [os.path.join(root, f"node{i}") for i in range(n)]
+    ids = [NodeKey.load_or_gen(Config.load(h).node_key_path()).id() for h in homes]
+    ports = _free_ports(n)
+    for i, h in enumerate(homes):
+        c = Config.load(h)
+        if c.crypto.backend != "gpu":
+            raise AssertionError(f"testnet wrote crypto.backend = {c.crypto.backend!r}")
+        c.rpc.laddr = ""
+        c.p2p.pex = False
+        c.cert.enabled = False
+        c.base.log_level = "error"
+        c.p2p.laddr = f"tcp://127.0.0.1:{ports[i]}"
+        c.p2p.persistent_peers = ",".join(f"{ids[j]}@127.0.0.1:{ports[j]}"
+                                          for j in range(n) if j != i)
+        c.consensus = _net_config()
+        c.save()
+    return homes
+
+
+async def _node4(root: str) -> dict:
+    import asyncio
+
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.types.block import tx_hash
+
+    homes = _testnet_homes(root, 4, "node-net4")
+    t0 = time.perf_counter()
+    nodes = [Node(Config.load(h)) for h in homes]
+    for n in nodes:
+        await n.start()
+    boot_s = time.perf_counter() - t0
+    txs = [b"node%d=v%d" % (i, i) for i in range(NODE_TXS)]
+    outcomes: list = []
+
+    async def submit_all():
+        for tx in txs:
+            res = await nodes[0].mempool.check_tx(tx)
+            outcomes.append(res.code)
+
+    def in_apps(ns) -> bool:
+        return all(sum(k.startswith("node") for k in n.app.state) == NODE_TXS for n in ns)
+
+    def failed(ns):
+        return [i for i, n in enumerate(ns) if n.consensus_state.failed]
+
+    stamps, submit, t1 = {}, None, time.perf_counter()
+    restarted = None
+    try:
+        last = 0
+        while last < NODE_HEIGHTS or not in_apps(nodes):
+            h = min(n.block_store.height() for n in nodes)
+            if h > last:
+                stamps[h] = time.perf_counter()
+                if submit is None:
+                    submit = asyncio.get_running_loop().create_task(submit_all())
+                last = h
+            if failed(nodes) or time.perf_counter() - t1 > NODE_TIMEOUT_S:
+                raise AssertionError(f"node4: {h} heights, failed nodes {failed(nodes)}, txs "
+                                     f"in every app: {in_apps(nodes)}")
+            await asyncio.sleep(0.002)
+        await submit
+        wall = time.perf_counter() - t1
+        heights = min(n.block_store.height() for n in nodes)
+        # the consensus height gauge against the block store, sampled
+        # between heights; every tx found by every node's indexer
+        t2 = time.perf_counter()
+        while any(n.consensus_metrics.height.value() != n.block_store.height() for n in nodes):
+            if time.perf_counter() - t2 > 5.0:
+                raise AssertionError("node4: the height gauge does not follow the block store: "
+                                     f"{[(n.consensus_metrics.height.value(), n.block_store.height()) for n in nodes]}")
+            await asyncio.sleep(0.001)
+        await asyncio.sleep(0.2)  # the indexers drain the event bus
+        missing = [(i, tx) for i, n in enumerate(nodes) for tx in txs
+                   if n.tx_indexer.get(tx_hash(tx)) is None]
+        if missing or outcomes != [0] * NODE_TXS:
+            raise AssertionError(f"node4: check_tx codes {outcomes}, not indexed {missing[:4]}")
+        # one node stopped and started again from its home: the handshake
+        # replays the blocks its fresh kvstore app lacks, the WAL the
+        # messages of the height it was in, block sync what the others
+        # committed meanwhile
+        down = nodes[3]
+        h_stop = down.block_store.height()
+        await down.stop()
+        while min(n.block_store.height() for n in nodes[:3]) < h_stop + NODE_RESTART_LAG:
+            if failed(nodes[:3]) or time.perf_counter() - t1 > NODE_TIMEOUT_S:
+                raise AssertionError(f"node4: 3 nodes stalled at {h_stop}")
+            await asyncio.sleep(0.01)
+        t3 = time.perf_counter()
+        restarted = nodes[3] = Node(Config.load(homes[3]))
+        await restarted.start()
+        target = max(n.block_store.height() for n in nodes[:3])
+        while restarted.block_store.height() < target or not in_apps([restarted]):
+            if failed(nodes) or time.perf_counter() - t3 > NODE_TIMEOUT_S:
+                raise AssertionError(f"node4: the restarted node at "
+                                     f"{restarted.block_store.height()} of {target}")
+            await asyncio.sleep(0.005)
+        catch_up = time.perf_counter() - t3
+    finally:
+        if submit is not None and not submit.done():
+            submit.cancel()
+        for n in nodes:
+            if n.is_running:
+                await n.stop()
+    top = min(n.block_store.height() for n in nodes)
+    for h in range(1, top + 1):
+        if len({n.block_store.load_block(h).hash() for n in nodes}) != 1:
+            raise AssertionError(f"node4: the nodes' blocks differ at height {h}")
+    gaps = sorted(stamps[h + 1] - stamps[h] for h in stamps if h + 1 in stamps)
+    return dict(boot_s=boot_s, wall_s=wall, heights=heights, top=top, h_stop=h_stop,
+                target=target, catch_up_s=catch_up, gaps_ms=[g * 1e3 for g in gaps],
+                p50_ms=gaps[len(gaps) // 2] * 1e3,
+                restart_replayed=restarted.block_store.height() - h_stop)
+
+
+def node4_cell(device, card: str, run: str = "node4") -> dict:
+    """Four Nodes in one process from `testnet --v 4` homes on the card,
+    NODE_TXS kvstore txs handed to one of them; one node stopped and
+    started again from its home. `run` names the run and its homes."""
+    import asyncio
+    import os
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_node4(os.path.join(_node_root(), run)))
+        launches = _consumer_launches()
+    k5 = probe.check_launched(run)
+    for k in ("challenge_derive", "ed25519_verify", "integrity_parts"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"{run}: {k} never launched: {launches}")
+    n_h = r["top"]
+    per_h = {k: round(launches.get(k, 0) / n_h, 3)
+             for k in ("challenge_derive", "ed25519_verify", "integrity_parts")}
+    print(f"[{card}] node {run}: {r['heights']} heights through Node (sqlite, WAL, kv indexer, "
+          f"metrics) in {r['wall_s']:.3f} s after a boot of {r['boot_s']:.3f} s, per-height gap "
+          f"({len(r['gaps_ms'])} gaps) p50 {r['p50_ms']:.3f} ms, min {r['gaps_ms'][0]:.3f}, max "
+          f"{r['gaps_ms'][-1]:.3f}; a node stopped at {r['h_stop']} and started again caught up "
+          f"to {r['target']} in {r['catch_up_s']:.3f} s; K5/K1/K6 launches a height over "
+          f"{n_h} heights {per_h}; batched calls with K5 / host k {k5}; launches "
+          f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    return dict(r, launches=launches, per_height=per_h, k5=k5)
+
+
+async def _node_sync150(root: str, chain) -> dict:
+    import asyncio
+    import os
+
+    T = _tcp_harness()
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import Node, init_files
+
+    home = os.path.join(root, "sync")
+    init_files(home, chain_id=CHAIN_ID, moniker="sync")
+    with open(os.path.join(home, "config", "genesis.json"), "w") as f:
+        f.write(chain.gdoc.to_json())
+    hkey, htr, hsw = T.serve_node("honest", chain.gdoc, chain.block_store, SEED_WIRE)
+    haddr = await htr.listen("127.0.0.1:0")
+    c = Config.load(home)
+    c.rpc.laddr = ""
+    c.p2p.pex = False
+    c.cert.enabled = False
+    c.base.log_level = "error"
+    c.p2p.laddr = "tcp://127.0.0.1:0"
+    c.p2p.persistent_peers = f"{hkey.id()}@{haddr}"
+    c.save()
+    await hsw.start()
+    node = Node(Config.load(home))
+    if not node.blocksync_active:
+        raise AssertionError("node sync150: block sync is not active on a fresh non-validator")
+    top = N_SYNC - 1  # the tip waits for its successor's commit
+    t0 = time.perf_counter()
+    try:
+        await node.start()
+        while node.block_store.height() < top or node.blocksync_reactor.active:
+            if time.perf_counter() - t0 > SYNC_TIMEOUT_S:
+                raise AssertionError(f"node sync150: {node.block_store.height()} of {top} blocks "
+                                     f"in {SYNC_TIMEOUT_S} s")
+            await asyncio.sleep(0.01)
+        wall = time.perf_counter() - t0
+    finally:
+        if node.is_running:
+            await node.stop()
+        await hsw.stop()
+    for h in (1, top // 2, top):
+        if node.block_store.load_block(h).hash() != chain.block_store.load_block(h).hash():
+            raise AssertionError(f"node sync150: block {h} is not the chain's")
+    state = node.state_store.load()
+    if state.last_block_height < top or (state.last_block_height == top
+                                         and state.to_bytes() != chain.states[top]):
+        raise AssertionError(f"node sync150: the synced State at {state.last_block_height} is "
+                             "not the chain's")
+    bcr = node.blocksync_reactor
+    return dict(wall_s=wall, blocks=top, window=bcr.window, windows=bcr.windows,
+                stage_s=bcr.stage_s, device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s)
+
+
+async def _harness_sync_w8(chain) -> dict:
+    """torch_tcp_harness.sync_node at the window a Node runs (blocksync's
+    VERIFY_WINDOW) on the same chain from the same honest peer alone: the
+    harness side of node sync150, with MemDB stores and no indexer,
+    metrics or WAL."""
+    import asyncio
+
+    T = _tcp_harness()
+    from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW
+
+    hkey, htr, hsw = T.serve_node("honest", chain.gdoc, chain.block_store, SEED_WIRE)
+    node = await T.sync_node(chain.gdoc, VERIFY_WINDOW, seed=SEED_WIRE)
+    haddr = await htr.listen("127.0.0.1:0")
+    await node.transport.listen("127.0.0.1:0")
+    top = N_SYNC - 1
+    t0 = time.perf_counter()
+    try:
+        for sw in (hsw, node.switch):
+            await sw.start()
+        await node.switch.dial_peers_async([f"{hkey.id()}@{haddr}"], persistent=True)
+        while node.block_store.height() < top or node.reactor.active:
+            if time.perf_counter() - t0 > SYNC_TIMEOUT_S:
+                raise AssertionError(f"harness sync150 w{VERIFY_WINDOW}: "
+                                     f"{node.block_store.height()} of {top} blocks in "
+                                     f"{SYNC_TIMEOUT_S} s")
+            await asyncio.sleep(0.01)
+        wall = time.perf_counter() - t0
+    finally:
+        for sw in (node.switch, hsw):
+            await sw.stop()
+        await node.conns.stop()
+    if node.state_store.load().to_bytes() != chain.states[top]:
+        raise AssertionError(f"harness sync150 w{VERIFY_WINDOW}: the synced State is not the "
+                             "chain's")
+    bcr = node.reactor
+    return dict(wall_s=wall, blocks=top, window=VERIFY_WINDOW, windows=bcr.windows,
+                stage_s=bcr.stage_s, device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s)
+
+
+def _print_sync_windows(r: dict, launches: dict) -> str:
+    w = max(r["windows"], 1)
+    return (f"{r['blocks']} blocks x {SYNC_VALS} validators in {r['wall_s']:.3f} s = "
+            f"{r['blocks'] / r['wall_s']:.1f} blocks/s, {r['blocks'] * SYNC_VALS / r['wall_s']:.0f} "
+            f"signatures/s; {r['windows']} windows: stage {r['stage_s'] / w * 1e3:.3f} ms, "
+            f"prefetch (device wait) {r['device_busy_s'] / w * 1e3:.3f} ms, finish + validate + "
+            f"apply {r['apply_s'] / w * 1e3:.3f} ms a window; K1 launches a window "
+            f"{launches.get('ed25519_verify', 0) / w:.3f}")
+
+
+def harness_sync_w8_cell(device, card: str, chain) -> dict:
+    """The harness's sync of node sync150's chain at node sync150's window,
+    run just before it: what the Node's own layers add to a sync is the
+    difference between the two."""
+    import asyncio
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_harness_sync_w8(chain))
+        launches = _consumer_launches()
+    if probe.plain:
+        raise AssertionError(f"harness sync150 w8: {probe.plain} calls of a plain version")
+    if launches.get("ed25519_verify", 0) < r["windows"] or r["windows"] < 1:
+        raise AssertionError(f"harness sync150 w8: {launches} for {r['windows']} windows")
+    print(f"[{card}] node phase, harness sync150 at window {r['window']} (MemDB, no indexer, "
+          f"metrics or WAL; honest peer only): {_print_sync_windows(r, launches)}", flush=True)
+    return dict(r, k1_launches=launches.get("ed25519_verify", 0))
+
+
+def node_sync150_cell(device, card: str, chain) -> dict:
+    """A fresh non-validator Node (sqlite, block sync on) syncs the wire
+    phase's BASELINE config 3 chain (N_SYNC blocks x 150 validators) from
+    torch_tcp_harness.serve_node."""
+    import asyncio
+    import os
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_node_sync150(os.path.join(_node_root(), "sync150"), chain))
+        launches = _consumer_launches()
+    if probe.plain:
+        raise AssertionError(f"node sync150: {probe.plain} calls of a plain version")
+    if launches.get("ed25519_verify", 0) < r["windows"] or r["windows"] < 1:
+        raise AssertionError(f"node sync150: {launches} for {r['windows']} windows")
+    print(f"[{card}] node sync150 through Node (sqlite, kv indexer, metrics, WAL; window "
+          f"{r['window']}): {_print_sync_windows(r, launches)}; launches "
+          f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    return dict(r, launches=launches)
+
+
+def node_procs_cell(card: str) -> dict:
+    """Four OS processes, `python -m cometbft_tpu_torch --home nodeI start
+    --crypto_backend gpu`, on the card from `testnet --v 4` homes; stopped
+    with SIGTERM once each has committed NODE_PROC_HEIGHT + 1 blocks.
+    Their block stores must agree up to the lowest height."""
+    import os
+    import signal
+    import subprocess
+
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.store.db import open_db
+
+    root = os.path.join(_node_root(), "procs")
+    homes = _testnet_homes(root, 4, "node-procs")
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def heights() -> list[int]:
+        out = []
+        for h in homes:
+            path = os.path.join(h, "data", "blockstore.db")
+            if not os.path.exists(path):
+                out.append(0)
+                continue
+            db = open_db("sqlite", path, checksum=True)
+            out.append(BlockStore(db).height())
+            db.close()
+        return out
+
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for i, h in enumerate(homes):
+            log = open(os.path.join(root, f"node{i}.log"), "wb")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "cometbft_tpu_torch", "--home", h, "start",
+                 "--crypto_backend", "gpu"], cwd=repo, stdout=log,
+                stderr=subprocess.STDOUT))
+        first = None
+        while min(heights()) < NODE_PROC_HEIGHT + 1:
+            if first is None and min(heights()) >= 1:
+                first = time.perf_counter() - t0
+            dead = [(i, p.returncode) for i, p in enumerate(procs) if p.poll() is not None]
+            if dead or time.perf_counter() - t0 > NODE_TIMEOUT_S:
+                tails = [open(os.path.join(root, f"node{i}.log"), "rb").read()[-1500:]
+                         for i, _ in dead[:1]]
+                raise AssertionError(f"node procs: heights {heights()}, exited {dead}: {tails}")
+            time.sleep(0.25)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        codes = [p.wait(timeout=PROC_STOP_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if codes != [0] * 4:
+        raise AssertionError(f"node procs: exit codes after SIGTERM {codes}")
+    hs = heights()
+    low = min(hs)
+    stores = [open_db("sqlite", os.path.join(h, "data", "blockstore.db"), checksum=True)
+              for h in homes]
+    try:
+        bss = [BlockStore(db) for db in stores]
+        for height in range(1, low + 1):
+            if len({bs.load_block(height).hash() for bs in bss}) != 1:
+                raise AssertionError(f"node procs: the stores differ at height {height}")
+    finally:
+        for db in stores:
+            db.close()
+    if low < NODE_PROC_HEIGHT:
+        raise AssertionError(f"node procs: common chain {low} < {NODE_PROC_HEIGHT}")
+    print(f"[{card}] node procs: 4 `start` processes on the card, first block after "
+          f"{first:.3f} s, {low} common heights (stores at {hs}) after {wall:.3f} s, "
+          f"stopped with SIGTERM: exit codes {codes}", flush=True)
+    return dict(wall_s=wall, first_block_s=first, heights=hs, common=low)
+
+
+def node_phase(device, card: str, chain) -> dict:
+    """The node phase, after the wire phase: the port's Node as a user runs
+    it (node/node.py from `testnet` homes: sqlite stores, the WAL, the kv
+    indexer, metrics; RPC, PEX and certificates off) on the card: node4
+    (four Nodes in one process over TCP, one restarted from its home), node
+    sync150 (a fresh Node block-syncing the wire phase's 150-validator
+    chain) and four `start` processes."""
+    import shutil
+
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.consensus import timeline as TL
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.ops import residency
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    crypto_batch.set_backend("gpu")
+    M.reset()
+    TL.reset()
+    shutil.rmtree(_node_root(), ignore_errors=True)
+    out = {}
+    try:
+        # node4 twice, for the spread of its gap; the harness's sync at the
+        # Node's window, then the Node's, on one chain
+        for label, cell in (("node4", node4_cell),
+                            ("node4_2", functools.partial(node4_cell, run="node4_2")),
+                            ("harness_w8", functools.partial(harness_sync_w8_cell, chain=chain)),
+                            ("sync150", functools.partial(node_sync150_cell, chain=chain))):
+            sched.reset()
+            residency.reset()
+            out[label] = cell(device, card)
+        if out["sync150"]["window"] != out["harness_w8"]["window"]:
+            raise AssertionError(f"node sync150 window {out['sync150']['window']}, the harness's "
+                                 f"{out['harness_w8']['window']}")
+        out["procs"] = node_procs_cell(card)
+    finally:
+        sched.reset()
+        residency.reset()
+        shutil.rmtree(_node_root(), ignore_errors=True)
+    print(f"[{card}] node phase (measurements, not claims): "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -5424,6 +5881,7 @@ def main() -> int:
     consumers = consumers_phase(device, card)
     consensus = consensus_phase(device, card)
     wire = wire_phase(device, card)
+    node = node_phase(device, card, wire["sync150"].pop("chain"))
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -5541,7 +5999,9 @@ def main() -> int:
                     "cert_hop": consumers["cert"]["launches_cert_hop"],
                     **{f"consensus_{label.replace('-', '_')}": cell["launches"]
                        for label, cell in consensus.items()},
-                    **{f"wire_{label}": cell["launches"] for label, cell in wire.items()}}
+                    **{f"wire_{label}": cell["launches"] for label, cell in wire.items()},
+                    **{f"node_{label}": cell["launches"] for label, cell in node.items()
+                       if "launches" in cell}}
     for r in kernels["kernels"]:
         count = BLS_SPLIT.get(r["name"], (None, None, r["name"]))[2]
         for path, launches in on_consumers.items():

@@ -16,7 +16,7 @@ messages go through cs.add_*_from_peer queues; outbound gossip reads the
 shared RoundState + per-peer PeerState.
 
 The port's copy of cometbft_tpu/consensus/reactor.py. Its gossip counters
-go to `cs.metrics`, which stays None until libs/metrics is ported.
+go to `cs.metrics`, the node's ConsensusMetrics (libs/metrics).
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ graph exactly (SURVEY.md §3.2):
 Concurrency: ONE asyncio task (`_receive_routine`) consumes a queue of
 peer/internal messages and timeout events; every transition happens on that
 task, so the round state needs no locks (the reference pins everything to
-one goroutine for the same reason, state.go:774).
+one goroutine for the same reason, state.go:774). Messages are WAL-logged
+before processing; EndHeightMessage is fsynced before ApplyBlock
+(state.go:1810), making crash-replay exact.
 
 Vote ingestion: serial add_vote by default; with
 config.batch_vote_verification the VoteSet's staged/batched path carries
@@ -21,8 +23,8 @@ in its VoteSet and verified in one CONSENSUS-class flush through the port's
 scheduler (K5, K1/K2, K6 on the card; the BLS kernels for BLS votes); on
 the "gpu" backend a flush with no card raises, and the receive routine
 stops as a consensus failure. The node's own votes are added serially, as
-in the reference. The WAL, replay and consensus metrics come with the node:
-ConsensusState takes wal and metrics as None only.
+in the reference. The node gives it the WAL (consensus/wal.py) and the
+consensus metrics (libs/metrics.ConsensusMetrics).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from cometbft_tpu_torch.consensus.config import ConsensusConfig
 from cometbft_tpu_torch.consensus.height_vote_set import HeightVoteSet
 from cometbft_tpu_torch.consensus.round_state import RoundState, RoundStepType
 from cometbft_tpu_torch.consensus.ticker import TimeoutInfo, TimeoutTicker
+from cometbft_tpu_torch.consensus.wal import WAL, EndHeightMessage
 from cometbft_tpu_torch.libs import fail
 from cometbft_tpu_torch.libs import log as cmtlog
 from cometbft_tpu_torch.libs import trace
@@ -86,19 +89,18 @@ class ConsensusState(BaseService):
         state: State,
         block_exec: BlockExecutor,
         block_store: BlockStore,
-        wal=None,
+        wal: WAL | None = None,
         priv_validator: PrivValidator | None = None,
         event_switch=None,
         logger: cmtlog.Logger | None = None,
         metrics=None,
     ):
-        if wal is not None or metrics is not None:
-            raise NotImplementedError(
-                "the port's ConsensusState takes no WAL or metrics registry yet")
         super().__init__("ConsensusState", logger)
         self.config = config
+        self.metrics = metrics  # libs.metrics.ConsensusMetrics | None
         self.block_exec = block_exec
         self.block_store = block_store
+        self.wal = wal
         self.priv_validator = priv_validator
         self.priv_validator_pub_key = (
             priv_validator.get_pub_key() if priv_validator else None
@@ -161,12 +163,16 @@ class ConsensusState(BaseService):
     # ------------------------------------------------------------ lifecycle
 
     async def on_start(self) -> None:
+        if self.wal is not None:
+            await self._catchup_replay()
         self._tasks.spawn(self._receive_routine(), name="cs-receive")
         self._schedule_round_0(self.rs)
 
     async def on_stop(self) -> None:
         self.timeout_ticker.stop()
         await self._tasks.cancel_all()
+        if self.wal is not None:
+            self.wal.close()
 
     # ---------------------------------------------------------- state setup
 
@@ -306,10 +312,31 @@ class ConsensusState(BaseService):
         """state.go:774-862: the single serialization point."""
         while True:
             try:
-                _from_peer, msg = await self.msg_queue.get()
+                from_peer, msg = await self.msg_queue.get()
                 if isinstance(msg, TimeoutInfo):
+                    if self.wal is not None:
+                        self.wal.write(msg)
                     await self._handle_timeout(msg)
                 else:
+                    if self.wal is not None:
+                        if from_peer:
+                            # a failed peer-message WAL write is logged,
+                            # not fatal (reference state.go:822): the
+                            # message is DROPPED un-WALed — as if never
+                            # received — and gossip redelivers; a full or
+                            # failing disk degrades, it does not halt
+                            try:
+                                self.wal.write(msg)
+                            except OSError as e:
+                                self.logger.error(
+                                    "failed writing peer msg to WAL; "
+                                    "dropping msg", err=str(e))
+                                continue
+                        else:
+                            # own messages MUST be durable before they
+                            # act (state.go:829 fsync): failure here is a
+                            # consensus failure, handled by containment
+                            self.wal.write_sync(msg)
                     await self._handle_msg(msg)
             except asyncio.CancelledError:
                 raise
@@ -322,10 +349,17 @@ class ConsensusState(BaseService):
 
     def _contain_failure(self) -> None:
         """state.go:789-802 containment, made observable: a node whose
-        consensus routine died must not keep looking healthy. Mark the
-        service failed and let operators decide whether to kill the
-        process, as the reference does."""
+        consensus routine died must not keep looking healthy. Flush+fsync
+        the WAL (evidence of what was seen survives the crash), mark the
+        service failed — /health and /status report it (rpc/core.py) — and
+        let operators decide whether to kill the process; the reference
+        likewise keeps the process up so the WAL/evidence can be pulled."""
         self.failed = True
+        try:
+            if self.wal is not None:
+                self.wal.flush()
+        except Exception as e:  # noqa: BLE001 - best effort on the way down
+            self.logger.error("WAL flush on consensus failure", err=str(e))
 
     async def _handle_msg(self, msg) -> None:
         if isinstance(msg, M.ProposalMessage):
@@ -753,6 +787,8 @@ class ConsensusState(BaseService):
                 self.block_store.save_block(block, block_parts, seen_extended.to_commit())
 
         fail.fail_point("wal.endheight")  # state.go:1794 (legacy index 1)
+        if self.wal is not None:
+            self.wal.write_sync(EndHeightMessage(height))  # state.go:1810 fsync
         # state.go:1817 (legacy index 2) — the committed-but-unapplied
         # crash window: EndHeight is durable, ApplyBlock has not run
         fail.fail_point("abci.apply")
@@ -773,6 +809,22 @@ class ConsensusState(BaseService):
             "finalized block", height=height, hash=block.hash().hex()[:12],
             txs=len(block.data.txs), app_hash=new_state.app_hash.hex()[:12],
         )
+        if self.metrics is not None:
+            m = self.metrics
+            m.height.set(height)
+            m.rounds.set(rs.commit_round)
+            m.num_txs.set(len(block.data.txs))
+            m.total_txs.inc(len(block.data.txs))
+            if block_parts is not None:
+                m.block_size.set(sum(
+                    len(p.bytes_) for p in block_parts.parts if p is not None))
+            if self.state is not None and not self.state.last_block_time.is_zero():
+                m.block_interval.observe(
+                    (block.header.time.unix_ns() - self.state.last_block_time.unix_ns())
+                    / 1e9)
+            if rs.validators is not None:
+                m.validators.set(len(rs.validators))
+                m.validators_power.set(rs.validators.total_voting_power())
         self.update_to_state(new_state)
         self._schedule_round_0(self.rs)
 
@@ -891,7 +943,14 @@ class ConsensusState(BaseService):
             if not vote.verify_extension(self.state.chain_id, val.pub_key):
                 self.logger.info("invalid vote extension signature", vote=str(vote))
                 return False
-            await self.block_exec.verify_vote_extension(vote)
+            try:
+                await self.block_exec.verify_vote_extension(vote)
+            except Exception:
+                if self.metrics is not None:
+                    self.metrics.vote_extension_received.labels("rejected").inc()
+                raise
+            if self.metrics is not None:
+                self.metrics.vote_extension_received.labels("accepted").inc()
 
         if self.config.batch_vote_verification and peer_id:
             return await self._add_vote_batched(vote, peer_id)
@@ -953,6 +1012,9 @@ class ConsensusState(BaseService):
         from cometbft_tpu_torch import sched
 
         n_pending = len(vs._pending)
+        if self.metrics is not None and n_pending > 0:
+            self.metrics.batch_flushes.inc()
+            self.metrics.batch_lanes.inc(n_pending)
         kind = ("prevote" if vs.signed_msg_type == SignedMsgType.PREVOTE
                 else "precommit")
         flush_sp = trace.span(
@@ -1073,3 +1135,36 @@ class ConsensusState(BaseService):
         elif rs.round_ <= vote_round and precommits.has_two_thirds_any():
             await self._enter_new_round(rs.height, vote_round)
             await self._enter_precommit_wait(rs.height, vote_round)
+
+    # -------------------------------------------------------------- replay
+
+    async def _catchup_replay(self) -> None:
+        """Replay WAL messages recorded after the last EndHeight
+        (consensus/replay.go:94): re-feed them through the handlers with
+        WAL writes disabled."""
+        # replay.go:99-115: the WAL must NOT already contain EndHeight for
+        # the height we are about to run — that means the block committed
+        # (crash between the EndHeight fsync and the state-store save) and
+        # re-feeding its messages would double-execute it against the app.
+        # Recovery for that window is handshake block replay, not WAL
+        # replay.
+        if self.wal.search_for_end_height(self.rs.height):
+            raise RuntimeError(
+                f"WAL should not contain EndHeight {self.rs.height}: block "
+                "already committed; requires handshake block replay"
+            )
+        msgs = self.wal.replay_after_height(self.rs.height - 1)
+        if not msgs:
+            return
+        self.logger.info("catchup replay", height=self.rs.height, msgs=len(msgs))
+        wal, self.wal = self.wal, None
+        try:
+            for msg in msgs:
+                if isinstance(msg, TimeoutInfo):
+                    await self._handle_timeout(msg)
+                elif isinstance(msg, EndHeightMessage):
+                    continue
+                else:
+                    await self._handle_msg(msg)
+        finally:
+            self.wal = wal

@@ -5,7 +5,8 @@ cometbft_tpu/crypto/batch.py.
 Backends: "gpu" (the default) runs the CUDA kernels and raises when no
 card is present; "cpu" runs the plain PyTorch versions and is chosen only
 explicitly. There is no "auto" and no circuit breaker: the backend is what
-was set. It is process-global, like the JAX package's.
+was set. It is process-global, like the JAX package's. configure() applies
+a node's config.crypto section at boot.
 
 With the verify scheduler enabled (sched.enabled(), the default),
 create_batch_verifier and create_mixed_batch_verifier return a
@@ -39,8 +40,83 @@ def register(key_type: str, backend: str,
 def set_backend(backend: str) -> None:
     global _BACKEND
     if backend not in BACKENDS:
-        raise ValueError(f"unknown crypto backend {backend!r}")
+        raise ValueError(f"unknown crypto backend {backend!r} (the port's backends: "
+                         f"{', '.join(repr(b) for b in BACKENDS)})")
     _BACKEND = backend
+    _publish_active(backend)
+
+
+def _publish_active(backend: str) -> None:
+    """The crypto backend gauge (libs/metrics.CryptoMetrics.backend_active):
+    1 for the backend set, 0 for the other."""
+    try:
+        from cometbft_tpu_torch.libs import metrics
+
+        g = metrics.crypto_metrics().backend_active
+        for b in BACKENDS:
+            g.labels(b).set(1.0 if b == backend else 0.0)
+    except Exception:  # noqa: BLE001 - metrics must never break dispatch
+        pass
+
+
+# config.crypto knobs with no counterpart in the port, and their defaults:
+# set away from the default, configure() raises rather than ignore them
+_NO_COUNTERPART = {"max_batch_size": 16384}
+
+
+def configure(crypto_cfg) -> None:
+    """Apply config.crypto at node boot (the reference's
+    crypto/batch.configure): the backend, the dispatch supervisors' knobs,
+    the verify scheduler's knobs, the mesh, the key tables' indexed path,
+    the device challenge, the BLS switch and any chaos schedule. The
+    backend is "gpu" or "cpu"; any other value raises, as does a knob in
+    _NO_COUNTERPART set away from its default."""
+    for name, default in _NO_COUNTERPART.items():
+        if getattr(crypto_cfg, name) != default:
+            raise NotImplementedError(
+                f"crypto.{name} = {getattr(crypto_cfg, name)!r} has no counterpart in the "
+                f"port (leave it at {default!r}; the scheduler's lane cap is sched_max_lanes)")
+    set_backend(crypto_cfg.backend)
+    from cometbft_tpu_torch.ops import dispatch
+
+    dispatch.configure(
+        failure_threshold=crypto_cfg.breaker_failure_threshold,
+        cooldown=crypto_cfg.breaker_cooldown,
+        retry_attempts=crypto_cfg.retry_max_attempts,
+        retry_base=crypto_cfg.retry_backoff_base,
+        retry_cap=crypto_cfg.retry_backoff_cap,
+        watchdog_timeout=crypto_cfg.watchdog_timeout,
+    )
+    from cometbft_tpu_torch import sched
+
+    sched.configure(
+        enabled=crypto_cfg.scheduler,
+        max_lanes=crypto_cfg.sched_max_lanes,
+        sync_deadline=crypto_cfg.sched_sync_deadline,
+        light_deadline=crypto_cfg.sched_light_deadline,
+        mempool_deadline=crypto_cfg.sched_mempool_deadline,
+        queue_limit=crypto_cfg.sched_queue_limit,
+        starvation_limit=crypto_cfg.sched_starvation_limit,
+    )
+    from cometbft_tpu_torch.parallel import mesh as verify_mesh
+
+    verify_mesh.configure(
+        enabled=crypto_cfg.mesh_enabled,
+        min_devices=crypto_cfg.mesh_min_devices,
+        placement=crypto_cfg.mesh_placement,
+    )
+    from cometbft_tpu_torch.ops import challenge, residency
+
+    residency.configure(
+        enabled=crypto_cfg.wire_indexed_sends,
+        rows=crypto_cfg.wire_table_rows,
+    )
+    challenge.configure(enabled=crypto_cfg.wire_device_challenge)
+    bls12381.set_enabled(crypto_cfg.bls_enabled)
+    if crypto_cfg.chaos:
+        from cometbft_tpu_torch.libs import chaos
+
+        chaos.arm_spec(crypto_cfg.chaos)
 
 
 def get_backend() -> str:

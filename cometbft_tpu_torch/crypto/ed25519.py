@@ -8,6 +8,7 @@ batch verification goes through crypto.batch to the device kernel.
 from __future__ import annotations
 
 import hashlib
+import secrets
 
 from cometbft_tpu_torch import crypto
 from cometbft_tpu_torch.crypto import ed25519_math
@@ -70,6 +71,12 @@ class PrivKey(crypto.PrivKey):
 
     def type_(self) -> str:
         return KEY_TYPE
+
+
+def gen_priv_key() -> PrivKey:
+    """A fresh key from the operating system's randomness (CometBFT's
+    GenPrivKey)."""
+    return PrivKey(secrets.token_bytes(SEED_SIZE))
 
 
 def gen_priv_key_from_secret(secret: bytes) -> PrivKey:

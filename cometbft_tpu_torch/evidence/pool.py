@@ -60,6 +60,7 @@ class EvidencePool:
         self._state: State | None = state_store.load()
         # broadcast hook: the evidence reactor subscribes (reactor.go:32)
         self.on_evidence_added: Callable[[Evidence], None] | None = None
+        self.metrics = None  # libs.metrics.EvidenceMetrics | None (node wires it)
         self._load()
 
     # -------------------------------------------------------------- intake
@@ -180,6 +181,10 @@ class EvidencePool:
                 self.db.delete(_key(_PENDING, ev))
         self._prune_expired(state)
         self._process_consensus_buffer(state)
+        if self.metrics is not None:
+            if committed:
+                self.metrics.evidence_committed.inc(len(committed))
+            self.metrics.evidence_pending.set(len(self._pending))
 
     # ------------------------------------------------------------ internals
 

@@ -8,7 +8,7 @@ provider — light-block sources (in-memory, node-backed)
 store    — persisted trusted light blocks
 
 The serving plane of the reference (fleet.py, proxy.py, rpc_provider.py)
-comes with the node, with the metrics and trace layers.
+comes in a later slice (ROADMAP Queue 1).
 """
 
 from cometbft_tpu_torch.light import errors, verifier

@@ -8,8 +8,8 @@ and the bench harness.
 
 The port's copy of cometbft_tpu/light/provider.py. The RPC-backed provider
 (light/rpc_provider.py), the serving fleet (light/fleet.py) and the proxy
-(light/proxy.py) are the RPC serving plane and come with the node, with
-the metrics and trace layers.
+(light/proxy.py) are the RPC serving plane and come in a later slice
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations

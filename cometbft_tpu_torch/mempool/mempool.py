@@ -14,8 +14,9 @@ wakes gossip/proposal waiters when txs arrive — the clist
 The port's copy of cometbft_tpu/mempool/mempool.py. Under tx_verify="ed25519"
 a tx's signature row goes to the port's verify scheduler as MEMPOOL work and
 rides the next consensus flush on the card (K5, K1, K6) or the deadline
-worker's batch. The node's metrics and overload registries come with the
-node: CListMempool takes them as None only, and attach_overload raises.
+worker's batch. The node gives it the mempool metrics and the overload
+registry (libs/overload), either by attribute and attach_overload, as the
+reference's node does, or by the constructor's metrics= and overload=.
 """
 
 from __future__ import annotations
@@ -36,11 +37,16 @@ class ErrTxInCache(Exception):
 class ErrMempoolIsFull(Exception):
     """Admission shed: the pool (or the plane behind it) cannot absorb
     the tx right now. `plane` names WHICH pressure shed it ("mempool" =
-    pool caps, "sched" = verify-scheduler backpressure)."""
+    pool caps / saturated watermark, "sched" = verify-scheduler
+    backpressure) so the RPC surface can serve the unified -32005 wire
+    shape; `retry_after_ms` is the overload registry's hint when one
+    was attached."""
 
-    def __init__(self, *args, plane: str = "mempool"):
+    def __init__(self, *args, plane: str = "mempool",
+                 retry_after_ms: int = 0):
         super().__init__(*args)
         self.plane = plane
+        self.retry_after_ms = retry_after_ms
 
 
 class ErrTxTooLarge(Exception):
@@ -134,9 +140,6 @@ class CListMempool:
         metrics=None,
         overload=None,
     ):
-        if metrics is not None or overload is not None:
-            raise NotImplementedError(
-                "the port's mempool takes no metrics or overload registry yet")
         self.config = config
         self.app_conn = app_conn
         self.height = height
@@ -147,17 +150,41 @@ class CListMempool:
         self._lock = asyncio.Lock()
         self._tx_available = asyncio.Event()
         self.notify_available = True
-        # recheck-window accounting
+        self.metrics = metrics  # libs.metrics.MempoolMetrics | None (node wires it)
+        # overload resilience plane (libs/overload.py; node wires it via
+        # attach_overload): saturated watermark sheds CheckTx BEFORE the
+        # ABCI round-trip, elevated triggers eager expiry + gossip
+        # throttling. None = the pre-overload ad-hoc behavior.
+        self.overload = None
+        # pressure-ladder accounting (assertion surface for the soak)
         self.recheck_windows_last = 0
         self.recheck_windows_total = 0
+        self.eager_expired = 0
         # in-flight CheckTx dedup: tx hash -> future of the FIRST
         # submission's result; concurrent duplicates await it instead of
         # paying a second ABCI round-trip (or racing the cache)
         self._inflight: dict[bytes, asyncio.Future] = {}
+        if overload is not None:
+            self.attach_overload(overload)
 
     def attach_overload(self, registry) -> None:
-        raise NotImplementedError(
-            "the port's mempool takes no overload registry yet")
+        """Wire the node's overload registry: registers this pool's
+        utilization signal and enables the pressure ladder."""
+        self.overload = registry
+        registry.register("mempool", self._overload_utilization)
+
+    def _overload_utilization(self) -> float:
+        """Pool pressure as a fraction of capacity (txs or bytes,
+        whichever is tighter)."""
+        return max(
+            len(self._txs) / max(1, self.config.size),
+            self._txs_bytes / max(1, self.config.max_txs_bytes),
+        )
+
+    def _update_metrics(self) -> None:
+        if self.metrics is not None:
+            self.metrics.size.set(self.size())
+            self.metrics.size_bytes.set(self.size_bytes())
 
     # ------------------------------------------------------------- sizes
 
@@ -188,9 +215,27 @@ class CListMempool:
         if len(tx) > self.config.max_tx_bytes:
             raise ErrTxTooLarge(f"tx size {len(tx)} > max {self.config.max_tx_bytes}")
         if self.is_full(len(tx)):
+            if self.overload is not None:
+                self.overload.shed("mempool")
             raise ErrMempoolIsFull(
                 f"{len(self._txs)} txs, {self._txs_bytes} bytes"
             )
+        if self.overload is not None:
+            # the pressure ladder's saturated rung: shed NEW work at the
+            # door while the pool is at its high watermark — before the
+            # tx buys a signature batch or an ABCI round-trip. Duplicates
+            # of in-flight/pooled txs still resolve below (they cost
+            # nothing and the submitter learns the first result).
+            from cometbft_tpu_torch.libs import overload as _ovl
+
+            if (self.overload.level("mempool") >= _ovl.SATURATED
+                    and tx_hash(tx) not in self._inflight):
+                self.overload.shed("mempool")
+                raise ErrMempoolIsFull(
+                    f"mempool saturated ({len(self._txs)}/"
+                    f"{self.config.size} txs)",
+                    retry_after_ms=self.overload.retry_after_ms("mempool"),
+                )
         h = tx_hash(tx)
         first = self._inflight.get(h)
         if first is not None:
@@ -290,8 +335,13 @@ class CListMempool:
             except sched.SchedulerSaturated as e:
                 admit_sp.set(outcome="saturated")
                 self.cache.remove(tx)
+                retry = 0
+                if self.overload is not None:
+                    self.overload.shed("sched")
+                    retry = self.overload.retry_after_ms("sched")
                 raise ErrMempoolIsFull(
-                    f"verify scheduler saturated: {e}", plane="sched") from e
+                    f"verify scheduler saturated: {e}",
+                    plane="sched", retry_after_ms=retry) from e
             # bounded wait: the scheduler resolves within its deadline
             # plus, worst case, one device-watchdog window (hang ->
             # supervisor -> host oracle). A timeout here means something
@@ -309,6 +359,8 @@ class CListMempool:
                 raise ErrMempoolIsFull("verify scheduler timed out") from None
             admit_sp.set(outcome="ok" if ok else "bad_signature")
         if not ok:
+            if self.metrics is not None:
+                self.metrics.failed_txs.inc()
             self.cache.remove(tx)
             raise ErrTxBadSignature("tx signature failed batched verification")
 
@@ -367,10 +419,39 @@ class CListMempool:
             mtx = self._txs.pop(tx_hash(tx), None)
             if mtx is not None:
                 self._txs_bytes -= len(mtx.tx)
+        if self.overload is not None:
+            from cometbft_tpu_torch.libs import overload as _ovl
+
+            if self.overload.level("mempool") >= _ovl.ELEVATED:
+                self._eager_expire()
         if self.config.recheck and self._txs:
+            if self.metrics is not None:
+                self.metrics.recheck_times.inc()
             await self._recheck_txs()
         if not self._txs:
             self._tx_available.clear()
+        self._update_metrics()
+
+    def _eager_expire(self) -> None:
+        """The pressure ladder's elevated rung: TTL-style expiry of the
+        OLDEST queued txs (longest-waiting = most likely stale against
+        post-block state, and the bulk of the next recheck storm) until
+        the pool is back under the elevated watermark's hysteresis
+        floor. Expired txs leave the cache so a submitter that still
+        wants one can resubmit once pressure clears."""
+        target = max(
+            1, int(self.config.size
+                   * (self.overload.elevated - self.overload.hysteresis)))
+        expired = 0
+        while len(self._txs) > target:
+            h, mtx = next(iter(self._txs.items()))
+            self._txs.pop(h, None)
+            self._txs_bytes -= len(mtx.tx)
+            self.cache.remove(mtx.tx)
+            expired += 1
+        if expired:
+            self.eager_expired += expired
+            self.overload.shed("mempool", expired)
 
     async def _recheck_txs(self) -> None:
         """Re-validate remaining txs against post-block state

@@ -7,9 +7,9 @@ Received txs go through CheckTx with the peer recorded as sender.
 
 Wire: Txs message {1: repeated tx bytes} (proto/tendermint/mempool/types.proto).
 
-The port's copy of cometbft_tpu/mempool/reactor.py. The pool takes no
-overload registry yet (libs/overload waits), so gossip keeps the plain
-batch cap.
+The port's copy of cometbft_tpu/mempool/reactor.py. Under the node's
+overload registry (libs/overload) gossip shrinks its batches and slows
+down at the elevated and saturated watermarks.
 """
 
 from __future__ import annotations
@@ -23,9 +23,6 @@ from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor
 from cometbft_tpu_torch.utils.protobuf import Reader, Writer
 
 MEMPOOL_CHANNEL = 0x30
-# txs a gossip message and the idle sleep: the reference shrinks both at
-# the overload plane's watermarks, which wait for libs/overload
-GOSSIP_BATCH, GOSSIP_IDLE_S = 64, 0.05
 
 
 def encode_txs(txs: list[bytes]) -> bytes:
@@ -84,6 +81,23 @@ class MempoolReactor(Reactor):
             except Exception as err:  # noqa: BLE001
                 self.logger.info("checktx from peer failed", err=str(err))
 
+    def _gossip_budget(self) -> tuple[int, float]:
+        """(batch cap, idle sleep) under the overload policy: at the
+        elevated/saturated watermarks gossip is the first optional work
+        to shrink — smaller batches, longer pauses — so admission and
+        consensus keep their share of the loop."""
+        reg = getattr(self.mempool, "overload", None)
+        if reg is None:
+            return 64, 0.05
+        from cometbft_tpu_torch.libs import overload as _ovl
+
+        lvl = reg.level("mempool")
+        if lvl >= _ovl.SATURATED:
+            return 8, 0.25
+        if lvl >= _ovl.ELEVATED:
+            return 16, 0.1
+        return 64, 0.05
+
     async def _broadcast_tx_routine(self, peer) -> None:
         """reactor.go:210: walk txs in seq order; echo suppression by
         sender; batch a few per message. last_seq only advances once the
@@ -98,6 +112,7 @@ class MempoolReactor(Reactor):
             while peer.is_running:
                 batch = []
                 batch_last_seq = last_seq
+                batch_cap, idle = self._gossip_budget()
                 for mtx in self.mempool.iter_txs():
                     if mtx.seq <= last_seq:
                         continue
@@ -105,7 +120,7 @@ class MempoolReactor(Reactor):
                     if mtx.sender == peer.id:
                         continue  # don't echo a tx to where it came from
                     batch.append(mtx.tx)
-                    if len(batch) >= GOSSIP_BATCH:
+                    if len(batch) >= batch_cap:
                         break
                 if batch:
                     if await peer.send(MEMPOOL_CHANNEL, encode_txs(batch)):
@@ -118,7 +133,7 @@ class MempoolReactor(Reactor):
                         peer_backoff = min(peer_backoff * 2, 0.8)
                 else:
                     last_seq = batch_last_seq  # only sender-suppressed txs
-                    await asyncio.sleep(GOSSIP_IDLE_S)
+                    await asyncio.sleep(idle)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001

@@ -60,6 +60,19 @@ MAX_MLEN = 192    # message bytes (prefix+var+tail): 64 + 192 pads to <= 3 block
 MIN_LANES = 4     # below this the classic path's fixed cost wins
 MIN_ELIGIBLE_FRAC = 0.5  # mostly-fallback batches take the classic path
 
+# device challenges on or off (config crypto.wire_device_challenge); off,
+# every batch computes k on the host
+_cfg = {"enabled": True}
+
+
+def configure(enabled: bool | None = None) -> None:
+    if enabled is not None:
+        _cfg["enabled"] = bool(enabled)
+
+
+def enabled() -> bool:
+    return _cfg["enabled"]
+
 _M32 = 0xFFFFFFFF
 
 # ------------------------------------------------------------------- stats
@@ -302,6 +315,9 @@ def plan_batch(msgs, pre_ok, put_key: str = "", device=None) -> Plan | None:
     from cometbft_tpu_torch.libs.prefixrows import PrefixedMsg
 
     n = len(msgs)
+    if not _cfg["enabled"]:
+        count("plan_disabled")
+        return None
     if n < MIN_LANES:
         count("plan_small")
         return None

@@ -43,8 +43,9 @@ table lock, before any later batch's scatter can be.
 Placement keys: a table is keyed by its cache and a put_key. The single-card
 path uses "", a mesh fault domain "devN" (parallel/mesh.py), so each domain
 of a card holds its own tables; invalidate_device(N) drops domain N's, and
-only its, when the mesh readmits it. The reference's config knob that turns
-the indexed path off is not ported yet (ROADMAP Queue 1).
+only its, when the mesh readmits it. configure(enabled=False) (config
+crypto.wire_indexed_sends) turns the indexed path off: every batch then
+takes the full path.
 
 Send accounting: every host->device staging transfer is recorded under its
 path, "indexed" (index vector + staged words), "delta" (row uploads) or
@@ -63,6 +64,9 @@ import torch
 # ---------------------------------------------------------------- config
 
 _cfg = {
+    # the indexed path (config crypto.wire_indexed_sends); off, every batch
+    # takes the full path
+    "enabled": True,
     # rows per table: bounds device memory (352 B a row) and the uint16
     # index; one row is the identity padding row
     "rows": 16384,
@@ -70,10 +74,12 @@ _cfg = {
 _cfg_lock = threading.Lock()
 
 
-def configure(rows: int | None = None) -> None:
-    """Set the rows of tables built after the call (live tables keep
-    theirs)."""
+def configure(enabled: bool | None = None, rows: int | None = None) -> None:
+    """Switch the indexed path on or off, and set the rows of tables built
+    after the call (live tables keep theirs)."""
     with _cfg_lock:
+        if enabled is not None:
+            _cfg["enabled"] = bool(enabled)
         if rows is not None:
             if not 64 <= rows <= 65536:
                 raise ValueError("rows must be in [64, 65536]")
@@ -443,11 +449,17 @@ def table_for(cache, put_key: str = "") -> KeyTable:
         return tbl
 
 
+def enabled() -> bool:
+    return _cfg["enabled"]
+
+
 def stage(cache, pubs: list[bytes], bucket: int, put_key: str = "", want_enc: bool = False):
     """The indexed path for a batch: KeyTable.stage's tuple, or None when
-    the full path must serve it (more unique keys than the table holds).
-    The scheme's announced epoch sets are pinned on the way. Any other
-    failure raises."""
+    the full path must serve it (the path switched off, or more unique
+    keys than the table holds). The scheme's announced epoch sets are
+    pinned on the way. Any other failure raises."""
+    if not _cfg["enabled"]:
+        return None
     tbl = table_for(cache, put_key)
     with _reg_lock:
         announced = dict(_announced.get(tbl.scheme, {}))

@@ -2,7 +2,7 @@
 connection and MConnection, the Transport that upgrades a TCP stream into
 an authenticated peer, and the Switch that routes each channel's messages
 to its reactor. The port's copy of cometbft_tpu/p2p/ without the PEX and
-the fuzzing transport, which come with the node.
+the fuzzing transport, which come in later slices.
 """
 
 from cometbft_tpu_torch.p2p.base_reactor import Envelope, Reactor  # noqa: F401

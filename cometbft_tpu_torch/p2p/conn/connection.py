@@ -16,13 +16,13 @@ msg=3{channel_id=1, eof=2, data=3}.
 Wire-plane accounting (framework extension): every connection keeps
 per-channel byte/message/packet counters for both directions, send-queue
 depth high-water marks, send-routine stall time (rate-limit sleeps +
-blocked socket writes), and a ping-RTT EWMA, surfaced via status(). The
-flowrate monitors are ALWAYS updated, throttling or not: rate_limit=0
-keeps them non-throttling, so accounting never depends on rate limiting
-being enabled.
+blocked socket writes), and a ping-RTT EWMA — surfaced via status(), the
+net_telemetry RPC route, and (through the owning Switch's P2PMetrics)
+bounded-cardinality Prometheus series. The flowrate monitors are ALWAYS
+updated, throttling or not: rate_limit=0 keeps them non-throttling, so
+accounting never depends on rate limiting being enabled.
 
-The port's copy of cometbft_tpu/p2p/conn/connection.py. Its Prometheus
-series wait for libs/metrics: `metrics=` takes None only.
+The port's copy of cometbft_tpu/p2p/conn/connection.py.
 """
 
 from __future__ import annotations
@@ -115,12 +115,10 @@ class MConnection:
         on_error: Callable[[Exception], Awaitable[None]],
         config: MConnConfig | None = None,
         logger: cmtlog.Logger | None = None,
-        metrics=None,  # libs.metrics.P2PMetrics: not ported, None only
+        metrics=None,  # libs.metrics.P2PMetrics | None
         peer_label: str = "",  # pre-capped metrics label for this peer
         peer_id: str = "",  # node id, keys the clock-skew table
     ):
-        if metrics is not None:
-            raise NotImplementedError("MConnection(metrics=) waits for libs/metrics")
         self.config = config or MConnConfig()
         self._conn = conn
         self._channels = {
@@ -137,6 +135,7 @@ class MConnection:
         self._tasks = TaskRunner("mconn")
         self._stopped = False  # no new sends / no more error callbacks
         self._torn_down = False  # tasks cancelled + socket closed
+        self.metrics = metrics
         self.peer_label = peer_label
         # send-routine stall accounting: seconds the routine spent NOT
         # idle-parked — asleep on the rate limiter or blocked in a socket
@@ -236,10 +235,13 @@ class MConnection:
                 # 100ms flush throttle analog — we flush per loop, batching
                 # whatever is ready)
                 n_packets = 0
+                flushed: dict[int, tuple[int, int]] = {}  # cid -> (bytes, msgs)
                 while ch is not None and n_packets < 16:
                     chunk, eof = ch.next_packet()
                     pkt = _encode_packet_msg(ch.desc.id, eof, chunk)
                     ch.send_bytes += len(pkt)
+                    b, m = flushed.get(ch.desc.id, (0, 0))
+                    flushed[ch.desc.id] = (b + len(pkt), m + (1 if eof else 0))
                     batch += pkt
                     n_packets += 1
                     ch = self._pick_channel()
@@ -254,6 +256,7 @@ class MConnection:
                     t0 = time.monotonic()
                     await self._conn.write(bytes(batch))
                     self._stall_write_s += time.monotonic() - t0
+                    self._flush_metrics(flushed, send=True)
                 # decay scheduling counters
                 for c in self._channels.values():
                     c.recently_sent = int(c.recently_sent * 0.8)
@@ -262,9 +265,27 @@ class MConnection:
         except Exception as e:  # noqa: BLE001
             await self._error(e)
 
+    def _flush_metrics(self, per_chan: dict, send: bool) -> None:
+        """Hand aggregated per-channel (bytes, msgs) deltas to the owning
+        switch's P2PMetrics (bounded-cardinality peer labels live there).
+        Metrics failures must never error a connection."""
+        m = self.metrics
+        if m is None or not per_chan:
+            return
+        try:
+            m.record_conn_traffic(self.peer_label, per_chan, send=send)
+        except Exception:  # noqa: BLE001
+            pass
+
     # ---------------------------------------------------------------- recv
 
     async def _recv_routine(self) -> None:
+        # metric deltas accumulate here and flush on message boundaries
+        # (or every 32 packets mid-message) — the recv hot loop must not
+        # pay two locked counter updates per 1 KB packet when the send
+        # side batches up to 16 packets per flush
+        pending: dict[int, tuple[int, int]] = {}
+        pending_packets = 0
         try:
             while True:
                 packet, wire_len = await self._read_packet()
@@ -294,11 +315,21 @@ class MConnection:
                         raise ValueError(
                             f"recv message exceeds capacity on channel {chan_id:#x}"
                         )
+                    b, m = pending.get(chan_id, (0, 0))
+                    pending[chan_id] = (b + wire_len, m + (1 if eof else 0))
+                    pending_packets += 1
                     if eof:
                         ch.recv_msgs += 1
                         msg = bytes(ch.recving)
                         ch.recving.clear()
+                        self._flush_metrics(pending, send=False)
+                        pending = {}
+                        pending_packets = 0
                         await self._on_receive(chan_id, msg)
+                    elif pending_packets >= 32:
+                        self._flush_metrics(pending, send=False)
+                        pending = {}
+                        pending_packets = 0
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -368,6 +399,12 @@ class MConnection:
         self._ping_rtt_s = (rtt if self._ping_samples == 1
                             else self._ping_rtt_s + 0.2 * (rtt - self._ping_rtt_s))
         linkmodel.p2p().observe_rtt(rtt)
+        m = self.metrics
+        if m is not None:
+            try:
+                m.peer_ping_rtt.labels(self.peer_label or "other").set(rtt)
+            except Exception:  # noqa: BLE001
+                pass
 
     async def _error(self, e: Exception) -> None:
         if self._stopped:
@@ -384,7 +421,7 @@ class MConnection:
         """Connection status incl. the wire-plane accounting: monitor
         totals/averages, per-channel byte/msg/packet counters both ways,
         queue depth + high-water, send-routine stall split, ping RTT EWMA.
-        The Switch's peer status serves this per peer."""
+        net_info / net_telemetry serve this per peer."""
         return {
             "send_rate": self._send_monitor.rate(),
             "recv_rate": self._recv_monitor.rate(),

@@ -48,9 +48,9 @@ so neither collides. Probabilistic faults use a seeded RNG per connection
 (`seed=` in the spec), so a fault schedule replays deterministically like a
 fuzz seed. Partition healing is observable: `clear_partition()` starts a
 clock that stops at the first write crossing a formerly-blocked link, and
-the elapsed seconds are kept for `last_heal_seconds()` (the reference's
-`cometbft_p2p_partition_heal_seconds` gauge waits for the port's
-libs/metrics).
+the elapsed seconds are kept for `last_heal_seconds()` and land on the
+process-global `cometbft_p2p_partition_heal_seconds` gauge
+(libs/metrics.NetChaosMetrics).
 
 Partition enforcement is write-side: each node's own wrapper drops its own
 outbound bytes. In-process nets share this registry so one `set_partition`
@@ -60,7 +60,7 @@ node that should stop transmitting (the e2e runner arms all of them).
 The port's copy of cometbft_tpu/p2p/netchaos.py. It is inert unless armed:
 the Switch wraps every peer conn and the Transport asks `dial_blocked`, and
 with nothing armed a write costs one flag test. Its fault counters are
-kept in `snapshot()["stats"]`.
+kept in `snapshot()["stats"]` and on the net-fault metrics.
 """
 
 from __future__ import annotations
@@ -426,6 +426,10 @@ def _note_delivery(src: str, dst: str) -> None:
         _heal_links.clear()
         _last_heal_seconds = time.monotonic() - _heal_t0
         _recompute_active_locked()
+        secs = _last_heal_seconds
+    from cometbft_tpu_torch.libs import metrics as cmtmetrics
+
+    cmtmetrics.netchaos_metrics().partition_heal_seconds.set(secs)
 
 
 
@@ -461,6 +465,9 @@ def snapshot() -> dict:
 def _count(kind: str) -> None:
     with _lock:
         _stats[kind] += 1
+    from cometbft_tpu_torch.libs import metrics as cmtmetrics
+
+    cmtmetrics.netchaos_metrics().net_faults.labels(kind).inc()
 
 
 # ------------------------------------------------------------ conn wrapper

@@ -30,6 +30,7 @@ class Peer(BaseService):
         persistent: bool = False,
         mconn_config: MConnConfig | None = None,
         logger: cmtlog.Logger | None = None,
+        metrics=None,  # libs.metrics.P2PMetrics | None
         peer_label: str = "",  # pre-capped metrics label (Switch assigns)
     ):
         super().__init__(f"peer-{node_info.node_id[:10]}", logger)
@@ -48,7 +49,7 @@ class Peer(BaseService):
         self.mconn = MConnection(
             conn, channels, _mconn_receive, _mconn_error,
             config=mconn_config, logger=self.logger,
-            peer_label=peer_label,
+            metrics=metrics, peer_label=peer_label,
             peer_id=node_info.node_id,
         )
 

@@ -14,8 +14,8 @@ that doubles on repeat offenses — while banned, inbound conns are refused
 and the persistent-peer redial loop waits instead of redialing a byzantine
 peer forever.
 
-The port's copy of cometbft_tpu/p2p/switch.py. Its Prometheus series wait
-for libs/metrics: `metrics` stays None.
+The port's copy of cometbft_tpu/p2p/switch.py. The node sets `metrics`
+(libs/metrics.P2PMetrics); its MConnections report to it.
 """
 
 from __future__ import annotations
@@ -134,7 +134,7 @@ class Switch(BaseService):
         self._chan_to_reactor: dict[int, Reactor] = {}
         self._channels: list[ChannelDescriptor] = []
         self.peers: dict[str, Peer] = {}
-        self.metrics = None  # libs.metrics.P2PMetrics: not ported
+        self.metrics = None  # libs.metrics.P2PMetrics | None (node wires it)
         self.persistent_addrs: dict[str, str] = {}  # node_id -> addr
         self._reconnecting: set[str] = set()
         self._tasks = TaskRunner("switch")
@@ -299,11 +299,16 @@ class Switch(BaseService):
             persistent=persistent,
             mconn_config=self.mconn_config,
             logger=self.logger.with_fields(peer=node_id[:10]),
+            metrics=self.metrics,
+            peer_label=(self.metrics.peer_label(node_id)
+                        if self.metrics is not None else ""),
         )
         for reactor in self.reactors.values():
             reactor.init_peer(peer)
         await peer.start()
         self.peers[node_id] = peer
+        if self.metrics is not None:
+            self.metrics.peers.set(len(self.peers))
         for reactor in self.reactors.values():
             await reactor.add_peer(peer)
         self.logger.info("added peer", peer=node_id[:10],
@@ -332,12 +337,16 @@ class Switch(BaseService):
         report newly banned the peer."""
         if not peer_id:
             return False
+        if self.metrics is not None:
+            self.metrics.peer_misbehavior.labels(reason).inc()
         banned = self.scorer.record(peer_id, weight)
         if not banned:
             return False
         remaining = self.scorer.ban_remaining(peer_id)
         self.logger.info("banning misbehaving peer", peer=peer_id[:10],
                          reason=reason, seconds=round(remaining, 1))
+        if self.metrics is not None:
+            self.metrics.peer_bans.inc()
         if self.on_ban is not None:
             try:
                 self.on_ban(peer_id, remaining)
@@ -386,6 +395,13 @@ class Switch(BaseService):
     async def _stop_peer(self, peer: Peer, reason: object) -> None:
         if self.peers.get(peer.id) is peer:
             self.peers.pop(peer.id, None)
+            if self.metrics is not None:
+                self.metrics.peers.set(len(self.peers))
+                # free the metrics label slot: under a churn storm the
+                # label ledger must turn over instead of pinning dead
+                # peers' slots forever (a returning peer re-claims its
+                # old label — same series, no new cardinality)
+                self.metrics.release_peer(peer.id)
         try:
             await peer.stop()
         except Exception:  # noqa: BLE001

@@ -14,8 +14,8 @@ the reference tolerates timestamp regeneration).
 
 The port's copy of cometbft_tpu/privval/file_pv.py. Its key and sign-state
 files are the reference's, byte for byte, so either package loads what the
-other wrote. The disk-chaos seam on the sign-state rename comes with the
-disk-backed stores.
+other wrote. The sign-state rename runs through the `privval.save`
+disk-chaos seam (libs/diskchaos).
 """
 
 from __future__ import annotations
@@ -61,13 +61,13 @@ class PrivValidator:
         raise NotImplementedError
 
 
-def _atomic_write(path: str, data: bytes) -> None:
+def _atomic_write(path: str, data: bytes, site: str | None = None) -> None:
     """FULL-grade durability: temp-file fsync AND directory fsync after
     the rename (libs/diskio.durable_replace). The sign-state is the one
     write whose loss enables a double-sign — a bare os.replace left the
     rename in the un-fsynced directory, where power loss could resurrect
     the OLD sign state with the new signature already on the wire."""
-    diskio.atomic_write_durable(path, data)
+    diskio.atomic_write_durable(path, data, site=site)
 
 
 @dataclass
@@ -186,7 +186,8 @@ class FilePV(PrivValidator):
             "signature": base64.b64encode(st.signature).decode(),
             "signbytes": st.sign_bytes.hex(),
         }
-        _atomic_write(self.state_file, json.dumps(doc, indent=2).encode())
+        _atomic_write(self.state_file, json.dumps(doc, indent=2).encode(),
+                      site="privval.save")
 
     def _load_state(self) -> None:
         with open(self.state_file) as f:

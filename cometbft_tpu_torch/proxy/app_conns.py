@@ -6,7 +6,7 @@ slow FinalizeBlock cannot block CheckTx — the isolation the reference gets
 from 4 sockets.
 
 The port's copy of cometbft_tpu/proxy/app_conns.py with the local client
-creator; the socket and gRPC creators come with the node.
+creator; the socket and gRPC creators come in a later slice.
 """
 
 from __future__ import annotations

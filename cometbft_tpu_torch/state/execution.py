@@ -10,8 +10,8 @@ Reference: state/execution.go. Four verbs:
 
 The port's copy of cometbft_tpu/state/execution.py. validate_block's
 LastCommit check goes through the port's verify_commit (on the card on the
-"gpu" backend). The event bus and the pruner come with the node:
-BlockExecutor takes them as None only.
+"gpu" backend). The node gives it the event bus (types/event_bus) and the
+pruner (state/pruner).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from cometbft_tpu_torch.types import validation
 from cometbft_tpu_torch.types.basic import BlockID, BlockIDFlag
 from cometbft_tpu_torch.types.block import Block
 from cometbft_tpu_torch.types.commit import Commit, ExtendedCommit
+from cometbft_tpu_torch.types.params import ConsensusParams
 from cometbft_tpu_torch.types.validator import Validator, ValidatorSet, pub_key_from_proto
 from cometbft_tpu_torch.utils import cmttime
 
@@ -127,14 +128,13 @@ class BlockExecutor:
         logger: cmtlog.Logger | None = None,
         pruner=None,
     ):
-        if event_bus is not None or pruner is not None:
-            raise NotImplementedError(
-                "the port's BlockExecutor takes no event bus or pruner yet")
         self.state_store = state_store
         self.app_conn = app_conn
         self.mempool = mempool
         self.evidence_pool = evidence_pool
+        self.event_bus = event_bus
         self.logger = logger or cmtlog.nop()
+        self.pruner = pruner  # state.Pruner | None, set by node assembly
 
     # ------------------------------------------------------------ propose
 
@@ -318,7 +318,18 @@ class BlockExecutor:
         if self.evidence_pool is not None:
             self.evidence_pool.update(new_state, block.evidence.evidence)
 
+        if self.event_bus is not None:
+            await self._fire_events(block, block_id, resp)
+
         new_state.retain_height = getattr(commit_resp, "retain_height", 0)
+        if self.pruner is not None and new_state.retain_height > 0:
+            # execution.go:305: hand the app's retain height to the pruner
+            # service; actual deletion happens on its own cadence
+            try:
+                self.pruner.set_application_block_retain_height(
+                    new_state.retain_height)
+            except ValueError as e:
+                self.logger.error("app retain height rejected", err=str(e))
         return new_state
 
     def _update_state(
@@ -356,3 +367,13 @@ class BlockExecutor:
             app_version=params.version.app,
         )
         return new
+
+    async def _fire_events(self, block: Block, block_id: BlockID, resp) -> None:
+        """execution.go:659-720 fireEvents -> event bus."""
+        await self.event_bus.publish_event_new_block(block, block_id, resp)
+        for i, tx in enumerate(block.data.txs):
+            await self.event_bus.publish_event_tx(
+                block.header.height, tx, i, resp.tx_results[i]
+            )
+        if resp.validator_updates:
+            await self.event_bus.publish_event_validator_set_updates(resp.validator_updates)

@@ -12,8 +12,8 @@ Key layout (height big-endian for ordered iteration/pruning):
 The port's copy of cometbft_tpu/store/blockstore.py over the port's
 KVStore/MemDB; it writes the same bytes under the same keys. An extended
 commit goes through ExtendedCommit.to_proto/from_proto (the bytes of the
-reference's _extended_to_proto). The disk-chaos seam of save_block comes
-with the disk-backed stores.
+reference's _extended_to_proto). save_block runs through the
+`blockstore.save` disk-chaos seam (libs/diskchaos).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass
 
+from cometbft_tpu_torch.libs import diskchaos
 from cometbft_tpu_torch.store.db import KVStore
 from cometbft_tpu_torch.types.basic import BlockID
 from cometbft_tpu_torch.types.block import Block, Header
@@ -114,6 +115,10 @@ class BlockStore:
     ) -> None:
         if block is None or not part_set.is_complete():
             raise ValueError("BlockStore can only save complete block part sets")
+        # the block-store disk seam: an injected ENOSPC/EIO here must
+        # surface BEFORE any pair lands (the batch below is one
+        # transaction either way)
+        diskchaos.fault_op("blockstore.save")
         height = block.header.height
         with self._lock:
             if self._height > 0 and height != self._height + 1:

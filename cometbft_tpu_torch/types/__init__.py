@@ -3,7 +3,7 @@ commits and extended commits, validator sets, the commit verification that
 feeds the batch verifier (validation.py), VoteSet's batch-first tally
 (vote_set.py), blocks, part sets, evidence, light blocks, consensus params
 and the genesis document. The port's copies of the matching modules of
-cometbft_tpu/types/, with proposals (the event bus comes with the node).
+cometbft_tpu/types/, with proposals and the event bus (event_bus.py).
 """
 
 from cometbft_tpu_torch.types.basic import (  # noqa: F401

@@ -21,9 +21,9 @@ import re
 
 import pytest
 
-from cometbft_tpu.abci import types as jabci
 from cometbft_tpu.abci.kvstore import KVStoreApplication as JKV
 from cometbft_tpu.blocksync import BlocksyncReactor as JBlocksync
+from cometbft_tpu.consensus.replay import Handshaker as JHandshaker
 from cometbft_tpu.mempool.mempool import CListMempool as JMempool
 from cometbft_tpu.mempool.mempool import MempoolConfig as JMempoolConfig
 from cometbft_tpu.proxy import AppConns as JAppConns
@@ -150,13 +150,14 @@ def test_pool_remove_peer_redoes_the_blocks_it_delivered(chain12):
 
 
 async def _jax_chain(n_blocks: int):
-    """tests/test_blocksync.build_chain with each height's State bytes."""
-    gdoc, state, privs = make_genesis(n=4)
+    """tests/test_blocksync.build_chain from the handshake's InitChain, with
+    each height's State bytes."""
+    gdoc, _state, privs = make_genesis(n=4)
     conns = JAppConns(jlocal(JKV()))
     await conns.start()
-    await conns.consensus.init_chain(jabci.RequestInitChain(chain_id=gdoc.chain_id))
+    # the chain starts from the handshake's InitChain, as a node's does
     store = JStateStore(JMemDB())
-    store.bootstrap(state)
+    state = await JHandshaker(store, JBlockStore(JMemDB()), gdoc).handshake(conns)
     bstore = JBlockStore(JMemDB())
     execu = JExec(store, conns.consensus, JMempool(JMempoolConfig(), conns.mempool))
     last = JCommit(height=0, round_=0, block_id=JBlockID(), signatures=[])

@@ -15,7 +15,9 @@ messages, the ticker and ConsensusState) against the JAX package's:
   the same vote in both packages, and one equivocation becomes the same
   evidence;
 - on the default "gpu" backend with no card the port's flush raises: a
-  consensus flush never runs on the CPU.
+  consensus flush never runs on the CPU;
+- with a WAL and consensus metrics, the single-validator chain writes the
+  reference's WAL bytes and metrics exposition.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ from cometbft_tpu.consensus import height_vote_set as jhvs
 from cometbft_tpu.consensus import messages as jmsg
 from cometbft_tpu.consensus import round_state as jrs
 from cometbft_tpu.consensus import ticker as jticker
+from cometbft_tpu.consensus import wal as jwal
 from cometbft_tpu.consensus.config import ConsensusConfig as JConfig
 from cometbft_tpu.crypto import ed25519 as jed
 from cometbft_tpu.evidence import EvidencePool as JPool
+from cometbft_tpu.libs import metrics as jmetrics
 from cometbft_tpu.mempool.mempool import CListMempool as JMempool
 from cometbft_tpu.mempool.mempool import MempoolConfig as JMempoolConfig
 from cometbft_tpu.privval.file_pv import FilePV as JFilePV
@@ -55,8 +59,10 @@ from cometbft_tpu_torch.consensus import height_vote_set as thvs
 from cometbft_tpu_torch.consensus import messages as tmsg
 from cometbft_tpu_torch.consensus import round_state as trs
 from cometbft_tpu_torch.consensus import ticker as tticker
+from cometbft_tpu_torch.consensus import wal as twal
 from cometbft_tpu_torch.consensus.config import ConsensusConfig as TConfig
 from cometbft_tpu_torch.crypto import batch as tbatch
+from cometbft_tpu_torch.libs import metrics as tmetrics
 from cometbft_tpu_torch.types import vote as tvote
 from cometbft_tpu_torch.types import vote_set as tvs
 from cometbft_tpu_torch.utils import cmttime as ttime
@@ -442,18 +448,51 @@ def test_port_flush_raises_without_a_card_on_the_default_backend():
     assert asyncio.run(run()) is True
 
 
-def test_port_consensus_state_takes_no_wal_or_metrics_yet():
-    tkeys = [H.gen_priv("ed25519", 0, seed=5)]
+async def run_chain_with_wal(side: str, heights: int, wal_path: str):
+    """A single-validator chain of `heights` blocks with 3 txs, its
+    ConsensusState given a WAL at `wal_path` and a ConsensusMetrics
+    registry. Returns the block hashes and the registry's exposition."""
+    tpriv = H.gen_priv("ed25519", 0, seed=3)
+    gdoc = H.genesis([tpriv], "wal-chain")
+    if side == "port":
+        node = await H.make_node("solo", gdoc, tpriv, _config(TConfig))
+        base, conns, mempool, bs = node.cs, node.conns, node.mempool, node.block_store
+        m, CS, W = tmetrics, type(node.cs), twal.WAL
+    else:
+        base, conns, mempool, bs = await _jax_node(JGenesis.from_json(gdoc.to_json()),
+                                                   _jax_priv(0, seed=3), _config(JConfig))
+        m, CS, W = jmetrics, JCS, jwal.WAL
+    reg = m.Registry()
+    cs = CS(config=base.config, state=base.state, block_exec=base.block_exec,
+            block_store=base.block_store, wal=W(wal_path), priv_validator=base.priv_validator,
+            metrics=m.ConsensusMetrics(reg))
+    for i in range(3):
+        await mempool.check_tx(b"wal%d=%d" % (i, i))
+    await cs.start()
+    try:
+        async def poll():
+            while bs.height() < heights or cs.rs.height <= heights:
+                assert not cs.failed
+                await asyncio.sleep(0.01)
 
-    async def run():
-        node = await H.make_node("val0", H.genesis(tkeys, "c"), tkeys[0], _config(TConfig))
-        try:
-            for kw in ({"wal": object()}, {"metrics": object()}):
-                with pytest.raises(NotImplementedError):
-                    type(node.cs)(config=node.cs.config, state=node.cs.state,
-                                  block_exec=node.block_exec, block_store=node.block_store,
-                                  **kw)
-        finally:
-            await node.conns.stop()
+        await asyncio.wait_for(poll(), 90.0)
+    finally:
+        await cs.stop()
+        await conns.stop()
+    return [bs.load_block(h).hash() for h in range(1, heights + 1)], reg.render()
 
-    asyncio.run(run())
+
+
+def test_port_consensus_state_takes_no_wal_or_metrics_yet(tmp_path):
+    """ConsensusState(wal=, metrics=), filled by the node's slice: a
+    single-validator chain with a WAL and consensus metrics writes the
+    reference's WAL bytes, blocks and exposition, both packages' clocks on
+    one stepping clock."""
+    out = {}
+    for side in ("jax", "port"):
+        with stepping_clocks():
+            out[side] = asyncio.run(run_chain_with_wal(side, 2, str(tmp_path / side / "wal")))
+    assert out["port"] == out["jax"]
+    for side in ("jax", "port"):
+        assert (open(tmp_path / side / "wal", "rb").read()
+                == open(tmp_path / "jax" / "wal", "rb").read())

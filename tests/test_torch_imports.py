@@ -166,3 +166,60 @@ def test_wire_modules_and_tcp_harness_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# the node slice: the node's support libraries, WAL and replay, stores,
+# indexers, config, the node and the CLI
+NODE_MODULES = (
+    "version", "libs.metrics", "libs.overload", "libs.pubsub", "types.event_bus",
+    "libs.diskchaos", "libs.autofile", "store.db", "consensus.wal", "consensus.replay",
+    "state.txindex", "state.pruner", "config.config", "node.node", "cmd", "__main__")
+
+
+@pytest.mark.parametrize("module", NODE_MODULES)
+def test_node_module_is_read_by_the_guard(module):
+    """Each module of the node slice is a file of the port that the static
+    check reads, with a counterpart of the same path in the JAX package."""
+    rel = pathlib.Path(*module.split(".")).with_suffix(".py")
+    assert REPO / "cometbft_tpu_torch" / rel in PORT_FILES
+    assert (REPO / "cometbft_tpu" / rel).is_file()
+
+
+def test_cli_start_imports_no_jax(tmp_path):
+    """`python -m cometbft_tpu_torch` in a fresh interpreter: `version`
+    runs, and `start` on a node home (the "cpu" backend) imports neither
+    JAX nor the JAX package while the node boots and commits."""
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-m", "cometbft_tpu_torch", "version"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "0.1.0-gpu", out.stderr
+    home = str(tmp_path / "h")
+    code = (
+        "import asyncio, sys\n"
+        "from cometbft_tpu_torch.cmd import main\n"
+        f"main(['--home', {home!r}, 'init', '--chain-id', 'imports'])\n"
+        "from cometbft_tpu_torch.config import Config\n"
+        f"c = Config.load({home!r})\n"
+        "c.rpc.laddr = ''; c.p2p.pex = False; c.cert.enabled = False\n"
+        "c.p2p.laddr = 'tcp://127.0.0.1:0'; c.save()\n"
+        "real_run = asyncio.run\n"
+        "async def bounded(coro):\n"
+        "    try:\n"
+        "        await asyncio.wait_for(coro, 3.0)\n"
+        "    except asyncio.TimeoutError:\n"
+        "        pass\n"
+        "asyncio.run = lambda coro: real_run(bounded(coro))\n"
+        f"main(['--home', {home!r}, 'start', '--crypto_backend', 'cpu', '--log_level', 'error'])\n"
+        "from cometbft_tpu_torch.store.db import open_db\n"
+        "from cometbft_tpu_torch.store import BlockStore\n"
+        f"bs = BlockStore(open_db('sqlite', {home!r} + '/data/blockstore.db', checksum=True))\n"
+        "assert bs.height() >= 1, bs.height()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('started', bs.height())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and "started" in out.stdout, out.stderr[-3000:]

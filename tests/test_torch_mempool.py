@@ -105,21 +105,59 @@ def test_admission_reap_update_and_recheck_are_the_reference_s():
     assert tsched.get().health()["class_rows"]["mempool"] > 0
 
 
-def test_port_mempool_takes_no_metrics_or_overload_registry():
-    async def run():
-        conns = TAppConns(tlocal(SignedKVStoreApplication()))
-        await conns.start()
-        try:
-            with pytest.raises(NotImplementedError):
-                tmp.CListMempool(tmp.MempoolConfig(), conns.mempool, metrics=object())
-            with pytest.raises(NotImplementedError):
-                tmp.CListMempool(tmp.MempoolConfig(), conns.mempool, overload=object())
-            with pytest.raises(NotImplementedError):
-                tmp.CListMempool(tmp.MempoolConfig(), conns.mempool).attach_overload(object())
-        finally:
-            await conns.stop()
+async def _drive_overload(side: str):
+    """A pool of 10 with the mempool metrics and an overload registry on a
+    fixed clock: filled past the saturated watermark, the next new tx is
+    shed at the door; a commit at the elevated watermark expires the
+    oldest txs eagerly; gossip's budget follows the level."""
+    from cometbft_tpu.libs import metrics as jm
+    from cometbft_tpu.libs import overload as jo
+    from cometbft_tpu.mempool import reactor as jreactor
+    from cometbft_tpu_torch.libs import metrics as tm
+    from cometbft_tpu_torch.libs import overload as to
+    from cometbft_tpu_torch.mempool import reactor as treactor
 
-    asyncio.run(run())
+    m, o, reactor = (tm, to, treactor) if side == "port" else (jm, jo, jreactor)
+    mp_mod, abci, app_cls, AppConns, local = SIDES[side]
+    conns = AppConns(local(app_cls()))
+    await conns.start()
+    reg = m.Registry()
+    ovl = o.OverloadRegistry(clock=lambda: 0.0)
+    cfg = mp_mod.MempoolConfig(size=10, tx_verify="ed25519", cache_size=64)
+    if side == "port":
+        pool = mp_mod.CListMempool(cfg, conns.mempool, metrics=m.MempoolMetrics(reg),
+                                   overload=ovl)
+    else:
+        pool = mp_mod.CListMempool(cfg, conns.mempool)
+        pool.metrics = m.MempoolMetrics(reg)
+        pool.attach_overload(ovl)
+    budget = reactor.MempoolReactor(pool)._gossip_budget
+    out = []
+    try:
+        for i in range(11):
+            out.append((await _outcome(pool.check_tx(_tx(i, forge=i == 3))),
+                        ovl.level("mempool"), budget()))
+        try:
+            await pool.check_tx(_tx(20))
+        except mp_mod.ErrMempoolIsFull as e:
+            out.append(("shed", e.plane, e.retry_after_ms))
+        committed = pool.reap_max_txs(1)
+        await pool.update(1, committed, [abci.ExecTxResult(code=0)])
+        out.append((pool.size(), pool.eager_expired, ovl.level("mempool"), budget(),
+                    ovl.sheds("mempool"), [mt.tx for mt in pool.iter_txs()]))
+    finally:
+        await conns.stop()
+    return out, reg.render()
+
+
+def test_port_mempool_takes_no_metrics_or_overload_registry():
+    """The metrics and overload hooks, filled by the node's slice, against
+    the reference's: the same decisions, expiries and exposition."""
+    jax, port = asyncio.run(_drive_overload("jax")), asyncio.run(_drive_overload("port"))
+    decisions = port[0]
+    assert decisions[-2][0] == "shed" and decisions[-1][1] > 0
+    assert "cometbft_mempool_failed_txs 1" in port[1]
+    assert port == jax
 
 
 @pytest.mark.parametrize("tx_verify", ["", "ed25519", "rsa"])

@@ -436,9 +436,59 @@ def test_port_switch_rejects_the_wrong_node_id():
 
 
 def test_port_takes_no_metrics_or_fuzzing_yet():
+    """The fuzzing transport still waits for p2p/fuzz.py. The metrics,
+    filled by the node's slice: a port switch and a JAX switch, each with
+    its P2PMetrics, exchange the same messages both ways and count the
+    same bytes and messages a channel and a peer."""
+    from cometbft_tpu.libs import metrics as jm
+    from cometbft_tpu_torch.libs import metrics as tm
+
     key = TNodeKey(ted.gen_priv_key_from_secret(b"wire-none"))
     info = TNodeInfo(node_id=key.id(), network="wire-chain")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="p2p/fuzz.py"):
         TTransport(key, info, fuzz_config=object())
-    with pytest.raises(NotImplementedError):
-        tconn.MConnection(None, [], None, None, metrics=object())
+
+    async def run():
+        p, j = _port_side(3), _jax_side(3)
+        p[2].metrics = tm.P2PMetrics(tm.Registry())
+        j[2].metrics = jm.P2PMetrics(jm.Registry())
+        try:
+            j_addr = await j[1].listen("127.0.0.1:0")
+            await p[1].listen("127.0.0.1:0")
+            await p[2].start()
+            await j[2].start()
+            await p[2].dial_peers_async([f"{j[0].id()}@{j_addr}"])
+
+            async def connected():
+                while p[2].n_peers() < 1 or j[2].n_peers() < 1:
+                    await asyncio.sleep(0.01)
+
+            await asyncio.wait_for(connected(), 10.0)
+            big = _rng(9).bytes(3000)
+            for side, other in ((p, j), (j, p)):
+                for msg in (b"m-one", big, b"m-three"):
+                    assert await side[2].get_peer(other[0].id()).send(0x60, msg)
+
+            async def delivered():
+                while len(j[3].got) < 3 or len(p[3].got) < 3:
+                    await asyncio.sleep(0.01)
+
+            await asyncio.wait_for(delivered(), 10.0)
+            await asyncio.sleep(0.3)  # the send routine's last flush of counters
+            out = {}
+            for name, side, other in (("port", p, j), ("jax", j, p)):
+                m = side[2].metrics
+                label = m.peer_label(other[0].id())
+                out[name] = [
+                    (m.peer_send_bytes.value(label, "0x60"), m.peer_receive_bytes.value(label, "0x60"),
+                     m.peer_send_msgs.value(label, "0x60"), m.peer_receive_msgs.value(label, "0x60"),
+                     m.message_send_bytes.value("0x60"), m.message_receive_bytes.value("0x60"),
+                     m.peers.value())]
+            return out
+        finally:
+            await p[2].stop()
+            await j[2].stop()
+
+    out = asyncio.run(asyncio.wait_for(run(), 30.0))
+    assert out["port"][0][2] == 3 and out["port"][0][0] > 3000
+    assert out["port"] == out["jax"]

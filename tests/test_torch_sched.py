@@ -476,9 +476,14 @@ def test_client_add_checks_signature_length():
 
 
 def test_configure_switches_the_routing_and_takes_no_knobs():
+    # no knob outside the reference's six; those six reach the live
+    # scheduler in place (the node's crypto.sched_* config)
     s = sched.get()
-    with pytest.raises(TypeError):
-        sched.configure(enabled=True, max_lanes=64)
+    with pytest.raises(ValueError):
+        sched.configure(enabled=True, max_rows=64)
+    sched.configure(max_lanes=64, mempool_deadline=0.02)
+    assert s.max_lanes == 64 and s.class_deadline[MEMPOOL] == 0.02
+    sched.configure(max_lanes=16384, mempool_deadline=0.010)
     sched.configure(enabled=False)
     assert not sched.enabled() and sched.health_snapshot()["enabled"] is False
     sched.configure(enabled=True)

@@ -22,13 +22,13 @@ import asyncio
 import io
 from dataclasses import dataclass, field
 
-from cometbft_tpu_torch.abci import types as abci
 from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
 from cometbft_tpu_torch.blocksync import BlocksyncReactor
 from cometbft_tpu_torch.consensus import ConsensusState
 from cometbft_tpu_torch.consensus.config import ConsensusConfig
 from cometbft_tpu_torch.consensus.config import test_consensus_config as make_test_config
 from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+from cometbft_tpu_torch.consensus.replay import Handshaker
 from cometbft_tpu_torch.consensus.state import BLOCK_PART_SIZE
 from cometbft_tpu_torch.crypto import ed25519
 from cometbft_tpu_torch.evidence.reactor import EvidenceReactor
@@ -215,13 +215,13 @@ class Chain:
 
 
 async def _exec_stack(gdoc: GenesisDoc):
+    """A kvstore app and the State a node starts from: its Handshaker's
+    InitChain, whose app hash the chain's first block carries."""
     app = KVStoreApplication()
     conns = AppConns(local_client_creator(app))
     await conns.start()
-    await conns.consensus.init_chain(abci.RequestInitChain(chain_id=gdoc.chain_id))
-    state = State.from_genesis(gdoc)
     store = StateStore(MemDB())
-    store.bootstrap(state)
+    state = await Handshaker(store, BlockStore(MemDB()), gdoc).handshake(conns)
     mempool = CListMempool(MempoolConfig(), conns.mempool)
     return app, conns, state, store, mempool, BlockExecutor(store, conns.consensus, mempool)
 
