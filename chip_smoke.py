@@ -100,7 +100,17 @@ prevote, one equivocation committed as evidence) for 5 heights; every
 batched vote flush and every validate_block must launch K1, K5 and K6 (the
 mixed net K2 and B1, B2, B4, B5), no plain version may run, and the
 per-height times, heightline phases and the 150-validator height's split
-are printed.
+are printed. The wire phase (wire_phase) runs nets over TCP and block
+sync, the node phase (node_phase) the port's Node from `testnet` homes.
+Then the RPC phase (rpc_phase): four Nodes with the reference's default
+RPC and PEX on, one reaching the others through PEX from its seed and one
+served by `python -m cometbft_tpu_torch.abci.cli kvstore` over TCP, loaded
+with txs through broadcast_tx_sync and broadcast_tx_commit while a
+websocket counts the blocks (rpc4: every tx found by tx and tx_search,
+/block and /commit against the stores, K5, K1 and K6 launched by the
+commits); the node phase's synced Node serving the 1,000 x 150 chain
+(rpc150: /commit against the chain's commits, /validators paged); and a
+4-validator TCP net with one validator on the remote signer (signer4).
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -121,6 +131,7 @@ result.
 
 from __future__ import annotations
 
+import base64
 import collections
 import concurrent.futures
 import functools
@@ -5543,7 +5554,7 @@ def node4_cell(device, card: str, run: str = "node4") -> dict:
     return dict(r, launches=launches, per_height=per_h, k5=k5)
 
 
-async def _node_sync150(root: str, chain) -> dict:
+async def _node_sync150(root: str, chain, serve=None) -> dict:
     import asyncio
     import os
 
@@ -5579,6 +5590,7 @@ async def _node_sync150(root: str, chain) -> dict:
                                      f"in {SYNC_TIMEOUT_S} s")
             await asyncio.sleep(0.01)
         wall = time.perf_counter() - t0
+        served = await serve(node, chain) if serve is not None else None
     finally:
         if node.is_running:
             await node.stop()
@@ -5593,7 +5605,8 @@ async def _node_sync150(root: str, chain) -> dict:
                              "not the chain's")
     bcr = node.blocksync_reactor
     return dict(wall_s=wall, blocks=top, window=bcr.window, windows=bcr.windows,
-                stage_s=bcr.stage_s, device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s)
+                stage_s=bcr.stage_s, device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s,
+                rpc150=served)
 
 
 async def _harness_sync_w8(chain) -> dict:
@@ -5667,13 +5680,15 @@ def harness_sync_w8_cell(device, card: str, chain) -> dict:
 def node_sync150_cell(device, card: str, chain) -> dict:
     """A fresh non-validator Node (sqlite, block sync on) syncs the wire
     phase's BASELINE config 3 chain (N_SYNC blocks x 150 validators) from
-    torch_tcp_harness.serve_node."""
+    torch_tcp_harness.serve_node; then it turns on its RPC and serves the
+    chain (the RPC phase's rpc150, _rpc150)."""
     import asyncio
     import os
 
     with ConsensusProbe() as probe:
         _consumer_reset()
-        r = asyncio.run(_node_sync150(os.path.join(_node_root(), "sync150"), chain))
+        r = asyncio.run(_node_sync150(os.path.join(_node_root(), "sync150"), chain,
+                                      serve=_rpc150))
         launches = _consumer_launches()
     if probe.plain:
         raise AssertionError(f"node sync150: {probe.plain} calls of a plain version")
@@ -5769,10 +5784,12 @@ def node_procs_cell(card: str) -> dict:
 def node_phase(device, card: str, chain) -> dict:
     """The node phase, after the wire phase: the port's Node as a user runs
     it (node/node.py from `testnet` homes: sqlite stores, the WAL, the kv
-    indexer, metrics; RPC, PEX and certificates off) on the card: node4
-    (four Nodes in one process over TCP, one restarted from its home), node
-    sync150 (a fresh Node block-syncing the wire phase's 150-validator
-    chain) and four `start` processes."""
+    indexer, metrics; RPC, PEX and certificates off, as in PR 18, so that
+    its cells compare with that PR's) on the card: node4 (four Nodes in one
+    process over TCP, one restarted from its home), node sync150 (a fresh
+    Node block-syncing the wire phase's 150-validator chain, which then
+    serves it over RPC: the RPC phase's rpc150) and four `start`
+    processes."""
     import shutil
 
     from cometbft_tpu_torch import sched
@@ -5788,10 +5805,10 @@ def node_phase(device, card: str, chain) -> dict:
     shutil.rmtree(_node_root(), ignore_errors=True)
     out = {}
     try:
-        # node4 twice, for the spread of its gap; the harness's sync at the
-        # Node's window, then the Node's, on one chain
+        # node4 (once since the RPC phase came: PR 18 ran it twice for the
+        # spread of its gap); the harness's sync at the Node's window, then
+        # the Node's, on one chain
         for label, cell in (("node4", node4_cell),
-                            ("node4_2", functools.partial(node4_cell, run="node4_2")),
                             ("harness_w8", functools.partial(harness_sync_w8_cell, chain=chain)),
                             ("sync150", functools.partial(node_sync150_cell, chain=chain))):
             sched.reset()
@@ -5806,6 +5823,538 @@ def node_phase(device, card: str, chain) -> dict:
         residency.reset()
         shutil.rmtree(_node_root(), ignore_errors=True)
     print(f"[{card}] node phase (measurements, not claims): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------------------- the RPC phase
+
+SEED_SIGNER = 19  # signer4's keys (torch_tcp_harness seeds, seen nowhere else)
+RPC_SYNC_TXS = 200  # kvstore txs through broadcast_tx_sync, across the four RPC ports
+RPC_COMMIT_TXS = 20  # kvstore txs through broadcast_tx_commit, four at a time
+RPC_CALLS = 20  # calls a route for its p50
+RPC_PEER_WAIT_S = 60  # node 3 must have its second peer this long after its start
+SIGNER_HEIGHTS = 8  # signer4's heights at the least
+RPC150_HEIGHTS = 5  # the heights /commit is held against the chain at
+
+
+def _rpc_client():
+    """tests/torch_rpc_client.py (tests/ on the path, as for _harness)."""
+    _harness()
+    import torch_rpc_client
+
+    return torch_rpc_client
+
+
+def _p(xs: list[float], q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _grpc_missing() -> str:
+    """Why the gRPC step cannot run here ("" when grpc imports)."""
+    try:
+        import grpc  # noqa: F401
+    except Exception as e:  # noqa: BLE001 - any import failure skips the step
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def _abci_cli_kvstore(port: int, log):
+    """`python -m cometbft_tpu_torch.abci.cli --address tcp://127.0.0.1:PORT
+    kvstore` in a child process, once its socket accepts."""
+    import os
+    import socket
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cometbft_tpu_torch.abci.cli", "--address",
+         f"tcp://127.0.0.1:{port}", "kvstore"], cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+            return proc
+        except OSError:
+            if proc.poll() is not None or time.perf_counter() - t0 > 60:
+                proc.kill()
+                proc.wait()
+                raise AssertionError(f"rpc4: abci-cli kvstore did not listen (exit "
+                                     f"{proc.returncode})")
+            time.sleep(0.1)
+
+
+def _rpc_homes(root: str) -> tuple[list[str], list[str]]:
+    """`testnet --v 4` homes with the reference's defaults (RPC and PEX on)
+    but cert.enabled = false: free loopback ports, log level error, the
+    harness nets' consensus timeouts; nodes 0-2 persistent peers of each
+    other, node 3 with none and node 0 as its only seed. Returns the homes
+    and the node ids."""
+    import os
+
+    from cometbft_tpu_torch.cmd import main as cli
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.p2p.key import NodeKey
+
+    if cli(["testnet", "--v", "4", "--o", root, "--chain-id", "rpc-net4"]) != 0:
+        raise AssertionError("testnet --v 4 failed")
+    homes = [os.path.join(root, f"node{i}") for i in range(4)]
+    ids = [NodeKey.load_or_gen(Config.load(h).node_key_path()).id() for h in homes]
+    ports = _free_ports(9)
+    for i, h in enumerate(homes):
+        c = Config.load(h)
+        if not (c.rpc.laddr and c.p2p.pex and c.crypto.backend == "gpu"):
+            raise AssertionError(f"rpc4: testnet wrote rpc {c.rpc.laddr!r}, pex {c.p2p.pex}, "
+                                 f"backend {c.crypto.backend!r}")
+        c.cert.enabled = False
+        c.base.log_level = "error"
+        c.p2p.laddr = f"tcp://127.0.0.1:{ports[i]}"
+        c.rpc.laddr = f"tcp://127.0.0.1:{ports[4 + i]}"
+        c.consensus = _net_config()
+        if i < 3:
+            c.p2p.persistent_peers = ",".join(f"{ids[j]}@127.0.0.1:{ports[j]}"
+                                              for j in range(3) if j != i)
+        else:
+            c.p2p.persistent_peers = ""
+            c.p2p.seeds = f"{ids[0]}@127.0.0.1:{ports[0]}"
+        if i == 2:
+            c.base.proxy_app = f"tcp://127.0.0.1:{ports[8]}"
+        if i == 0 and not _grpc_missing():
+            c.grpc.laddr = f"tcp://127.0.0.1:{_free_ports(1)[0]}"
+        c.save()
+    return homes, ids
+
+
+async def _rpc_load(addrs: list[str], ws_addr: str, heights_at_start: int) -> dict:
+    """The client's side of rpc4 (its own event loop, in its own thread):
+    a websocket on node 1 counting NewBlock events, RPC_SYNC_TXS
+    broadcast_tx_sync calls spread over the four ports, RPC_COMMIT_TXS
+    broadcast_tx_commit calls four at a time, then RPC_CALLS calls of each
+    read route."""
+    import asyncio
+
+    R = _rpc_client()
+    ws = await R.WS.connect(ws_addr)
+    ack = await ws.subscribe("tm.event = 'NewBlock'")
+    if "error" in ack:
+        raise AssertionError(f"rpc4: the websocket refused the subscription: {ack}")
+    seen: list[int] = []
+
+    async def count_blocks():
+        while True:
+            ev = await ws.recv()
+            seen.append(int(ev["result"]["data"]["value"]["block"]["header"]["height"]))
+
+    counter = asyncio.get_running_loop().create_task(count_blocks())
+    health0 = (await R.get(addrs[0], "/crypto_health"))["result"]["verify_sched"]
+    txs = [b"rpc%d=v%d" % (i, i) for i in range(RPC_SYNC_TXS + RPC_COMMIT_TXS)]
+    sync_ms, commit_ms, results = [], [], {}
+
+    async def sync(i, tx):
+        t0 = time.perf_counter()
+        env = await R.post(addrs[i % 4], "broadcast_tx_sync", {"tx": R.b64(tx)})
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        results[tx] = env
+
+    async def commit(i, tx):
+        t0 = time.perf_counter()
+        env = await R.post(addrs[i % 4], "broadcast_tx_commit", {"tx": R.b64(tx)})
+        commit_ms.append((time.perf_counter() - t0) * 1e3)
+        results[tx] = env
+
+    for k in range(0, RPC_SYNC_TXS, 8):
+        await asyncio.gather(*(sync(i, txs[i]) for i in range(k, min(k + 8, RPC_SYNC_TXS))))
+    for k in range(RPC_SYNC_TXS, len(txs), 4):
+        await asyncio.gather(*(commit(i, txs[i]) for i in range(k, min(k + 4, len(txs)))))
+    bad = {tx: env for tx, env in results.items()
+           if "error" in env or (env["result"].get("code") or
+                                 env["result"].get("check_tx", {}).get("code", 0))}
+    if bad or len(results) != len(txs):
+        raise AssertionError(f"rpc4: {len(bad)} txs refused, e.g. {list(bad.items())[:2]}")
+    commit_heights = sorted(int(results[tx]["result"]["height"]) for tx in txs[RPC_SYNC_TXS:])
+    # the sync txs: wait until every one is indexed on node 0
+    t0 = time.perf_counter()
+    while True:
+        got = [await R.get(addrs[0], f"/tx?hash=0x{hashlib.sha256(tx).hexdigest()}")
+               for tx in txs]
+        missing = [tx for tx, env in zip(txs, got) if "error" in env]
+        if not missing:
+            break
+        if time.perf_counter() - t0 > NODE_TIMEOUT_S:
+            raise AssertionError(f"rpc4: {len(missing)} txs never found by `tx`: "
+                                 f"{missing[:3]}")
+        await asyncio.sleep(0.2)
+    tx_heights = sorted({int(env["result"]["height"]) for env in got})
+    search_total = 0
+    for h in tx_heights:
+        env = await R.get(addrs[1], f"/tx_search?query=%22tx.height%3D{h}%22&per_page=100")
+        search_total += int(env["result"]["total_count"])
+    if search_total != len(txs):
+        raise AssertionError(f"rpc4: tx_search found {search_total} of {len(txs)} txs")
+    health1 = (await R.get(addrs[0], "/crypto_health"))["result"]["verify_sched"]
+    top = max(tx_heights)
+    # /commit at `top` is the canonical commit, stored with block top + 1
+    async def tip(a: str) -> int:
+        env = await R.get(a, "/status")
+        return int(env["result"]["sync_info"]["latest_block_height"])
+
+    while min([await tip(a) for a in addrs]) <= top:
+        if time.perf_counter() - t0 > NODE_TIMEOUT_S:
+            raise AssertionError(f"rpc4: the chain did not pass height {top}")
+        await asyncio.sleep(0.05)
+    routes = {"status": "/status", "block": f"/block?height={top}",
+              "commit": f"/commit?height={top}", "validators": "/validators",
+              "tx_search": f"/tx_search?query=%22tx.height%3D{top}%22"}
+    route_ms = {}
+    for name, path in routes.items():
+        ms = []
+        for k in range(RPC_CALLS):
+            t0 = time.perf_counter()
+            env = await R.get(addrs[k % 4], path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if "error" in env:
+                raise AssertionError(f"rpc4: {path}: {env['error']}")
+        route_ms[name] = statistics.median(ms)
+    # the websocket saw every height from its first event to the last
+    # committed one
+    last = await tip(addrs[1])
+    t0 = time.perf_counter()
+    while not seen or seen[-1] < last:
+        if time.perf_counter() - t0 > 10:
+            break
+        await asyncio.sleep(0.05)
+    counter.cancel()
+    await ws.close()
+    if not seen or seen != list(range(seen[0], seen[-1] + 1)) or seen[-1] < last \
+            or seen[0] > heights_at_start + 2:
+        raise AssertionError(f"rpc4: the websocket saw heights {seen[:5]}..{seen[-5:]} of "
+                             f"{heights_at_start}..{last}")
+    return dict(sync_ms=sync_ms, commit_ms=commit_ms, route_ms=route_ms,
+                commit_heights=commit_heights, tx_heights=tx_heights, seen=len(seen),
+                batches=(health0["batches"], health1["batches"]), top=top)
+
+
+async def _rpc4(root: str) -> dict:
+    import asyncio
+    import os
+    import shutil
+
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import Node
+
+    R = _rpc_client()
+    shutil.rmtree(root, ignore_errors=True)  # testnet keeps an old home's data
+    homes, ids = _rpc_homes(root)
+    cfg2 = Config.load(homes[2])
+    app_log = open(os.path.join(root, "abci-cli.log"), "wb")
+    app = _abci_cli_kvstore(int(cfg2.base.proxy_app.rsplit(":", 1)[1]), app_log)
+    nodes = []
+    t0 = time.perf_counter()
+    try:
+        nodes = [Node(Config.load(h)) for h in homes[:3]]
+        for n in nodes:
+            await n.start()
+        nodes.append(Node(Config.load(homes[3])))
+        t3 = time.perf_counter()
+        await nodes[3].start()
+        boot_s = time.perf_counter() - t0
+        second_peer_s = None
+        addrs = [n.rpc_server.bound_addr for n in nodes]
+        stamps: dict[int, float] = {}
+
+        def watch() -> None:
+            nonlocal second_peer_s
+            h = min(n.block_store.height() for n in nodes)
+            if h not in stamps:
+                stamps[h] = time.perf_counter()
+            if second_peer_s is None and nodes[3].switch.n_peers() >= 2:
+                second_peer_s = time.perf_counter() - t3
+            failed = [i for i, n in enumerate(nodes) if n.consensus_state.failed]
+            if failed:
+                raise AssertionError(f"rpc4: consensus failure on nodes {failed}")
+
+        while min(n.block_store.height() for n in nodes) < 2:
+            watch()
+            if time.perf_counter() - t0 > NODE_TIMEOUT_S:
+                raise AssertionError("rpc4: the net did not reach height 2")
+            await asyncio.sleep(0.005)
+        h_start = min(n.block_store.height() for n in nodes)
+        stamps.clear()
+        load = asyncio.get_running_loop().run_in_executor(
+            None, lambda: asyncio.run(_rpc_load(addrs, addrs[1], h_start)))
+        while not load.done():
+            watch()
+            if time.perf_counter() - t0 > NODE_TIMEOUT_S:
+                raise AssertionError("rpc4: the load did not finish")
+            await asyncio.sleep(0.005)
+        r = await load
+        h_end = min(n.block_store.height() for n in nodes)
+        load_stamps = dict(stamps)  # the heights committed under the load
+        while second_peer_s is None:
+            watch()
+            if time.perf_counter() - t3 > RPC_PEER_WAIT_S:
+                raise AssertionError(f"rpc4: node 3 has {nodes[3].switch.n_peers()} peers "
+                                     f"{RPC_PEER_WAIT_S} s after its start")
+            await asyncio.sleep(0.01)
+        book = nodes[3].addr_book
+        if not all(book.has(i) for i in ids[:3]):
+            raise AssertionError(f"rpc4: node 3's address book holds "
+                                 f"{sorted(book._addrs)} of {ids[:3]}")
+        # /commit and /block against the node's block store at 3 heights
+        for h in (h_start, (h_start + r["top"]) // 2, r["top"]):
+            blk = nodes[0].block_store.load_block(h)
+            commit = nodes[0].block_store.load_block_commit(h)
+            env_b = await R.get(addrs[0], f"/block?height={h}")
+            env_c = await R.get(addrs[2], f"/commit?height={h}")
+            sigs = [base64.b64decode(s["signature"])
+                    for s in env_c["result"]["signed_header"]["commit"]["signatures"]]
+            if (env_b["result"]["block_id"]["hash"] != blk.hash().hex().upper()
+                    or [base64.b64decode(t) for t in env_b["result"]["block"]["data"]["txs"]]
+                    != list(blk.data.txs)
+                    or sigs != [s.signature for s in commit.signatures]):
+                raise AssertionError(f"rpc4: /block or /commit at {h} differs from the store")
+        grpc_step = "not run: " + _grpc_missing() if _grpc_missing() else await _grpc_step(
+            nodes[0], addrs[0], r["top"])
+    finally:
+        for n in nodes:
+            if n.is_running:
+                await n.stop()
+        app.terminate()
+        try:
+            app.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            app.kill()
+            app.wait()
+        app_log.close()
+    top = min(n.block_store.height() for n in nodes)
+    for h in range(1, top + 1):
+        if len({n.block_store.load_block(h).hash() for n in nodes}) != 1:
+            raise AssertionError(f"rpc4: the nodes' blocks differ at height {h}")
+    gaps = sorted(load_stamps[h + 1] - load_stamps[h] for h in load_stamps
+                  if h + 1 in load_stamps)
+    return dict(r, boot_s=boot_s, second_peer_s=second_peer_s, heights=h_end - h_start,
+                h_start=h_start, h_end=h_end, top_all=top, gaps_ms=[g * 1e3 for g in gaps],
+                p50_ms=gaps[len(gaps) // 2] * 1e3, grpc=grpc_step)
+
+
+async def _grpc_step(node, addr: str, height: int) -> str:
+    """GRPCServicesClient reads GetVersion and BlockService/GetByHeight off
+    node 0, held against its /block."""
+    from cometbft_tpu_torch import version
+    from cometbft_tpu_torch.rpc.grpc_services import GRPCServicesClient
+
+    R = _rpc_client()
+    client = GRPCServicesClient(node.grpc_bound)
+    try:
+        v = await client.call("VersionService", "GetVersion")
+        b = await client.call("BlockService", "GetByHeight", {"height": height})
+    finally:
+        await client.close()
+    env = await R.get(addr, f"/block?height={height}")
+    if v["node"] != version.CMTSemVer or v["block"] != version.BlockProtocol \
+            or b["block_id"]["hash"].upper() != env["result"]["block_id"]["hash"]:
+        raise AssertionError(f"rpc4 gRPC: {v}, block id {b['block_id']}, /block "
+                             f"{env['result']['block_id']}")
+    return f"GetVersion {v['node']} and GetByHeight({height}) agree with /block"
+
+
+def rpc4_cell(device, card: str) -> dict:
+    """Four Nodes from `testnet --v 4` homes on the card with RPC and PEX
+    on (cert off): node 3 reaches the others through PEX from node 0 as its
+    seed, node 2's app is abci-cli's kvstore in a child process over TCP;
+    a client sends RPC_SYNC_TXS + RPC_COMMIT_TXS txs through the RPC."""
+    import asyncio
+    import os
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_rpc4(os.path.join(_node_root(), "rpc4")))
+        launches = _consumer_launches()
+    k5 = probe.check_launched("rpc4")
+    for k in ("challenge_derive", "ed25519_verify", "integrity_parts"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"rpc4: {k} never launched: {launches}")
+    b0, b1 = r["batches"]
+    if b1 <= b0:
+        raise AssertionError(f"rpc4: crypto_health verify_sched batches {b0} -> {b1}")
+    n_h = r["top_all"]  # every height the cell's nodes committed
+    per_h = {k: round(launches.get(k, 0) / n_h, 3)
+             for k in ("challenge_derive", "ed25519_verify", "integrity_parts")}
+    print(f"[{card}] rpc rpc4: four Nodes (RPC and PEX on, node 2's app abci-cli kvstore over "
+          f"TCP) booted in {r['boot_s']:.3f} s; {RPC_SYNC_TXS} broadcast_tx_sync p50 "
+          f"{_p(r['sync_ms'], 0.5):.3f} ms, {RPC_COMMIT_TXS} broadcast_tx_commit p50 "
+          f"{_p(r['commit_ms'], 0.5):.3f} ms, p90 {_p(r['commit_ms'], 0.9):.3f} ms; per-route "
+          f"p50 ms over {RPC_CALLS} calls {({k: round(v, 3) for k, v in r['route_ms'].items()})}; "
+          f"{r['heights']} heights during the load, per-height gap ({len(r['gaps_ms'])} gaps) "
+          f"p50 {r['p50_ms']:.3f} ms; txs in heights {r['tx_heights'][0]}-{r['tx_heights'][-1]}, "
+          f"all found by tx and tx_search; websocket NewBlock events {r['seen']}; "
+          f"verify_sched batches {b0} -> {b1}; K5/K1/K6 launches a height over {n_h} heights "
+          f"{per_h}; node 3's second peer {r['second_peer_s']:.3f} s after its start (PEX from "
+          f"its seed); gRPC {r['grpc']}; batched calls with K5 / host k {k5}", flush=True)
+    return dict(r, launches=launches, per_height=per_h, k5=k5)
+
+
+async def _rpc150(node, chain) -> dict:
+    """The synced node of node sync150 turns on its RPC and serves the
+    chain: /commit at RPC150_HEIGHTS heights held against the chain's
+    commits, /validators page 2 of 100, /blockchain over 20 heights,
+    /block_results and /light_block; each route's p50 over RPC_CALLS."""
+    from cometbft_tpu_torch.rpc.server import RPCServer
+
+    R = _rpc_client()
+    node.config.rpc.laddr = "tcp://127.0.0.1:0"
+    node.rpc_server = RPCServer(node, node.config.rpc)
+    await node.rpc_server.start()
+    addr = node.rpc_server.bound_addr
+    top = node.block_store.height() - 1
+    commit_bytes = 0
+    for h in np.linspace(2, top, RPC150_HEIGHTS).astype(int).tolist():
+        raw = (await R.get_raw(addr, f"/commit?height={h}"))[1]
+        commit_bytes = len(raw)
+        env = json.loads(raw)
+        sigs = [base64.b64decode(s["signature"])
+                for s in env["result"]["signed_header"]["commit"]["signatures"]]
+        want = chain.block_store.load_block_commit(h)
+        if len(sigs) != SYNC_VALS or sigs != [s.signature for s in want.signatures]:
+            raise AssertionError(f"rpc150: /commit at {h} is not the chain's commit")
+    env = await R.get(addr, f"/validators?height={top}&per_page=100&page=2")
+    if len(env["result"]["validators"]) != SYNC_VALS - 100 or env["result"]["total"] != str(
+            SYNC_VALS):
+        raise AssertionError(f"rpc150: /validators page 2: {env['result'].get('count')}")
+    env = await R.get(addr, f"/blockchain?minHeight={top - 19}&maxHeight={top}")
+    if len(env["result"]["block_metas"]) != 20:
+        raise AssertionError("rpc150: /blockchain did not give 20 heights")
+    routes = {"commit": f"/commit?height={top}", "block": f"/block?height={top}",
+              "validators": f"/validators?height={top}&per_page=100&page=2",
+              "blockchain": f"/blockchain?minHeight={top - 19}&maxHeight={top}",
+              "block_results": f"/block_results?height={top}",
+              "light_block": f"/light_block?height={top}", "status": "/status"}
+    route_ms = {}
+    for name, path in routes.items():
+        ms = []
+        for _ in range(RPC_CALLS):
+            t0 = time.perf_counter()
+            env = await R.get(addr, path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if "error" in env:
+                raise AssertionError(f"rpc150: {path}: {env['error']}")
+        route_ms[name] = statistics.median(ms)
+    return dict(route_ms=route_ms, commit_bytes=commit_bytes, top=top)
+
+
+async def _signer4(device) -> dict:
+    import asyncio
+    import threading
+
+    T = _tcp_harness()
+    from cometbft_tpu_torch.privval.file_pv import FilePV
+    from cometbft_tpu_torch.privval.remote import SignerClient, SignerServer
+
+    net = await T.make_tcp_net(4, config=_net_config(), chain_id="rpc-signer4", device=device,
+                               seed=SEED_SIGNER)
+    cs = net.nodes[3].cs
+    client = SignerClient(("127.0.0.1", 0), timeout=5.0, accept_timeout=10.0)
+    server = SignerServer(FilePV(net.privs[3]), client.laddr)
+    server.start()
+    accept = threading.Thread(target=client.accept)
+    accept.start()
+    accept.join(timeout=15.0)
+    if client._conn is None:
+        raise AssertionError("signer4: the signer never dialed in")
+    trips = []
+    round_trip = client._round_trip
+
+    def timed(tag, body):
+        t0 = time.perf_counter()
+        out = round_trip(tag, body)
+        trips.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    client._round_trip = timed
+    if client.get_pub_key().bytes_() != cs.priv_validator_pub_key.bytes_():
+        raise AssertionError("signer4: the remote signer holds another key")
+    cs.priv_validator = client
+    stamps, t0 = {}, time.perf_counter()
+    try:
+        await net.start()
+        last = 0
+        while last < SIGNER_HEIGHTS:
+            h = min(n.block_store.height() for n in net.nodes)
+            if h > last:
+                stamps[h] = time.perf_counter()
+                last = h
+            if net.failed() or time.perf_counter() - t0 > NET_TIMEOUT_S:
+                raise AssertionError(f"signer4: {h} heights, failed {net.failed()}")
+            await asyncio.sleep(0.002)
+    finally:
+        await net.stop()
+        client.close()
+        server.stop()
+    heights = min(n.block_store.height() for n in net.nodes)
+    signed = sum(1 for h in range(2, heights + 1)
+                 for s in net.nodes[0].block_store.load_block(h).last_commit.signatures
+                 if s.validator_address == cs.priv_validator_pub_key.address() and s.signature)
+    if signed < SIGNER_HEIGHTS - 2:
+        raise AssertionError(f"signer4: the remote validator signed {signed} commits")
+    gaps = sorted(stamps[h + 1] - stamps[h] for h in stamps if h + 1 in stamps)
+    return dict(heights=heights, trips_ms=trips, signed=signed,
+                gaps_ms=[g * 1e3 for g in gaps], p50_ms=gaps[len(gaps) // 2] * 1e3)
+
+
+def signer4_cell(device, card: str, tcp4_p50_ms: float) -> dict:
+    """tcp4's net (torch_tcp_harness, no txs) with validator 3 signing
+    through the port's SignerClient; its SignerServer holds the FilePV in a
+    thread over loopback."""
+    import asyncio
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_signer4(device))
+        launches = _consumer_launches()
+    k5 = probe.check_launched("signer4")
+    n_h = r["heights"]
+    per_h = {k: round(launches.get(k, 0) / n_h, 3)
+             for k in ("challenge_derive", "ed25519_verify", "integrity_parts")}
+    print(f"[{card}] rpc signer4: {n_h} heights with validator 3 on the remote signer, "
+          f"{len(r['trips_ms'])} signing round trips p50 {_p(r['trips_ms'], 0.5):.3f} ms (max "
+          f"{max(r['trips_ms']):.3f}); per-height gap p50 {r['p50_ms']:.3f} ms against this "
+          f"run's tcp4 {tcp4_p50_ms:.3f} ms; {r['signed']} commits carry its signature; K5/K1/K6 "
+          f"launches a height {per_h}; batched calls with K5 / host k {k5}", flush=True)
+    return dict(r, launches=launches, per_height=per_h, k5=k5)
+
+
+def rpc_phase(device, card: str, node: dict, tcp4_p50_ms: float) -> dict:
+    """The RPC phase, after the node phase: rpc4 (the reference's default
+    deployment of four Nodes, RPC and PEX on, a socket app, load through
+    the RPC), rpc150 (taken from the node phase, where the synced Node of
+    node sync150 served its chain over RPC) and signer4 (a validator on the
+    remote signer)."""
+    import shutil
+
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.ops import residency
+
+    t_phase = time.perf_counter()
+    out = {}
+    r150 = node["sync150"]["rpc150"]
+    print(f"[{card}] rpc rpc150: the synced Node served the {N_SYNC} x {SYNC_VALS} chain over "
+          f"RPC: /commit at {RPC150_HEIGHTS} heights equal to the chain's commits ({SYNC_VALS} "
+          f"signatures, {r150['commit_bytes']} response bytes), /validators page 2 of 100 gave "
+          f"{SYNC_VALS - 100}; per-route p50 ms over {RPC_CALLS} calls "
+          f"{({k: round(v, 3) for k, v in r150['route_ms'].items()})}", flush=True)
+    try:
+        for label, cell in (("rpc4", rpc4_cell),
+                            ("signer4", functools.partial(signer4_cell,
+                                                          tcp4_p50_ms=tcp4_p50_ms))):
+            sched.reset()
+            residency.reset()
+            out[label] = cell(device, card)
+    finally:
+        sched.reset()
+        residency.reset()
+        shutil.rmtree(_node_root(), ignore_errors=True)
+    out["rpc150"] = r150
+    print(f"[{card}] rpc phase (measurements, not claims): "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -5882,6 +6431,7 @@ def main() -> int:
     consensus = consensus_phase(device, card)
     wire = wire_phase(device, card)
     node = node_phase(device, card, wire["sync150"].pop("chain"))
+    rpc = rpc_phase(device, card, node, wire["tcp4"]["p50_ms"])
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -6001,6 +6551,8 @@ def main() -> int:
                        for label, cell in consensus.items()},
                     **{f"wire_{label}": cell["launches"] for label, cell in wire.items()},
                     **{f"node_{label}": cell["launches"] for label, cell in node.items()
+                       if "launches" in cell},
+                    **{f"rpc_{label}": cell["launches"] for label, cell in rpc.items()
                        if "launches" in cell}}
     for r in kernels["kernels"]:
         count = BLS_SPLIT.get(r["name"], (None, None, r["name"]))[2]

@@ -1,8 +1,10 @@
 """ABCI 2.0, the application boundary (reference: abci/). The port's copy
 of cometbft_tpu/abci/: the request and response types with the Application
 base classes (types.py), the JSON codec of their payloads (codec.py), the
-in-process client (client.py) and the example kvstore app (kvstore.py).
-The socket and gRPC transports come in a later slice.
+in-process and socket clients (client.py), the example kvstore app
+(kvstore.py), the reference's protobuf wire (proto_codec.py), the socket
+server (server.py), the gRPC transport (grpc.py) and abci-cli (cli.py,
+grammar.py).
 """
 
 from cometbft_tpu_torch.abci.types import (  # noqa: F401

@@ -15,13 +15,12 @@ Env: CMT_HOME overrides --home (main.go:48 env prefix analog).
 The port's copy of cometbft_tpu/cmd.py. `start` runs the port's Node, on
 the card unless the config or `--crypto_backend cpu` says "cpu"; the
 node refuses the planes that wait for later slices (node.check_planes), so
-a home to start sets [rpc] laddr = "", [p2p] pex = false and
-[cert] enabled = false. `testnet` writes its homes as the reference does,
-except that crypto.backend keeps the port's default, "gpu" (the
-reference writes "cpu"). The reference's other subcommands
-(rollback, compact-db, inspect, light, debug, trace-dump, netinfo,
-heightline, loadtime) parse as there and raise NotImplementedError naming
-the module each waits for.
+a home to start sets [cert] enabled = false. `testnet` writes its homes as
+the reference does, except that crypto.backend keeps the port's default,
+"gpu" (the reference writes "cpu"). The RPC clients trace-dump, netinfo
+and heightline are the reference's. Its other subcommands (rollback,
+compact-db, inspect, light, debug, loadtime) parse as there and raise
+NotImplementedError naming the module each waits for.
 """
 
 from __future__ import annotations
@@ -286,13 +285,10 @@ def cmd_gen_node_key(args) -> int:
 QUEUED = {
     "rollback": "state/rollback.py",
     "compact-db": "the port's compact-db (with state/rollback.py)",
-    "inspect": "node/inspect.py and rpc/core.py",
+    "inspect": "node/inspect.py",
     "light": "light/proxy.py and light/rpc_provider.py",
-    "debug": "rpc/server.py and node/pprof.py",
-    "trace-dump": "rpc/server.py",
-    "netinfo": "rpc/server.py",
-    "heightline": "rpc/server.py",
-    "loadtime": "loadtime.py and rpc/server.py",
+    "debug": "node/pprof.py",
+    "loadtime": "loadtime.py",
 }
 
 
@@ -300,6 +296,178 @@ def cmd_queued(args) -> int:
     raise NotImplementedError(
         f"`{args.command}` waits for the port's {QUEUED[args.command]}, which is not "
         "ported yet")
+
+
+def cmd_trace_dump(args) -> int:
+    """Pull the verify-plane flight recorder off a RUNNING node (the
+    `trace_dump` RPC route, libs/trace.py) and write a Perfetto-loadable
+    Chrome trace-event file — open it at ui.perfetto.dev. Also prints the
+    rolling wall-time attribution (stage shares, measured bytes-per-sig)
+    and, with --slow, writes the slow-batch capture ring next to the
+    trace. Requires instrumentation.tracing=true (or CBFT_TRACE=1) on
+    the node, else the dump is empty."""
+    import time as _time
+    import urllib.parse
+    import urllib.request
+
+    base = args.rpc_laddr.removeprefix("tcp://")
+    if not base.startswith("http"):
+        base = "http://" + base
+    q = urllib.parse.urlencode({"slow": "true"} if args.slow else {})
+    url = f"{base}/trace_dump" + (f"?{q}" if q else "")
+    with urllib.request.urlopen(url, timeout=30) as r:
+        env = json.loads(r.read())
+    if "error" in env and env["error"]:
+        print(f"trace_dump failed: {env['error']}")
+        return 1
+    result = env.get("result", env)
+    out = args.output or f"cometbft-trace-{int(_time.time())}.json"
+    with open(out, "w") as f:
+        json.dump(result["chrome_trace"], f)
+    n_ev = len(result["chrome_trace"].get("traceEvents", []))
+    print(f"wrote {out} ({n_ev} events; load at ui.perfetto.dev)")
+    if not result.get("enabled", False):
+        print("note: tracing is DISABLED on the node "
+              "(instrumentation.tracing / CBFT_TRACE)")
+    if result.get("spans_dropped"):
+        print(f"ring dropped {result['spans_dropped']} oldest spans")
+    print(json.dumps({"attribution": result.get("attribution", {})}))
+    if args.slow:
+        slow_out = out.removesuffix(".json") + "-slow.json"
+        with open(slow_out, "w") as f:
+            json.dump(result.get("slow_captures", []), f, indent=1)
+        print(f"wrote {slow_out} "
+              f"({len(result.get('slow_captures', []))} slow captures)")
+    return 0
+
+
+def cmd_netinfo(args) -> int:
+    """Fleet wire-plane view: pull the `net_telemetry` route off every
+    RPC endpoint in --endpoints (comma-separated; defaults to the single
+    --rpc.laddr) and print one JSON document — per-node per-peer/
+    per-channel accounting plus a fleet rollup (total wire bytes by
+    channel, stall time, tunnel/link estimates). The single-pane answer
+    to 'where do this net's wire bytes go'."""
+    import urllib.request
+
+    endpoints = [e for e in (args.endpoints or args.rpc_laddr).split(",") if e]
+    nodes = []
+    fleet_channels: dict = {}
+    fleet = {"send_bytes": 0, "recv_bytes": 0, "send_msgs": 0,
+             "recv_msgs": 0, "send_stall_seconds": 0.0, "n_peers": 0}
+    for ep in endpoints:
+        base = ep.removeprefix("tcp://")
+        if not base.startswith("http"):
+            base = "http://" + base
+        try:
+            with urllib.request.urlopen(f"{base}/net_telemetry",
+                                        timeout=10) as r:
+                env = json.loads(r.read())
+            tel = env.get("result", env)
+        except Exception as e:  # noqa: BLE001 - report reachability per node
+            nodes.append({"endpoint": ep, "error": str(e)})
+            continue
+        nodes.append({"endpoint": ep, **tel})
+        totals = tel.get("totals", {})
+        for k in ("send_bytes", "recv_bytes", "send_msgs", "recv_msgs"):
+            fleet[k] += totals.get(k, 0)
+        fleet["send_stall_seconds"] += totals.get("send_stall_seconds", 0.0)
+        fleet["n_peers"] += tel.get("n_peers", 0)
+        for ch_id, ch in tel.get("channels", {}).items():
+            agg = fleet_channels.setdefault(
+                ch_id, {"send_bytes": 0, "recv_bytes": 0,
+                        "send_msgs": 0, "recv_msgs": 0})
+            for k in agg:
+                agg[k] += ch.get(k, 0)
+    fleet["send_stall_seconds"] = round(fleet["send_stall_seconds"], 6)
+    print(json.dumps({
+        "nodes": nodes,
+        "fleet": {**fleet, "channels": fleet_channels,
+                  "nodes_reporting": sum(1 for n in nodes
+                                         if "error" not in n)},
+    }, indent=None if args.compact else 1))
+    return 0 if all("error" not in n for n in nodes) else 1
+
+
+def cmd_heightline(args) -> int:
+    """Fleet consensus anatomy: pull the `consensus_timeline` route off
+    every RPC endpoint in --endpoints (defaults to the single
+    --rpc.laddr), fuse the per-node rings onto one skew-corrected clock
+    axis (consensus/timeline.aggregate) and print per-height phase
+    anatomy — propose -> prevote-quorum -> precommit-quorum -> commit ->
+    apply durations, per-node proposal propagation, the straggler and
+    the slowest vote link — plus the fleet summary. --trace additionally
+    writes a Perfetto-loadable Chrome trace of the fused timeline."""
+    import urllib.parse
+    import urllib.request
+
+    from cometbft_tpu_torch.consensus import timeline
+    from cometbft_tpu_torch.libs import trace as cmttrace
+
+    endpoints = [e for e in (args.endpoints or args.rpc_laddr).split(",") if e]
+    q = urllib.parse.urlencode(
+        {k: v for k, v in (("min_height", args.min_height),
+                           ("limit", args.limit)) if v})
+    docs, errors = [], []
+    for ep in endpoints:
+        base = ep.removeprefix("tcp://")
+        if not base.startswith("http"):
+            base = "http://" + base
+        url = f"{base}/consensus_timeline" + (f"?{q}" if q else "")
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                env = json.loads(r.read())
+            doc = env.get("result", env)
+        except Exception as e:  # noqa: BLE001 - report reachability per node
+            errors.append({"endpoint": ep, "error": str(e)})
+            continue
+        doc["endpoint"] = ep
+        docs.append(doc)
+    agg = timeline.aggregate(docs)
+    disabled = [d.get("moniker") or d.get("node_id", "")
+                for d in docs if not d.get("enabled", False)]
+    if args.json:
+        print(json.dumps({"aggregate": agg, "errors": errors,
+                          "timeline_disabled": disabled},
+                         indent=None if args.compact else 1))
+    else:
+        s = agg["summary"]
+        print(f"heightline: {s.get('heights', 0)} heights across "
+              f"{len(agg.get('offsets_ms', {}))} nodes "
+              f"(ref {agg.get('ref', '')!r})")
+        for nid, off in sorted((agg.get("offsets_ms") or {}).items()):
+            print(f"  clock offset {nid}: {off:+.3f} ms")
+        for rec in agg["heights"]:
+            parts = []
+            for phase in timeline.PHASES:
+                p = (rec["phases"] or {}).get(phase)
+                parts.append(f"{phase}={p['max_ms']:.1f}ms"
+                             if p else f"{phase}=?")
+            line = f"  h{rec['height']}: " + " ".join(parts)
+            if rec.get("straggler"):
+                lag = rec["proposal_propagation_ms"].get(rec["straggler"])
+                line += f"  straggler={rec['straggler']} ({lag:.1f}ms)"
+            link = rec.get("slowest_link")
+            if link:
+                line += (f"  slowest_link={link['from']}->{link['to']} "
+                         f"({link['lag_ms']:.1f}ms)")
+            print(line)
+        if s:
+            print(f"  phase_total_ms={s.get('phase_total_ms')}  "
+                  f"propagation p50={s.get('proposal_propagation_p50_ms')} "
+                  f"p99={s.get('proposal_propagation_p99_ms')}  "
+                  f"top_straggler={s.get('top_straggler')}")
+        for e in errors:
+            print(f"  unreachable {e['endpoint']}: {e['error']}")
+    if disabled:
+        print("note: timeline DISABLED on "
+              + ", ".join(disabled)
+              + " (instrumentation.timeline / CBFT_TIMELINE)")
+    if args.trace:
+        n_ev = cmttrace.write_chrome_trace(
+            args.trace, timeline.chrome_spans(agg, docs))
+        print(f"wrote {args.trace} ({n_ev} events; load at ui.perfetto.dev)")
+    return 0 if docs and not errors else 1
 
 
 def cmd_wal_repair(args) -> int:
@@ -421,7 +589,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--output", default="", help="output .json path")
     sp.add_argument("--slow", action="store_true",
                     help="also write the slow-batch capture ring")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_trace_dump)
 
     sp = sub.add_parser(
         "netinfo",
@@ -434,7 +602,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "--rpc.laddr; one net_telemetry pull each)")
     sp.add_argument("--compact", action="store_true",
                     help="single-line JSON output")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_netinfo)
 
     sp = sub.add_parser(
         "heightline",
@@ -456,7 +624,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--trace", default="",
                     help="also write a Chrome trace of the fused "
                          "timeline to this path")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_heightline)
 
     sp = sub.add_parser("loadtime", help="tx load generator + latency report")
     sp.add_argument("mode", choices=["run", "report"])

@@ -203,6 +203,17 @@ def fired(site: str) -> int:
         return s.fired if s is not None else 0
 
 
+def snapshot() -> dict:
+    """Armed sites and their fire counts (the crypto_health route's
+    `chaos` section)."""
+    with _lock:
+        _load_env_locked()
+        return {
+            site: {"kind": s.kind, "remaining": s.remaining, "fired": s.fired}
+            for site, s in _sites.items()
+        }
+
+
 def fire(site: str) -> None:
     """Raise the site's armed fault, if any, and count the firing (a site
     armed `corrupt` neither raises nor counts here)."""

@@ -11,13 +11,13 @@ order mirrors the reference call stack (SURVEY §3.1):
 `init_files` is the `cometbft init` analog (cmd/cometbft/commands/init.go):
 write genesis + node key + privval key under the home dir.
 
-The port's copy of cometbft_tpu/node/node.py, for the configuration that
-leaves the RPC, pprof and gRPC servers, PEX, the certificate plane and
-state sync off: a node so configured boots and runs as the reference's
-does. Each plane the port does not hold yet raises NotImplementedError
-naming the module it waits for (check_planes), as do the byzantine mode,
-the fuzzing transport, the SQL indexer and a socket or gRPC proxy_app; the
-STATESYNC channels are not offered.
+The port's copy of cometbft_tpu/node/node.py, with the RPC server, the gRPC
+services (public and privileged), PEX with its address book, and a socket
+or gRPC proxy_app wired as the reference wires them. Each plane the port
+does not hold yet raises NotImplementedError naming the module it waits for
+(check_planes): pprof, the certificate plane, state sync, the byzantine
+mode, the fuzzing transport and the SQL indexer; the STATESYNC channels are
+not offered.
 
 Its device side: crypto/batch.configure(config.crypto) sets the backend,
 "gpu" (the default) or "cpu"; on "gpu" the node fails at construction
@@ -55,7 +55,12 @@ from cometbft_tpu_torch.p2p.node_info import NodeInfo
 from cometbft_tpu_torch.p2p.switch import Switch
 from cometbft_tpu_torch.p2p.transport import Transport
 from cometbft_tpu_torch.privval.file_pv import FilePV
-from cometbft_tpu_torch.proxy import AppConns, local_client_creator
+from cometbft_tpu_torch.proxy import (
+    AppConns,
+    grpc_client_creator,
+    local_client_creator,
+    socket_client_creator,
+)
 from cometbft_tpu_torch.state import BlockExecutor, State, StateStore
 from cometbft_tpu_torch.state.txindex import (
     BlockIndexer,
@@ -85,17 +90,8 @@ def check_planes(config: Config) -> None:
     plane of `config` that the port does not hold yet. None is skipped or
     served another way."""
     waits = []
-    if config.rpc.laddr:
-        waits.append(("rpc.laddr", config.rpc.laddr, "rpc/server.py"))
     if config.rpc.pprof_laddr:
         waits.append(("rpc.pprof_laddr", config.rpc.pprof_laddr, "node/pprof.py"))
-    if config.grpc.laddr:
-        waits.append(("grpc.laddr", config.grpc.laddr, "rpc/grpc_services.py"))
-    if config.grpc.privileged_laddr:
-        waits.append(("grpc.privileged_laddr", config.grpc.privileged_laddr,
-                      "rpc/grpc_services.py"))
-    if config.p2p.pex:
-        waits.append(("p2p.pex", True, "p2p/pex/"))
     if config.cert.enabled:
         waits.append(("cert.enabled", True, "cert/plane.py"))
     if config.state_sync.enable:
@@ -107,18 +103,13 @@ def check_planes(config: Config) -> None:
         waits.append(("p2p.test_fuzz", True, "p2p/fuzz.py"))
     if config.tx_index.indexer == "sql":
         waits.append(("tx_index.indexer", "sql", "state/indexer_sql.py"))
-    app = config.base.proxy_app
-    if app.startswith("grpc://"):
-        waits.append(("proxy_app", app, "abci/grpc.py"))
-    elif app.startswith(("tcp://", "unix://")):
-        waits.append(("proxy_app", app, "abci/server.py and the socket client"))
     if waits:
         key, val, mod = waits[0]
         more = "".join(f"; {k} = {v!r} waits for {m}" for k, v, m in waits[1:])
         raise NotImplementedError(
             f"{key} = {val!r} waits for the port's {mod}, which is not ported yet{more}. "
-            "Set [rpc] laddr = \"\", [p2p] pex = false and [cert] enabled = false "
-            "(and leave the other planes at their defaults) to run the port's node.")
+            "Set [cert] enabled = false (and leave the other planes at their "
+            "defaults) to run the port's node.")
 
 
 def build_kernels(bls: bool) -> dict[str, float]:
@@ -266,6 +257,10 @@ class Node(BaseService):
         elif config.base.proxy_app == "kvstore":
             app = KVStoreApplication()
             creator = local_client_creator(app)
+        elif config.base.proxy_app.startswith("grpc://"):
+            creator = grpc_client_creator(config.base.proxy_app)
+        elif config.base.proxy_app.startswith(("tcp://", "unix://")):
+            creator = socket_client_creator(config.base.proxy_app)
         else:
             raise ValueError(f"unknown proxy_app {config.base.proxy_app!r}")
         self.app = app
@@ -359,9 +354,9 @@ class Node(BaseService):
         self.pruner = Pruner(
             self.state_store, self.block_store,
             tx_indexer=self.tx_indexer, block_indexer=self.block_indexer,
-            # no data companion: the privileged gRPC listener waits for
-            # its slice (check_planes)
-            companion_enabled=False,
+            # a configured privileged gRPC listener means a data companion
+            # may set retain heights — the pruner must then honor them
+            companion_enabled=bool(config.grpc.privileged_laddr),
             logger=self.logger.with_fields(module="pruner"),
         )
 
@@ -453,8 +448,54 @@ class Node(BaseService):
         self.switch.add_reactor("MEMPOOL", self.mempool_reactor)
         self.switch.add_reactor("EVIDENCE", self.evidence_reactor)
 
-        # PEX, the byzantine mode and the RPC, pprof and gRPC servers wait
-        # for their slices (check_planes)
+        # ---- pex (node.go:498 createPEXReactorAndAddToSwitch)
+        self.addr_book = None
+        self.pex_reactor = None
+        if config.p2p.pex:
+            import random as _random
+
+            from cometbft_tpu_torch.p2p.pex import AddrBook, NetAddress, PEXReactor
+
+            self.addr_book = AddrBook(
+                os.path.join(config.home, config.p2p.addr_book_file),
+                our_id=self.node_key.id(),
+            )
+            self.addr_book.metrics = self.p2p_metrics
+            if self.addr_book.load_error:
+                self.logger.error(
+                    "address book corrupt; quarantined and booting empty",
+                    err=self.addr_book.load_error,
+                    quarantined=self.addr_book.quarantined_path,
+                )
+            for seed in config.p2p.seed_list():
+                self.addr_book.add_address(NetAddress.parse(seed))
+            # persistent peers are operator intent: pinned in the book,
+            # exempt from eviction and the per-group outbound cap
+            for pp in config.p2p.persistent_peer_list():
+                try:
+                    ppa = NetAddress.parse(pp)
+                except (ValueError, TypeError):
+                    continue
+                self.addr_book.add_address(ppa)
+                self.addr_book.mark_protected(ppa.node_id)
+            self.pex_reactor = PEXReactor(
+                self.addr_book,
+                max_outbound=config.p2p.max_num_outbound_peers,
+                seed_mode=config.p2p.seed_mode,
+                ensure_interval=config.p2p.pex_ensure_interval,
+                max_group_outbound=config.p2p.max_outbound_per_group,
+                rng=_random.Random(self.node_key.id()),
+                logger=self.logger.with_fields(module="pex"),
+            )
+            self.switch.add_reactor("PEX", self.pex_reactor)
+            # a switch ban also marks the address book so PEX neither
+            # offers nor dials the peer until the ban decays
+            self.switch.on_ban = self.addr_book.mark_bad
+
+        # the byzantine mode waits for its slice (check_planes)
+        self.rpc_server = None  # attached on start when rpc.laddr set
+        self.grpc_server = None
+        self.grpc_priv_server = None
         self.kernel_build_s: dict[str, float] = {}
 
     # ------------------------------------------------- slow-height bundles
@@ -513,10 +554,7 @@ class Node(BaseService):
         try:
             from cometbft_tpu_torch.ops import dispatch
 
-            ctx["crypto_backend"] = {
-                "backend": crypto_batch.get_backend(),
-                "device": dispatch.supervisor("device").health(),
-            }
+            ctx["crypto_backend"] = dispatch.health_snapshot()
         except Exception:  # noqa: BLE001
             ctx["crypto_backend"] = None
         return ctx
@@ -583,7 +621,39 @@ class Node(BaseService):
         if peers:
             await self.switch.dial_peers_async(peers, persistent=True)
 
+        if self.config.rpc.laddr:
+            from cometbft_tpu_torch.rpc.server import RPCServer
+
+            self.rpc_server = RPCServer(self, self.config.rpc)
+            await self.rpc_server.start()
+
+        # gRPC service surface (node.go:527 + rpc/grpc/server; grpc is
+        # imported only when one is configured)
+        if self.config.grpc.laddr:
+            from cometbft_tpu_torch.rpc import grpc_services as gs
+
+            self.grpc_server, self.grpc_bound = gs.serve(
+                [gs.VersionService(), gs.BlockService(self.block_store),
+                 gs.BlockResultsService(self.state_store, self.block_store)],
+                self.config.grpc.laddr)
+            self.logger.info("gRPC services listening", addr=self.grpc_bound)
+        if self.config.grpc.privileged_laddr:
+            from cometbft_tpu_torch.rpc import grpc_services as gs
+
+            self.grpc_priv_server, self.grpc_priv_bound = gs.serve(
+                [gs.PruningService(self.pruner)],
+                self.config.grpc.privileged_laddr)
+            self.logger.info("privileged gRPC listening",
+                             addr=self.grpc_priv_bound)
+
     async def on_stop(self) -> None:
+        if self.rpc_server is not None:
+            await self.rpc_server.stop()
+        for srv in (self.grpc_server, self.grpc_priv_server):
+            if srv is not None:
+                from cometbft_tpu_torch.rpc.grpc_services import wait_closed
+
+                await wait_closed(srv, grace=0.5)
         await self.switch.stop()
         await self.proxy_app.stop()
         if self.pruner.is_running:

@@ -38,7 +38,8 @@ is used; nothing here falls back to the CPU:
                    flight until its breaker closes again.
 
 The reference's Pallas rung and its longer Pallas cooldown have no
-counterpart (the port has no Pallas rung), nor has its health section.
+counterpart (the port has no Pallas rung). health_snapshot is the
+reference's crypto_health snapshot (:540) over the port's own state.
 """
 
 from __future__ import annotations
@@ -453,3 +454,65 @@ def doublebuffer(domain: str = "dev0") -> DoubleBuffer:
 def doublebuffer_stats() -> dict:
     with _doublebuf_lock:
         return {d: db.stats() for d, db in _doublebufs.items()}
+
+
+def _mesh_health() -> dict:
+    """The mesh section of crypto_health; never raises."""
+    try:
+        from cometbft_tpu_torch.parallel import mesh as _mesh
+
+        return _mesh.health_snapshot()
+    except Exception:  # noqa: BLE001 - health renders whatever the mesh does
+        return {"enabled": False, "built": False}
+
+
+def health_snapshot() -> dict:
+    """The RPC-visible crypto-health snapshot (the crypto_health route): the
+    backend, every supervisor, the armed chaos schedule, the verify
+    scheduler, the mesh, the batch attribution and the tunnel model, and
+    the staging plane's counters. Reads only this process's state and never
+    raises."""
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.libs import chaos
+    from cometbft_tpu_torch.libs import linkmodel as _linkmodel
+    from cometbft_tpu_torch.libs import trace as _trace
+
+    with _registry_lock:
+        sups = dict(_supervisors)
+    backend = crypto_batch.get_backend()
+    snap: dict = {
+        "configured_backend": backend,
+        # the port has no CPU ladder: a batch targets the configured backend
+        # or raises
+        "active_backend": backend,
+        "watchdog_timeout_seconds": _config["watchdog_timeout"],
+        "supervisors": {name: sup.health() for name, sup in sups.items()},
+    }
+    for key, read in (("chaos", chaos.snapshot),
+                      ("verify_sched", sched.health_snapshot),
+                      ("mesh", _mesh_health),
+                      ("attribution", _trace.attribution),
+                      ("tunnel", lambda: _linkmodel.tunnel().snapshot())):
+        try:
+            snap[key] = read()
+        except Exception as e:  # noqa: BLE001 - health must render
+            snap[key] = {"error": f"{type(e).__name__}: {e}"}
+    try:
+        from cometbft_tpu_torch.ops import challenge as _challenge
+        from cometbft_tpu_torch.ops import ed25519_kernel as _ek
+        from cometbft_tpu_torch.ops import hashvec as _hv
+        from cometbft_tpu_torch.ops import residency as _residency
+
+        snap["staging"] = {
+            "hashvec_native": _hv.native_available(),
+            "hashvec_rows": _hv.stats(),
+            "fetch": _ek.fetch_stats(),
+            "wire": _residency.send_stats(),
+            "doublebuf": doublebuffer_stats(),
+            "challenge": {"enabled": _challenge.enabled(),
+                          "counters": _challenge.stats()},
+        }
+    except Exception:  # noqa: BLE001 - health must render
+        pass
+    return snap

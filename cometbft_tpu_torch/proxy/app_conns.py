@@ -5,8 +5,7 @@ reference: proxy/multi_app_conn.go (4 named connections), proxy/app_conn.go
 slow FinalizeBlock cannot block CheckTx — the isolation the reference gets
 from 4 sockets.
 
-The port's copy of cometbft_tpu/proxy/app_conns.py with the local client
-creator; the socket and gRPC creators come in a later slice.
+The port's copy of cometbft_tpu/proxy/app_conns.py.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import threading
 from typing import Callable
 
 from cometbft_tpu_torch.abci import types as abci
-from cometbft_tpu_torch.abci.client import Client, LocalClient
+from cometbft_tpu_torch.abci.client import Client, LocalClient, SocketClient
 from cometbft_tpu_torch.libs.service import BaseService
 
 ClientCreator = Callable[[], Client]
@@ -26,6 +25,20 @@ def local_client_creator(app: abci.Application) -> ClientCreator:
     (reference: proxy/client.go NewLocalClientCreator)."""
     lock = threading.Lock()
     return lambda: LocalClient(app, lock=lock)
+
+
+def socket_client_creator(addr: str) -> ClientCreator:
+    return lambda: SocketClient(addr)
+
+
+def grpc_client_creator(addr: str) -> ClientCreator:
+    """proxy/client.go NewRemoteClientCreator with transport=grpc."""
+    def make():
+        from cometbft_tpu_torch.abci.grpc import GRPCClient
+
+        return GRPCClient(addr)
+
+    return make
 
 
 class AppConns(BaseService):

@@ -1,6 +1,7 @@
 """Static import guard of the port: no file of cometbft_tpu_torch/, not
-chip_smoke.py, not compare_kernels.py and not tests/torch_net_harness.py or
-tests/torch_tcp_harness.py (which chip_smoke.py imports) imports JAX or anything of the JAX package
+chip_smoke.py, not compare_kernels.py and not tests/torch_net_harness.py,
+tests/torch_tcp_harness.py or tests/torch_rpc_client.py (which chip_smoke.py
+imports) imports JAX or anything of the JAX package
 cometbft_tpu — at module level or inside a function, by an
 import statement or by importlib/__import__ with a literal name. The
 subprocess check in tests/test_torch_verify.py sees only what importing
@@ -17,7 +18,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cometbft_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "compare_kernels.py", REPO / "tests" / "torch_net_harness.py",
-    REPO / "tests" / "torch_tcp_harness.py"]
+    REPO / "tests" / "torch_tcp_harness.py", REPO / "tests" / "torch_rpc_client.py"]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "cometbft_tpu")
 
 
@@ -223,3 +224,44 @@ def test_cli_start_imports_no_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and "started" in out.stdout, out.stderr[-3000:]
+
+
+# the RPC slice: the node's public surfaces (the RPC server and routes, the
+# ABCI socket and gRPC wires with abci-cli, PEX, the remote signer and the
+# gRPC services)
+SURFACE_MODULES = (
+    "abci.proto_codec", "abci.server", "abci.client", "abci.grammar", "abci.cli", "abci.grpc",
+    "privval.remote", "p2p.pex.addrbook", "p2p.pex.reactor", "p2p.pex.byzantine",
+    "p2p.pex.__init__", "ops.dispatch", "rpc.core", "rpc.server", "rpc.grpc_services",
+    "rpc.__init__", "proxy.app_conns")
+
+
+@pytest.mark.parametrize("module", SURFACE_MODULES)
+def test_surface_module_is_read_by_the_guard(module):
+    """Each module of the RPC slice is a file of the port that the static
+    check reads, with a counterpart of the same path in the JAX package."""
+    rel = pathlib.Path(*module.split(".")).with_suffix(".py")
+    assert REPO / "cometbft_tpu_torch" / rel in PORT_FILES
+    assert (REPO / "cometbft_tpu" / rel).is_file()
+
+
+def test_surface_modules_and_rpc_client_import_no_jax():
+    """The RPC slice's modules (grpc is imported by two of them, as in the
+    reference) and the port's RPC client, imported in a fresh interpreter,
+    import neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    mods = [m.removesuffix(".__init__") for m in SURFACE_MODULES]
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module('cometbft_tpu_torch.' + m)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_rpc_client\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

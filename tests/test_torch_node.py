@@ -15,9 +15,13 @@ package's on the CPU, both on their "cpu" backends.
   port's node then keeps a linked chain;
 - a fresh Node syncs a torch_tcp_harness chain to its blocks and State;
 - every plane the port does not hold yet, an "auto" or "tpu" backend and
-  a "gpu" backend without a card raise at construction;
-- the CLI's key and reset commands act as the reference's, and the
-  queued commands raise.
+  a "gpu" backend without a card raise at construction, and each plane it
+  holds since the RPC slice (RPC, gRPC, privileged gRPC, PEX, a socket and
+  a gRPC app) starts in a Node;
+- the CLI's key and reset commands act as the reference's, its RPC
+  clients (trace-dump, netinfo, heightline) print what the reference's
+  print against a live node of each package, and the queued commands
+  raise.
 """
 
 from __future__ import annotations
@@ -419,12 +423,7 @@ def test_crash_at_commit_point_recovers(tmp_path, fail_index):
 
 
 PLANES = [
-    ("rpc", lambda c: setattr(c.rpc, "laddr", "tcp://127.0.0.1:0"), "rpc/server.py"),
     ("pprof", lambda c: setattr(c.rpc, "pprof_laddr", "127.0.0.1:0"), "node/pprof.py"),
-    ("grpc", lambda c: setattr(c.grpc, "laddr", "127.0.0.1:0"), "rpc/grpc_services.py"),
-    ("grpc_priv", lambda c: setattr(c.grpc, "privileged_laddr", "127.0.0.1:0"),
-     "rpc/grpc_services.py"),
-    ("pex", lambda c: setattr(c.p2p, "pex", True), "p2p/pex/"),
     ("cert", lambda c: setattr(c.cert, "enabled", True), "cert/plane.py"),
     ("statesync", lambda c: (setattr(c.state_sync, "enable", True),
                              setattr(c.state_sync, "rpc_servers", ["a:1", "b:2"]),
@@ -434,10 +433,6 @@ PLANES = [
      "consensus/byzantine.py"),
     ("fuzz", lambda c: setattr(c.p2p, "test_fuzz", True), "p2p/fuzz.py"),
     ("sql", lambda c: setattr(c.tx_index, "indexer", "sql"), "state/indexer_sql.py"),
-    ("socket_app", lambda c: setattr(c.base, "proxy_app", "tcp://127.0.0.1:26658"),
-     "abci/server.py"),
-    ("grpc_app", lambda c: setattr(c.base, "proxy_app", "grpc://127.0.0.1:26658"),
-     "abci/grpc.py"),
 ]
 
 
@@ -523,11 +518,192 @@ def test_cli_queued_commands_raise(tmp_path, command):
 
 def test_cli_start_refuses_a_default_home(tmp_path):
     """A home `init` wrote keeps the reference's defaults (RPC, PEX and
-    certificates on): `start` refuses it, naming the first module."""
+    certificates on): `start` refuses it, naming the certificate plane, the
+    one the port does not hold yet."""
     home = str(tmp_path / "h")
     tcmd.main(["--home", home, "init"])
     proc = subprocess.run(
         [sys.executable, "-m", "cometbft_tpu_torch", "--home", home, "start",
          "--crypto_backend", "cpu"], cwd=REPO, capture_output=True, timeout=60)
     assert proc.returncode != 0
-    assert b"NotImplementedError: rpc.laddr" in proc.stderr and b"rpc/server.py" in proc.stderr
+    assert b"NotImplementedError: cert.enabled" in proc.stderr and b"cert/plane.py" in proc.stderr
+
+
+# ------------------------------------------------- planes held since the RPC slice
+
+
+async def _plane_node(cfg, until: int = 2):
+    node = TNode(cfg)
+    await node.start()
+    try:
+        async def poll():
+            while node.block_store.height() < until:
+                assert not node.consensus_state.failed
+                await asyncio.sleep(0.02)
+
+        await asyncio.wait_for(poll(), 60.0)
+        return node, await _ask_plane(node, cfg)
+    finally:
+        await node.stop()
+
+
+async def _ask_plane(node, cfg):
+    from tests import torch_rpc_client as rpc
+
+    if cfg.rpc.laddr:
+        addr = node.rpc_server.bound_addr
+        got = await rpc.post(addr, "broadcast_tx_commit", {"tx": rpc.b64(b"plane=rpc")})
+        return (await rpc.get(addr, "/status"))["result"]["node_info"]["id"], got["result"]
+    if cfg.grpc.laddr:
+        from cometbft_tpu_torch.rpc.grpc_services import GRPCServicesClient
+
+        client = GRPCServicesClient(node.grpc_bound)
+        try:
+            return await client.call("VersionService", "GetVersion")
+        finally:
+            await client.close()
+    if cfg.grpc.privileged_laddr:
+        from cometbft_tpu_torch.rpc.grpc_services import GRPCServicesClient
+
+        client = GRPCServicesClient(node.grpc_priv_bound)
+        try:
+            await client.call("PruningService", "SetBlockRetainHeight", {"height": 1})
+            return await client.call("PruningService", "GetBlockRetainHeight")
+        finally:
+            await client.close()
+    return None
+
+
+def _socket_app(cfg):
+    from cometbft_tpu_torch.abci.server import ABCIServer
+
+    srv = ABCIServer(TKV(), "tcp://127.0.0.1:0")
+
+    async def run():
+        await srv.start()
+        cfg.base.proxy_app = "tcp://" + srv.bound_addr().removeprefix("tcp://")
+        try:
+            return await _plane_node(cfg)
+        finally:
+            await srv.stop()
+
+    return asyncio.run(run())
+
+
+def _grpc_app(cfg):
+    from cometbft_tpu_torch.abci.grpc import serve_grpc
+
+    srv, bound = serve_grpc(TKV(), "grpc://127.0.0.1:0")
+    cfg.base.proxy_app = "grpc://" + bound.removeprefix("grpc://")
+    try:
+        return asyncio.run(_plane_node(cfg))
+    finally:
+        srv.stop(None)
+
+
+LANDED = [
+    ("rpc", lambda c: setattr(c.rpc, "laddr", "tcp://127.0.0.1:0")),
+    ("grpc", lambda c: setattr(c.grpc, "laddr", "tcp://127.0.0.1:0")),
+    ("grpc_priv", lambda c: setattr(c.grpc, "privileged_laddr", "tcp://127.0.0.1:0")),
+    ("pex", lambda c: setattr(c.p2p, "pex", True)),
+    ("socket_app", None),
+    ("grpc_app", None),
+]
+
+
+@pytest.mark.allow_task_leaks  # a grpc.aio channel's close can outlive the check
+@pytest.mark.parametrize("plane,set_", LANDED, ids=[p[0] for p in LANDED])
+def test_node_starts_each_plane_it_holds(tmp_path, plane, set_):
+    home = _one_home(tmp_path)
+    cfg = _off(TConfig.load(home))
+    if set_ is not None:
+        set_(cfg)
+    if plane == "socket_app":
+        node, got = _socket_app(cfg)
+    elif plane == "grpc_app":
+        node, got = _grpc_app(cfg)
+    else:
+        node, got = asyncio.run(_plane_node(cfg))
+    assert node.block_store.height() >= 2
+    if plane == "rpc":
+        nid, commit = got
+        assert nid == node.node_key.id()
+        assert commit["check_tx"]["code"] == 0 and commit["tx_result"]["code"] == 0
+        assert int(commit["height"]) >= 1
+    elif plane == "grpc":
+        assert got["node"] == "0.1.0-gpu" and got["block"] == 11
+    elif plane == "grpc_priv":
+        assert got["pruning_service_retain_height"] == "1" and node.pruner.companion_enabled
+    elif plane == "pex":
+        assert "PEX" in node.switch.reactors and node.addr_book is not None
+        assert os.path.exists(os.path.join(home, "config", "addrbook.json"))
+    else:
+        # the app ran in its server: the node's own app object is unused
+        assert node.app is None
+
+
+# ------------------------------------------------- the CLI's RPC clients
+
+
+def hold_at(node, height: int) -> asyncio.Event:
+    """Hold a node of either package at `height`: once it commits that
+    height, its next height waits an hour for its first round. The event is
+    set then."""
+    cs = node.consensus_state
+    held = asyncio.Event()
+    update_to_state = cs.update_to_state
+
+    def hold(state):
+        if state.last_block_height == height:
+            cs.config.timeout_commit = 3600.0
+            cs.config.skip_timeout_commit = False
+            held.set()
+        update_to_state(state)
+
+    cs.update_to_state = hold
+    return held
+
+
+async def _held_node(Node, Config, home: str, height: int = 3):
+    """A node of either package with RPC on, held at `height`."""
+    cfg = _off(Config.load(home))
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.base.log_level = "error"
+    node = Node(cfg)
+    held = hold_at(node, height)
+    await node.start()
+    await asyncio.wait_for(held.wait(), 60.0)
+    return node
+
+
+@pytest.mark.parametrize("command", ["trace-dump", "netinfo", "heightline"])
+def test_cli_rpc_clients_print_what_the_reference_s_print(tmp_path, capsys, command):
+    home = _one_home(tmp_path)
+
+    async def drive(Node, Config, h):
+        node = await _held_node(Node, Config, h)
+        loop = asyncio.get_running_loop()
+        addr = node.rpc_server.bound_addr
+        out = {}
+        try:
+            for side, mod in (("j", jcmd), ("t", tcmd)):
+                argv = {"trace-dump": ["trace-dump", "--rpc.laddr", addr,
+                                       "--output", str(tmp_path / f"{side}.json")],
+                        "netinfo": ["netinfo", "--rpc.laddr", addr, "--compact"],
+                        "heightline": ["heightline", "--rpc.laddr", addr, "--json",
+                                       "--compact"]}[command]
+                rc = await loop.run_in_executor(None, mod.main, argv)
+                text = capsys.readouterr().out.replace(str(tmp_path / f"{side}.json"), "<out>")
+                if command == "trace-dump":
+                    text += (tmp_path / f"{side}.json").read_text()
+                out[side] = (rc, text)
+        finally:
+            await node.stop()
+        return out
+
+    for side, (Node, Config) in (("jax", (JNode, JConfig)), ("port", (TNode, TConfig))):
+        h = str(tmp_path / side)
+        shutil.copytree(home, h)
+        got = asyncio.run(drive(Node, Config, h))
+        assert got["t"] == got["j"], side
+        assert got["t"][0] == 0 and got["t"][1]
