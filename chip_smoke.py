@@ -108,9 +108,18 @@ served by `python -m cometbft_tpu_torch.abci.cli kvstore` over TCP, loaded
 with txs through broadcast_tx_sync and broadcast_tx_commit while a
 websocket counts the blocks (rpc4: every tx found by tx and tx_search,
 /block and /commit against the stores, K5, K1 and K6 launched by the
-commits); the node phase's synced Node serving the 1,000 x 150 chain
+commits); the node phase's synced Node serving the 500 x 150 chain
 (rpc150: /commit against the chain's commits, /validators paged); and a
 4-validator TCP net with one validator on the remote signer (signer4).
+The bootstrap phase (bootstrap_phase) last: a fresh Node state-syncs a
+150-validator chain from a serving Node, the snapshot's app hash anchored
+in headers the light client checks with K5, K1 and K6, then block-syncs
+past it (statesync150); commit certificates prove a block sync of 150 BLS
+validators, one certificate check (B2, B4, B5) a height, a mauled one
+rejected and its height proved classically (certsync150); and the node
+phase's synced Node serves its light fleet (64 concurrent light_verify
+calls and a light_subscribe websocket: fleet150) and the light proxy
+`python -m cometbft_tpu_torch light` in front of it (proxy150).
 It times the kernels (the decoders at 10,240, 6,144 and 256 keys, K5 beside
 its hashing alone, and K6 at 10,240 lanes, with the
 wrappers' host time by step, and K6 behind K1 in stream order and as a
@@ -5092,7 +5101,9 @@ async def _hub_cell(device, card: str, pool, probe: ConsensusProbe) -> dict:
 
 SEED_WIRE = 17  # the wire phase's keys (torch_tcp_harness seeds, seen nowhere else)
 WIRE_HEIGHTS = 10  # tcp4's heights (more if the gossiped txs are not all committed by then)
-N_SYNC, SYNC_VALS, SYNC_WINDOW = 1_000, 150, 32  # BASELINE config 3, its depth cut from 10,000
+# BASELINE config 3, its depth cut from 10,000 (to 1,000 until the bootstrap
+# phase came, then to 500 to keep the script within its time limit)
+N_SYNC, SYNC_VALS, SYNC_WINDOW = 500, 150, 32
 SYNC_BAD = 77  # the signature the lying peer flips in every LastCommit it serves
 SYNC_TIMEOUT_S = 240  # the sync must reach the tip within this
 
@@ -5398,11 +5409,11 @@ def _free_ports(n: int) -> list[int]:
 
 def _testnet_homes(root: str, n: int, chain_id: str) -> list[str]:
     """`testnet --v n` homes under `root` on the "gpu" backend that
-    `testnet` writes, set as the port's node runs today: RPC, PEX and
-    certificates off, free loopback ports wired as persistent peers, log
-    level error, and the consensus timeouts of the harness nets
-    (_net_config), so that node4 compares with tcp4. Stores (sqlite), the
-    WAL, the kv indexer and metrics keep the reference's defaults."""
+    `testnet` writes: RPC and PEX off, free loopback ports wired as
+    persistent peers, log level error, and the consensus timeouts of the
+    harness nets (_net_config), so that node4 compares with tcp4. Stores
+    (sqlite), the WAL, the kv indexer, metrics and the certificate plane
+    (on; an ed25519 set is uncertifiable) keep the reference's defaults."""
     import os
 
     from cometbft_tpu_torch.cmd import main as cli
@@ -5416,11 +5427,11 @@ def _testnet_homes(root: str, n: int, chain_id: str) -> list[str]:
     ports = _free_ports(n)
     for i, h in enumerate(homes):
         c = Config.load(h)
-        if c.crypto.backend != "gpu":
-            raise AssertionError(f"testnet wrote crypto.backend = {c.crypto.backend!r}")
+        if c.crypto.backend != "gpu" or not c.cert.enabled:
+            raise AssertionError(f"testnet wrote crypto.backend = {c.crypto.backend!r}, "
+                                 f"cert.enabled = {c.cert.enabled}")
         c.rpc.laddr = ""
         c.p2p.pex = False
-        c.cert.enabled = False
         c.base.log_level = "error"
         c.p2p.laddr = f"tcp://127.0.0.1:{ports[i]}"
         c.p2p.persistent_peers = ",".join(f"{ids[j]}@127.0.0.1:{ports[j]}"
@@ -5509,6 +5520,7 @@ async def _node4(root: str) -> dict:
                                      f"{restarted.block_store.height()} of {target}")
             await asyncio.sleep(0.005)
         catch_up = time.perf_counter() - t3
+        uncertifiable = [n.cert_plane.uncertifiable for n in nodes]
     finally:
         if submit is not None and not submit.done():
             submit.cancel()
@@ -5520,7 +5532,11 @@ async def _node4(root: str) -> dict:
         if len({n.block_store.load_block(h).hash() for n in nodes}) != 1:
             raise AssertionError(f"node4: the nodes' blocks differ at height {h}")
     gaps = sorted(stamps[h + 1] - stamps[h] for h in stamps if h + 1 in stamps)
+    if min(uncertifiable) < 1:
+        raise AssertionError(f"node4: the certificate planes counted {uncertifiable} "
+                             "uncertifiable heights of the ed25519 set")
     return dict(boot_s=boot_s, wall_s=wall, heights=heights, top=top, h_stop=h_stop,
+                uncertifiable=uncertifiable,
                 target=target, catch_up_s=catch_up, gaps_ms=[g * 1e3 for g in gaps],
                 p50_ms=gaps[len(gaps) // 2] * 1e3,
                 restart_replayed=restarted.block_store.height() - h_stop)
@@ -5549,7 +5565,8 @@ def node4_cell(device, card: str, run: str = "node4") -> dict:
           f"({len(r['gaps_ms'])} gaps) p50 {r['p50_ms']:.3f} ms, min {r['gaps_ms'][0]:.3f}, max "
           f"{r['gaps_ms'][-1]:.3f}; a node stopped at {r['h_stop']} and started again caught up "
           f"to {r['target']} in {r['catch_up_s']:.3f} s; K5/K1/K6 launches a height over "
-          f"{n_h} heights {per_h}; batched calls with K5 / host k {k5}; launches "
+          f"{n_h} heights {per_h}; batched calls with K5 / host k {k5}; certificate planes on, "
+          f"uncertifiable heights by node {r['uncertifiable']}; launches "
           f"{({k: v for k, v in launches.items() if v})}", flush=True)
     return dict(r, launches=launches, per_height=per_h, k5=k5)
 
@@ -5590,7 +5607,8 @@ async def _node_sync150(root: str, chain, serve=None) -> dict:
                                      f"in {SYNC_TIMEOUT_S} s")
             await asyncio.sleep(0.01)
         wall = time.perf_counter() - t0
-        served = await serve(node, chain) if serve is not None else None
+        launches = _consumer_launches()  # the sync's, before what the node serves
+        served = await serve(node, chain) if serve is not None else {}
     finally:
         if node.is_running:
             await node.stop()
@@ -5606,7 +5624,7 @@ async def _node_sync150(root: str, chain, serve=None) -> dict:
     bcr = node.blocksync_reactor
     return dict(wall_s=wall, blocks=top, window=bcr.window, windows=bcr.windows,
                 stage_s=bcr.stage_s, device_busy_s=bcr.device_busy_s, apply_s=bcr.apply_s,
-                rpc150=served)
+                launches=launches, **served)
 
 
 async def _harness_sync_w8(chain) -> dict:
@@ -5681,15 +5699,16 @@ def node_sync150_cell(device, card: str, chain) -> dict:
     """A fresh non-validator Node (sqlite, block sync on) syncs the wire
     phase's BASELINE config 3 chain (N_SYNC blocks x 150 validators) from
     torch_tcp_harness.serve_node; then it turns on its RPC and serves the
-    chain (the RPC phase's rpc150, _rpc150)."""
+    chain (_serve150: the RPC phase's rpc150, the bootstrap phase's fleet150
+    and proxy150). The launches are the sync's."""
     import asyncio
     import os
 
     with ConsensusProbe() as probe:
         _consumer_reset()
         r = asyncio.run(_node_sync150(os.path.join(_node_root(), "sync150"), chain,
-                                      serve=_rpc150))
-        launches = _consumer_launches()
+                                      serve=_serve150))
+    launches = r["launches"]
     if probe.plain:
         raise AssertionError(f"node sync150: {probe.plain} calls of a plain version")
     if launches.get("ed25519_verify", 0) < r["windows"] or r["windows"] < 1:
@@ -5697,7 +5716,7 @@ def node_sync150_cell(device, card: str, chain) -> dict:
     print(f"[{card}] node sync150 through Node (sqlite, kv indexer, metrics, WAL; window "
           f"{r['window']}): {_print_sync_windows(r, launches)}; launches "
           f"{({k: v for k, v in launches.items() if v})}", flush=True)
-    return dict(r, launches=launches)
+    return r
 
 
 def node_procs_cell(card: str) -> dict:
@@ -5885,8 +5904,8 @@ def _abci_cli_kvstore(port: int, log):
 
 
 def _rpc_homes(root: str) -> tuple[list[str], list[str]]:
-    """`testnet --v 4` homes with the reference's defaults (RPC and PEX on)
-    but cert.enabled = false: free loopback ports, log level error, the
+    """`testnet --v 4` homes with the reference's defaults (RPC, PEX and
+    the certificate plane on): free loopback ports, log level error, the
     harness nets' consensus timeouts; nodes 0-2 persistent peers of each
     other, node 3 with none and node 0 as its only seed. Returns the homes
     and the node ids."""
@@ -5903,10 +5922,9 @@ def _rpc_homes(root: str) -> tuple[list[str], list[str]]:
     ports = _free_ports(9)
     for i, h in enumerate(homes):
         c = Config.load(h)
-        if not (c.rpc.laddr and c.p2p.pex and c.crypto.backend == "gpu"):
+        if not (c.rpc.laddr and c.p2p.pex and c.crypto.backend == "gpu" and c.cert.enabled):
             raise AssertionError(f"rpc4: testnet wrote rpc {c.rpc.laddr!r}, pex {c.p2p.pex}, "
-                                 f"backend {c.crypto.backend!r}")
-        c.cert.enabled = False
+                                 f"backend {c.crypto.backend!r}, cert {c.cert.enabled}")
         c.base.log_level = "error"
         c.p2p.laddr = f"tcp://127.0.0.1:{ports[i]}"
         c.rpc.laddr = f"tcp://127.0.0.1:{ports[4 + i]}"
@@ -5985,10 +6003,17 @@ async def _rpc_load(addrs: list[str], ws_addr: str, heights_at_start: int) -> di
                                  f"{missing[:3]}")
         await asyncio.sleep(0.2)
     tx_heights = sorted({int(env["result"]["height"]) for env in got})
-    search_total = 0
-    for h in tx_heights:
-        env = await R.get(addrs[1], f"/tx_search?query=%22tx.height%3D{h}%22&per_page=100")
-        search_total += int(env["result"]["total_count"])
+    # tx_search on node 1, whose indexer drains its own event bus: wait for
+    # it as for node 0's, then every tx must be found
+    t0 = time.perf_counter()
+    while True:
+        search_total = 0
+        for h in tx_heights:
+            env = await R.get(addrs[1], f"/tx_search?query=%22tx.height%3D{h}%22&per_page=100")
+            search_total += int(env["result"]["total_count"])
+        if search_total == len(txs) or time.perf_counter() - t0 > NODE_TIMEOUT_S:
+            break
+        await asyncio.sleep(0.2)
     if search_total != len(txs):
         raise AssertionError(f"rpc4: tx_search found {search_total} of {len(txs)} txs")
     health1 = (await R.get(addrs[0], "/crypto_health"))["result"]["verify_sched"]
@@ -6115,6 +6140,10 @@ async def _rpc4(root: str) -> dict:
                 raise AssertionError(f"rpc4: /block or /commit at {h} differs from the store")
         grpc_step = "not run: " + _grpc_missing() if _grpc_missing() else await _grpc_step(
             nodes[0], addrs[0], r["top"])
+        uncertifiable = [n.cert_plane.uncertifiable for n in nodes]
+        if min(uncertifiable) < 1:
+            raise AssertionError(f"rpc4: the certificate planes counted {uncertifiable} "
+                                 "uncertifiable heights of the ed25519 set")
     finally:
         for n in nodes:
             if n.is_running:
@@ -6134,7 +6163,7 @@ async def _rpc4(root: str) -> dict:
                   if h + 1 in load_stamps)
     return dict(r, boot_s=boot_s, second_peer_s=second_peer_s, heights=h_end - h_start,
                 h_start=h_start, h_end=h_end, top_all=top, gaps_ms=[g * 1e3 for g in gaps],
-                p50_ms=gaps[len(gaps) // 2] * 1e3, grpc=grpc_step)
+                p50_ms=gaps[len(gaps) // 2] * 1e3, grpc=grpc_step, uncertifiable=uncertifiable)
 
 
 async def _grpc_step(node, addr: str, height: int) -> str:
@@ -6159,8 +6188,8 @@ async def _grpc_step(node, addr: str, height: int) -> str:
 
 
 def rpc4_cell(device, card: str) -> dict:
-    """Four Nodes from `testnet --v 4` homes on the card with RPC and PEX
-    on (cert off): node 3 reaches the others through PEX from node 0 as its
+    """Four Nodes from `testnet --v 4` homes on the card with RPC, PEX and
+    the certificate plane on: node 3 reaches the others through PEX from node 0 as its
     seed, node 2's app is abci-cli's kvstore in a child process over TCP;
     a client sends RPC_SYNC_TXS + RPC_COMMIT_TXS txs through the RPC."""
     import asyncio
@@ -6190,7 +6219,8 @@ def rpc4_cell(device, card: str) -> dict:
           f"all found by tx and tx_search; websocket NewBlock events {r['seen']}; "
           f"verify_sched batches {b0} -> {b1}; K5/K1/K6 launches a height over {n_h} heights "
           f"{per_h}; node 3's second peer {r['second_peer_s']:.3f} s after its start (PEX from "
-          f"its seed); gRPC {r['grpc']}; batched calls with K5 / host k {k5}", flush=True)
+          f"its seed); gRPC {r['grpc']}; batched calls with K5 / host k {k5}; certificate "
+          f"planes on, uncertifiable heights by node {r['uncertifiable']}", flush=True)
     return dict(r, launches=launches, per_height=per_h, k5=k5)
 
 
@@ -6359,6 +6389,635 @@ def rpc_phase(device, card: str, node: dict, tcp4_p50_ms: float) -> dict:
     return out
 
 
+# ------------------------------------------------------- the bootstrap phase
+
+SEED_BOOT = 20  # statesync150's keys (torch_tcp_harness seeds, seen nowhere else)
+SEED_CERTSYNC = 21  # certsync150's BLS keys (seen nowhere else)
+BOOT_HEIGHTS = 200  # statesync150's chain
+BOOT_TXS, BOOT_VALUE = 20, 80  # kvstore txs a block, bytes a value: >= 4 snapshot chunks
+BOOT_INTERVAL = 50  # the serving app's snapshot interval
+BOOT_CHUNKS = 4  # the restored snapshot's chunks at the least
+BOOT_TIMEOUT_S = 240  # a bootstrap cell's node must reach its heights within this
+TRUST_PERIOD_S = 20 * 365 * 86400.0  # the harness chains' headers stamp 2023
+CERT_SYNC_HEIGHTS = 32  # certsync150's chain: 31 synced blocks, 4 classic windows of 8
+FLEET_CALLS, FLEET_HEIGHTS = 64, 16  # concurrent light_verify calls, the heights they ask
+PROXY_HEIGHTS = 20  # the heights asked through the light proxy
+
+
+def _boot_home(root: str, name: str, gdoc, setup=None) -> str:
+    """A fresh non-validator home on `gdoc`'s chain: RPC and PEX off, any
+    free port, log level error; `setup(config)` sets the rest."""
+    import os
+
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import init_files
+
+    home = os.path.join(root, name)
+    init_files(home, chain_id=gdoc.chain_id, moniker=name)
+    with open(os.path.join(home, "config", "genesis.json"), "w") as f:
+        f.write(gdoc.to_json())
+    c = Config.load(home)
+    c.rpc.laddr = ""
+    c.p2p.pex = False
+    c.base.log_level = "error"
+    c.p2p.laddr = "tcp://127.0.0.1:0"
+    if setup is not None:
+        setup(c)
+    c.save()
+    return home
+
+
+async def _wait(cond, label: str, t0: float, what) -> None:
+    import asyncio
+
+    while not cond():
+        if time.perf_counter() - t0 > BOOT_TIMEOUT_S:
+            raise AssertionError(f"{label}: {what()} after {BOOT_TIMEOUT_S} s")
+        await asyncio.sleep(0.01)
+
+
+class _StatesyncMarks:
+    """Wraps one state-syncing Node's syncer and state provider to time
+    its steps: discovery (start to the first snapshot offered), chunk
+    fetch (first request to last chunk in), header verification (the
+    light client's calls), restore (applying the chunks and checking the
+    app) and the handoff to block sync, where the launches so far are
+    read."""
+
+    def __init__(self, node):
+        self.t0 = 0.0
+        self.first_snapshot = self.first_request = self.last_chunk = self.handoff = None
+        self.chunks = 0
+        self.verify_s = self.restore_s = 0.0
+        self.launches: dict = {}
+        self.result = None
+        reactor = node.statesync_reactor
+        syncer, provider = reactor.syncer, reactor.syncer.state_provider
+        marks = self
+
+        add_snapshot, add_chunk, request = (syncer.add_snapshot, syncer.add_chunk,
+                                            syncer.request_chunk)
+
+        def add_snapshot_t(peer_id, snapshot):
+            if marks.first_snapshot is None:
+                marks.first_snapshot = time.perf_counter()
+            return add_snapshot(peer_id, snapshot)
+
+        async def add_chunk_t(index, chunk, sender):
+            ok = await add_chunk(index, chunk, sender)
+            marks.last_chunk, marks.chunks = time.perf_counter(), marks.chunks + ok
+            return ok
+
+        def request_t(peer_id, snapshot, index):
+            if marks.first_request is None:
+                marks.first_request = time.perf_counter()
+            return request(peer_id, snapshot, index)
+
+        def timed(fn, attr):
+            async def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    setattr(marks, attr, getattr(marks, attr) + time.perf_counter() - t)
+            return run
+
+        syncer.add_snapshot, syncer.add_chunk, syncer.request_chunk = (
+            add_snapshot_t, add_chunk_t, request_t)
+        for name in ("app_hash", "commit", "state"):
+            setattr(provider, name, timed(getattr(provider, name), "verify_s"))
+        syncer._apply_chunks = timed(syncer._apply_chunks, "restore_s")
+        syncer._verify_app = timed(syncer._verify_app, "restore_s")
+        sync = reactor.sync
+
+        async def sync_t(*a, **k):
+            out = await sync(*a, **k)
+            marks.handoff, marks.launches, marks.result = (time.perf_counter(),
+                                                          _consumer_launches(), out)
+            return out
+
+        reactor.sync = sync_t
+
+
+async def _statesync150(root: str) -> dict:
+    """statesync150's run: a BOOT_HEIGHTS x SYNC_VALS ed25519 chain with
+    BOOT_TXS kvstore txs a block; a serving Node block-syncs it from
+    torch_tcp_harness.serve_node with a kvstore app that snapshots every
+    BOOT_INTERVAL heights, and serves it over p2p and RPC; a fresh Node with
+    statesync.enable (rpc_servers naming the server twice, the trust root
+    block 1's hash fetched with RPCProvider) restores the newest snapshot
+    and block-syncs past it."""
+    import asyncio
+
+    H, T = _harness(), _tcp_harness()
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.crypto import ed25519_math as O
+    from cometbft_tpu_torch.light.rpc_provider import RPCProvider
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.state import State
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    vals, secrets = make_set(SYNC_VALS, SEED_BOOT, "ed25519")
+    gdoc = GenesisDoc(genesis_time=H.GENESIS_TIME, chain_id=CHAIN_ID, validators=[
+        GenesisValidator(address=v.address, pub_key=v.pub_key, power=v.voting_power)
+        for v in vals.validators])
+    gdoc.validate_and_complete()
+
+    def sign(address: bytes, msg: bytes) -> bytes:
+        _, a, r, renc, pub = secrets[address]
+        return renc + ((r + O.sha512_mod_l(renc, pub, msg) * a) % O.L).to_bytes(32, "little")
+
+    snaps = tuple(range(BOOT_INTERVAL, BOOT_HEIGHTS, BOOT_INTERVAL))
+    t0 = time.perf_counter()
+    chain = await T.build_chain(gdoc, BOOT_HEIGHTS, sign, keep=snaps, txs_per_block=BOOT_TXS,
+                                value_bytes=BOOT_VALUE)
+    build_s = time.perf_counter() - t0
+    top = BOOT_HEIGHTS - 1  # the serving Node's height: the tip waits for its successor
+    hkey, htr, hsw = T.serve_node("boot-source", gdoc, chain.block_store, SEED_BOOT)
+    haddr = await htr.listen("127.0.0.1:0")
+    await hsw.start()
+
+    def serving(c):
+        c.rpc.laddr = "tcp://127.0.0.1:0"
+        c.p2p.persistent_peers = f"{hkey.id()}@{haddr}"
+
+    app_a = KVStoreApplication()
+    app_a.snapshot_interval = BOOT_INTERVAL
+    node_a = Node(Config.load(_boot_home(root, "server", gdoc, serving)), app=app_a)
+    node_b = None
+    try:
+        await node_a.start()
+        t1 = time.perf_counter()
+        await _wait(lambda: node_a.block_store.height() >= top
+                    and not node_a.blocksync_reactor.active, "statesync150 server", t1,
+                    lambda: f"{node_a.block_store.height()} of {top} blocks")
+        serve_sync_s = time.perf_counter() - t1
+        snap = app_a.snapshots[-1][0]
+        snap_bytes = sum(len(c) for c in app_a.snapshots[-1][1])
+        if snap.height != snaps[-1] or snap.chunks < BOOT_CHUNKS:
+            raise AssertionError(f"statesync150: the server's newest snapshot is at "
+                                 f"{snap.height} in {snap.chunks} chunks")
+        rpc_a = f"http://{node_a.rpc_server.bound_addr}"
+        root_lb = await RPCProvider(CHAIN_ID, rpc_a).light_block(1)
+        if root_lb.hash() != chain.block_store.load_block(1).hash():
+            raise AssertionError("statesync150: RPCProvider's block 1 is not the chain's")
+
+        def syncing(c):
+            c.p2p.persistent_peers = f"{node_a.node_key.id()}@{node_a.node_info.listen_addr}"
+            c.state_sync.enable = True
+            c.state_sync.rpc_servers = [rpc_a, rpc_a]
+            c.state_sync.trust_height = 1
+            c.state_sync.trust_hash = root_lb.hash().hex()
+            c.state_sync.trust_period = TRUST_PERIOD_S
+            c.state_sync.discovery_time = 1.0
+
+        app_b = KVStoreApplication()
+        node_b = Node(Config.load(_boot_home(root, "statesync", gdoc, syncing)), app=app_b)
+        if not node_b.statesync_active:
+            raise AssertionError("statesync150: state sync is not active on a fresh node")
+        marks = _StatesyncMarks(node_b)
+        _consumer_reset()
+        t2 = marks.t0 = time.perf_counter()
+        await node_b.start()
+        await _wait(lambda: marks.handoff is not None, "statesync150", t2,
+                    lambda: f"no handoff (task {node_b._statesync_task})")
+        restored_app_hash = app_b.app_hash
+        restored_state = app_b.state if app_b.height == snap.height else None
+        await _wait(lambda: node_b.block_store.height() >= top - 1
+                    and not node_b.blocksync_reactor.active, "statesync150 block sync", t2,
+                    lambda: f"{node_b.block_store.height()} of {top - 1} blocks")
+        t_end = time.perf_counter()
+        state_b = node_b.state_store.load()
+        server_state = dict(app_a.state)
+    finally:
+        for n in (node_b, node_a):
+            if n is not None and n.is_running:
+                await n.stop()
+        await hsw.stop()
+    state, _commit = marks.result
+    want = State.from_bytes(chain.states[snap.height])
+    # the provider's State names the height its next set took effect
+    # (stateprovider.go), where the chain's executor kept the genesis's
+    fields = ("chain_id", "initial_height", "last_block_height", "last_block_id",
+              "last_block_time", "app_hash", "last_results_hash", "consensus_params",
+              "app_version")
+    diff = [f for f in fields if getattr(state, f) != getattr(want, f)]
+    diff += [f for f in ("last_validators", "validators", "next_validators")
+             if getattr(state, f).hash() != getattr(want, f).hash()]
+    if diff or restored_app_hash != chain.block_store.load_block(snap.height + 1).header.app_hash:
+        raise AssertionError(f"statesync150: the restored State differs from the chain's at "
+                             f"{snap.height} in {diff}, or the app hash does")
+    if restored_state is None or {k: v for k, v in server_state.items()
+                                  if int(k[1:].split("-")[0]) <= snap.height} != restored_state:
+        raise AssertionError("statesync150: the restored app state is not the server's at the "
+                             "snapshot height")
+    top_b = state_b.last_block_height
+    for h in (node_b.block_store.base(), top_b):
+        if node_b.block_store.load_block(h).hash() != chain.block_store.load_block(h).hash():
+            raise AssertionError(f"statesync150: block {h} is not the chain's")
+    if node_b.block_store.base() != snap.height + 1 or state_b.app_hash != \
+            chain.block_store.load_block(top_b + 1).header.app_hash:
+        raise AssertionError(f"statesync150: base {node_b.block_store.base()}, app hash at "
+                             f"{top_b} not the chain's")
+    return dict(build_s=build_s, sign_s=chain.sign_s, serve_sync_s=serve_sync_s,
+                snapshot=snap.height, chunks=snap.chunks, snapshot_bytes=snap_bytes,
+                discovery_s=marks.first_snapshot - marks.t0,
+                fetch_s=marks.last_chunk - marks.first_request, chunks_in=marks.chunks,
+                verify_s=marks.verify_s, restore_s=marks.restore_s,
+                bootstrap_s=marks.handoff - marks.t0, synced=top_b - snap.height,
+                after_s=t_end - marks.handoff, launches_statesync=marks.launches)
+
+
+def statesync150_cell(device, card: str) -> dict:
+    """A fresh Node state-syncs a 150-validator chain from a serving Node:
+    the snapshot over p2p, its app hash anchored in headers the light
+    client verifies on the card (K5, K1, K6), then block sync past it."""
+    import asyncio
+    import os
+
+    with ConsensusProbe() as probe:
+        _consumer_reset()
+        r = asyncio.run(_statesync150(os.path.join(_node_root(), "statesync150")))
+        launches = _consumer_launches()
+    if probe.plain:
+        raise AssertionError(f"statesync150: {probe.plain} calls of a plain version")
+    lc = r["launches_statesync"]
+    for k in ("challenge_derive", "ed25519_verify", "integrity_parts"):
+        if lc.get(k, 0) < 1:
+            raise AssertionError(f"statesync150: {k} never launched for the light client's "
+                                 f"header checks: {lc}")
+    print(f"[{card}] bootstrap statesync150: chain {BOOT_HEIGHTS} x {SYNC_VALS} validators, "
+          f"{BOOT_TXS} txs a block, built in {r['build_s']:.3f} s ({r['sign_s']:.3f} s signing); "
+          f"the serving Node block-synced it in {r['serve_sync_s']:.3f} s; the fresh Node "
+          f"restored the snapshot at {r['snapshot']} ({r['chunks']} chunks, "
+          f"{r['snapshot_bytes']} B): discovery {r['discovery_s']:.3f} s, chunk fetch "
+          f"{r['fetch_s']:.3f} s, header verification {r['verify_s']:.3f} s, restore "
+          f"{r['restore_s']:.3f} s, handoff {r['bootstrap_s']:.3f} s after its start; then "
+          f"{r['synced']} heights by block sync in {r['after_s']:.3f} s = "
+          f"{r['synced'] / r['after_s']:.1f} heights/s; the light client's launches "
+          f"{({k: v for k, v in lc.items() if v})}; the cell's launches "
+          f"{({k: v for k, v in launches.items() if v})}; app hash and State equal the "
+          f"chain's at the snapshot height", flush=True)
+    return dict(r, launches=launches)
+
+
+async def _certsync150(root: str) -> dict:
+    """certsync150's run: a CERT_SYNC_HEIGHTS chain of SYNC_VALS BLS
+    validators; a serving harness node whose CertPlane backfills every
+    height's certificate, the last synced height's served mauled (a flipped
+    aggregate byte); a fresh Node with the cert plane off block-syncs it
+    classically, then one with it on (the reference's default) through the
+    certificate exchange."""
+    import asyncio
+    import dataclasses
+
+    H, T = _harness(), _tcp_harness()
+    from cometbft_tpu_torch.cert import CertPlane, CertStore, CommitCertificate
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.ops import bls_launch as BL
+    from cometbft_tpu_torch.store import MemDB
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    vals, secrets = bls_set(SYNC_VALS, SEED_CERTSYNC)
+    gdoc = GenesisDoc(genesis_time=H.GENESIS_TIME, chain_id=CHAIN_ID, validators=[
+        GenesisValidator(address=v.address, pub_key=v.pub_key, power=v.voting_power)
+        for v in vals.validators])
+    gdoc.validate_and_complete()
+    t0 = time.perf_counter()
+    chain = await T.build_chain(gdoc, CERT_SYNC_HEIGHTS, T.stepped_bls_signer(secrets),
+                                shared_time=True)
+    build_s = time.perf_counter() - t0
+    top = CERT_SYNC_HEIGHTS - 1
+    mauled_h = top
+    plane = CertPlane(CertStore(MemDB()), chain.block_store, chain.state_store, CHAIN_ID,
+                      poll_interval=0.05)
+    t1 = time.perf_counter()
+    await plane.start()
+    try:
+        await _wait(lambda: plane.store.count() >= CERT_SYNC_HEIGHTS, "certsync150 plane", t1,
+                    lambda: f"{plane.store.count()} of {CERT_SYNC_HEIGHTS} certificates")
+    finally:
+        await plane.stop()
+    produce_s = time.perf_counter() - t1
+    if plane.uncertifiable or plane.produce_failures:
+        raise AssertionError(f"certsync150: the plane's health {plane.health()}")
+    serve, mauled = plane.serve, []
+
+    def serve_mauling(height: int):
+        raw = serve(height)
+        if raw is not None and height == mauled_h:
+            c = CommitCertificate.decode(raw)
+            raw = dataclasses.replace(c, agg_sig=_flip(c.agg_sig, 40)).encode()
+            mauled.append(height)
+        return raw
+
+    plane.serve = serve_mauling
+    hkey, htr, hsw = T.serve_node("cert-source", gdoc, chain.block_store, SEED_CERTSYNC,
+                                  cert_plane=plane)
+    haddr = await htr.listen("127.0.0.1:0")
+    await hsw.start()
+    out = {}
+    try:
+        for label, cert_on in (("classic", False), ("cert", True)):
+            def setup(c, cert_on=cert_on):
+                c.cert.enabled = cert_on
+                c.p2p.persistent_peers = f"{hkey.id()}@{haddr}"
+
+            node = Node(Config.load(_boot_home(root, label, gdoc, setup)))
+            bcr, proved = node.blocksync_reactor, []
+            cert_proves = bcr._cert_proves
+
+            def proves(*a, _real=cert_proves, **k):
+                before = dict(BL.LAUNCHES)
+                ok = _real(*a, **k)
+                if ok:
+                    proved.append(_delta(before, BL.LAUNCHES))
+                return ok
+
+            bcr._cert_proves = proves
+            _consumer_reset()
+            t2 = time.perf_counter()
+            try:
+                await node.start()
+                await _wait(lambda: bcr.state.last_block_height >= 1, f"certsync150 {label}",
+                            t2, lambda: "no block")
+                t_first = time.perf_counter()
+                await _wait(lambda: bcr.state.last_block_height >= top, f"certsync150 {label}",
+                            t2, lambda: f"{bcr.state.last_block_height} of {top} blocks")
+                t_top = time.perf_counter()
+                wall, after = t_top - t2, t_top - t_first
+            finally:
+                if node.is_running:
+                    await node.stop()
+            launches = _consumer_launches()
+            if node.state_store.load().to_bytes() != chain.states[top] or any(
+                    node.block_store.load_block(h).hash() != chain.block_store.load_block(h).hash()
+                    for h in range(1, top + 1)):
+                raise AssertionError(f"certsync150 {label}: the synced chain or State is not "
+                                     "the chain's")
+            out[label] = dict(wall_s=wall, first_s=wall - after, after_s=after, blocks=top,
+                              windows=bcr.windows, proved=proved,
+                              cert_heights=bcr.cert_heights, rejected=bcr.certs_rejected,
+                              requested=bcr.certs_requested, received=bcr.certs_received,
+                              produced=node.cert_plane.produced if node.cert_plane else 0,
+                              launches=launches)
+    finally:
+        await hsw.stop()
+    return dict(out, build_s=build_s, sign_s=chain.sign_s, produce_s=produce_s,
+                served=plane.served, mauled=mauled, mauled_h=mauled_h)
+
+
+def certsync150_cell(device, card: str) -> dict:
+    """Commit certificates prove a block sync of 150 BLS validators: every
+    height but the mauled last one by one certificate check (B2, B4, B5
+    once each), the mauled one rejected, counted and proved the classic
+    way; blocks/s against the same chain's classic sync."""
+    import asyncio
+    import os
+
+    with ConsensusProbe() as probe:
+        r = asyncio.run(_certsync150(os.path.join(_node_root(), "certsync150")))
+    if probe.plain:
+        raise AssertionError(f"certsync150: {probe.plain} calls of a plain version")
+    c, k = r["cert"], r["classic"]
+    top = c["blocks"]
+    if c["cert_heights"] != top - 1 or c["rejected"] != 1 or r["mauled"] != [r["mauled_h"]] \
+            or k["cert_heights"] or k["requested"]:
+        raise AssertionError(f"certsync150: {c['cert_heights']} of {top} heights proved by "
+                             f"certificate, {c['rejected']} rejected, mauled served "
+                             f"{r['mauled']}; classic {k['cert_heights']} / {k['requested']}")
+    once = {"bls_hash_to_g2": 1, "bls_miller": 1, "bls_final_exp": 1}
+    bad = [p for p in c["proved"] if any(p.get(n, 0) != 1 for n in once)]
+    if len(c["proved"]) != c["cert_heights"] or bad:
+        raise AssertionError(f"certsync150: proved heights' launches {bad[:3]}")
+    if k["launches"].get("bls_final_exp", 0) < 1 or c["launches"].get("bls_final_exp", 0) < \
+            c["cert_heights"] + 1:
+        raise AssertionError(f"certsync150: launches classic {k['launches']}, cert "
+                             f"{c['launches']}")
+    print(f"[{card}] bootstrap certsync150: chain {CERT_SYNC_HEIGHTS} x {SYNC_VALS} BLS "
+          f"validators built in {r['build_s']:.3f} s ({r['sign_s']:.3f} s signing); the "
+          f"serving CertPlane backfilled {CERT_SYNC_HEIGHTS} certificates in "
+          f"{r['produce_s']:.3f} s and served {r['served']}; cert sync: {top} blocks applied "
+          f"in {c['wall_s']:.3f} s from the Node's start = {top / c['wall_s']:.2f} blocks/s, "
+          f"the first {c['first_s']:.3f} s after it, the other {top - 1} at "
+          f"{(top - 1) / c['after_s']:.2f} blocks/s; {c['cert_heights']} heights "
+          f"proved by certificate (B2/B4/B5 once each), the mauled certificate at "
+          f"{r['mauled_h']} rejected ({c['rejected']}) and the height proved classically; "
+          f"its own plane produced {c['produced']}; classic sync of the same chain: {top} "
+          f"blocks applied in {k['wall_s']:.3f} s = {top / k['wall_s']:.2f} blocks/s, the "
+          f"first after {k['first_s']:.3f} s, the other {top - 1} at "
+          f"{(top - 1) / k['after_s']:.2f} blocks/s ({k['windows']} windows); "
+          f"launches cert {({n: v for n, v in c['launches'].items() if v})}, classic "
+          f"{({n: v for n, v in k['launches'].items() if v})}", flush=True)
+    return dict(r, launches=c["launches"], launches_classic=k["launches"])
+
+
+async def _fleet150(node, chain) -> dict:
+    """fleet150's run on the synced Node of node sync150: the light fleet
+    turned on, FLEET_CALLS concurrent light_verify calls over FLEET_HEIGHTS
+    heights spread across the chain and one light_subscribe websocket;
+    every LightBlock held against the store."""
+    import asyncio
+
+    from cometbft_tpu_torch.light.fleet import reset_shared_caches
+    from cometbft_tpu_torch.types.light import LightBlock
+
+    R = _rpc_client()
+    reset_shared_caches()  # the checkpoint cache is the process's, keyed by chain id
+    node.config.light.fleet_enabled = True
+    node.config.light.fleet_trust_period = TRUST_PERIOD_S
+    addr = node.rpc_server.bound_addr
+    top = node.block_store.height() - 1
+    heights = np.linspace(2, top, FLEET_HEIGHTS).astype(int).tolist()
+    ws = await R.WS.connect(addr)
+    await ws.send({"jsonrpc": "2.0", "id": 5, "method": "light_subscribe", "params": {}})
+
+    async def call(h: int):
+        t0 = time.perf_counter()
+        env = await R.get(addr, f"/light_verify?height={h}")
+        return h, env, (time.perf_counter() - t0) * 1e3
+
+    _consumer_reset()
+    t0 = time.perf_counter()
+    res = await asyncio.gather(*(call(heights[i % FLEET_HEIGHTS]) for i in range(FLEET_CALLS)))
+    wall = time.perf_counter() - t0
+    launches = _consumer_launches()
+    acks = [await asyncio.wait_for(ws.recv(), 60.0) for _ in range(2)]
+    await ws.close()
+    for h, env, _ in res:
+        if "error" in env:
+            raise AssertionError(f"fleet150: light_verify at {h}: {env['error']}")
+        lb = LightBlock.from_proto(base64.b64decode(env["result"]["light_block"]))
+        if lb.hash() != node.block_store.load_block(h).hash():
+            raise AssertionError(f"fleet150: the LightBlock at {h} is not the store's")
+    ack = next((a for a in acks if a.get("id") == 5), None)
+    head = next((a for a in acks if a.get("id") == "5#header"), None)
+    if ack != {"jsonrpc": "2.0", "id": 5, "result": {}} or head is None:
+        raise AssertionError(f"fleet150: light_subscribe answered {acks}")
+    fleet = node.rpc_server.env._light_fleet
+    ms = sorted(m for _, _, m in res)
+    return dict(wall_s=wall, p50_ms=_p(ms, 0.5), p90_ms=_p(ms, 0.9), counters=fleet.counters(),
+                verified=fleet.verified, head=int(head["result"]["height"]), launches=launches)
+
+
+# what the proxy's and the node's answers of a route must both carry
+_PROXY_SHARED = {"commit": ("signed_header",), "block": ("block_id", "block"),
+                 "validators": ("block_height", "validators")}
+
+
+def _served_as(got, want) -> bool:
+    """Every field that the proxy's answer and the node's both carry is
+    equal (the proxy writes whole headers from the verified light block,
+    the node's /block an abridged one; the node's block ids also name
+    their part sets)."""
+    if isinstance(got, dict):
+        return isinstance(want, dict) and all(_served_as(v, want[k])
+                                              for k, v in got.items() if k in want)
+    return got == want
+
+
+_PROXY_PRELUDE = """
+import atexit, importlib, json, runpy, sys
+plain = [0]
+for mod, name in {plain_on_path!r}:
+    m = importlib.import_module("cometbft_tpu_torch.ops." + mod)
+    def counted(*a, _fn=getattr(m, name), **k):
+        plain[0] += 1
+        return _fn(*a, **k)
+    setattr(m, name, counted)
+def dump():
+    from cometbft_tpu_torch.ops import challenge, integrity, verify_kernel
+    with open({counts!r}, "w") as f:
+        json.dump({{"launches": {{**verify_kernel.LAUNCHES, **challenge.LAUNCHES,
+                                **integrity.LAUNCHES}}, "plain": plain[0]}}, f)
+atexit.register(dump)
+sys.argv = ["cometbft_tpu_torch"] + sys.argv[1:]
+runpy.run_module("cometbft_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+async def _proxy150(node, chain) -> dict:
+    """proxy150's run: `python -m cometbft_tpu_torch light` in a child
+    process (run through runpy as -m runs it, behind a prelude that counts
+    the child's launches and plain-version calls and writes them at its
+    exit) in front of the synced Node of node sync150; /commit, /block and
+    /validators at PROXY_HEIGHTS heights through the proxy, each answer held
+    against the node's own on every field the proxy serves."""
+    import asyncio
+    import os
+    import signal
+
+    R = _rpc_client()
+    addr = node.rpc_server.bound_addr
+    port = _free_ports(1)[0]
+    paddr = f"127.0.0.1:{port}"
+    counts = os.path.join(_node_root(), "proxy150_counts.json")
+    log = open(os.path.join(_node_root(), "proxy150.log"), "wb")
+    code = _PROXY_PRELUDE.format(plain_on_path=PLAIN_ON_PATH, counts=counts)
+    args = ["light", CHAIN_ID, "--primary", f"http://{addr}", "--witness", f"http://{addr}",
+            "--trusted-height", "1", "--trusted-hash", node.block_store.load_block(1).hash().hex(),
+            "--trusting-period", str(TRUST_PERIOD_S), "--laddr", f"tcp://{paddr}"]
+    proc = subprocess.Popen([sys.executable, "-c", code] + args, stdout=log, stderr=log,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    top = node.block_store.height() - 1
+    heights = np.linspace(2, top, PROXY_HEIGHTS).astype(int).tolist()
+    ms, t0 = [], time.perf_counter()
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"proxy150: the proxy exited with {proc.returncode}")
+            try:
+                await R.get(paddr, "/health")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > BOOT_TIMEOUT_S:
+                    raise AssertionError("proxy150: the proxy never listened") from None
+                await asyncio.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        for h in heights:
+            for route in ("commit", "block", "validators"):
+                t1 = time.perf_counter()
+                got = await R.get(paddr, f"/{route}?height={h}")
+                ms.append((time.perf_counter() - t1) * 1e3)
+                want = await R.get(addr, f"/{route}?height={h}")
+                if "error" in got or not _served_as(got["result"], want["result"]) or any(
+                        k not in got["result"] or k not in want["result"]
+                        for k in _PROXY_SHARED[route]):
+                    raise AssertionError(f"proxy150: /{route} at {h} through the proxy: "
+                                         f"{json.dumps(got)[:300]}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=PROC_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        log.close()
+    with open(counts) as f:
+        child = json.load(f)
+    if child["plain"] or child["launches"].get("ed25519_verify", 0) < 1:
+        raise AssertionError(f"proxy150: the proxy's launches {child}")
+    return dict(start_s=start_s, p50_ms=_p(sorted(ms), 0.5), p90_ms=_p(sorted(ms), 0.9),
+                calls=len(ms), launches=child["launches"])
+
+
+async def _serve150(node, chain) -> dict:
+    """What the synced Node of node sync150 serves, in turn: rpc150, then
+    fleet150 (its launch counts set to 0 before it) and proxy150 (the
+    launches of its own process)."""
+    return {"rpc150": await _rpc150(node, chain), "fleet150": await _fleet150(node, chain),
+            "proxy150": await _proxy150(node, chain)}
+
+
+def bootstrap_phase(device, card: str, node: dict) -> dict:
+    """The bootstrap phase, after the RPC phase: statesync150 (a fresh Node
+    restores a snapshot of a 150-validator chain anchored by the light
+    client, then block-syncs past it), certsync150 (certificates prove a
+    150-BLS-validator block sync), and fleet150/proxy150, which the node
+    phase's synced Node served (node sync150's serve: _serve150)."""
+    import shutil
+
+    from cometbft_tpu_torch import sched
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+    from cometbft_tpu_torch.light.fleet import reset_shared_caches
+    from cometbft_tpu_torch.ops import residency
+
+    t_phase = time.perf_counter()
+    crypto_batch.set_backend("gpu")
+    out = {}
+    f, p = node["sync150"]["fleet150"], node["sync150"]["proxy150"]
+    k1 = f["launches"].get("ed25519_verify", 0)
+    print(f"[{card}] bootstrap fleet150: the synced Node's light fleet answered {FLEET_CALLS} "
+          f"concurrent light_verify calls over {FLEET_HEIGHTS} heights of the {N_SYNC} x "
+          f"{SYNC_VALS} chain in {f['wall_s']:.3f} s, each LightBlock the store's; a call p50 "
+          f"{f['p50_ms']:.3f} ms, p90 {f['p90_ms']:.3f} ms; counters {f['counters']}; K1 "
+          f"launches {k1} = {k1 / max(f['verified'], 1):.3f} a verified height; the "
+          f"light_subscribe websocket streamed height {f['head']}", flush=True)
+    print(f"[{card}] bootstrap proxy150: `python -m cometbft_tpu_torch light` in front of the "
+          f"same Node, listening {p['start_s']:.3f} s after its start; {p['calls']} calls of "
+          f"/commit, /block, /validators at {PROXY_HEIGHTS} heights each equal to the Node's "
+          f"answer, a call p50 {p['p50_ms']:.3f} ms, p90 {p['p90_ms']:.3f} ms; the proxy's "
+          f"launches {({k: v for k, v in p['launches'].items() if v})}", flush=True)
+    out["fleet150"], out["proxy150"] = f, p
+    try:
+        for label, cell in (("statesync150", statesync150_cell),
+                            ("certsync150", certsync150_cell)):
+            sched.reset()
+            residency.reset()
+            reset_shared_caches()  # each cell's chain shares CHAIN_ID with fleet150's
+            out[label] = cell(device, card)
+    finally:
+        sched.reset()
+        residency.reset()
+        shutil.rmtree(_node_root(), ignore_errors=True)
+    print(f"[{card}] bootstrap phase (measurements, not claims): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def _record(name: str, replaces: str, launches: int, err: int, ms: float,
             plain_ms: float, b: tuple[float, str], **extra) -> dict:
     stem = "decompress25519" if name.endswith("decompress") else "verify25519"
@@ -6432,6 +7091,7 @@ def main() -> int:
     wire = wire_phase(device, card)
     node = node_phase(device, card, wire["sync150"].pop("chain"))
     rpc = rpc_phase(device, card, node, wire["tcp4"]["p50_ms"])
+    boot = bootstrap_phase(device, card, node)
     if min(held.held.values()) < 1:
         raise AssertionError(f"K5/K6 not held on the main paths: {held.held}")
     for name, e in held.err.items():
@@ -6553,7 +7213,9 @@ def main() -> int:
                     **{f"node_{label}": cell["launches"] for label, cell in node.items()
                        if "launches" in cell},
                     **{f"rpc_{label}": cell["launches"] for label, cell in rpc.items()
-                       if "launches" in cell}}
+                       if "launches" in cell},
+                    **{f"bootstrap_{label}": cell["launches"] for label, cell in boot.items()},
+                    "bootstrap_certsync150_classic": boot["certsync150"]["launches_classic"]}
     for r in kernels["kernels"]:
         count = BLS_SPLIT.get(r["name"], (None, None, r["name"]))[2]
         for path, launches in on_consumers.items():

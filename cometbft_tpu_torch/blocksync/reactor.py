@@ -13,9 +13,10 @@ is verified ONCE on device with full verify_commit semantics (covering both
 the reference's VerifyCommitLight pre-check and validateBlock's re-check,
 which ApplyBlock then skips via last_commit_verified).
 
-The port's copy of cometbft_tpu/blocksync/reactor.py. The
-commit-certificate exchange waits for cert/plane.py: `cert_plane=` takes
-None only and the 0x25 channel is not offered.
+The port's copy of cometbft_tpu/blocksync/reactor.py, with the
+commit-certificate exchange on channel 0x25 while a cert plane is given:
+a height whose certificate proves its commit is verified by one BLS
+pairing-product check on the card (B1-B5) instead of its per-vote batch.
 """
 
 from __future__ import annotations
@@ -34,10 +35,26 @@ from cometbft_tpu_torch.types import validation
 from cometbft_tpu_torch.types.basic import BlockID
 
 BLOCKSYNC_CHANNEL = 0x40
+# commit-certificate exchange (framework extension, no reference analog):
+# cert frames ride their OWN channel so support is negotiated in the p2p
+# handshake's channel list, exactly like the consensus VoteSummary channel
+# (0x24) — a peer that never advertises 0x25 never sees a cert frame and
+# syncs through the classic per-vote window path
+CERT_CHANNEL = 0x25
 BLOCK_PART_SIZE = 65536
 STATUS_UPDATE_INTERVAL = 10.0
 VERIFY_WINDOW = 8  # heights staged on device concurrently
 TRY_SYNC_INTERVAL = 0.01
+MAX_HELD_CERTS = 1024  # peer-served certs awaiting their window
+
+
+class _CertStaged:
+    """Stand-in for a StagedCommitVerification when a commit certificate
+    already proved the height: nothing to prefetch, finish() is a no-op.
+    The pool routine treats it like any staged entry."""
+
+    def finish(self) -> None:
+        return None
 
 
 class BlocksyncReactor(Reactor):
@@ -49,10 +66,9 @@ class BlocksyncReactor(Reactor):
         consensus_reactor=None,
         window: int = VERIFY_WINDOW,
         cert_plane=None,
+        cert_serve: bool = True,
         logger: cmtlog.Logger | None = None,
     ):
-        if cert_plane is not None:
-            raise NotImplementedError("BlocksyncReactor(cert_plane=) waits for cert/plane.py")
         super().__init__("Blocksync", logger)
         self.block_exec = block_exec
         self.block_store = block_store
@@ -71,6 +87,16 @@ class BlocksyncReactor(Reactor):
         self.stage_s: float = 0.0
         self.apply_s: float = 0.0
         self.windows = 0
+        # commit-certificate plane (None = cert exchange off; the 0x25
+        # channel is then never advertised and peers treat us as classic)
+        self.cert_plane = cert_plane
+        self.cert_serve = cert_serve and cert_plane is not None
+        self._held_certs: dict = {}  # height -> CommitCertificate
+        self.certs_requested = 0  # CertRequests sent to 0x25-capable peers
+        self.certs_received = 0   # well-formed certs accepted into holding
+        self.certs_served = 0     # CertResponses answered with a cert
+        self.cert_heights = 0     # window heights proved by a certificate
+        self.certs_rejected = 0   # corrupt/mismatched/failed certs (no ban)
 
     def set_state(self, state) -> None:
         self.state = state
@@ -78,14 +104,18 @@ class BlocksyncReactor(Reactor):
     # ------------------------------------------------------------- channels
 
     def get_channels(self) -> list[ChannelDescriptor]:
-        """The block channel only: without a cert plane the 0x25
-        certificate channel is not offered, so no peer sends on it."""
-        return [
+        chans = [
             ChannelDescriptor(
                 id=BLOCKSYNC_CHANNEL, priority=5, send_queue_capacity=1000,
                 recv_message_capacity=1 << 22,
             )
         ]
+        if self.cert_plane is not None:
+            # advertising the channel IS the capability announcement
+            # (the VoteSummary 0x24 idiom)
+            chans.append(ChannelDescriptor(
+                id=CERT_CHANNEL, priority=2, send_queue_capacity=64))
+        return chans
 
     # ------------------------------------------------------------ lifecycle
 
@@ -143,11 +173,20 @@ class BlocksyncReactor(Reactor):
         try:
             msg = bm.decode(e.message)
         except Exception as err:  # noqa: BLE001
+            if e.channel_id == CERT_CHANNEL:
+                # certificates are an accept-only optimization: a garbled
+                # frame costs the peer nothing but the shortcut (never a
+                # ban — contrast the block channel below, where garbage
+                # stalls the sync itself)
+                self.certs_rejected += 1
+                self.logger.debug("bad cert frame", err=str(err), peer=e.src.id)
+                return
             self.logger.error("bad blocksync message", err=str(err), peer=e.src.id)
             await self._punish(e.src.id, f"undecodable message: {err}")
             return
         if isinstance(msg, (bm.CertRequest, bm.CertResponse, bm.NoCertResponse)):
-            return  # certificate frames belong to the 0x25 channel, not offered
+            await self._receive_cert_message(msg, e.src)
+            return
         if isinstance(msg, bm.StatusRequest):
             await e.src.send(BLOCKSYNC_CHANNEL, bm.encode(
                 bm.StatusResponse(self.block_store.height(), self.block_store.base())))
@@ -161,6 +200,37 @@ class BlocksyncReactor(Reactor):
         elif isinstance(msg, bm.BlockResponse):
             if self.active and self.pool is not None:
                 self.pool.add_block(e.src.id, msg.block, msg.ext_commit, len(e.message))
+
+    async def _receive_cert_message(self, msg, peer) -> None:
+        """Commit-certificate exchange on 0x25. Serving reads straight off
+        the cert plane; received certs are parked until their height's
+        window stages (where they substitute ONE pairing for the per-vote
+        batch). Every failure path here degrades to classic verification —
+        a certificate can only ever remove work, never add risk."""
+        from cometbft_tpu_torch.cert import CommitCertificate
+
+        if isinstance(msg, bm.CertRequest):
+            raw = self.cert_plane.serve(msg.height) if self.cert_serve else None
+            if raw is None:
+                await peer.send(CERT_CHANNEL, bm.encode(bm.NoCertResponse(msg.height)))
+            else:
+                self.certs_served += 1
+                await peer.send(CERT_CHANNEL, bm.encode(bm.CertResponse(msg.height, raw)))
+        elif isinstance(msg, bm.CertResponse):
+            try:
+                cert = CommitCertificate.decode(msg.cert)
+                if cert.height != msg.height:
+                    raise ValueError(
+                        f"cert height {cert.height} != response height {msg.height}")
+            except Exception as err:  # noqa: BLE001 - corrupt cert: count, no ban
+                self.certs_rejected += 1
+                self.logger.debug("undecodable cert", height=msg.height,
+                                  err=str(err), peer=peer.id)
+                return
+            if len(self._held_certs) < MAX_HELD_CERTS:
+                self._held_certs[cert.height] = cert
+                self.certs_received += 1
+        # NoCertResponse: peer simply has no cert — classic path runs
 
     async def _respond_to_block_request(self, msg: bm.BlockRequest, peer) -> None:
         """reactor.go respondToPeer."""
@@ -180,6 +250,15 @@ class BlocksyncReactor(Reactor):
         ok = await peer.send(BLOCKSYNC_CHANNEL, bm.encode(bm.BlockRequest(height)))
         if not ok:
             raise ConnectionError(f"send to {peer_id} failed")
+        # opportunistically ask a 0x25-capable peer for the height's commit
+        # certificate alongside the block: if it lands before the window
+        # stages, the height verifies with one pairing instead of a
+        # per-vote batch; if not, nothing changes
+        if (self.cert_plane is not None
+                and height not in self._held_certs
+                and CERT_CHANNEL in (peer.node_info.channels or b"")):
+            self.certs_requested += 1
+            await peer.send(CERT_CHANNEL, bm.encode(bm.CertRequest(height)))
 
     def _on_pool_peer_error(self, reason: str, peer_id: str) -> None:
         task = self._punish(peer_id, reason)
@@ -232,7 +311,11 @@ class BlocksyncReactor(Reactor):
             # sync-class: the window yields the device to consensus-
             # critical flushes in the global verify scheduler, and queued
             # mempool-admission rows ride the window batch as filler
-            def _timed_prefetch(batch=[e[-1] for e in entries], h0=entries[0][0]):
+            def _timed_prefetch(batch=[e[-1] for e in entries
+                                       if not isinstance(e[-1], _CertStaged)],
+                                h0=entries[0][0]):
+                if not batch:  # whole window proved by certificates
+                    return 0.0
                 t0 = time.monotonic()
                 # root span per verify window (fresh context on the
                 # executor thread): a slow window keeps its full tree —
@@ -295,6 +378,10 @@ class BlocksyncReactor(Reactor):
         assume the current valset)."""
         entries = []
         h = start_height
+        # certs that arrived after their height was already applied
+        # would otherwise pin holding slots forever
+        for k in [k for k in self._held_certs if k < start_height]:
+            del self._held_certs[k]
         vals = self.state.validators
         vals_hash = vals.hash()
         with trace.span("sync.stage_window", cat="sync",
@@ -319,6 +406,11 @@ class BlocksyncReactor(Reactor):
                 break
             parts = first.make_part_set(BLOCK_PART_SIZE)
             first_id = BlockID(hash=first.hash(), part_set_header=parts.header())
+            if self._cert_proves(chain_id, vals, h, first_id, second.last_commit):
+                entries.append((h, first, first_ext, second, parts, first_id,
+                                _CertStaged()))
+                h += 1
+                continue
             try:
                 staged = validation.stage_verify_commit(
                     chain_id, vals, first_id, h, second.last_commit)
@@ -331,6 +423,34 @@ class BlocksyncReactor(Reactor):
                 break
             entries.append((h, first, first_ext, second, parts, first_id, staged))
             h += 1
+
+    def _cert_proves(self, chain_id: str, vals, h: int, first_id,
+                     commit) -> bool:
+        """True iff a held certificate fully proves height h's commit:
+        it names this exact block, attests THIS commit's signature set
+        (matching bitmap/timestamps AND an aggregate-sum equal to the
+        cert's — so a mauled commit can't hide behind an honest cert),
+        and its one pairing-product check passes against the current
+        valset. Any failure is counted and falls through to the classic
+        per-vote staging — bit-identical verdicts, never a peer ban."""
+        cert = self._held_certs.pop(h, None)
+        if cert is None or self.cert_plane is None:
+            return False
+        from cometbft_tpu_torch import cert as certmod
+
+        try:
+            if cert.block_id != first_id or not certmod.attests_commit(cert, commit):
+                raise certmod.ErrCertInvalid("certificate does not attest synced commit")
+            certmod.verify_certificate(cert, chain_id, vals)
+        except certmod.ErrCertInvalid as err:
+            self.certs_rejected += 1
+            self.cert_plane.count_verify_failure()
+            self.logger.debug("cert rejected; classic verification",
+                              height=h, err=str(err))
+            return False
+        self.cert_heights += 1
+        self.cert_plane.count_verified()
+        return True
 
     def _check_extensions(self, first, first_ext) -> None:
         """reactor.go:471-480."""

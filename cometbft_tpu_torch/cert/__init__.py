@@ -1,5 +1,5 @@
 """Commit certificates: succinct finality certificates. The port's copy of
-cometbft_tpu/cert/__init__.py, the certificate's names only.
+cometbft_tpu/cert/__init__.py.
 
 A CommitCertificate condenses an all-BLS commit into one aggregated G2
 signature plus a signer bitmap, verified with ONE pairing-product check on
@@ -16,10 +16,14 @@ from cometbft_tpu_torch.cert.certificate import (
     matches_commit,
     verify_certificate,
 )
+from cometbft_tpu_torch.cert.plane import CertPlane
+from cometbft_tpu_torch.cert.store import CertStore
 
 __all__ = [
     "CommitCertificate",
     "ErrCertInvalid",
+    "CertPlane",
+    "CertStore",
     "attests_commit",
     "build_certificate",
     "matches_commit",

@@ -14,12 +14,14 @@ Env: CMT_HOME overrides --home (main.go:48 env prefix analog).
 
 The port's copy of cometbft_tpu/cmd.py. `start` runs the port's Node, on
 the card unless the config or `--crypto_backend cpu` says "cpu"; the
-node refuses the planes that wait for later slices (node.check_planes), so
-a home to start sets [cert] enabled = false. `testnet` writes its homes as
-the reference does, except that crypto.backend keeps the port's default,
-"gpu" (the reference writes "cpu"). The RPC clients trace-dump, netinfo
-and heightline are the reference's. Its other subcommands (rollback,
-compact-db, inspect, light, debug, loadtime) parse as there and raise
+node refuses only the planes that wait for later slices (pprof, the
+byzantine mode, the fuzzing transport: node.check_planes), so a home from
+`init` or `testnet` starts unedited. `testnet` writes its homes as the
+reference does, except that crypto.backend keeps the port's default, "gpu"
+(the reference writes "cpu"). The RPC clients trace-dump, netinfo and
+heightline, `rollback`, `compact-db` and the `light` proxy are the
+reference's; `light` verifies on the card unless `--crypto_backend cpu`.
+Its other subcommands (inspect, debug, loadtime) parse as there and raise
 NotImplementedError naming the module each waits for.
 """
 
@@ -281,12 +283,104 @@ def cmd_gen_node_key(args) -> int:
     return 0
 
 
+def cmd_compact_db(args) -> int:
+    """commands/compact.go analog: force-compact the sqlite stores of a
+    STOPPED node (VACUUM reclaims pruned heights' pages)."""
+    import sqlite3
+
+    from cometbft_tpu_torch.config import Config
+
+    cfg = Config.load(_home(args))
+    if cfg.base.db_backend not in ("sqlite", "goleveldb", ""):
+        print(f"compaction not supported for backend {cfg.base.db_backend}",
+              file=sys.stderr)
+        return 1
+    for name in ("blockstore", "state", "tx_index", "evidence", "light"):
+        p = cfg.db_path(name)
+        if not os.path.exists(p):
+            continue
+        before = os.path.getsize(p)
+        conn = sqlite3.connect(p)
+        try:
+            conn.execute("VACUUM")
+            conn.commit()
+        finally:
+            conn.close()
+        print(f"compacted {name}: {before} -> {os.path.getsize(p)} bytes")
+    return 0
+
+
+def cmd_rollback(args) -> int:
+    """cmd/cometbft/commands/rollback.go: revert state (and optionally the
+    block) by one height so the app can re-run the last block."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.state.rollback import rollback
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.store.db import open_db
+
+    cfg = Config.load(_home(args))
+    block_store = BlockStore(open_db(
+        cfg.base.db_backend, cfg.db_path("blockstore"),
+        checksum=cfg.storage.checksum))
+    state_store = StateStore(open_db(
+        cfg.base.db_backend, cfg.db_path("state"),
+        checksum=cfg.storage.checksum))
+    height, app_hash = rollback(block_store, state_store,
+                                remove_block=args.hard)
+    print(f"Rolled back state to height {height} and hash {app_hash.hex().upper()}")
+    return 0
+
+
+def cmd_light(args) -> int:
+    """cmd/cometbft/commands/light.go:30-150: run the verified light-client
+    RPC proxy against a primary + witnesses."""
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch.light.proxy import LightProxy
+    from cometbft_tpu_torch.light.rpc_provider import RPCProvider
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.store import MemDB
+
+    from cometbft_tpu_torch.crypto import batch as crypto_batch
+
+    # the port's entry points verify on the card unless asked for the CPU
+    crypto_batch.set_backend(args.crypto_backend)
+    chain_id = args.chain_id
+    primary = RPCProvider(chain_id, args.primary)
+    witnesses = [RPCProvider(chain_id, w)
+                 for w in args.witness.split(",") if w]
+    store = LightStore(MemDB())
+
+    async def run():
+        client = light.Client(
+            chain_id,
+            light.TrustOptions(
+                period_ns=int(args.trusting_period * 1e9),
+                height=args.trusted_height,
+                hash_=bytes.fromhex(args.trusted_hash),
+            ),
+            primary, witnesses, store,
+        )
+        proxy = LightProxy(client, args.primary, args.laddr)
+        await proxy.start()
+        print(f"light proxy for {chain_id} listening on {proxy.bound_addr} "
+              f"(primary {args.primary}, {len(witnesses)} witnesses)")
+        try:
+            while True:
+                await asyncio.sleep(3600)
+        finally:
+            await proxy.stop()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 # the subcommands that wait for later slices, and the module each waits for
 QUEUED = {
-    "rollback": "state/rollback.py",
-    "compact-db": "the port's compact-db (with state/rollback.py)",
     "inspect": "node/inspect.py",
-    "light": "light/proxy.py and light/rpc_provider.py",
     "debug": "node/pprof.py",
     "loadtime": "loadtime.py",
 }
@@ -544,7 +638,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("rollback", help="revert state by one height")
     sp.add_argument("--hard", action="store_true",
                     help="also remove the block at the rolled-back height")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_rollback)
 
     sp = sub.add_parser(
         "wal-repair",
@@ -568,7 +662,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seconds (default one week)")
     sp.add_argument("--laddr", default="tcp://127.0.0.1:8888",
                     help="proxy listen address")
-    sp.set_defaults(fn=cmd_queued)
+    sp.add_argument("--crypto_backend", "--crypto.backend", dest="crypto_backend",
+                    default="gpu", choices=["gpu", "cpu"],
+                    help="where the proxy's light client verifies (default: the card)")
+    sp.set_defaults(fn=cmd_light)
 
     sp = sub.add_parser("debug", help="capture an operator debug bundle")
     sp.add_argument("--rpc.laddr", dest="rpc_laddr",
@@ -663,7 +760,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("compact-db",
                         help="force-compact a stopped node's sqlite stores")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_compact_db)
 
     sp = sub.add_parser("show-node-id")
     sp.set_defaults(fn=cmd_show_node_id)

@@ -22,7 +22,9 @@ The port's copy of cometbft_tpu/consensus/state.py. A peer vote is staged
 in its VoteSet and verified in one CONSENSUS-class flush through the port's
 scheduler (K5, K1/K2, K6 on the card; the BLS kernels for BLS votes); on
 the "gpu" backend a flush with no card raises, and the receive routine
-stops as a consensus failure. The node's own votes are added serially, as
+stops as a consensus failure. A block part that does not fit the proposal
+is logged as CometBFT's handleMsg does (the reference raises it as a
+consensus failure; ROADMAP Queue 3). The node's own votes are added serially, as
 in the reference. The node gives it the WAL (consensus/wal.py) and the
 consensus metrics (libs/metrics.ConsensusMetrics).
 """
@@ -50,7 +52,11 @@ from cometbft_tpu_torch.store.blockstore import BlockStore
 from cometbft_tpu_torch.types.basic import BlockID, SignedMsgType
 from cometbft_tpu_torch.types.block import Block
 from cometbft_tpu_torch.types.commit import Commit, ExtendedCommit, ExtendedCommitSig
-from cometbft_tpu_torch.types.part_set import PartSet
+from cometbft_tpu_torch.types.part_set import (
+    ErrPartSetInvalidProof,
+    ErrPartSetUnexpectedIndex,
+    PartSet,
+)
 from cometbft_tpu_torch.types.proposal import Proposal
 from cometbft_tpu_torch.types.vote import Vote
 from cometbft_tpu_torch.types.vote_set import (
@@ -365,7 +371,19 @@ class ConsensusState(BaseService):
         if isinstance(msg, M.ProposalMessage):
             self._set_proposal(msg.proposal, msg.peer_id)
         elif isinstance(msg, M.BlockPartMessage):
-            await self._add_proposal_block_part(msg)
+            try:
+                await self._add_proposal_block_part(msg)
+            except (ErrPartSetInvalidProof, ErrPartSetUnexpectedIndex) as err:
+                # state.go handleMsg: a part that does not fit the proposal
+                # is the sender's error, logged; from another round (the
+                # proposal moved on) it is routine. Never a consensus failure.
+                if msg.round_ != self.rs.round_:
+                    self.logger.debug("received block part from wrong round",
+                                      height=self.rs.height, cs_round=self.rs.round_,
+                                      block_round=msg.round_)
+                else:
+                    self.logger.error("failed to process message", type="BlockPart",
+                                      peer=msg.peer_id, err=str(err))
         elif isinstance(msg, M.VoteMessage):
             await self._try_add_vote(msg.vote, msg.peer_id)
         else:

@@ -16,10 +16,13 @@ A site is a seam where a device operation can fail. The port fires these:
   net.dial / net.accept / net.handshake
                      the p2p transport's dial, accept and upgrade
                      (p2p/transport.py)
+  light.fetch        one attempt of the RPC light provider's fetch
+                     (light/rpc_provider.py): transient and timeout retry
+                     with backoff, permanent fails the fetch
 
-The other names of SITES (fetch, challenge, pallas, mixed, sched and
-light sites) are the reference's; the port accepts them in a schedule so
-that one schedule string serves both packages, and fires none of them yet.
+The other names of SITES (fetch, challenge, pallas, mixed and sched
+sites) are the reference's; the port accepts them in a schedule so that
+one schedule string serves both packages, and fires none of them yet.
 
 Arming, by the environment (`CBFT_CHAOS`, read at the first use) or by
 arm()/arm_spec():

@@ -12,12 +12,12 @@ order mirrors the reference call stack (SURVEY §3.1):
 write genesis + node key + privval key under the home dir.
 
 The port's copy of cometbft_tpu/node/node.py, with the RPC server, the gRPC
-services (public and privileged), PEX with its address book, and a socket
-or gRPC proxy_app wired as the reference wires them. Each plane the port
-does not hold yet raises NotImplementedError naming the module it waits for
-(check_planes): pprof, the certificate plane, state sync, the byzantine
-mode, the fuzzing transport and the SQL indexer; the STATESYNC channels are
-not offered.
+services (public and privileged), PEX with its address book, a socket or
+gRPC proxy_app, the commit-certificate plane, state sync (every node serves
+snapshots; a fresh one with statesync.enable also syncs) and the SQL
+indexer wired as the reference wires them. Each plane the port does not
+hold yet raises NotImplementedError naming the module it waits for
+(check_planes): pprof, the byzantine mode and the fuzzing transport.
 
 Its device side: crypto/batch.configure(config.crypto) sets the backend,
 "gpu" (the default) or "cpu"; on "gpu" the node fails at construction
@@ -92,24 +92,17 @@ def check_planes(config: Config) -> None:
     waits = []
     if config.rpc.pprof_laddr:
         waits.append(("rpc.pprof_laddr", config.rpc.pprof_laddr, "node/pprof.py"))
-    if config.cert.enabled:
-        waits.append(("cert.enabled", True, "cert/plane.py"))
-    if config.state_sync.enable:
-        waits.append(("statesync.enable", True, "statesync/"))
     if config.consensus.byzantine:
         waits.append(("consensus.byzantine", config.consensus.byzantine,
                       "consensus/byzantine.py"))
     if config.p2p.test_fuzz:
         waits.append(("p2p.test_fuzz", True, "p2p/fuzz.py"))
-    if config.tx_index.indexer == "sql":
-        waits.append(("tx_index.indexer", "sql", "state/indexer_sql.py"))
     if waits:
         key, val, mod = waits[0]
         more = "".join(f"; {k} = {v!r} waits for {m}" for k, v, m in waits[1:])
         raise NotImplementedError(
             f"{key} = {val!r} waits for the port's {mod}, which is not ported yet{more}. "
-            "Set [cert] enabled = false (and leave the other planes at their "
-            "defaults) to run the port's node.")
+            "Leave these planes at their defaults to run the port's node.")
 
 
 def build_kernels(bls: bool) -> dict[str, float]:
@@ -281,11 +274,22 @@ class Node(BaseService):
         self.event_bus = EventBus()
 
         # ---- indexers (node.go:311-320 createAndStartIndexerService)
+        self._sql_sink = None
         if config.tx_index.indexer == "kv":
             self._indexer_db = open_db(backend, config.db_path("tx_index"),
                                        synchronous=sync_mode)
             self.tx_indexer = TxIndexer(self._indexer_db)
             self.block_indexer = BlockIndexer(self._indexer_db)
+        elif config.tx_index.indexer == "sql":
+            # psql-sink analog on sqlite: write-only relational sink, no
+            # RPC search (state/indexer/sink/psql contract)
+            from cometbft_tpu_torch.state.indexer_sql import SQLEventSink
+
+            self._indexer_db = None
+            self.tx_indexer = NullTxIndexer()
+            self.block_indexer = None
+            self._sql_sink = SQLEventSink(
+                config.db_path("tx_events"), self.genesis_doc.chain_id)
         else:
             self._indexer_db = None
             self.tx_indexer = NullTxIndexer()
@@ -293,7 +297,8 @@ class Node(BaseService):
         self.indexer_service = IndexerService(
             self.tx_indexer, self.block_indexer, self.event_bus,
             logger=self.logger.with_fields(module="txindex"),
-        ) if self._indexer_db is not None else None
+            sql_sink=self._sql_sink,
+        ) if (self._indexer_db is not None or self._sql_sink is not None) else None
 
         # ---- metrics (node.go:300 DefaultMetricsProvider; per-node registry
         # so in-process multi-node tests don't cross-count)
@@ -343,9 +348,29 @@ class Node(BaseService):
         self.overload.register(
             "events", self.event_bus.server.max_lag_fraction)
 
-        # the commit-certificate plane (cert/) waits for its slice:
-        # check_planes refused cert.enabled
+        # ---- commit-certificate plane (cert/, no reference analog):
+        # succinct finality certificates — produced at commit finalize
+        # off the event bus, stored CRC-guarded beside the block store,
+        # served over RPC and the negotiated blocksync channel
         self.cert_plane = None
+        self.cert_metrics = None
+        self._cert_db = None
+        if config.cert.enabled:
+            from cometbft_tpu_torch.cert import CertPlane, CertStore
+
+            self._cert_db = open_db(
+                backend, config.db_path("certs"),
+                synchronous=sync_mode, checksum=config.storage.checksum)
+            self.cert_metrics = cmtmetrics.CertMetrics(self.metrics_registry)
+            self.cert_plane = CertPlane(
+                CertStore(self._cert_db), self.block_store, self.state_store,
+                genesis_doc.chain_id, event_bus=self.event_bus,
+                backfill=config.cert.backfill,
+                backfill_batch=config.cert.backfill_batch,
+                poll_interval=config.cert.poll_interval,
+                metrics=self.cert_metrics,
+                logger=self.logger.with_fields(module="cert"),
+            )
 
         # background pruning honoring app/companion retain heights
         # (node.go:263-524 createPruner; state/pruner.go)
@@ -357,6 +382,8 @@ class Node(BaseService):
             # a configured privileged gRPC listener means a data companion
             # may set retain heights — the pruner must then honor them
             companion_enabled=bool(config.grpc.privileged_laddr),
+            # retain-height advances drop certificates with their blocks
+            cert_store=self.cert_plane.store if self.cert_plane else None,
             logger=self.logger.with_fields(module="pruner"),
         )
 
@@ -390,20 +417,96 @@ class Node(BaseService):
         tlr.slow_ms = config.instrumentation.height_slow_ms
         tlr.collector = self._postmortem_context
         self._postmortem_wire_prev: dict = {}
+        # statesync bootstrap: only a node with no committed state
+        # (node.go:559 stateSync && state height == 0)
+        self.statesync_active = (
+            config.state_sync.enable and state.last_block_height == 0
+        )
         self.consensus_reactor = ConsensusReactor(
             self.consensus_state,
-            wait_sync=self.blocksync_active,
+            wait_sync=self.blocksync_active or self.statesync_active,
             logger=self.logger.with_fields(module="cons-reactor"),
         )
         self.blocksync_reactor = BlocksyncReactor(
             self.block_exec,
             self.block_store,
-            active=self.blocksync_active,
+            # with statesync the pool must start at the restored height:
+            # blocksync activates in the statesync handoff instead of boot
+            active=self.blocksync_active and not self.statesync_active,
             consensus_reactor=self.consensus_reactor,
+            cert_plane=self.cert_plane,
+            cert_serve=config.cert.serve if self.cert_plane else False,
             logger=self.logger.with_fields(module="blocksync"),
         )
-        # the statesync reactor (serving and syncing snapshots) waits for
-        # its slice: the STATESYNC channels are not offered
+        # Every node SERVES snapshots on the statesync channels (reference:
+        # the reactor always registers, node.go:374); only a fresh node with
+        # statesync.enable also SYNCS (state provider + syncer attached).
+        from cometbft_tpu_torch.statesync import LightClientStateProvider, StatesyncReactor
+
+        state_provider = None
+        if config.state_sync.enable and self.statesync_active:
+            from cometbft_tpu_torch.light import Client as LightClient
+            from cometbft_tpu_torch.light import TrustOptions
+            from cometbft_tpu_torch.light.rpc_provider import RPCProvider
+            from cometbft_tpu_torch.light.store import LightStore
+            from cometbft_tpu_torch.store.db import MemDB
+
+            ss = config.state_sync
+            providers = [
+                RPCProvider(genesis_doc.chain_id, url) for url in ss.rpc_servers
+            ]
+            # fold statesync onto the fleet's shared checkpoint cache
+            # bisections start/fast-forward from any
+            # checkpoint the serving plane already verified, and every
+            # statesync-verified block seeds the cache for the fleet
+            from cometbft_tpu_torch.light.fleet import shared_cache
+
+            ckpt_cache = shared_cache(
+                genesis_doc.chain_id,
+                capacity=config.light.fleet_cache_capacity,
+                trust_period_ns=int(ss.trust_period * 1e9),
+                skip_base=config.light.fleet_skip_base,
+            )
+
+            class _TeeingLightStore(LightStore):
+                """Statesync trust store that tees every verified block
+                into the shared checkpoint cache."""
+
+                def save_light_block(self, lb):  # noqa: D102
+                    super().save_light_block(lb)
+                    try:
+                        ckpt_cache.put(lb)
+                    except Exception:  # noqa: BLE001 - cache is a bonus
+                        pass
+
+            lc = LightClient(
+                genesis_doc.chain_id,
+                TrustOptions(
+                    period_ns=int(ss.trust_period * 1e9),
+                    height=ss.trust_height,
+                    hash_=bytes.fromhex(ss.trust_hash),
+                ),
+                # the port's light client logs through the standard library
+                providers[0], providers[1:], _TeeingLightStore(MemDB()),
+            )
+            _own_source = lc.checkpoint_source
+
+            def _cached_source(h, _own=_own_source, _c=ckpt_cache):
+                hit = _c.nearest_at_or_below(h)
+                return hit if hit is not None else _own(h)
+
+            lc.checkpoint_source = _cached_source
+            self._statesync_light_client = lc
+            state_provider = LightClientStateProvider(
+                lc, initial_height=state.initial_height,
+                consensus_params=state.consensus_params,
+            )
+        self.statesync_reactor = StatesyncReactor(
+            None,  # snapshot conn wired at start (proxy conns live then)
+            state_provider=state_provider,
+            logger=self.logger.with_fields(module="statesync"),
+            chunk_timeout=config.state_sync.chunk_request_timeout,
+        )
         self.mempool_reactor = MempoolReactor(
             self.mempool, logger=self.logger.with_fields(module="mempool"))
         self.evidence_reactor = EvidenceReactor(
@@ -447,6 +550,7 @@ class Node(BaseService):
         self.switch.add_reactor("BLOCKSYNC", self.blocksync_reactor)
         self.switch.add_reactor("MEMPOOL", self.mempool_reactor)
         self.switch.add_reactor("EVIDENCE", self.evidence_reactor)
+        self.switch.add_reactor("STATESYNC", self.statesync_reactor)
 
         # ---- pex (node.go:498 createPEXReactorAndAddToSwitch)
         self.addr_book = None
@@ -497,6 +601,7 @@ class Node(BaseService):
         self.grpc_server = None
         self.grpc_priv_server = None
         self.kernel_build_s: dict[str, float] = {}
+        self._statesync_task = None
 
     # ------------------------------------------------- slow-height bundles
 
@@ -573,6 +678,10 @@ class Node(BaseService):
             self.kernel_build_s = await asyncio.get_running_loop().run_in_executor(
                 None, build_kernels, self.config.crypto.bls_enabled)
             self.logger.info("kernels built", seconds=str(self.kernel_build_s))
+        # the plane's backfill verifies nothing, but it starts behind the
+        # build all the same so every device consumer finds its kernels
+        if self.cert_plane is not None:
+            await self.cert_plane.start()
 
         # bridge the consensus fast-path EventSwitch into the async EventBus
         # so RPC subscribers see round transitions (state.go:129-131 dual
@@ -603,6 +712,11 @@ class Node(BaseService):
         self.consensus_state.sync_to_state(state)
         self.blocksync_reactor.set_state(self.consensus_state.state)
 
+        # the statesync reactor needs the live snapshot connection
+        self.statesync_reactor.conn = self.proxy_app.snapshot
+        if self.statesync_reactor.syncer is not None:
+            self.statesync_reactor.syncer.conn = self.proxy_app.snapshot
+
         # run the verify scheduler's bucket ladder once so the first real
         # consensus flush grows no table mid-round (no-op on "cpu")
         if self.config.crypto.sched_warmup:
@@ -620,6 +734,12 @@ class Node(BaseService):
         peers = self.config.p2p.persistent_peer_list()
         if peers:
             await self.switch.dial_peers_async(peers, persistent=True)
+
+        # statesync bootstrap (node.go:559 startStateSync): restore a
+        # snapshot anchored in light-client-verified headers, then hand off
+        # to blocksync starting at the restored height + 1
+        if self.statesync_active and self.statesync_reactor.syncer is not None:
+            self._statesync_task = asyncio.create_task(self._run_statesync())
 
         if self.config.rpc.laddr:
             from cometbft_tpu_torch.rpc.server import RPCServer
@@ -646,7 +766,33 @@ class Node(BaseService):
             self.logger.info("privileged gRPC listening",
                              addr=self.grpc_priv_bound)
 
+    async def _run_statesync(self) -> None:
+        """node.go startStateSync: sync, persist, hand off to blocksync."""
+        try:
+            state, commit = await self.statesync_reactor.sync(
+                discovery_time=self.config.state_sync.discovery_time)
+            self.state_store.bootstrap(state)
+            # the light-client-verified commit seeds LastCommit
+            # reconstruction (node.go startStateSync SaveSeenCommit)
+            self.block_store.save_seen_commit(state.last_block_height, commit)
+            self.consensus_state.sync_to_state(state)
+            self.logger.info("state sync complete; switching to block sync",
+                             height=state.last_block_height,
+                             app_hash=state.app_hash.hex()[:12])
+            await self.blocksync_reactor.activate(state)
+        except Exception as e:  # noqa: BLE001 - bootstrap failed: stay put
+            import traceback
+
+            self.logger.error("state sync failed", err=str(e),
+                              tb=traceback.format_exc(limit=5).replace("\n", " | "))
+        finally:
+            # stop soliciting snapshots: the sync ran once (ref clears the
+            # syncer when the sync ends); serving continues
+            self.statesync_reactor.syncer = None
+
     async def on_stop(self) -> None:
+        if self._statesync_task is not None:
+            self._statesync_task.cancel()
         if self.rpc_server is not None:
             await self.rpc_server.stop()
         for srv in (self.grpc_server, self.grpc_priv_server):
@@ -656,12 +802,19 @@ class Node(BaseService):
                 await wait_closed(srv, grace=0.5)
         await self.switch.stop()
         await self.proxy_app.stop()
+        if self.cert_plane is not None and self.cert_plane.is_running:
+            await self.cert_plane.stop()
         if self.pruner.is_running:
             await self.pruner.stop()
         if self.indexer_service is not None and self.indexer_service.is_running:
             await self.indexer_service.stop()
+        if self._sql_sink is not None:
+            try:
+                self._sql_sink.close()
+            except Exception:  # noqa: BLE001
+                pass
         for db in (self.block_store.db, self.state_store.db, self._evidence_db,
-                   self._indexer_db):
+                   self._indexer_db, self._cert_db):
             try:
                 db.close()
             except Exception:  # noqa: BLE001

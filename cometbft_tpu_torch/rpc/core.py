@@ -7,11 +7,11 @@ int64s, base64 txs) closely enough for familiarity without claiming
 byte-compat.
 
 The port's copy of cometbft_tpu/rpc/core.py. Every route of the reference's
-table answers; the light fleet's (`light_verify` and the websocket
-`light_subscribe`/`light_unsubscribe`) answer -32601 naming
-light/fleet.py, which the port does not hold yet, and `commit_certificate`
-answers as the reference's does on a node without a certificate plane.
-`validators` also takes CometBFT's `page`/`per_page` (ROADMAP Queue 3).
+table answers as the reference's does, the light fleet's (`light_verify`
+and the websocket `light_subscribe`/`light_unsubscribe`, -32601 "light
+fleet disabled" while light.fleet_enabled is off) and `commit_certificate`
+(from the node's certificate plane) among them. `validators` also takes
+CometBFT's `page`/`per_page` (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -26,10 +26,6 @@ GENESIS_CHUNK_SIZE = 16 * 1024 * 1024
 # rpc/core/env.go:25-26 defaultPerPage / maxPerPage
 DEFAULT_PER_PAGE = 30
 MAX_PER_PAGE = 100
-
-# the light fleet's routes wait for this module of the port
-LIGHT_FLEET_WAITS = ("light fleet waits for the port's light/fleet.py, "
-                     "which is not ported yet")
 
 
 def header_dict(h) -> dict:
@@ -126,6 +122,11 @@ class Environment:
         self.node = node
         self._bg_tasks: set = set()
         self._gen_chunks: list[str] | None = None
+        # lazily-built light-client fleet service (light/fleet.py) behind
+        # the light_verify / light_subscribe routes
+        self._light_fleet = None
+        self._fleet_lock = None  # created on the serving loop
+        self._fleet_head_sub = None  # NewBlock subscription feeding it
 
     def _shed_data(self, plane: str, retry_after_ms: int | None = None,
                    record: bool = False) -> dict:
@@ -670,37 +671,225 @@ class Environment:
     # (rpc/server.py hands that one to ws_light_subscribe below).
 
     async def _ensure_fleet(self):
-        """The serving fleet (light/fleet.py) is not in the port yet: its
-        routes answer -32601, the reference's code for a fleet that is not
-        there."""
-        raise RPCError(-32601, LIGHT_FLEET_WAITS)
+        import asyncio
+
+        from cometbft_tpu_torch.light.fleet import LightFleet
+
+        cfg = getattr(self.node, "config", None)
+        lc = getattr(cfg, "light", None)
+        if lc is None or not lc.fleet_enabled:
+            raise RPCError(
+                -32601, "light fleet disabled (set light.fleet_enabled)")
+        if self._fleet_lock is None:
+            self._fleet_lock = asyncio.Lock()
+        async with self._fleet_lock:
+            if self._light_fleet is not None:
+                return self._light_fleet
+            from cometbft_tpu_torch.light.client import TrustOptions
+            from cometbft_tpu_torch.light.provider import NodeBackedProvider
+            from cometbft_tpu_torch.light.rpc_provider import RPCProvider
+
+            chain_id = self.node.genesis_doc.chain_id
+            provider = NodeBackedProvider(self.node)
+            base = self.node.block_store.base() or 1
+            try:
+                root = await provider.light_block(base)
+            except Exception as e:  # noqa: BLE001 - no material yet
+                raise RPCError(
+                    -32001, f"no light-block material to anchor the "
+                            f"fleet yet: {e}") from e
+            period_ns = int(lc.fleet_trust_period * 1e9)
+            witnesses = [
+                RPCProvider(chain_id, u.strip())
+                for u in lc.fleet_witnesses.split(",") if u.strip()
+            ]
+            from cometbft_tpu_torch.light.fleet import shared_cache
+
+            fleet = LightFleet(
+                chain_id, provider,
+                TrustOptions(period_ns=period_ns, height=root.height,
+                             hash_=root.hash()),
+                witnesses=witnesses or None,
+                # the per-chain shared cache: statesync seeds it before
+                # the fleet exists, the fleet keeps it warm afterwards
+                cache=shared_cache(
+                    chain_id, capacity=lc.fleet_cache_capacity,
+                    trust_period_ns=period_ns,
+                    skip_base=lc.fleet_skip_base),
+                cache_capacity=lc.fleet_cache_capacity,
+                skip_base=lc.fleet_skip_base,
+                trust_period_ns=period_ns,
+                max_inflight=lc.fleet_max_inflight,
+                subscriber_queue=lc.fleet_subscriber_queue,
+                send_budget=lc.fleet_send_budget,
+                max_subscribers=lc.fleet_max_subscribers,
+                poll_interval=lc.fleet_poll_interval,
+                logger=getattr(self.node, "logger", None),
+            )
+            await fleet.initialize()
+            self._attach_head_events(fleet)
+            self._light_fleet = fleet
+            return fleet
+
+    def _attach_head_events(self, fleet) -> None:
+        """Event-driven head publishing: bridge the
+        node's NewBlock events into fleet.notify_height so the head
+        watcher wakes on commit instead of sleeping out a poll interval.
+        Best-effort — a node without an event bus (inspect shims, tests)
+        just leaves the fleet on the poll fallback."""
+        import asyncio
+
+        bus = getattr(self.node, "event_bus", None)
+        if bus is None:
+            return
+        from cometbft_tpu_torch.types import event_bus as eb
+
+        try:
+            sub = bus.subscribe("light-fleet-head", eb.QUERY_NEW_BLOCK)
+        except Exception:  # noqa: BLE001 - already subscribed / no server
+            return
+        self._fleet_head_sub = sub
+
+        async def _pump() -> None:
+            while True:
+                msg = await sub.out.get()
+                if msg is None:  # cancellation wake-up
+                    if sub.canceled is not None:
+                        return
+                    continue
+                block = getattr(msg.data, "block", None)
+                header = getattr(block, "header", None)
+                height = getattr(header, "height", None)
+                if height:
+                    fleet.notify_height(int(height))
+
+        task = asyncio.get_running_loop().create_task(
+            _pump(), name="light-fleet-head-events")
+        self._bg_tasks.add(task)
+        task.add_done_callback(self._bg_tasks.discard)
 
     async def light_verify(self, params: dict) -> dict:
-        """Fleet-served skipping verification (no reference analog);
-        refused while the fleet is not ported."""
-        return await self._ensure_fleet()
+        """Fleet-served skipping verification (no reference analog): the
+        header at `height` verified through the shared checkpoint cache
+        and coalesced in-flight bisections — thousands of concurrent
+        clients asking for overlapping ranges cost one verification per
+        unique height. Returns the wire-exact LightBlock proto (base64)
+        plus a fleet accounting snapshot."""
+        from cometbft_tpu_torch.light.errors import LightClientError
+        from cometbft_tpu_torch.light.fleet import FleetSaturated
+
+        fleet = await self._ensure_fleet()
+        try:
+            height = int(params.get("height") or 0)
+        except (TypeError, ValueError) as e:
+            raise RPCError(-32602, f"bad height param: {e}") from e
+        if height <= 0:
+            height = self.node.block_store.height()
+        # optional client pin: hex hash of the validator set the client
+        # expects at that height — a mismatch errors instead of serving
+        pin = params.get("valset_hash") or ""
+        try:
+            pin_bytes = bytes.fromhex(pin) if pin else b""
+        except ValueError as e:
+            raise RPCError(-32602, f"bad valset_hash param (want hex): "
+                                   f"{e}") from e
+        try:
+            lb = await fleet.verify_height(height, pin_bytes)
+        except FleetSaturated as e:
+            raise RPCError(-32005, str(e),
+                           data=self._shed_data("light", record=True)) from e
+        except LightClientError as e:
+            raise RPCError(-32001, f"light verification failed: {e}") from e
+        # counters() not health(): the response's accounting block must
+        # be O(1) — health() sorts the latency sample buffer, which a
+        # cache-hit-heavy serving load would pay on EVERY request
+        return {
+            "height": str(lb.height),
+            "light_block": _b64(lb.to_proto()),
+            "fleet": fleet.counters(),
+        }
 
     async def ws_light_subscribe(self, req: dict, client_id: str, tasks,
                                  send_json) -> None:
         """WS half of the serving plane (rpc/server.py dispatches the
-        `light_subscribe` method here): refused while the fleet is not
-        ported."""
-        try:
-            await self._ensure_fleet()
-        except RPCError as e:
-            await send_json(_ws_err(req.get("id", -1), e.code, str(e)))
+        `light_subscribe` method here): register the client with the
+        fleet and pump verified headers at it until it falls behind
+        (backpressure drop), spends its send budget, or disconnects."""
+        from cometbft_tpu_torch.light.fleet import FleetSaturated
 
-    async def ws_light_unsubscribe(self, req: dict, client_id: str, tasks,
+        rid = req.get("id", -1)
+        params = req.get("params") or {}
+        try:
+            fleet = await self._ensure_fleet()
+        except RPCError as e:
+            await send_json(_ws_err(rid, e.code, str(e)))
+            return
+        try:
+            from_height = _int_param(params.get("from_height") or 0,
+                                     "from_height")
+        except RPCError as e:
+            await send_json(_ws_err(rid, e.code, str(e)))
+            return
+        try:
+            sub = fleet.subscribe(client_id, from_height)
+        except FleetSaturated as e:
+            await send_json(_ws_err(rid, -32005, str(e),
+                                    data=self._shed_data("light",
+                                                         record=True)))
+            return
+        tasks.spawn(self._pump_light(sub, rid, send_json),
+                    name=f"light-sub-{client_id}")
+        await send_json({"jsonrpc": "2.0", "id": rid, "result": {}})
+
+    async def ws_light_unsubscribe(self, req: dict, client_id: str, _tasks,
                                    send_json) -> None:
-        await self.ws_light_subscribe(req, client_id, tasks, send_json)
+        if self._light_fleet is not None:
+            self._light_fleet.unsubscribe(client_id)
+        await send_json({"jsonrpc": "2.0", "id": req.get("id", -1),
+                         "result": {}})
+
+    async def _pump_light(self, sub, rid, send_json) -> None:
+        """Drain one subscription's queue onto the socket. The close
+        reason is sent before the stream goes quiet (the ws_handler.go
+        cancellation-notice convention)."""
+        import asyncio as _aio
+
+        from cometbft_tpu_torch.light.fleet import SubscriptionClosed
+
+        while True:
+            try:
+                lb = await sub.next()
+            except SubscriptionClosed as e:
+                try:
+                    await send_json(_ws_err(
+                        f"{rid}#header", -32000,
+                        f"light subscription closed: {e.reason}"))
+                except (ConnectionError, _aio.IncompleteReadError, OSError):
+                    pass
+                return
+            await send_json({
+                "jsonrpc": "2.0",
+                "id": f"{rid}#header",
+                "result": {
+                    "height": str(lb.height),
+                    "light_block": _b64(lb.to_proto()),
+                },
+            })
 
     async def ws_client_closed(self, client_id: str) -> None:
-        """rpc/server.py calls this when a WS connection dies (the fleet's
-        subscriptions would be released here)."""
+        """rpc/server.py calls this when a WS connection dies: release
+        the client's fleet subscription alongside its event-bus subs."""
+        if self._light_fleet is not None:
+            self._light_fleet.unsubscribe(client_id)
 
     async def close(self) -> None:
-        """Server shutdown hook; the environment holds no service of its
-        own while the fleet is not ported."""
+        """Server shutdown hook: stop the fleet's head watcher (and the
+        event-bus pump feeding it) so no task outlives the RPC plane."""
+        if self._fleet_head_sub is not None:
+            self._fleet_head_sub.cancel("rpc environment closed")
+            self._fleet_head_sub = None
+        if self._light_fleet is not None:
+            await self._light_fleet.stop()
 
     async def validators(self, params: dict) -> dict:
         """rpc/core/consensus.go Validators. Unlike block queries, validator

@@ -496,3 +496,42 @@ def test_port_consensus_state_takes_no_wal_or_metrics_yet(tmp_path):
     for side in ("jax", "port"):
         assert (open(tmp_path / side / "wal", "rb").read()
                 == open(tmp_path / "jax" / "wal", "rb").read())
+
+
+def test_a_block_part_that_does_not_fit_is_logged_not_a_consensus_failure():
+    """A part whose proof does not fit the proposal's part set (a part of
+    another round's proposal, or a bad peer's): the port logs it as
+    CometBFT's handleMsg does and keeps its receive routine; the reference
+    raises it out of _handle_msg, which its routine turns into a consensus
+    failure."""
+    from cometbft_tpu.types.part_set import ErrPartSetInvalidProof as JErr
+    from cometbft_tpu.types.part_set import PartSet as JPartSet
+    from cometbft_tpu_torch.types.part_set import PartSet as TPartSet
+
+    async def run():
+        tkeys = [H.gen_priv("ed25519", i, 5) for i in range(4)]
+        (jcs, jconns), (tcs, tconns) = await _cs_pair(tkeys)
+        try:
+            out = {}
+            for side, cs, PartSet, mod in (("jax", jcs, JPartSet, jmsg),
+                                           ("port", tcs, TPartSet, tmsg)):
+                ours = PartSet.from_data(b"the proposal's block" * 40, 64)
+                theirs = PartSet.from_data(b"another round's block" * 40, 64)
+                cs.rs.proposal_block_parts = PartSet.from_header(ours.header())
+                for rnd in (cs.rs.round_ + 1, cs.rs.round_):
+                    msg = mod.BlockPartMessage(height=cs.rs.height, round_=rnd,
+                                               part=theirs.get_part(0), peer_id="peer1")
+                    try:
+                        await cs._handle_msg(msg)
+                        out.setdefault(side, []).append("logged")
+                    except JErr:
+                        out.setdefault(side, []).append("raised")
+                out[side].append(cs.rs.proposal_block_parts.count)
+            return out
+        finally:
+            await jconns.stop()
+            await tconns.stop()
+
+    out = asyncio.run(run())
+    assert out["port"] == ["logged", "logged", 0]
+    assert out["jax"] == ["raised", "raised", 0]

@@ -265,3 +265,41 @@ def test_surface_modules_and_rpc_client_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# the bootstrap slice: state sync, the certificate plane, the light fleet,
+# its RPC provider and proxy, rollback and the SQL indexer
+BOOTSTRAP_MODULES = (
+    "state.rollback", "state.indexer_sql", "cert.store", "cert.plane", "light.rpc_provider",
+    "statesync.__init__", "statesync.messages", "statesync.snapshots", "statesync.chunks",
+    "statesync.provider", "statesync.syncer", "statesync.reactor", "light.fleet",
+    "light.proxy")
+
+
+@pytest.mark.parametrize("module", BOOTSTRAP_MODULES)
+def test_bootstrap_module_is_read_by_the_guard(module):
+    """Each module of the bootstrap slice is a file of the port that the
+    static check reads, with a counterpart of the same path in the JAX
+    package."""
+    rel = pathlib.Path(*module.split(".")).with_suffix(".py")
+    assert REPO / "cometbft_tpu_torch" / rel in PORT_FILES
+    assert (REPO / "cometbft_tpu" / rel).is_file()
+
+
+def test_bootstrap_modules_import_no_jax():
+    """The bootstrap slice's modules, imported in a fresh interpreter,
+    import neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    mods = [m.removesuffix(".__init__") for m in BOOTSTRAP_MODULES]
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module('cometbft_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

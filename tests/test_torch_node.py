@@ -14,14 +14,17 @@ package's on the CPU, both on their "cpu" backends.
   copy of the home, the two Handshakers recover the same State, and the
   port's node then keeps a linked chain;
 - a fresh Node syncs a torch_tcp_harness chain to its blocks and State;
-- every plane the port does not hold yet, an "auto" or "tpu" backend and
-  a "gpu" backend without a card raise at construction, and each plane it
-  holds since the RPC slice (RPC, gRPC, privileged gRPC, PEX, a socket and
-  a gRPC app) starts in a Node;
+- every plane the port does not hold yet (pprof, byzantine, fuzz), an
+  "auto" or "tpu" backend and a "gpu" backend without a card raise at
+  construction, the planes held since the bootstrap slice (certificates,
+  state sync, the SQL indexer) construct, and each plane held since the
+  RPC slice (RPC, gRPC, privileged gRPC, PEX, a socket and a gRPC app) or
+  the bootstrap slice (certificates, the SQL indexer) starts in a Node;
 - the CLI's key and reset commands act as the reference's, its RPC
   clients (trace-dump, netinfo, heightline) print what the reference's
-  print against a live node of each package, and the queued commands
-  raise.
+  print against a live node of each package, `rollback`, `compact-db`
+  and `light` answer as the reference's, the queued commands raise, and a
+  home `init` wrote starts unedited.
 """
 
 from __future__ import annotations
@@ -66,8 +69,9 @@ def _fresh():
 
 
 def _off(cfg, db: str = "sqlite"):
-    """A node config both packages run: the planes the port does not hold
-    yet off, the "cpu" backend, millisecond timeouts, any free port."""
+    """A node config both packages run: RPC, PEX and certificates off (the
+    tests that want them turn them on), the "cpu" backend, millisecond
+    timeouts, any free port."""
     cfg.consensus = type(cfg.consensus)(**vars(_ms_timeouts()))
     cfg.base.db_backend = db
     cfg.rpc.laddr = ""
@@ -422,27 +426,49 @@ def test_crash_at_commit_point_recovers(tmp_path, fail_index):
 # --------------------------------------------------------- refused planes
 
 
+# the module each refused plane waits for; None for a plane the port holds
+# since the bootstrap slice, which the node now builds
 PLANES = [
     ("pprof", lambda c: setattr(c.rpc, "pprof_laddr", "127.0.0.1:0"), "node/pprof.py"),
-    ("cert", lambda c: setattr(c.cert, "enabled", True), "cert/plane.py"),
+    ("cert", lambda c: setattr(c.cert, "enabled", True), None),
     ("statesync", lambda c: (setattr(c.state_sync, "enable", True),
-                             setattr(c.state_sync, "rpc_servers", ["a:1", "b:2"]),
+                             setattr(c.state_sync, "rpc_servers", ["127.0.0.1:1", "127.0.0.1:2"]),
                              setattr(c.state_sync, "trust_height", 1),
-                             setattr(c.state_sync, "trust_hash", "00")), "statesync/"),
+                             setattr(c.state_sync, "trust_hash", "00" * 32)), None),
     ("byzantine", lambda c: setattr(c.consensus, "byzantine", "equivocate"),
      "consensus/byzantine.py"),
     ("fuzz", lambda c: setattr(c.p2p, "test_fuzz", True), "p2p/fuzz.py"),
-    ("sql", lambda c: setattr(c.tx_index, "indexer", "sql"), "state/indexer_sql.py"),
+    ("sql", lambda c: setattr(c.tx_index, "indexer", "sql"), None),
 ]
 
 
 @pytest.mark.parametrize("plane,set_,module", PLANES, ids=[p[0] for p in PLANES])
 def test_node_refuses_planes_it_does_not_hold_yet(tmp_path, plane, set_, module):
+    """pprof, the byzantine mode and the fuzzing transport raise, naming
+    the module each waits for; certificates, state sync and the SQL indexer
+    build their plane."""
     home = _one_home(tmp_path)
     cfg = _off(TConfig.load(home))
     set_(cfg)
-    with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
-        TNode(cfg)
+    if module is not None:
+        with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
+            TNode(cfg)
+        return
+    node = TNode(cfg)
+    try:
+        if plane == "cert":
+            assert node.cert_plane is not None and node.pruner.cert_store is node.cert_plane.store
+        elif plane == "statesync":
+            assert node.statesync_active and node.statesync_reactor.syncer is not None
+            assert "STATESYNC" in node.switch.reactors
+        else:
+            assert node._sql_sink is not None and node.indexer_service is not None
+    finally:
+        for db in (node.block_store.db, node.state_store.db, node._evidence_db, node._cert_db):
+            if db is not None:
+                db.close()
+        if node._sql_sink is not None:
+            node._sql_sink.close()
 
 
 @pytest.mark.parametrize("backend", ["auto", "tpu"])
@@ -507,26 +533,73 @@ def test_cli_key_and_reset_commands_act_as_the_reference_s(tmp_path, capsys):
     assert tcmd.main(["--home", homes["t"], "reset-priv-validator"]) == 0
 
 
-@pytest.mark.parametrize("command", sorted(tcmd.QUEUED))
-def test_cli_queued_commands_raise(tmp_path, command):
-    argv = {"light": ["light", "c", "--primary", "x", "--trusted-height", "1",
+# the commands queued before the bootstrap slice; rollback, compact-db and
+# light are held since, and answer as the reference's
+CLI_QUEUED = ("compact-db", "debug", "inspect", "light", "loadtime", "rollback")
+
+
+@pytest.mark.parametrize("command", CLI_QUEUED)
+def test_cli_queued_commands_raise(tmp_path, command, capsys):
+    argv = {"light": ["light", "c", "--primary", "127.0.0.1:1", "--trusted-height", "1",
                       "--trusted-hash", "00"],
             "loadtime": ["loadtime", "run"]}.get(command, [command])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcmd.main(["--home", str(tmp_path)] + argv)
+    if command in tcmd.QUEUED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tcmd.main(["--home", str(tmp_path)] + argv)
+        return
+    assert set(CLI_QUEUED) - set(tcmd.QUEUED) == {"compact-db", "light", "rollback"}
+    extra = ["--crypto_backend", "cpu"] if command == "light" else []
+    got = {}
+    for side, mod in (("j", jcmd), ("t", tcmd)):
+        home = str(tmp_path / side)
+        try:
+            got[side] = ("rc", mod.main(["--home", home] + argv + (extra if side == "t" else [])))
+        except Exception as e:  # noqa: BLE001 - the two must fail alike
+            got[side] = (type(e).__name__, str(e))
+        got[side] += (capsys.readouterr().out.replace(home, "<h>"),)
+    assert got["t"] == got["j"]
 
 
 def test_cli_start_refuses_a_default_home(tmp_path):
     """A home `init` wrote keeps the reference's defaults (RPC, PEX and
-    certificates on): `start` refuses it, naming the certificate plane, the
-    one the port does not hold yet."""
+    certificates on). `start` refused it until the certificate plane was
+    ported; now it starts it unedited and commits with the plane on (only
+    the listen addresses are given on the command line, so parallel runs
+    do not share a port)."""
     home = str(tmp_path / "h")
     tcmd.main(["--home", home, "init"])
-    proc = subprocess.run(
-        [sys.executable, "-m", "cometbft_tpu_torch", "--home", home, "start",
-         "--crypto_backend", "cpu"], cwd=REPO, capture_output=True, timeout=60)
-    assert proc.returncode != 0
-    assert b"NotImplementedError: cert.enabled" in proc.stderr and b"cert/plane.py" in proc.stderr
+    code = (
+        "import asyncio, sys\n"
+        "from cometbft_tpu_torch.cmd import main\n"
+        "from cometbft_tpu_torch.node import node as n\n"
+        "seen = {}\n"
+        "real_start = n.Node.on_start\n"
+        "async def on_start(self):\n"
+        "    seen['node'] = self\n"
+        "    await real_start(self)\n"
+        "n.Node.on_start = on_start\n"
+        "real_run = asyncio.run\n"
+        "async def bounded(coro):\n"
+        "    task = asyncio.ensure_future(coro)\n"
+        "    while 'node' not in seen or seen['node'].block_store.height() < 2:\n"
+        "        assert not task.done(), task.exception()\n"
+        "        await asyncio.sleep(0.05)\n"
+        "    task.cancel()\n"
+        "    try:\n"
+        "        await task\n"
+        "    except asyncio.CancelledError:\n"
+        "        pass\n"
+        "asyncio.run = lambda coro: real_run(asyncio.wait_for(bounded(coro), 60))\n"
+        f"main(['--home', {home!r}, 'start', '--crypto_backend', 'cpu', '--log_level', 'error',\n"
+        "      '--p2p.laddr', 'tcp://127.0.0.1:0', '--rpc.laddr', 'tcp://127.0.0.1:0'])\n"
+        "node = seen['node']\n"
+        "assert node.config.cert.enabled and node.cert_plane is not None\n"
+        "print('started', node.block_store.height(), node.cert_plane.uncertifiable > 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[0] == "started" and int(proc.stdout.split()[1]) >= 2
 
 
 # ------------------------------------------------- planes held since the RPC slice

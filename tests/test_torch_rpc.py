@@ -7,8 +7,9 @@ same JSON over URI GET for the same height, and JSON-RPC POST answers as GET
 does. A websocket subscribed to NewBlock and Tx from the start saw the same
 events. Bit-equal but for the fields EXCEPT lists, which name the backend,
 the version, the listen address, this process's global state or a wall
-clock; the light fleet's routes, which the port refuses, answer the same
-error code with a message naming light/fleet.py.
+clock. The light fleet's routes answer the reference's "light fleet
+disabled" while light.fleet_enabled is off (its default), and serve
+verified light blocks when it is on.
 """
 
 from __future__ import annotations
@@ -67,7 +68,6 @@ EXCEPT = {
     "net_telemetry": (("listen_addr",), ("tunnel",), ("p2p_link",), ("totals",),
                       ("channels",)),
     "consensus_timeline": (("now_wall_ns",), ("heights",), ("skew",)),
-    "light_verify": (("error", "message"),),
 }
 
 
@@ -187,8 +187,8 @@ def test_websocket_saw_the_same_events(answers):
 def test_refused_routes(answers):
     t = answers["port"]
     light = t[next(f"{i}:light_verify" for i, (r, _) in enumerate(ROUTES) if r == "light_verify")]
-    assert light["error"]["code"] == -32601
-    assert light["error"]["message"] == tcore.LIGHT_FLEET_WAITS
+    assert light["error"] == {"code": -32601,
+                              "message": "light fleet disabled (set light.fleet_enabled)"}
     cert = t[next(f"{i}:commit_certificate" for i, (r, _) in enumerate(ROUTES)
                   if r == "commit_certificate")]
     assert cert["error"] == {"code": -32601,
@@ -225,7 +225,52 @@ def test_light_subscribe_over_the_websocket_is_refused(tmp_path):
 
     got = asyncio.run(main())
     assert got == {"jsonrpc": "2.0", "id": 7,
-                   "error": {"code": -32601, "message": tcore.LIGHT_FLEET_WAITS}}
+                   "error": {"code": -32601,
+                             "message": "light fleet disabled (set light.fleet_enabled)"}}
+
+
+def test_light_verify_and_subscribe_are_served_with_the_fleet_on(tmp_path):
+    """With light.fleet_enabled the same routes serve: `light_verify`
+    returns the store's light block at a height, bit for bit, and a
+    `light_subscribe` websocket is acknowledged and streams verified
+    heads."""
+    from cometbft_tpu_torch.light.fleet import reset_shared_caches
+    from cometbft_tpu_torch.types.light import LightBlock
+
+    async def main():
+        cfg = _off(TConfig.load(_one_home(tmp_path)))
+        cfg.rpc.laddr = "tcp://127.0.0.1:0"
+        cfg.light.fleet_enabled = True
+        node = TNode(cfg)
+        await node.start()
+        try:
+            async def tall():
+                while node.block_store.height() < 3:
+                    await asyncio.sleep(0.02)
+
+            await asyncio.wait_for(tall(), 60.0)
+            addr = node.rpc_server.bound_addr
+            got = await asyncio.wait_for(rpc.get(addr, "/light_verify?height=2"), 60.0)
+            lb = LightBlock.from_proto(base64.b64decode(got["result"]["light_block"]))
+            ws = await rpc.WS.connect(addr)
+            await ws.send({"jsonrpc": "2.0", "id": 9, "method": "light_subscribe",
+                           "params": {}})
+            ack = await asyncio.wait_for(ws.recv(), 30.0)
+            head = await asyncio.wait_for(ws.recv(), 60.0)
+            await ws.close()
+            return got, lb, node.block_store.load_block(2).hash(), ack, head
+        finally:
+            await node.stop()
+
+    reset_shared_caches()
+    try:
+        got, lb, want, ack, head = asyncio.run(main())
+    finally:
+        reset_shared_caches()
+    assert got["result"]["height"] == "2" and lb.hash() == want
+    assert got["result"]["fleet"]["verified"] == 1
+    assert ack == {"jsonrpc": "2.0", "id": 9, "result": {}}
+    assert head["id"] == "9#header" and int(head["result"]["height"]) >= 1
 
 
 def test_encoded_tx_param_forms():

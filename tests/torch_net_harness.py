@@ -181,10 +181,12 @@ class InProcNet:
         return [n.name for n in self.nodes if n.cs.failed]
 
     async def wait_for_height(self, h: int, timeout: float) -> None:
-        """Every node at height >= h within `timeout` s; raises at once if a
-        node's consensus routine died."""
+        """Every node at height >= h within `timeout` s, its block stored
+        and applied (a block is saved before apply_block's awaits); raises
+        at once if a node's consensus routine died."""
         async def poll():
-            while self.min_height() < h:
+            while self.min_height() < h or any(
+                    n.cs.state.last_block_height < h for n in self.nodes):
                 if self.failed():
                     raise RuntimeError(f"consensus failure on {self.failed()}")
                 await asyncio.sleep(0.01)

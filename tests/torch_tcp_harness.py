@@ -11,8 +11,9 @@ from the seed, as the validators' keys do.
 
 build_chain makes an n-block chain with full stores through the port's
 BlockExecutor and State.make_block, every validator signing every commit
-through `sign(address, sign_bytes)`; serve_node and sync_node put a serving
-and a syncing BlocksyncReactor behind a Switch. LyingStore serves a chain's
+through `sign(address, sign_bytes)`; serve_node (with a certificate plane,
+also serving commit certificates) and sync_node put a serving and a
+syncing BlocksyncReactor behind a Switch. LyingStore serves a chain's
 blocks with one tampered signature in every LastCommit.
 """
 
@@ -190,13 +191,17 @@ def block_time(height: int) -> cmttime.Timestamp:
     return cmttime.Timestamp(H.GENESIS_TIME.seconds + height, 0)
 
 
-def sign_commit(state: State, block: Block, sign) -> tuple[BlockID, Commit, object]:
+def sign_commit(state: State, block: Block, sign,
+                shared_time: bool = False) -> tuple[BlockID, Commit, object]:
     """Every validator of `state` precommits `block` in round 0: sign(address,
-    sign_bytes) -> signature. Returns (block id, commit, part set)."""
+    sign_bytes) -> signature. Each vote carries its own timestamp, or with
+    `shared_time` one for all, so that every validator signs the same bytes.
+    Returns (block id, commit, part set)."""
     parts = block.make_part_set(BLOCK_PART_SIZE)
     bid = BlockID(hash=block.hash(), part_set_header=parts.header())
     h = block.header.height
-    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address, cmttime.Timestamp(block_time(h).seconds, i))
+    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                      cmttime.Timestamp(block_time(h).seconds, 0 if shared_time else i))
             for i, v in enumerate(state.validators.validators)]
     commit = Commit(h, 0, bid, sigs)
     rows = commit.vote_sign_bytes_all(state.chain_id)
@@ -212,6 +217,7 @@ class Chain:
     block_store: BlockStore
     states: dict  # height -> State.to_bytes() after that block, for the heights kept
     sign_s: float = 0.0
+    state_store: StateStore | None = None  # the validator sets and results by height
 
 
 async def _exec_stack(gdoc: GenesisDoc):
@@ -226,24 +232,35 @@ async def _exec_stack(gdoc: GenesisDoc):
     return app, conns, state, store, mempool, BlockExecutor(store, conns.consensus, mempool)
 
 
-async def build_chain(gdoc: GenesisDoc, n_blocks: int, sign, keep: tuple = ()) -> Chain:
+def block_txs(height: int, n: int | None, value_bytes: int = 1) -> list[bytes]:
+    """A block's kvstore txs: one, `h<height>=v`, or with `n` that many
+    keys of `value_bytes`-byte values."""
+    if n is None:
+        return [b"h%d=v" % height]
+    return [b"h%d-%d=%s" % (height, i, b"v" * value_bytes) for i in range(n)]
+
+
+async def build_chain(gdoc: GenesisDoc, n_blocks: int, sign, keep: tuple = (),
+                      txs_per_block: int | None = None, value_bytes: int = 1,
+                      shared_time: bool = False) -> Chain:
     """An n_blocks chain with full stores (a serving node's data): one tx a
-    block, block times from the genesis time, commits from `sign`. The
-    State bytes are kept after the heights of `keep` and after n_blocks - 1,
-    where a sync stops."""
+    block (or `txs_per_block` txs of `value_bytes`-byte values: block_txs),
+    block times from the genesis time, commits from `sign` (one timestamp a
+    commit with `shared_time`: sign_commit). The State bytes are kept after
+    the heights of `keep` and after n_blocks - 1, where a sync stops."""
     import time
 
-    _app, conns, state, _store, _mempool, executor = await _exec_stack(gdoc)
+    _app, conns, state, store, _mempool, executor = await _exec_stack(gdoc)
     block_store = BlockStore(MemDB())
     last_commit = Commit(height=0, round_=0, block_id=BlockID(), signatures=[])
     states, sign_s = {}, 0.0
     try:
         for height in range(1, n_blocks + 1):
-            block = state.make_block(height, [b"h%d=v" % height], last_commit, [],
-                                     state.validators.get_proposer().address,
+            block = state.make_block(height, block_txs(height, txs_per_block, value_bytes),
+                                     last_commit, [], state.validators.get_proposer().address,
                                      block_time=block_time(height))
             t0 = time.perf_counter()
-            bid, commit, parts = sign_commit(state, block, sign)
+            bid, commit, parts = sign_commit(state, block, sign, shared_time)
             sign_s += time.perf_counter() - t0
             state = await executor.apply_block(state, bid, block, validated=True)
             block_store.save_block(block, parts, commit)
@@ -252,7 +269,38 @@ async def build_chain(gdoc: GenesisDoc, n_blocks: int, sign, keep: tuple = ()) -
             last_commit = commit
     finally:
         await conns.stop()
-    return Chain(gdoc=gdoc, state=state, block_store=block_store, states=states, sign_s=sign_s)
+    return Chain(gdoc=gdoc, state=state, block_store=block_store, states=states, sign_s=sign_s,
+                 state_store=store)
+
+
+def stepped_bls_signer(secrets: dict):
+    """sign(address, msg) for BLS validators whose secrets step by one
+    ({address: secret}, sk_i = sk_0 + i) and who all sign one message a
+    commit (build_chain's shared_time): the first call for a message
+    computes every validator's signature, sig_i = sig_(i-1) + H(msg), one
+    point addition each."""
+    from cometbft_tpu_torch.crypto import bls12381
+    from cometbft_tpu_torch.crypto import bls12381_math as O
+
+    order = sorted(secrets.items(), key=lambda kv: kv[1])
+    if any(sk != order[0][1] + i for i, (_, sk) in enumerate(order)):
+        raise ValueError("the secrets must step by one")
+    cache: dict = {}
+
+    def sign(address: bytes, msg: bytes) -> bytes:
+        if msg not in cache:
+            h = O._ec_from_affine(O.bls_hash_to_g2(msg, bls12381.DST))
+            acc = O._ec_mul(O._Fp2Ops, order[0][1], h)
+            sigs = {}
+            for k, (addr, _) in enumerate(order):
+                if k:
+                    acc = O._ec_add(O._Fp2Ops, acc, h)
+                sigs[addr] = O.bls_g2_compress(O._ec_affine(O._Fp2Ops, acc))
+            cache.clear()
+            cache[msg] = sigs
+        return cache[msg][address]
+
+    return sign
 
 
 class LyingStore:
@@ -303,15 +351,23 @@ class SyncNode:
 
 
 async def sync_node(gdoc: GenesisDoc, window: int, config: ConsensusConfig | None = None,
-                    seed: int = 0) -> SyncNode:
+                    seed: int = 0, cert: bool = False) -> SyncNode:
+    """A fresh node syncing at `window`; with `cert` its BlocksyncReactor
+    holds a certificate plane over its own stores (not started: it asks
+    peers for certificates and counts them)."""
     app, conns, state, store, mempool, execu = await _exec_stack(gdoc)
     bstore = BlockStore(MemDB())
+    plane = None
+    if cert:
+        from cometbft_tpu_torch.cert import CertPlane, CertStore
+
+        plane = CertPlane(CertStore(MemDB()), bstore, store, gdoc.chain_id)
     cs = ConsensusState(config=config or make_test_config(), state=state, block_exec=execu,
                         block_store=bstore, event_switch=EventSwitch())
     cons = ConsensusReactor(cs, wait_sync=True)
     log = io.StringIO()
     bcr = BlocksyncReactor(execu, bstore, active=True, consensus_reactor=cons, window=window,
-                           logger=cmtlog.Logger(log, level=cmtlog.INFO))
+                           logger=cmtlog.Logger(log, level=cmtlog.INFO), cert_plane=plane)
     bcr.set_state(state)
     _, transport, switch = make_switch("sync", gdoc.chain_id,
                                        {"CONSENSUS": cons, "BLOCKSYNC": bcr}, seed)
@@ -319,8 +375,9 @@ async def sync_node(gdoc: GenesisDoc, window: int, config: ConsensusConfig | Non
                     cons_reactor=cons, reactor=bcr, switch=switch, transport=transport, log=log)
 
 
-def serve_node(name: str, gdoc: GenesisDoc, block_store, seed: int = 0):
-    """(node key, transport, switch) of a node that serves `block_store`."""
+def serve_node(name: str, gdoc: GenesisDoc, block_store, seed: int = 0, cert_plane=None):
+    """(node key, transport, switch) of a node that serves `block_store`,
+    and with a `cert_plane` its commit certificates on channel 0x25."""
     bcr = BlocksyncReactor(BlockExecutor(StateStore(MemDB()), None, None), block_store,
-                           active=False)
+                           active=False, cert_plane=cert_plane)
     return make_switch(name, gdoc.chain_id, {"BLOCKSYNC": bcr}, seed)
