@@ -17,6 +17,8 @@ The port's copy of cometbft_tpu/blocksync/reactor.py, with the
 commit-certificate exchange on channel 0x25 while a cert plane is given:
 a height whose certificate proves its commit is verified by one BLS
 pairing-product check on the card (B1-B5) instead of its per-vote batch.
+A failed card (ops/dispatch.DEVICE_FAULTS) judges no block and punishes no
+peer: the sync stops, with the error in the log and in `device_fault`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from cometbft_tpu_torch.blocksync.pool import BlockPool
 from cometbft_tpu_torch.libs import log as cmtlog
 from cometbft_tpu_torch.libs import trace
 from cometbft_tpu_torch.libs.service import TaskRunner
+from cometbft_tpu_torch.ops import dispatch
 from cometbft_tpu_torch.p2p.base_reactor import Envelope, Reactor
 from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor
 from cometbft_tpu_torch.types import validation
@@ -87,6 +90,8 @@ class BlocksyncReactor(Reactor):
         self.stage_s: float = 0.0
         self.apply_s: float = 0.0
         self.windows = 0
+        # "<exception type>: <text>" once a failed card stopped the sync
+        self.device_fault: str | None = None
         # commit-certificate plane (None = cert exchange off; the 0x25
         # channel is then never advertised and peers treat us as classic)
         self.cert_plane = cert_plane
@@ -282,6 +287,13 @@ class BlocksyncReactor(Reactor):
     # ------------------------------------------------- the TPU apply loop
 
     async def _pool_routine(self) -> None:
+        try:
+            await self._pool_loop()
+        except dispatch.DEVICE_FAULTS as exc:
+            self.device_fault = f"{type(exc).__name__}: {exc}"
+            self.logger.error("block sync halted: the card failed", err=self.device_fault)
+
+    async def _pool_loop(self) -> None:
         """reactor.go:286 poolRoutine, windowed AND pipelined: while window
         N's masks are in flight on the device, window N+1 is staged (the
         host-heavy part: sign-bytes + SHA-512 challenges + dispatch), so
@@ -348,6 +360,8 @@ class BlocksyncReactor(Reactor):
                     )
                     self.block_exec.validate_block(
                         self.state, first, last_commit_verified=lc_ok)
+                except dispatch.DEVICE_FAULTS:
+                    raise  # the card failed, not the block or its peer
                 except Exception as err:  # noqa: BLE001 - bad block: redo + punish
                     self.logger.error("invalid block in sync", height=h, err=str(err))
                     p1 = self.pool.redo_request(h)
@@ -414,6 +428,8 @@ class BlocksyncReactor(Reactor):
             try:
                 staged = validation.stage_verify_commit(
                     chain_id, vals, first_id, h, second.last_commit)
+            except dispatch.DEVICE_FAULTS:
+                raise  # the card failed, not the commit or its peer
             except Exception as err:  # noqa: BLE001 - structurally bad: redo now
                 self.logger.error("commit rejected in staging", height=h, err=str(err))
                 p1 = self.pool.redo_request(h)

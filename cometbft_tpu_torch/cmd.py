@@ -13,16 +13,15 @@ the idiomatic Python analog. Commands:
 Env: CMT_HOME overrides --home (main.go:48 env prefix analog).
 
 The port's copy of cometbft_tpu/cmd.py. `start` runs the port's Node, on
-the card unless the config or `--crypto_backend cpu` says "cpu"; the
-node refuses only the planes that wait for later slices (pprof, the
-byzantine mode, the fuzzing transport: node.check_planes), so a home from
-`init` or `testnet` starts unedited. `testnet` writes its homes as the
-reference does, except that crypto.backend keeps the port's default, "gpu"
-(the reference writes "cpu"). The RPC clients trace-dump, netinfo and
-heightline, `rollback`, `compact-db` and the `light` proxy are the
-reference's; `light` verifies on the card unless `--crypto_backend cpu`.
-Its other subcommands (inspect, debug, loadtime) parse as there and raise
-NotImplementedError naming the module each waits for.
+the card unless the config or `--crypto_backend cpu` says "cpu"; a home
+from `init` or `testnet` starts unedited, and every plane of the reference
+(pprof, the byzantine mode, the fuzzing transport among them) is held.
+`testnet` writes its homes as the reference does, except that
+crypto.backend keeps the port's default, "gpu" (the reference writes
+"cpu"). The RPC clients trace-dump, netinfo and heightline, `rollback`,
+`compact-db`, `inspect` (the stores alone: no card, no kernel), `debug`,
+`loadtime` and the `light` proxy are the reference's; `light` verifies on
+the card unless `--crypto_backend cpu`.
 """
 
 from __future__ import annotations
@@ -378,18 +377,120 @@ def cmd_light(args) -> int:
     return 0
 
 
-# the subcommands that wait for later slices, and the module each waits for
-QUEUED = {
-    "inspect": "node/inspect.py",
-    "debug": "node/pprof.py",
-    "loadtime": "loadtime.py",
-}
+def cmd_inspect(args) -> int:
+    """inspect/inspect.go: serve the data-backed subset of the RPC (status,
+    block, blockchain, validators, tx lookups) over a STOPPED node's stores
+    — consensus and p2p never start, so a crashed node can be examined
+    without running it."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node.inspect import run_inspect
+
+    cfg = Config.load(_home(args))
+    if args.rpc_laddr:
+        cfg.rpc.laddr = args.rpc_laddr
+    asyncio.run(run_inspect(cfg))
+    return 0
 
 
-def cmd_queued(args) -> int:
-    raise NotImplementedError(
-        f"`{args.command}` waits for the port's {QUEUED[args.command]}, which is not "
-        "ported yet")
+def cmd_debug(args) -> int:
+    """cmd/cometbft/commands/debug/debug.go:22-80 'debug dump': capture an
+    operator bundle from a RUNNING node — status, consensus round state
+    (own + peers), net info, and the node config — into a tar.gz for
+    offline analysis. (Process stacks: send SIGUSR1 to the node, which
+    registers a faulthandler dump — see cmd_start.)"""
+    import io
+    import tarfile
+    import time as _time
+    import urllib.request
+
+    base = args.rpc_laddr.removeprefix("tcp://")
+    if not base.startswith("http"):
+        base = "http://" + base
+
+    def get(route: str) -> bytes:
+        with urllib.request.urlopen(f"{base}/{route}", timeout=10) as r:
+            return r.read()
+
+    out = args.output or f"cometbft-debug-{int(_time.time())}.tar.gz"
+    with tarfile.open(out, "w:gz") as tar:
+        for name, route in (
+            ("status.json", "status"),
+            ("consensus_state.json", "consensus_state"),
+            ("dump_consensus_state.json", "dump_consensus_state"),
+            ("net_info.json", "net_info"),
+        ):
+            try:
+                data = get(route)
+            except Exception as e:  # noqa: BLE001 - capture what we can
+                data = json.dumps({"error": str(e)}).encode()
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            info.mtime = int(_time.time())
+            tar.addfile(info, io.BytesIO(data))
+        cfg_path = os.path.join(_home(args), "config", "config.toml")
+        if os.path.exists(cfg_path):
+            tar.add(cfg_path, arcname="config.toml")
+        # live CPU profile + thread stacks via the node's pprof plane
+        # (rpc.pprof_laddr; node/pprof.py) — skipped when not enabled
+        if args.pprof_laddr:
+            pbase = args.pprof_laddr.removeprefix("tcp://")
+            if not pbase.startswith("http"):
+                pbase = "http://" + pbase
+            for name, route in (
+                ("profile.txt",
+                 f"debug/pprof/profile?seconds={args.profile_seconds}"
+                 "&format=text"),
+                ("stacks.txt", "debug/pprof/stacks"),
+            ):
+                try:
+                    with urllib.request.urlopen(
+                            f"{pbase}/{route}",
+                            timeout=args.profile_seconds + 10) as r:
+                        data = r.read()
+                except Exception as e:  # noqa: BLE001 - capture what we can
+                    data = f"pprof fetch failed: {e}\n".encode()
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                info.mtime = int(_time.time())
+                tar.addfile(info, io.BytesIO(data))
+    print(f"wrote debug bundle {out}")
+    return 0
+
+
+def cmd_loadtime(args) -> int:
+    """test/loadtime analog: 'run' drives stamped-tx load at RPC
+    endpoints; 'report' recomputes per-tx latency from committed blocks."""
+    from cometbft_tpu_torch import loadtime
+
+    if args.mode == "run":
+        endpoints = [e for e in args.endpoints.split(",") if e]
+        exp_id, res = asyncio.run(loadtime.generate_load(
+            endpoints, rate=args.rate, duration=args.duration,
+            size=args.size, method=args.method))
+        print(json.dumps({
+            "experiment_id": exp_id, "sent": res.sent,
+            "accepted": res.accepted, "rejected": res.rejected,
+            "errors": res.errors,
+        }))
+        return 0
+    # report
+    if args.endpoints:
+        url = args.endpoints.split(",")[0]
+        blocks = loadtime.blocks_from_rpc(url)
+    else:
+        from cometbft_tpu_torch.config import Config
+        from cometbft_tpu_torch.store import BlockStore
+        from cometbft_tpu_torch.store.db import open_db
+
+        cfg = Config.load(_home(args))
+        bs = BlockStore(open_db(cfg.base.db_backend,
+                                cfg.db_path("blockstore"),
+                                checksum=cfg.storage.checksum))
+        blocks = loadtime.blocks_from_store(bs)
+    reports = loadtime.report_from_blocks(blocks)
+    for rep in reports.values():
+        print(json.dumps(rep.stats()))
+    return 0
 
 
 def cmd_trace_dump(args) -> int:
@@ -648,7 +749,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("inspect", help="serve read-only RPC over a stopped node's data")
     sp.add_argument("--rpc.laddr", dest="rpc_laddr", default="")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_inspect)
 
     sp = sub.add_parser("light", help="verified light-client RPC proxy")
     sp.add_argument("chain_id")
@@ -675,7 +776,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "+ thread stacks to the bundle")
     sp.add_argument("--profile-seconds", type=int, default=5)
     sp.add_argument("--output", default="", help="output tar.gz path")
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_debug)
 
     sp = sub.add_parser(
         "trace-dump",
@@ -733,7 +834,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--size", type=int, default=256, help="tx bytes")
     sp.add_argument("--method", default="broadcast_tx_async",
                     choices=["broadcast_tx_async", "broadcast_tx_sync"])
-    sp.set_defaults(fn=cmd_queued)
+    sp.set_defaults(fn=cmd_loadtime)
 
     sp = sub.add_parser(
         "unsafe-reset-all",

@@ -46,6 +46,7 @@ from cometbft_tpu_torch.libs import fail
 from cometbft_tpu_torch.libs import log as cmtlog
 from cometbft_tpu_torch.libs import trace
 from cometbft_tpu_torch.libs.service import BaseService, TaskRunner
+from cometbft_tpu_torch.ops import dispatch
 from cometbft_tpu_torch.privval.file_pv import PrivValidator
 from cometbft_tpu_torch.state import BlockExecutor, State
 from cometbft_tpu_torch.store.blockstore import BlockStore
@@ -385,7 +386,15 @@ class ConsensusState(BaseService):
                     self.logger.error("failed to process message", type="BlockPart",
                                       peer=msg.peer_id, err=str(err))
         elif isinstance(msg, M.VoteMessage):
-            await self._try_add_vote(msg.vote, msg.peer_id)
+            try:
+                await self._try_add_vote(msg.vote, msg.peer_id)
+            except ErrVoteConflictingVotes as err:
+                # state.go handleMsg: a conflicting vote of our own (a peer
+                # echoing an equivocation back, or the WAL replaying one) is
+                # the error tryAddVote returns, logged; never a consensus
+                # failure
+                self.logger.error("failed to process message", type="Vote",
+                                  peer=msg.peer_id, err=str(err))
         else:
             self.logger.error("unknown msg type", type=str(type(msg)))
 
@@ -654,6 +663,8 @@ class ConsensusState(BaseService):
         try:
             self.block_exec.validate_block(self.state, rs.proposal_block)
             accepted = await self.block_exec.process_proposal(rs.proposal_block, self.state)
+        except dispatch.DEVICE_FAULTS:
+            raise  # the card failed: no verdict on the block
         except Exception as e:  # noqa: BLE001
             self.logger.error("prevote step: invalid proposal block", err=str(e))
             accepted = False
@@ -900,6 +911,8 @@ class ConsensusState(BaseService):
             self.logger.info("rejected vote with invalid signature",
                              err=str(e), peer=peer_id)
             return False
+        except dispatch.DEVICE_FAULTS:
+            raise  # the card failed, not the vote: a consensus failure
         except Exception as e:  # noqa: BLE001 - bad votes are logged, not fatal
             self.logger.info("failed attempting to add vote", err=str(e))
             return False

@@ -5,7 +5,13 @@ A site is a seam where a device operation can fail. The port fires these:
 
   ed25519.dispatch / sr25519.dispatch / bls12381.dispatch
                      one mesh shard's dispatch (parallel/mesh.py), and the
-                     BLS shard itself (ops/bls_kernel.mesh_shard_verify)
+                     BLS shard itself (ops/bls_kernel.mesh_shard_verify);
+                     ed25519/sr25519 also the single-card path's stage and
+                     launch (ops/ed25519_kernel.verify_batch_async, under
+                     the "device" supervisor)
+  ed25519.fetch / sr25519.fetch
+                     the single-card path's header and payload fetches
+                     (ops/ed25519_kernel.resolve_batches)
   ed25519.dispatch.devN / sr25519.dispatch.devN
                      the same shard's dispatch on mesh fault domain N, so a
                      schedule can kill or flap exactly one domain while the
@@ -20,9 +26,11 @@ A site is a seam where a device operation can fail. The port fires these:
                      (light/rpc_provider.py): transient and timeout retry
                      with backoff, permanent fails the fetch
 
-The other names of SITES (fetch, challenge, pallas, mixed and sched
-sites) are the reference's; the port accepts them in a schedule so that
-one schedule string serves both packages, and fires none of them yet.
+The other names of SITES (ed25519.challenge, mixed.resolve, sched.flush
+and pallas.trace) are the reference's; the port accepts them in a
+schedule so that one schedule string serves both packages. pallas.trace
+never fires: the port has no Pallas trace. The other three wait for their
+layers (ROADMAP Queue 1).
 
 Arming, by the environment (`CBFT_CHAOS`, read at the first use) or by
 arm()/arm_spec():

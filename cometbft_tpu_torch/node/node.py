@@ -11,13 +11,13 @@ order mirrors the reference call stack (SURVEY §3.1):
 `init_files` is the `cometbft init` analog (cmd/cometbft/commands/init.go):
 write genesis + node key + privval key under the home dir.
 
-The port's copy of cometbft_tpu/node/node.py, with the RPC server, the gRPC
+The port's copy of cometbft_tpu/node/node.py, with every plane of the
+reference wired as the reference wires it: the RPC server, the gRPC
 services (public and privileged), PEX with its address book, a socket or
 gRPC proxy_app, the commit-certificate plane, state sync (every node serves
-snapshots; a fresh one with statesync.enable also syncs) and the SQL
-indexer wired as the reference wires them. Each plane the port does not
-hold yet raises NotImplementedError naming the module it waits for
-(check_planes): pprof, the byzantine mode and the fuzzing transport.
+snapshots; a fresh one with statesync.enable also syncs), the SQL indexer,
+the pprof profiler (rpc.pprof_laddr), the byzantine test mode
+(consensus.byzantine) and the fuzzing transport (p2p.test_fuzz).
 
 Its device side: crypto/batch.configure(config.crypto) sets the backend,
 "gpu" (the default) or "cpu"; on "gpu" the node fails at construction
@@ -85,35 +85,19 @@ def _strip_tcp(addr: str) -> str:
 KERNEL_SOURCES = ("verify25519", "decompress25519", "challenge25519", "integrity")
 
 
-def check_planes(config: Config) -> None:
-    """Raise NotImplementedError, naming the module it waits for, for every
-    plane of `config` that the port does not hold yet. None is skipped or
-    served another way."""
-    waits = []
-    if config.rpc.pprof_laddr:
-        waits.append(("rpc.pprof_laddr", config.rpc.pprof_laddr, "node/pprof.py"))
-    if config.consensus.byzantine:
-        waits.append(("consensus.byzantine", config.consensus.byzantine,
-                      "consensus/byzantine.py"))
-    if config.p2p.test_fuzz:
-        waits.append(("p2p.test_fuzz", True, "p2p/fuzz.py"))
-    if waits:
-        key, val, mod = waits[0]
-        more = "".join(f"; {k} = {v!r} waits for {m}" for k, v, m in waits[1:])
-        raise NotImplementedError(
-            f"{key} = {val!r} waits for the port's {mod}, which is not ported yet{more}. "
-            "Leave these planes at their defaults to run the port's node.")
-
-
 def build_kernels(bls: bool) -> dict[str, float]:
-    """Build (unless up to date) and load every kernel of the verify path;
-    returns nvcc's seconds by source (0.0 for one already built). Raises
-    when a build or a load fails."""
+    """Build (unless up to date; one nvcc a source, all started together)
+    and load every kernel of the verify path; returns nvcc's seconds by
+    source (0.0 for one already built). Raises when a build or a load
+    fails."""
+    import concurrent.futures
+
     from cometbft_tpu_torch.ops import _build
 
-    out = {}
-    for stem in KERNEL_SOURCES + (("bls12381",) if bls else ()):
-        out[stem] = _build.build(stem)[2]
+    stems = KERNEL_SOURCES + (("bls12381",) if bls else ())
+    with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
+        out = {stem: r[2] for stem, r in zip(stems, pool.map(_build.build, stems))}
+    for stem in stems:
         _build.library(stem)
     return out
 
@@ -171,7 +155,6 @@ class Node(BaseService):
         super().__init__("Node", logger)
         self.config = config
         config.validate_basic()
-        check_planes(config)
 
         # process-wide default log format: deep library log sites
         # (kernels, scheduler, supervisors) follow the node's choice, and
@@ -520,9 +503,21 @@ class Node(BaseService):
             moniker=config.base.moniker,
             rpc_address=config.rpc.laddr,
         )
+        fuzz_cfg = None
+        if config.p2p.test_fuzz:
+            from cometbft_tpu_torch.p2p.fuzz import FuzzConnConfig
+
+            fuzz_cfg = FuzzConnConfig(
+                mode=config.p2p.test_fuzz_mode,
+                prob_drop_rw=config.p2p.test_fuzz_prob_drop_rw,
+                prob_drop_conn=config.p2p.test_fuzz_prob_drop_conn,
+                prob_sleep=config.p2p.test_fuzz_prob_sleep,
+                max_delay=config.p2p.test_fuzz_max_delay,
+            )
         self.transport = Transport(
             self.node_key, self.node_info,
             logger=self.logger.with_fields(module="p2p"),
+            fuzz_config=fuzz_cfg,
         )
         from cometbft_tpu_torch.p2p.switch import PeerScorer
 
@@ -596,7 +591,22 @@ class Node(BaseService):
             # offers nor dials the peer until the ban decays
             self.switch.on_ban = self.addr_book.mark_bad
 
-        # the byzantine mode waits for its slice (check_planes)
+        # TEST/E2E ONLY: adversarial validator mode (consensus/byzantine.py)
+        self._byzantine = None
+        if config.consensus.byzantine:
+            from cometbft_tpu_torch.consensus.byzantine import (
+                make_byzantine,
+                switch_vote_sender,
+            )
+
+            self._byzantine = make_byzantine(
+                self.consensus_state, config.consensus.byzantine,
+                send=switch_vote_sender(self.switch),
+            )
+            self.logger.info("BYZANTINE MODE ARMED",
+                             behavior=config.consensus.byzantine)
+
+        self.pprof_server = None
         self.rpc_server = None  # attached on start when rpc.laddr set
         self.grpc_server = None
         self.grpc_priv_server = None
@@ -731,6 +741,8 @@ class Node(BaseService):
         addr = await self.transport.listen(_strip_tcp(self.config.p2p.laddr))
         self.node_info.listen_addr = addr
         await self.switch.start()
+        if self._byzantine is not None:
+            await self._byzantine.start()
         peers = self.config.p2p.persistent_peer_list()
         if peers:
             await self.switch.dial_peers_async(peers, persistent=True)
@@ -746,6 +758,13 @@ class Node(BaseService):
 
             self.rpc_server = RPCServer(self, self.config.rpc)
             await self.rpc_server.start()
+
+        # live profiler plane (node.go:868-882 pprof mux analog)
+        if self.config.rpc.pprof_laddr:
+            from cometbft_tpu_torch.node.pprof import PprofServer
+
+            self.pprof_server = PprofServer(self.config.rpc.pprof_laddr)
+            await self.pprof_server.start()
 
         # gRPC service surface (node.go:527 + rpc/grpc/server; grpc is
         # imported only when one is configured)
@@ -795,11 +814,15 @@ class Node(BaseService):
             self._statesync_task.cancel()
         if self.rpc_server is not None:
             await self.rpc_server.stop()
+        if self.pprof_server is not None:
+            await self.pprof_server.stop()
         for srv in (self.grpc_server, self.grpc_priv_server):
             if srv is not None:
                 from cometbft_tpu_torch.rpc.grpc_services import wait_closed
 
                 await wait_closed(srv, grace=0.5)
+        if self._byzantine is not None:
+            await self._byzantine.stop()
         await self.switch.stop()
         await self.proxy_app.stop()
         if self.cert_plane is not None and self.cert_plane.is_running:

@@ -16,7 +16,9 @@ used: the port's counterpart of cometbft_tpu/ops/dispatch.py.
                    reference's KERNEL_DISPATCH_LOCK); the fetch does not.
 
 Supervision, the reference's fault layer, decides whether a fault domain
-is used; nothing here falls back to the CPU:
+is used; nothing here falls back to the CPU. The single-card path's
+supervisor is "device" (ops/ed25519_kernel.py: its dispatch and fetch), a
+mesh domain's "mesh.devN":
 
   classify         transient (chaos transients, CUDA out of memory, unknown
                    errors), timeout, or permanent (chaos permanents, an
@@ -25,6 +27,10 @@ is used; nothing here falls back to the CPU:
                    markers)
   retry            a transient retries in place with capped exponential
                    backoff and jitter
+  checks           an AssertionError is a failed check of the program, not
+                   a fault of the card: run() re-raises it at once, neither
+                   retried, counted nor wrapped (a departure: the
+                   reference retries it as an unknown error)
   break            N consecutive failed operations (or one permanent) open
                    a CircuitBreaker: the domain takes no new shard
   re-probe         after `cooldown` the breaker half-opens and one operation
@@ -105,13 +111,19 @@ HALF_OPEN = "half_open"
 OPEN = "open"
 
 
-class DeviceUnavailable(Exception):
+class DeviceUnavailable(RuntimeError):
     """Breaker open: the domain is sidelined until the next re-probe."""
 
 
-class DeviceOpFailed(Exception):
+class DeviceOpFailed(RuntimeError):
     """A supervised device operation failed (after retries). The original
     exception rides __cause__; the supervisor has already recorded it."""
+
+
+# a failed card, never a verdict on what it was asked to verify: both are
+# RuntimeErrors, which the light client and the evidence checks re-raise
+# unwrapped, and consensus and block sync stop on them
+DEVICE_FAULTS = (DeviceUnavailable, DeviceOpFailed)
 
 
 # permanent markers in error text: the reference's, then the CUDA
@@ -258,13 +270,16 @@ class DeviceSupervisor:
     def run(self, fn, *args, **kwargs):
         """Run fn under supervision. Raises DeviceUnavailable (breaker open,
         nothing attempted) or DeviceOpFailed (attempted and failed, already
-        recorded). Success closes the breaker."""
+        recorded); an AssertionError passes through unretried. Success
+        closes the breaker."""
         if not self.breaker.allow():
             raise DeviceUnavailable(self.name)
         attempt = 0
         while True:
             try:
                 out = fn(*args, **kwargs)
+            except AssertionError:
+                raise
             except Exception as exc:  # noqa: BLE001 - classified below
                 fclass = classify_failure(exc)
                 if fclass == TRANSIENT and attempt < self.retry_attempts:

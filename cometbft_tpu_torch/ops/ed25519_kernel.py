@@ -32,9 +32,14 @@ per producer group of a coalesced batch: apply_recheck); a lane it flips
 back to valid means the device was wrong, and is counted.
 
 There is no fallback: a kernel that fails raises, and a header or payload
-whose checksum or echo fails raises. The counters say which path ran:
-challenge.stats(), residency.send_stats(), hashvec.active_rung(),
-fetch_stats().
+whose checksum or echo fails raises. On the single-card path (domain "")
+the stage and launch run under ops/dispatch.supervisor("device") behind the
+chaos site "{scheme}.dispatch", and each fetch behind "{scheme}.fetch": a
+transient retries in place, a timed-out fetch is issued again, and what is
+left raises DeviceOpFailed, or DeviceUnavailable while the breaker is
+open, to the caller. No mask is ever computed elsewhere. The counters say
+which path ran: challenge.stats(), residency.send_stats(),
+hashvec.active_rung(), fetch_stats().
 
 Batch sizes are bucketed (powers of two from 8 up to 2048, then multiples
 of 2048); padding lanes carry the identity encoding (y = 1) with zero
@@ -58,6 +63,7 @@ import torch
 
 from cometbft_tpu_torch import resolve_device
 from cometbft_tpu_torch.crypto import ed25519_math as oracle
+from cometbft_tpu_torch.libs import chaos
 from cometbft_tpu_torch.libs.prefixrows import as_bytes
 from cometbft_tpu_torch.ops import challenge
 from cometbft_tpu_torch.ops import dispatch
@@ -671,6 +677,13 @@ def _cache_for(scheme: Scheme, cache: PubKeyCache | None, device) -> PubKeyCache
     return cache
 
 
+def _fired(site: str, op: Callable):
+    """One attempt of a supervised single-card operation: the chaos site
+    `site` fires (libs/chaos.py), then op runs."""
+    chaos.fire(site)
+    return op()
+
+
 def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list[bytes],
                        cache: PubKeyCache | None = None, device=None,
                        recheck_groups: list[tuple[int, int]] | None = None,
@@ -695,59 +708,66 @@ def verify_batch_async(scheme: Scheme, pubs: list[bytes], msgs: list, sigs: list
     if n == 0:
         return thunk
     b = bucket_size(n)
-    with dispatch.launching(dev, domain):
-        part = _Parts(dev)
-        with part("plan"):
-            pre_ok, safe_pubs, sig_rows, pub_rows = scheme.structural(pubs, sigs)
-            plan = (challenge.plan_batch(msgs, pre_ok, put_key=domain, device=dev)
-                    if scheme.device_challenge else None)
-        with part("pack"):
-            if plan is None:  # classic: k on the host
-                words = scheme.pack(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, b)
-                host = words.reshape(3 * 8, b)
-                fb_host: tuple = ()
-            else:  # device challenge: k derived by K5
-                host = np.empty(challenge.block_words(b, plan.var), dtype=np.uint32)
-                _pack_device_block(sig_rows, b, plan, host)
-        with part("keys"):
-            staged = _stage_gather(cache, safe_pubs, b, put_key=domain,
-                                   want_enc=scheme.device_challenge)
-            if scheme.device_challenge:
-                ok_a, a_dev, enc_dev, path, key_bytes = staged
+
+    def launch() -> None:
+        with dispatch.launching(dev, domain):
+            part = _Parts(dev)
+            with part("plan"):
+                pre_ok, safe_pubs, sig_rows, pub_rows = scheme.structural(pubs, sigs)
+                plan = (challenge.plan_batch(msgs, pre_ok, put_key=domain, device=dev)
+                        if scheme.device_challenge else None)
+            with part("pack"):
+                if plan is None:  # classic: k on the host
+                    words = scheme.pack(pre_ok, safe_pubs, sig_rows, pub_rows, msgs, b)
+                    host = words.reshape(3 * 8, b)
+                    fb_host: tuple = ()
+                else:  # device challenge: k derived by K5
+                    host = np.empty(challenge.block_words(b, plan.var), dtype=np.uint32)
+                    _pack_device_block(sig_rows, b, plan, host)
+            with part("keys"):
+                staged = _stage_gather(cache, safe_pubs, b, put_key=domain,
+                                       want_enc=scheme.device_challenge)
+                if scheme.device_challenge:
+                    ok_a, a_dev, enc_dev, path, key_bytes = staged
+                else:
+                    (ok_a, a_dev, path, key_bytes), enc_dev = staged, None
+            with part("pack"):
+                fkw = fidx = None
+                if plan is not None:
+                    fkw, fidx, fb_host = _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev)
+                expected = _host_checksum(host, *fb_host)
+                block = _to_device(host.view(np.int32), dev)
+                residency.record_send(path, key_bytes + host.nbytes
+                                      + sum(a.nbytes for a in fb_host), sigs=n)
+            if plan is None:
+                block = block.view(3, 8, b)
+                rw, sw, kw = block[0], block[1], block[2]
+                chk_arrs: tuple = (rw, sw, kw)
             else:
-                (ok_a, a_dev, path, key_bytes), enc_dev = staged, None
-        with part("pack"):
-            fkw = fidx = None
-            if plan is not None:
-                fkw, fidx, fb_host = _fallback_k(plan, pre_ok, sig_rows, pub_rows, msgs, dev)
-            expected = _host_checksum(host, *fb_host)
-            block = _to_device(host.view(np.int32), dev)
-            residency.record_send(path, key_bytes + host.nbytes
-                                  + sum(a.nbytes for a in fb_host), sigs=n)
-        if plan is None:
-            block = block.view(3, 8, b)
-            rw, sw, kw = block[0], block[1], block[2]
-            chk_arrs: tuple = (rw, sw, kw)
-        else:
-            with part("derive"):
-                kw = challenge.derive(block, enc_dev, plan.dev_tab, b, plan.var, plan.plen,
-                                      plan.tlen, fkw, fidx)
-            rw = block[:8 * b].view(8, b)
-            sw = block[8 * b:16 * b].view(8, b)
-            chk_arrs = (block,) if fkw is None else (block, fkw, fidx)
-        with part("verify"):
-            mask_dev, allok_dev = scheme.verify_raw(*a_dev, rw, sw, kw)
-        with part("header"):
-            # K6 straight behind the verify kernel, on its raw verdicts; the
-            # checksummed arrays were uploaded before the derive and verify
-            # kernels ran, so K6 may start while the verify kernel's grid exits
-            header_dev, payload_dev = integrity.integrity_parts(mask_dev, allok_dev, expected,
-                                                                *chk_arrs, overlap=True)
-    thunk.pre_ok, thunk.ok_a, thunk.expected = pre_ok, ok_a, expected
-    thunk.rows = (safe_pubs, msgs, sigs)
-    thunk.header, thunk.payload = header_dev, payload_dev
-    thunk.keep = (block, kw, a_dev, enc_dev, fkw, fidx, mask_dev, allok_dev,
-                  None if plan is None else plan.dev_tab)
+                with part("derive"):
+                    kw = challenge.derive(block, enc_dev, plan.dev_tab, b, plan.var, plan.plen,
+                                          plan.tlen, fkw, fidx)
+                rw = block[:8 * b].view(8, b)
+                sw = block[8 * b:16 * b].view(8, b)
+                chk_arrs = (block,) if fkw is None else (block, fkw, fidx)
+            with part("verify"):
+                mask_dev, allok_dev = scheme.verify_raw(*a_dev, rw, sw, kw)
+            with part("header"):
+                # K6 straight behind the verify kernel, on its raw verdicts; the
+                # checksummed arrays were uploaded before the derive and verify
+                # kernels ran, so K6 may start while the verify kernel's grid exits
+                header_dev, payload_dev = integrity.integrity_parts(mask_dev, allok_dev, expected,
+                                                                    *chk_arrs, overlap=True)
+        thunk.pre_ok, thunk.ok_a, thunk.expected = pre_ok, ok_a, expected
+        thunk.rows = (safe_pubs, msgs, sigs)
+        thunk.header, thunk.payload = header_dev, payload_dev
+        thunk.keep = (block, kw, a_dev, enc_dev, fkw, fidx, mask_dev, allok_dev,
+                      None if plan is None else plan.dev_tab)
+
+    if domain:  # a mesh shard: the mesh's supervisor and sites wrap it
+        launch()
+    else:
+        dispatch.supervisor("device").run(_fired, f"{scheme.name}.dispatch", launch)
     return thunk
 
 
@@ -758,6 +778,34 @@ def _fetch(dev: torch.device, tensors: list[torch.Tensor], domain: str = "") -> 
     with dispatch.on_stream(dev, domain):
         t = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
         return t.cpu().numpy()
+
+
+def _supervised_fetch(dev: torch.device, tensors: list[torch.Tensor], domain: str,
+                      sites: list[str]) -> np.ndarray:
+    """_fetch under the single-card path's "device" supervisor: the chaos
+    sites `sites` ({scheme}.fetch) fire, a transient failure retries in
+    place, and a timed-out fetch, recorded as a failure, is issued again
+    while the breaker admits it, up to the supervisor's retry attempts: the
+    tensors it reads stay on the card until the batch resolves. A mesh
+    domain's fetch is its shard's own (parallel/mesh.py)."""
+    if domain:
+        return _fetch(dev, tensors, domain)
+
+    def op() -> np.ndarray:
+        for site in sites:
+            chaos.fire(site)
+        return _fetch(dev, tensors, domain)
+
+    sup = dispatch.supervisor("device")
+    again = 0
+    while True:
+        try:
+            return sup.run(op)
+        except dispatch.DeviceOpFailed as exc:
+            cause = exc.__cause__ if exc.__cause__ is not None else exc
+            if dispatch.classify_failure(cause) != dispatch.TIMEOUT or again >= sup.retry_attempts:
+                raise
+            again += 1
 
 
 def resolve_batches(thunks: list[BatchThunk]) -> list[np.ndarray]:
@@ -777,7 +825,9 @@ def resolve_batches(thunks: list[BatchThunk]) -> list[np.ndarray]:
     for (dev, domain), ts in by_dev.items():
         part = _Parts(dev)
         with part("fetch"):
-            headers = _fetch(dev, [t.header for t in ts], domain).view(np.uint32)
+            sites = sorted({f"{t.scheme.name}.fetch" for t in ts} & set(chaos.SITES))
+            headers = _supervised_fetch(dev, [t.header for t in ts], domain,
+                                        sites).view(np.uint32)
             full = []
             for i, t in enumerate(ts):
                 verdict = decode_header(headers[2 * i:2 * i + 2], t.expected)
@@ -786,7 +836,8 @@ def resolve_batches(thunks: list[BatchThunk]) -> list[np.ndarray]:
                 elif verdict != "happy":
                     raise TransferIntegrityError(
                         f"reduced-fetch header of a {t.scheme.name} batch: {verdict}")
-            payloads = _fetch(dev, [t.payload for t in full], domain) if full else None
+            payloads = (_supervised_fetch(dev, [t.payload for t in full], domain, sites)
+                        if full else None)
             _count_fetch(not full, headers.nbytes + (payloads.nbytes if full else 0))
         with part("recheck"):
             off = 0

@@ -5,8 +5,9 @@ then "upgrades": SecretConnection handshake (authenticates the remote
 ed25519 key), NodeInfo exchange, and compatibility/identity checks. The
 upgraded bundle goes to the Switch to become a Peer.
 
-The port's copy of cometbft_tpu/p2p/transport.py. The fuzzing connection
-(p2p/fuzz.py) is not ported: `fuzz_config=` takes None only.
+The port's copy of cometbft_tpu/p2p/transport.py. `fuzz_config=` (a
+p2p/fuzz.FuzzConnConfig) wraps every raw connection in the fault injector
+before the secret-connection upgrade, as the reference does.
 """
 
 from __future__ import annotations
@@ -52,11 +53,12 @@ class Transport:
         logger: cmtlog.Logger | None = None,
         fuzz_config=None,
     ):
-        if fuzz_config is not None:
-            raise NotImplementedError("Transport(fuzz_config=) waits for p2p/fuzz.py")
         self.node_key = node_key
         self.node_info = node_info
         self.logger = logger or cmtlog.nop()
+        # p2p.FuzzConnConfig | None: wrap every raw conn in the fault
+        # injector before upgrade (transport.go:221-223 TestFuzz)
+        self.fuzz_config = fuzz_config
         # optional (node_id) -> bool ban probe, wired by the Switch: a
         # banned peer is refused at the handshake, so its dialer sees a
         # clean dial failure instead of an add-then-drop conn churn
@@ -138,6 +140,10 @@ class Transport:
         outbound: bool,
         expect_id: str,
     ) -> UpgradedConn:
+        if self.fuzz_config is not None:
+            from cometbft_tpu_torch.p2p.fuzz import fuzz_streams
+
+            reader, writer = fuzz_streams(reader, writer, self.fuzz_config)
         chaos.fire("net.handshake")
         sconn = await SecretConnection.make(reader, writer, self.node_key.priv_key)
         authed_id = node_id_from_pubkey(sconn.remote_pubkey)

@@ -61,9 +61,14 @@ domain that reads one records its stream on it (ed25519_kernel
 ._stage_gather). The BLS aggregate path (validator-set key cache) runs on
 domain "" only.
 
-Left out of the reference: host_mesh_env (its JAX/XLA environment recipe,
-which has no meaning for torch), and the mesh's trace spans, metrics and
-link model (ROADMAP Queue 1 item 11).
+Domains from the environment: CBFT_MESH_DOMAINS=N makes the process's
+mesh N fault domains on its first card (domains_env(env, N) writes it into
+a child's environment), the counterpart of the reference's host_mesh_env,
+whose JAX/XLA recipe has no meaning for torch. The mesh publishes the
+reference's mesh metrics (libs/metrics.MeshMetrics: size, devices, each
+domain's breaker state, shard lanes, evictions, readmissions, redispatches,
+fallbacks). Left out of the reference: the mesh's trace spans and link
+model (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import logging
+import os
 import threading
 
 import numpy as np
@@ -95,6 +101,29 @@ PIN_MAX_ROWS = 2048
 # spread shards stay at most one 2,048-lane bucket: a domain takes several
 # shards round robin, never one giant batch
 MAX_SHARD_ROWS = 2048
+
+
+# the environment variable that asks for N fault domains on the first card
+DOMAINS_ENV = "CBFT_MESH_DOMAINS"
+
+# libs/metrics.MeshMetrics.mesh_breaker_state's codes
+_BREAKER_CODE = {dispatch.CLOSED: 0, dispatch.HALF_OPEN: 1, dispatch.OPEN: 2}
+
+
+def domains_env(base_env: dict, n_domains: int) -> dict:
+    """A child process's environment whose mesh is n_domains fault domains
+    on its first card (the reference's host_mesh_env, for torch)."""
+    return dict(base_env, **{DOMAINS_ENV: str(n_domains)})
+
+
+def _mesh_metrics():
+    """The process's MeshMetrics, or None: metrics never break a verify."""
+    try:
+        from cometbft_tpu_torch.libs import metrics
+
+        return metrics.mesh_metrics()
+    except Exception:  # noqa: BLE001
+        return None
 
 
 def _visible_cards() -> list[torch.device]:
@@ -311,6 +340,7 @@ class VerifyMesh:
         from cometbft_tpu_torch.ops import residency
 
         live: list[_Chip] = []
+        mm = _mesh_metrics()
         with self._lock:
             for chip in self.chips:
                 br = chip.supervisor.breaker
@@ -318,12 +348,21 @@ class VerifyMesh:
                 if is_open and not self._was_open[chip.index]:
                     self.evictions += 1
                     residency.invalidate_device(chip.index)
+                    if mm is not None:
+                        mm.mesh_evictions_total.inc()
                 elif self._was_open[chip.index] and not is_open:
                     self.readmissions += 1
                     residency.invalidate_device(chip.index)
+                    if mm is not None:
+                        mm.mesh_readmissions_total.inc()
                 self._was_open[chip.index] = is_open
                 if br.peek():
                     live.append(chip)
+                if mm is not None:
+                    mm.mesh_breaker_state.labels(str(chip.index)).set(_BREAKER_CODE[br.state])
+            if mm is not None:
+                mm.verify_mesh_size.set(len(live))
+                mm.mesh_devices.set(len(self.chips))
         return live
 
     def live_size(self) -> int:
@@ -389,6 +428,9 @@ class VerifyMesh:
         with self._lock:
             chip.lanes_total += EK.bucket_size(len(sigs))
             chip.shards_total += 1
+        mm = _mesh_metrics()
+        if mm is not None:
+            mm.mesh_shard_lanes.labels(str(chip.index)).inc(EK.bucket_size(len(sigs)))
         return mask, eligible
 
     def _submit_round(self, ops: dict, scheme: str, rows: tuple, idx: np.ndarray, klass: str,
@@ -434,6 +476,9 @@ class VerifyMesh:
         raises."""
         with self._lock:
             self.fallbacks += 1
+        mm = _mesh_metrics()
+        if mm is not None:
+            mm.mesh_fallback_total.inc()
         logging.getLogger(__name__).error(
             "verify mesh has no live fault domain: %d %s rows on the single-card path",
             len(idx), scheme)
@@ -512,6 +557,9 @@ class VerifyMesh:
             retry_idx = np.concatenate(failed)
             with self._lock:
                 self.redispatches += len(failed)
+            mm = _mesh_metrics()
+            if mm is not None:
+                mm.mesh_redispatch_total.labels("failed").inc(len(failed))
             rounds += 1
             chips = self.live_chips()
             if not chips or rounds > max_rounds:
@@ -604,12 +652,16 @@ def configure(enabled: bool | None = None, min_devices: int | None = None,
 
 def get() -> VerifyMesh:
     """The process's VerifyMesh, one domain a visible card unless one was
-    installed (built on first use)."""
+    installed or DOMAINS_ENV asks for N domains on the first card (built on
+    first use)."""
     global _mesh
     if _mesh is None:
         with _mesh_lock:
             if _mesh is None:
-                _mesh = VerifyMesh(placement=_cfg["placement"])
+                n = int(os.environ.get(DOMAINS_ENV, "0") or 0)
+                cards = _visible_cards()
+                devices = [cards[0]] * n if n > 0 and cards else None
+                _mesh = VerifyMesh(devices, placement=_cfg["placement"])
     return _mesh
 
 

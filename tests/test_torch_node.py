@@ -423,37 +423,47 @@ def test_crash_at_commit_point_recovers(tmp_path, fail_index):
         assert blk.header.last_block_id.hash == meta.block_id.hash, f"broken link at {h}"
 
 
-# --------------------------------------------------------- refused planes
+# ------------------------------------------- the planes refused until they landed
 
 
-# the module each refused plane waits for; None for a plane the port holds
-# since the bootstrap slice, which the node now builds
+# each plane the node refused while its module waited for a later slice;
+# the node builds every one of them now (the pprof server at its start)
 PLANES = [
-    ("pprof", lambda c: setattr(c.rpc, "pprof_laddr", "127.0.0.1:0"), "node/pprof.py"),
+    ("pprof", lambda c: setattr(c.rpc, "pprof_laddr", "127.0.0.1:0"), None),
     ("cert", lambda c: setattr(c.cert, "enabled", True), None),
     ("statesync", lambda c: (setattr(c.state_sync, "enable", True),
                              setattr(c.state_sync, "rpc_servers", ["127.0.0.1:1", "127.0.0.1:2"]),
                              setattr(c.state_sync, "trust_height", 1),
                              setattr(c.state_sync, "trust_hash", "00" * 32)), None),
-    ("byzantine", lambda c: setattr(c.consensus, "byzantine", "equivocate"),
-     "consensus/byzantine.py"),
-    ("fuzz", lambda c: setattr(c.p2p, "test_fuzz", True), "p2p/fuzz.py"),
+    ("byzantine", lambda c: setattr(c.consensus, "byzantine", "equivocation"),
+     "equivocate"),
+    ("fuzz", lambda c: (setattr(c.p2p, "test_fuzz", True),
+                        setattr(c.p2p, "test_fuzz_mode", "delay")), None),
     ("sql", lambda c: setattr(c.tx_index, "indexer", "sql"), None),
 ]
 
 
-@pytest.mark.parametrize("plane,set_,module", PLANES, ids=[p[0] for p in PLANES])
-def test_node_refuses_planes_it_does_not_hold_yet(tmp_path, plane, set_, module):
-    """pprof, the byzantine mode and the fuzzing transport raise, naming
-    the module each waits for; certificates, state sync and the SQL indexer
-    build their plane."""
+@pytest.mark.parametrize("plane,set_,refused", PLANES, ids=[p[0] for p in PLANES])
+def test_node_refuses_planes_it_does_not_hold_yet(tmp_path, plane, set_, refused):
+    """Every plane the node refused while it waited for its slice is built
+    now: certificates, state sync, the SQL indexer, the pprof server (at
+    the node's start), the byzantine harness over the node's consensus and
+    the fuzzed transport. A byzantine behaviour the harness does not know
+    (`refused`) fails the node's construction with the reference's
+    ValueError."""
     home = _one_home(tmp_path)
     cfg = _off(TConfig.load(home))
     set_(cfg)
-    if module is not None:
-        with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
-            TNode(cfg)
-        return
+    if refused is not None:
+        errs = {}
+        for side, (Node, Config) in (("j", (JNode, JConfig)), ("t", (TNode, TConfig))):
+            c = _off(Config.load(home))
+            set_(c)
+            c.consensus.byzantine = refused
+            with pytest.raises(ValueError) as e:
+                Node(c)
+            errs[side] = str(e.value)
+        assert errs["t"] == errs["j"] and refused in errs["t"]
     node = TNode(cfg)
     try:
         if plane == "cert":
@@ -461,6 +471,17 @@ def test_node_refuses_planes_it_does_not_hold_yet(tmp_path, plane, set_, module)
         elif plane == "statesync":
             assert node.statesync_active and node.statesync_reactor.syncer is not None
             assert "STATESYNC" in node.switch.reactors
+        elif plane == "pprof":
+            assert node.pprof_server is None and node.config.rpc.pprof_laddr == "127.0.0.1:0"
+        elif plane == "byzantine":
+            from cometbft_tpu_torch.consensus import byzantine
+
+            assert isinstance(node._byzantine, byzantine.ByzantineHarness)
+            assert node._byzantine.behavior == "equivocation"
+            assert isinstance(node.consensus_state.priv_validator, byzantine.UnsafeSigner)
+        elif plane == "fuzz":
+            fc = node.transport.fuzz_config
+            assert fc.mode == "delay" and fc.max_delay == cfg.p2p.test_fuzz_max_delay
         else:
             assert node._sql_sink is not None and node.indexer_service is not None
     finally:
@@ -533,31 +554,42 @@ def test_cli_key_and_reset_commands_act_as_the_reference_s(tmp_path, capsys):
     assert tcmd.main(["--home", homes["t"], "reset-priv-validator"]) == 0
 
 
-# the commands queued before the bootstrap slice; rollback, compact-db and
-# light are held since, and answer as the reference's
+# the commands queued until their slices landed (compact-db, light and
+# rollback with the bootstrap slice, debug, inspect and loadtime since); each
+# answers as the reference's does
 CLI_QUEUED = ("compact-db", "debug", "inspect", "light", "loadtime", "rollback")
 
 
 @pytest.mark.parametrize("command", CLI_QUEUED)
 def test_cli_queued_commands_raise(tmp_path, command, capsys):
+    """Each once-queued command, on a home that holds nothing, acts as the
+    reference's: the same return code or error, and the same output."""
+    assert not hasattr(tcmd, "QUEUED")
     argv = {"light": ["light", "c", "--primary", "127.0.0.1:1", "--trusted-height", "1",
                       "--trusted-hash", "00"],
-            "loadtime": ["loadtime", "run"]}.get(command, [command])
-    if command in tcmd.QUEUED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tcmd.main(["--home", str(tmp_path)] + argv)
-        return
-    assert set(CLI_QUEUED) - set(tcmd.QUEUED) == {"compact-db", "light", "rollback"}
+            "loadtime": ["loadtime", "run"],
+            # nothing listens there: every route's error lands in the bundle
+            "debug": ["debug", "--rpc.laddr", "tcp://127.0.0.1:1", "--output",
+                      "<h>/bundle.tar.gz"]}.get(command, [command])
     extra = ["--crypto_backend", "cpu"] if command == "light" else []
     got = {}
     for side, mod in (("j", jcmd), ("t", tcmd)):
         home = str(tmp_path / side)
+        if command == "debug":
+            os.makedirs(home)
+        args = [a.replace("<h>", home) for a in argv]
         try:
-            got[side] = ("rc", mod.main(["--home", home] + argv + (extra if side == "t" else [])))
+            got[side] = ("rc", mod.main(["--home", home] + args + (extra if side == "t" else [])))
         except Exception as e:  # noqa: BLE001 - the two must fail alike
-            got[side] = (type(e).__name__, str(e))
+            got[side] = (type(e).__name__, str(e).replace(home, "<h>"))
         got[side] += (capsys.readouterr().out.replace(home, "<h>"),)
     assert got["t"] == got["j"]
+    if command == "debug":
+        import tarfile
+
+        with tarfile.open(tmp_path / "t" / "bundle.tar.gz") as tar:
+            names = tar.getnames()
+        assert set(names) >= {"status.json", "net_info.json"}
 
 
 def test_cli_start_refuses_a_default_home(tmp_path):

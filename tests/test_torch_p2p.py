@@ -436,17 +436,21 @@ def test_port_switch_rejects_the_wrong_node_id():
 
 
 def test_port_takes_no_metrics_or_fuzzing_yet():
-    """The fuzzing transport still waits for p2p/fuzz.py. The metrics,
-    filled by the node's slice: a port switch and a JAX switch, each with
-    its P2PMetrics, exchange the same messages both ways and count the
-    same bytes and messages a channel and a peer."""
+    """The fuzzing transport, since the slice of p2p/fuzz.py: a Transport
+    takes a FuzzConnConfig and keeps it for its upgrades, as the
+    reference's does. The metrics, filled by the node's slice: a port
+    switch and a JAX switch, each with its P2PMetrics, exchange the same
+    messages both ways and count the same bytes and messages a channel and
+    a peer."""
     from cometbft_tpu.libs import metrics as jm
     from cometbft_tpu_torch.libs import metrics as tm
+    from cometbft_tpu_torch.p2p.fuzz import FuzzConnConfig
 
     key = TNodeKey(ted.gen_priv_key_from_secret(b"wire-none"))
     info = TNodeInfo(node_id=key.id(), network="wire-chain")
-    with pytest.raises(NotImplementedError, match="p2p/fuzz.py"):
-        TTransport(key, info, fuzz_config=object())
+    fuzz = FuzzConnConfig(mode="delay")
+    assert TTransport(key, info, fuzz_config=fuzz).fuzz_config is fuzz
+    assert TTransport(key, info).fuzz_config is None
 
     async def run():
         p, j = _port_side(3), _jax_side(3)

@@ -333,16 +333,30 @@ def test_gpu_backend_without_card_raises():
 def test_failing_launch_propagates_from_verify_commit_and_drain(monkeypatch):
     """A verify launch that raises is not verified on the host: the error
     leaves verify_commit, leaves an inline drain, and fails the riders'
-    futures."""
+    futures. Since the single-card path runs under the "device" supervisor,
+    the launch's error arrives as the __cause__ of its DeviceOpFailed (a
+    RuntimeError), after the supervisor's retries."""
+    from cometbft_tpu_torch.ops import dispatch
+
     def boom(*args):
         raise RuntimeError("verify kernel launch failed: cudaError_t 700")
 
+    def launch_error(exc_info) -> str:
+        assert isinstance(exc_info.value, dispatch.DeviceOpFailed)
+        return str(exc_info.value.__cause__)
+
+    dispatch.reset_supervision()
     monkeypatch.setattr(TK, "ED25519", TK.ED25519._replace(verify_raw=boom))
     p = _pair(4, "ed25519")
-    with pytest.raises(RuntimeError, match="cudaError_t 700"):
-        tval.verify_commit(CHAIN, p.tvals, p.tbid, HEIGHT, p.tc)
-    rows = [(v.pub_key, b"m", bytes(64)) for v in p.tvals.validators]
-    futs = tsched.get().submit(rows[:2], deadline=1e12)
-    with pytest.raises(RuntimeError, match="cudaError_t 700"):
-        tsched.get().verify_now(rows[2:])
-    assert all(isinstance(f.exception(0), RuntimeError) for f in futs)
+    try:
+        with pytest.raises(RuntimeError) as e:
+            tval.verify_commit(CHAIN, p.tvals, p.tbid, HEIGHT, p.tc)
+        assert "cudaError_t 700" in launch_error(e)
+        rows = [(v.pub_key, b"m", bytes(64)) for v in p.tvals.validators]
+        futs = tsched.get().submit(rows[:2], deadline=1e12)
+        with pytest.raises(RuntimeError) as e:
+            tsched.get().verify_now(rows[2:])
+        assert "cudaError_t 700" in launch_error(e)
+        assert all(isinstance(f.exception(0), RuntimeError) for f in futs)
+    finally:
+        dispatch.reset_supervision()
